@@ -8,7 +8,12 @@ holds each against its plain PyTorch version on the GPU, serves the
 ``Orchestrator`` with more requests than slots, shows with the wrappers'
 launch counts that the serving run went through both kernels, compares the
 kernel path with the plain path inside the model, and makes one HTTP round
-trip. Every phase prints one JSON object on a line; the last line is
+trip. Then it drives the TTS back end at its full width (S2A sampler, RVQ,
+Vocos/ISTFT; seeded random weights) through ``TTSPipeline.s2a_vocoder_batch``
+for 8 requests, served as ``int8_offline`` and as ``bfloat16``, checks the
+launch counts of the four row kernels against what the code predicts, and
+compares the kernel path with the plain path inside the denoiser and the
+sampler. Every phase prints one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
 non-zero exit code, and so does a machine without a GPU: nothing here falls
 back to the CPU.
@@ -45,6 +50,18 @@ KERNELS = [
     dict(name="inplace_row_update", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/inplace_update.cu",
          replaces="maxtext_indextts2_tpu/ops/inplace_update.py:30"),
+    dict(name="ada_rmsnorm", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/row_kernels.cuh",
+         replaces="maxtext_indextts2_tpu/ops/ada_rmsnorm.py:57"),
+    dict(name="row_quantize_int8", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/row_kernels.cuh",
+         replaces="maxtext_indextts2_tpu/ops/quant_kernels.py:52"),
+    dict(name="ada_rmsnorm_quantize", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/row_kernels.cuh",
+         replaces="maxtext_indextts2_tpu/ops/quant_kernels.py:98"),
+    dict(name="silu_mul_quantize", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/row_kernels.cuh",
+         replaces="maxtext_indextts2_tpu/ops/quant_kernels.py:140"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -52,6 +69,35 @@ KERNELS = [
 # one bfloat16 step (other summation order), which the layers above carry to
 # logits of magnitude ~4 as a few bfloat16 steps (2**-6 each there).
 TOL_PARITY_BF16_LOGITS = 0.125
+
+# The TTS back end: 8 requests, prompts of 100-250 frames (padded to 256),
+# targets of 200-500 frames (bucketed to 512), the config's sampler schedule.
+BACKEND_REQUESTS = 8
+BACKEND_SHAPE = (8, 256, 512)  # rows, prompt bucket, target bucket
+# the bfloat16 serving mode runs float32 products: two steps per quantizer there
+BF16_TIMESTEPS = (2,) * 12
+
+# One full-width denoiser forward through the row kernels against one through
+# their plain versions, same weights and inputs, outputs of magnitude ~4.
+# int8_offline (bfloat16 residual stream): the kernels sum the squares in
+# another order, which can move a row's bfloat16 rsqrt factor or an int8 code
+# by one step; 16 layers may carry that to a few bfloat16 steps (2**-5 each
+# at that magnitude: 4 steps at most, and 0.005 on average). bfloat16 mode
+# (float32 stream, bfloat16 attention):
+# float32 last-bit differences that the bfloat16 rounding of a logit can lift
+# to 2**-8 of it.
+TOL_BACKEND_INT8_MAX, TOL_BACKEND_INT8_MEAN = 0.125, 0.005
+TOL_BACKEND_BF16_MODE = 2e-2
+# AdaptiveRMSNorm alone, kernels against plain versions, |y| <= ~8: one
+# bfloat16 step there where a row's rsqrt factor straddles a rounding boundary
+# (float32 rows differ by a few float32 steps only).
+TOL_NORM_MODULE = 2.0 ** -5
+# The 2-layer float32 sampler, kernels against plain versions, the same
+# injected noise: a float32 last-bit difference flips an argmax only when two
+# candidates tie to ~1e-6, so nearly every code is equal; where all are, the
+# waveforms agree to 1e-3 of the largest sample (both take the same vocoder path).
+MIN_BACKEND_F32_CODE_AGREEMENT = 0.995
+TOL_BACKEND_F32_WAV = 1e-3
 
 
 def emit(phase: str, t0: float, **fields):
@@ -245,19 +291,256 @@ def phase_http(engine):
     emit("http", t0, tokens=tokens)
 
 
+def _reset_row_kernel_counts():
+    from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, quant_kernels
+
+    ada_rmsnorm.launch_count = 0
+    for name in quant_kernels.launch_counts:
+        quant_kernels.launch_counts[name] = 0
+
+
+def _row_kernel_counts() -> dict:
+    from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, quant_kernels
+
+    return {"ada_rmsnorm": ada_rmsnorm.launch_count, **quant_kernels.launch_counts}
+
+
+def _denoiser_forwards(pipe) -> int:
+    """Denoiser forwards of one sampler pass over prompted rows: one per
+    step, two while classifier-free guidance is on."""
+    cfg = pipe.cfg
+    q = pipe.s2a.cfg.num_quantizers
+    total = 0
+    for steps in tuple(cfg.s2a_timesteps)[:q]:
+        with_cfg = 0
+        if cfg.s2a_cfg_scale > 0:
+            with_cfg = min(steps, int(np.ceil(cfg.s2a_cfg_until * steps)))
+        total += steps + with_cfg
+    return total
+
+
+def _serve_backend(pipe, phase, t0, want_per_forward):
+    """One ``s2a_vocoder_batch`` call for 8 seeded requests, with the row
+    kernels' launch counts set to 0 just before and read just after. The call
+    returns waveforms only, so the acoustic codes are checked on a second
+    sampling of the same batch from the same seed, after the counts are read."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import backend_requests
+
+    c = pipe.s2a.cfg
+    requests, sems, acs, gens = backend_requests(
+        0, BACKEND_REQUESTS, c.cond_codebook_size, c.codebook_size, c.num_quantizers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_row_kernel_counts()
+    t1 = time.perf_counter()
+    out = pipe.s2a_vocoder_batch(requests, sems, acs, gens, pad_to_batch=BACKEND_SHAPE[0],
+                                 length_bucket=64)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = _row_kernel_counts()
+
+    hop = int(np.prod(pipe.codec.strides))
+    codes = pipe._sample_codes(sems, acs, gens, None, 64, BACKEND_SHAPE[0], None, None)
+    codes = codes[:BACKEND_REQUESTS]
+    rewav = pipe.codec.detokenize(codes.permute(2, 0, 1)).float().cpu().numpy()
+    peak = max(float(np.abs(w).max()) for w, _ in out)
+    resampled_err = max(float(np.abs(w - rewav[i, :len(w)]).max()) for i, (w, _) in enumerate(out))
+    check(len(out) == BACKEND_REQUESTS, f"{phase}: {len(out)} waveforms for 8 requests")
+    check(tuple(codes.shape) == (BACKEND_REQUESTS, BACKEND_SHAPE[2], c.num_quantizers),
+          f"{phase}: acoustic codes of shape {tuple(codes.shape)}")
+    check(0 <= int(codes.min()) and int(codes.max()) < c.codebook_size,
+          f"{phase}: an acoustic code outside [0, {c.codebook_size})")
+    for (wav, info), gen in zip(out, gens):
+        check(wav.shape == (len(gen) * hop,) and info["semantic_tokens"] == len(gen),
+              f"{phase}: a waveform of {wav.shape} for {len(gen)} frames")
+        check(bool(np.isfinite(wav).all()) and float(wav.std()) > 0,
+              f"{phase}: a waveform that is not finite or is constant")
+    forwards = _denoiser_forwards(pipe)
+    want = {k: n * forwards for k, n in want_per_forward.items()}
+    check(launches == want, f"{phase}: kernel launches {launches} != expected {want} "
+                            f"({forwards} denoiser forwards)")
+    audio = sum(info["audio_seconds"] for _, info in out)
+    emit(phase, t0, requests=len(out), serving_dtype=pipe.cfg.s2a_serving_dtype,
+         timesteps=list(pipe.cfg.s2a_timesteps), denoiser_forwards=forwards,
+         denoiser_shape=[BACKEND_SHAPE[0], BACKEND_SHAPE[1] + BACKEND_SHAPE[2], c.hidden_size],
+         call_seconds=seconds, sampler_seconds=out[0][1]["t_s2a"],
+         vocoder_seconds=out[0][1]["t_vocoder"], audio_seconds=audio,
+         gpu_seconds_per_audio_second=seconds / audio, launches=launches,
+         distinct_codes=int(codes.unique().numel()),
+         resampled_wav_max_err_of_peak=resampled_err / peak,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def phase_tts_backend():
+    """The second main path: the TTS back end at full width, ``int8_offline``."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_backend
+
+    t0 = time.perf_counter()
+    pipe = build_backend("int8_offline")  # no device given: the GPU, or an error
+    layers = pipe.s2a.cfg.num_layers
+    emit("tts_backend_load", t0, s2a_params=sum(p.numel() for p in pipe.s2a.parameters()),
+         codec_params=sum(p.numel() for p in pipe.codec.parameters()), s2a_layers=layers,
+         hidden=pipe.s2a.cfg.hidden_size, device=str(pipe.device))
+    per_forward = {"ada_rmsnorm": 1, "row_quantize_int8": layers,
+                   "ada_rmsnorm_quantize": 2 * layers, "silu_mul_quantize": layers}
+    return pipe, _serve_backend(pipe, "tts_backend", t0, per_forward)
+
+
+def phase_tts_backend_bf16():
+    """The same batch served as ``bfloat16``: every norm is ``ada_rmsnorm``."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_backend
+
+    t0 = time.perf_counter()
+    pipe = build_backend("bfloat16", timesteps=BF16_TIMESTEPS)
+    per_forward = {"ada_rmsnorm": 2 * pipe.s2a.cfg.num_layers + 1, "row_quantize_int8": 0,
+                   "ada_rmsnorm_quantize": 0, "silu_mul_quantize": 0}
+    _serve_backend(pipe, "tts_backend_bf16", t0, per_forward)
+    return pipe
+
+
+def _denoiser_parity(pipe, seed):
+    """One full-width conditional forward at the main path's shape: kernels
+    against plain versions. Returns (max, mean) absolute difference and the
+    largest output magnitude."""
+    c = pipe.s2a.cfg
+    b, s = BACKEND_SHAPE[0], BACKEND_SHAPE[1] + BACKEND_SHAPE[2]
+    g = torch.Generator(device=pipe.device).manual_seed(seed)
+    x = torch.randn((b, s, c.hidden_size), generator=g, device=pipe.device).to(c.dtype)
+    cond = torch.randn((b, s, c.hidden_size), generator=g, device=pipe.device).to(c.dtype)
+    t = torch.rand((b,), generator=g, device=pipe.device)
+    pad = torch.ones((b, s), dtype=torch.int32, device=pipe.device)
+    pad[1, 600:] = 0
+    pad[7, 1:] = 0  # a dummy row
+    _reset_row_kernel_counts()
+    with torch.no_grad():
+        got = pipe.s2a.denoiser(x, t, cond, pad).float()
+        launched = _row_kernel_counts()
+        want = pipe.s2a.denoiser(x, t, cond, pad, impl="plain").float()
+    torch.cuda.synchronize()
+    check(sum(launched.values()) > 0 and _row_kernel_counts() == launched,
+          f"tts_backend_parity: the plain route launched a kernel, or the kernel route none "
+          f"({launched} -> {_row_kernel_counts()})")
+    valid = pad.bool()
+    diff = (got - want).abs()[valid]
+    check(bool(torch.isfinite(got[valid]).all().item()), "tts_backend_parity: output not finite")
+    return float(diff.max().item()), float(diff.mean().item()), float(want[valid].abs().max().item())
+
+
+def _norm_module_shapes(pipe):
+    """``AdaptiveRMSNorm`` on the shapes the denoiser never gives it (x [B,D];
+    a condition per position): the kernels again, never the plain versions."""
+    norm = pipe.s2a.denoiser.final_norm
+    h = pipe.s2a.cfg.hidden_size
+    g = torch.Generator(device=pipe.device).manual_seed(14)
+    kind = norm.to_weight.kernel.dtype
+    worst = 0.0
+    for x_shape, cond_shape in (((48, h), (48, h)), ((4, 37, h), (4, 37, h))):
+        x = torch.randn(x_shape, generator=g, device=pipe.device).to(kind)
+        cond = torch.randn(cond_shape, generator=g, device=pipe.device).to(kind)
+        _reset_row_kernel_counts()
+        with torch.no_grad():
+            y, (q, sc) = norm(x, cond), norm(x, cond, quantize_out=True)
+            launched = _row_kernel_counts()
+            y_p, (q_p, sc_p) = norm(x, cond, impl="plain"), norm(x, cond, True, impl="plain")
+        torch.cuda.synchronize()
+        check(launched["ada_rmsnorm"] == 1 and launched["ada_rmsnorm_quantize"] == 1
+              and _row_kernel_counts() == launched,
+              f"tts_backend_parity: AdaptiveRMSNorm on x {x_shape} launched {launched}")
+        err = float((y.float() - y_p.float()).abs().max().item())
+        steps = int((q.int() - q_p.int()).abs().max().item())
+        check(y.shape == x.shape and q.shape == x.shape and sc.shape == x.shape[:-1]
+              and err <= TOL_NORM_MODULE and steps <= 1
+              and torch.allclose(sc, sc_p, rtol=2.0 ** -7),
+              f"tts_backend_parity: AdaptiveRMSNorm on x {x_shape} differs by {err}, {steps} steps")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_tts_backend_parity(pipe_int8, pipe_bf16):
+    """The row kernels inside the denoiser and the sampler against their
+    plain versions."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import backend_requests, build_backend
+
+    t0 = time.perf_counter()
+    i8_max, i8_mean, i8_scale = _denoiser_parity(pipe_int8, 11)
+    check(i8_max <= TOL_BACKEND_INT8_MAX and i8_mean <= TOL_BACKEND_INT8_MEAN,
+          f"tts_backend_parity: int8_offline forward differs by max {i8_max}, mean {i8_mean}")
+    bf_max, bf_mean, bf_scale = _denoiser_parity(pipe_bf16, 12)
+    check(bf_max <= TOL_BACKEND_BF16_MODE,
+          f"tts_backend_parity: bfloat16-mode forward differs by {bf_max}")
+
+    norm_err = max(_norm_module_shapes(pipe_int8), _norm_module_shapes(pipe_bf16))
+
+    # the dynamic int8 mode (float kernels quantized on every call), 2 layers
+    dyn_max, dyn_mean, _ = _denoiser_parity(build_backend("int8", layers=2), 13)
+    check(dyn_max <= TOL_BACKEND_INT8_MAX and dyn_mean <= TOL_BACKEND_INT8_MEAN,
+          f"tts_backend_parity: int8 (dynamic) forward differs by max {dyn_max}, mean {dyn_mean}")
+
+    # 2 layers, float32, full width: the whole call with the same injected noise
+    pipe = build_backend("float32", layers=2, timesteps=(3,) + (2,) * 11)
+    c = pipe.s2a.cfg
+    requests, sems, acs, gens = backend_requests(
+        3, 4, c.cond_codebook_size, c.codebook_size, c.num_quantizers, prompt=(40, 90),
+        target=(60, 120))
+
+    def noise(layer, step, draw, shape):
+        g = torch.Generator(device=pipe.device).manual_seed(layer * 1000 + step * 10 + draw)
+        return torch.rand(shape, generator=g, device=pipe.device) * (1.0 - 1e-9) + 1e-9
+
+    runs = []
+    for impl in (None, "plain"):
+        out = pipe.s2a_vocoder_batch(requests, sems, acs, gens, length_bucket=64, noise=noise,
+                                     impl=impl)
+        codes = pipe._sample_codes(sems, acs, gens, None, 64, len(requests), noise, impl)
+        runs.append((codes.cpu().numpy(), [w for w, _ in out]))
+    valid = np.arange(runs[0][0].shape[1])[None, :] < np.array([len(g) for g in gens])[:, None]
+    agree = float((runs[0][0] == runs[1][0])[valid].mean())
+    check(agree >= MIN_BACKEND_F32_CODE_AGREEMENT,
+          f"tts_backend_parity: float32 codes of the two routes agree only to {agree}")
+    wav_err = None
+    if agree == 1.0:
+        peak = max(float(np.abs(w).max()) for w in runs[1][1])
+        wav_err = max(float(np.abs(a - b).max()) for a, b in zip(*[r[1] for r in runs])) / peak
+        check(wav_err <= TOL_BACKEND_F32_WAV,
+              f"tts_backend_parity: float32 waveforms differ by {wav_err} of the peak")
+    emit("tts_backend_parity", t0, int8_offline_max_abs_err=i8_max,
+         int8_offline_mean_abs_err=i8_mean, int8_offline_max_abs=i8_scale,
+         tol_int8_offline=[TOL_BACKEND_INT8_MAX, TOL_BACKEND_INT8_MEAN],
+         int8_dynamic_2_layers_max_abs_err=dyn_max, int8_dynamic_2_layers_mean_abs_err=dyn_mean,
+         bf16_mode_max_abs_err=bf_max, bf16_mode_mean_abs_err=bf_mean, bf16_mode_max_abs=bf_scale,
+         tol_bf16_mode=TOL_BACKEND_BF16_MODE, norm_module_other_shapes_max_abs_err=norm_err,
+         tol_norm_module=TOL_NORM_MODULE, f32_code_agreement=agree,
+         f32_codes_compared=int(valid.sum()) * c.num_quantizers,
+         tol_f32_code_agreement=MIN_BACKEND_F32_CODE_AGREEMENT,
+         f32_wav_max_err_of_peak=wav_err, tol_f32_wav=TOL_BACKEND_F32_WAV)
+
+
 def kernels_line(cases, launches):
-    """The summary of every kernel on the main path: times at the shapes the
-    serving run gives the kernel, the error as the largest over all cases."""
+    """The summary of every kernel on a main path: error, tolerance and times
+    of the case at the shapes that path's run gives the kernel (the error in
+    the case's ``unit``), and beside them the case of that kernel that came
+    closest to its own tolerance."""
     from maxtext_indextts2_tpu_torch.ops.smoke import MAIN_PATH_CASES
+
+    def closeness(c):
+        return c["max_abs_err"] / c["tol"] if c["tol"] else c["max_abs_err"]
 
     out = []
     for k in KERNELS:
         main = cases[MAIN_PATH_CASES[k["name"]]]
         own = [c for c in cases.values() if c["kernel"] == k["name"]]
+        worst = max(own, key=closeness)
+        accuracy = {key: main[key] for key in ("mismatch_share", "scale_max_rel_err",
+                                                "tol_scale_rel") if key in main}
         out.append(dict(
             k, launches=launches[k["name"]],
-            max_abs_err=max(c["max_abs_err"] for c in own),
-            tol=main["tol"], ms=main["kernel_ms"], plain_ms=main["plain_ms"],
+            max_abs_err=main["max_abs_err"], tol=main["tol"],
+            unit=main.get("unit", "output values"), **accuracy,
+            worst_case=dict(name=worst["name"], max_abs_err=worst["max_abs_err"],
+                            tol=worst["tol"], unit=worst.get("unit", "output values")),
+            ms=main["kernel_ms"], device_ms=main["device_ms"],
+            plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], bytes_moved=main["bytes_moved"],
             shape=main["shape"], cases=len(own)))
@@ -275,7 +558,14 @@ def main():
     engine, launches = phase_serve()
     phase_serve_parity(engine)
     phase_http(engine)
-    check(all(n > 0 for n in launches.values()), f"a kernel of the main path never ran: {launches}")
+    del engine
+    torch.cuda.empty_cache()
+    pipe_int8, backend_launches = phase_tts_backend()
+    launches.update(backend_launches)
+    pipe_bf16 = phase_tts_backend_bf16()
+    phase_tts_backend_parity(pipe_int8, pipe_bf16)
+    check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
+          f"a kernel of a main path never ran: {launches}")
     emit("total", t_all)
     print(json.dumps(kernels_line(cases, launches)), flush=True)
     print(card, flush=True)

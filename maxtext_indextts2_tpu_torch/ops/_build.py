@@ -44,6 +44,14 @@ SIGNATURES = {
     "ragged_decode_attention_int8": _RAGGED_ARGS,
     "inplace_row_update_bytes": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "inplace_row_update_convert": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
+    # (x, w, out, rows, s_len, d, dtype, w_is_f32, stream)
+    "ada_rmsnorm": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (x, q, scales, rows, d, dtype, stream)
+    "row_quantize_int8": [_P, _P, _P, _LL, _I, _I, _P],
+    # (x, w, q, scales, rows, s_len, d, dtype, w_is_f32, stream)
+    "ada_rmsnorm_quantize": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (g, u, q, scales, rows, d, dtype, stream)
+    "silu_mul_quantize": [_P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 _lock = threading.Lock()

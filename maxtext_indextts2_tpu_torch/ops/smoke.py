@@ -7,8 +7,11 @@ dims, runs the kernel and the plain PyTorch version on the same inputs,
 synchronises so that a fault surfaces where it happened, and reports the
 largest absolute difference beside its tolerance. With ``timing=True`` it
 also times the kernel, the plain version and one library call for the same
-function (a yardstick only; this package never calls it) with CUDA events,
-and computes the least time the card could take for the same work from this
+function (a yardstick only; this package never calls it) with CUDA events
+around back-to-back calls of the Python wrapper (``kernel_ms``; for a kernel
+of a few microseconds that is the host's cost of a call), reads the device
+time of the main-path and row-kernel cases from ``torch.profiler``
+(``device_ms``), and computes the least time the card could take for the same work from this
 run's inputs: bytes moved (each input read once, each output written once,
 only the cache rows the lengths make valid) over the memory rate, or
 operations over the peak rate of the input type, whichever is larger.
@@ -26,7 +29,9 @@ import math
 import numpy as np
 import torch
 
+from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm as arn
 from maxtext_indextts2_tpu_torch.ops import inplace_update as iu
+from maxtext_indextts2_tpu_torch.ops import quant_kernels as qk
 from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention as rda
 from maxtext_indextts2_tpu_torch.ops.quantization import quantize_kv
 
@@ -44,6 +49,26 @@ TOL_BF16 = 2e-2
 
 TTS_1B = dict(b=128, s=2048, nq=16, nkv=8, d=128)
 
+# Row kernels of the S2A denoiser against their plain versions ON THE CARD.
+# Both sides do the same arithmetic; only the order of the float32 sum of
+# squares differs, so the variance may differ in its last bit and the rsqrt
+# factor with it. float32 results: a few float32 steps of |y| <= 16. bfloat16
+# results: where the float32 factor straddles a bfloat16 rounding boundary the
+# whole row moves by one bfloat16 step (2**-5 for |y| in [4, 8)); such rows are
+# counted and must stay under 1 in 1000 elements. int8 codes: equal, except a
+# counted handful (under 1 in 1000) one step apart at a rounding boundary;
+# scales: a relative 1e-6 (float32 input) or one bfloat16 step, 2**-7
+# (bfloat16 input, a row whose factor flipped). row_quantize_int8 has no
+# order-dependent sum and must be exactly equal.
+TOL_ROW_F32 = 4e-6
+TOL_ROW_BF16 = 2.0 ** -5
+TOL_CODE_STEPS = 1
+MAX_MISMATCH_SHARE = 1e-3
+TOL_SCALE_REL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+L2_BYTES = 50e6  # inputs are rotated so that a timed launch does not find them in the L2
+
+S2A_MAIN = dict(b=8, s=768, d=1024)  # 8 rows: prompt padded to 256 + target bucketed to 512
+
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     for _ in range(warmup):
@@ -57,6 +82,24 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device-busy milliseconds of one call of ``fn``, from ``torch.profiler``:
+    the summed device time of every GPU kernel and copy the call launches.
+    ``time_ms`` above times back-to-back calls through the Python wrapper, so
+    for a kernel of a few microseconds it reads the host's cost of a call; this
+    reads what the card spent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in on_device) / 1e3 / iters
 
 
 def spread_lengths(b: int, s: int, seed: int, serving_max: int = 0) -> torch.Tensor:
@@ -157,6 +200,8 @@ def ragged_case(name, device, timing, *, b, s, nq, nkv, d, dtype=torch.bfloat16,
             library_ms=None if int8 else time_ms(_sdpa_library(q, k, v, lengths, window),
                                                  warmup=1, iters=5),
         )
+        if name in MAIN_PATH_CASES.values():
+            res.update(device_ms=device_ms(lambda: run(None)))
     return res
 
 
@@ -208,15 +253,154 @@ def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=nbytes,
             library_ms=time_ms(lambda: cache.index_put_((rows, offs), kv_cast)),
         )
+        if name in MAIN_PATH_CASES.values():
+            res.update(device_ms=device_ms(lambda: iu.inplace_row_update(cache, kv, idx)))
     return res
 
 
-# The two cases at the shapes the serving run of ``chip_smoke.py`` gives the
-# kernels: 32 slots of the tts-1b cache, each holding a prompt of up to 400
-# tokens plus up to 128 generated ones.
+def _row_inputs(kernel, b, s, d, dtype, seed, device, special):
+    """(x, second) for one row-kernel case: `second` is w [B,D] for the norm
+    kernels, u for silu_mul_quantize, None for row_quantize_int8."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, s, d), generator=g, device=device, dtype=torch.float32) * 1.5).to(dtype)
+    if special:
+        x[min(1, b - 1)] = 0  # an all-zero batch row (a dummy request, padding)
+        # rows whose quotients land on .5: abs-max 127 gives scale 1.0 exactly
+        half = (torch.arange(d, device=device) % 126).float() + 0.5
+        half[0] = 127.0
+        x[0, : min(4, s)] = (half * torch.tensor([1.0, -1.0], device=device)[
+            torch.arange(d, device=device) % 2]).to(dtype)
+    if kernel in ("ada_rmsnorm", "ada_rmsnorm_quantize"):
+        second = 1.0 + 0.3 * torch.randn((b, d), generator=g, device=device, dtype=torch.float32)
+    elif kernel == "silu_mul_quantize":
+        second = torch.randn((b, s, d), generator=g, device=device, dtype=torch.float32).to(dtype)
+    else:
+        second = None
+    return x, second
+
+
+_ROW_FUNCS = {
+    "ada_rmsnorm": lambda x, second, impl: arn.ada_rmsnorm(x, second, impl=impl),
+    "row_quantize_int8": lambda x, second, impl: qk.row_quantize_int8(x, impl=impl),
+    "ada_rmsnorm_quantize": lambda x, second, impl: qk.ada_rmsnorm_quantize(x, second, impl=impl),
+    "silu_mul_quantize": lambda x, second, impl: qk.silu_mul_quantize(x, second, impl=impl),
+}
+
+
+def row_case(name, device, timing, *, kernel, b, s, d, dtype=torch.bfloat16, seed=0,
+             special=False):
+    """One of the four S2A row kernels against its plain version."""
+    fn = _ROW_FUNCS[kernel]
+    x, second = _row_inputs(kernel, b, s, d, dtype, seed, device, special)
+    got = fn(x, second, None)
+    torch.cuda.synchronize()
+    want = fn(x, second, "plain")
+    torch.cuda.synchronize()
+    esz = x.element_size()
+    n = x.numel()
+    shape = dict(b=b, s=s, d=d, dtype=str(dtype), special_rows=special)
+    if kernel == "ada_rmsnorm":
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max().item())
+        tol = TOL_ROW_F32 if dtype == torch.float32 else TOL_ROW_BF16
+        share = float((diff > 0).float().mean().item())
+        finite = bool(torch.isfinite(got).all().item())
+        ok = finite and err <= tol and (dtype == torch.float32 or share <= MAX_MISMATCH_SHARE)
+        res = dict(name=name, kernel=kernel, max_abs_err=err, tol=tol, mismatch_share=share,
+                   finite=finite, ok=bool(ok), shape=shape)
+        nbytes = 2 * n * esz + second.numel() * second.element_size()
+    else:
+        (q, sc), (q_ref, sc_ref) = got, want
+        assert q.dtype == torch.int8 and sc.dtype == torch.float32
+        assert q.shape == x.shape and sc.shape == x.shape[:2]
+        steps = (q.int() - q_ref.int()).abs()
+        err = float(steps.max().item())
+        share = float((steps > 0).float().mean().item())
+        rel = float(((sc - sc_ref).abs() / sc_ref.clamp(min=1e-30)).max().item())
+        finite = bool(torch.isfinite(sc).all().item())
+        exact = kernel == "row_quantize_int8"
+        tol_scale = 0.0 if exact else TOL_SCALE_REL[dtype]
+        ok = finite and rel <= tol_scale and (
+            err == 0 if exact else err <= TOL_CODE_STEPS and share <= MAX_MISMATCH_SHARE)
+        if special:  # the all-zero row: zeros and a zero scale, never NaN
+            zrow = min(1, b - 1)
+            ok = ok and bool((q[zrow] == 0).all().item()) and bool((sc[zrow] == 0).all().item())
+        res = dict(name=name, kernel=kernel, max_abs_err=err, tol=0 if exact else TOL_CODE_STEPS,
+                   unit="int8 steps", mismatch_share=share, scale_max_rel_err=rel,
+                   tol_scale_rel=tol_scale, finite=finite, ok=bool(ok), shape=shape)
+        nbytes = n * esz + n + sc.numel() * 4
+        if kernel == "silu_mul_quantize":
+            nbytes += n * esz
+        elif kernel == "ada_rmsnorm_quantize":
+            nbytes += second.numel() * second.element_size()
+    if timing:
+        # rotate over enough copies of the inputs that a launch finds them in
+        # device memory, not in the L2 left by the launch before
+        copies = max(2, int(math.ceil(2 * L2_BYTES / nbytes)) + 1)
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        big_second = second is not None and second.ndim == 3
+        ss = [second] + [second.clone() if big_second else second for _ in range(copies - 1)]
+        turn = [0]
+
+        def run(impl):
+            i = turn[0] = (turn[0] + 1) % copies
+            return fn(xs[i], ss[i], impl)
+
+        res.update(
+            kernel_ms=time_ms(lambda: run(None), iters=50),
+            plain_ms=time_ms(lambda: run("plain"), warmup=1, iters=5),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=nbytes,
+            library_ms=None,  # no single PyTorch call computes any of these four
+            device_ms=device_ms(lambda: run(None)),
+            plain_device_ms=device_ms(lambda: run("plain"), iters=3),
+        )
+    return res
+
+
+def row_cases(device, timing, full_size=True):
+    """K5-K8: the main-path shape in bfloat16 and float32, widths that are no
+    multiple of 128 (1000) or of the vector width (1001), a row count that is
+    no multiple of any block (650), an all-zero batch row and rows whose
+    quotients land on .5."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = dict(S2A_MAIN) if full_size else dict(b=2, s=96, d=1024)
+    out = []
+    for i, kernel in enumerate(_ROW_FUNCS):
+        wide = dict(main, d=4 * main["d"]) if kernel == "silu_mul_quantize" else main
+        seed = 100 + 10 * i
+        out += [
+            row_case(f"{kernel}_bf16_main_path", device, timing, kernel=kernel, **wide,
+                     seed=seed),
+            row_case(f"{kernel}_f32", device, timing, kernel=kernel, **wide, dtype=f32,
+                     seed=seed + 1),
+            row_case(f"{kernel}_bf16_uncond_512", device, timing, kernel=kernel,
+                     **dict(wide, s=min(512, wide["s"])), seed=seed + 2),
+            row_case(f"{kernel}_bf16_d1000_s650", device, timing, kernel=kernel, b=3, s=650,
+                     d=1000, seed=seed + 3),
+            row_case(f"{kernel}_f32_d1001", device, timing, kernel=kernel, b=2, s=77, d=1001,
+                     dtype=f32, seed=seed + 4),
+            row_case(f"{kernel}_bf16_d1001", device, timing, kernel=kernel, b=2, s=77, d=1001,
+                     seed=seed + 5),
+            row_case(f"{kernel}_bf16_zero_and_half_rows", device, timing, kernel=kernel, b=4,
+                     s=40, d=1024, seed=seed + 6, special=True),
+            row_case(f"{kernel}_f32_zero_and_half_rows", device, timing, kernel=kernel, b=4,
+                     s=40, d=256, dtype=f32, seed=seed + 7, special=True),
+        ]
+    return out
+
+
+# The cases at the shapes the main paths of ``chip_smoke.py`` give the
+# kernels. Serving run: 32 slots of the tts-1b cache, each holding a prompt of
+# up to 400 tokens plus up to 128 generated ones. TTS back end: 8 requests, the
+# prompt padded to 256 and the target bucketed to 512 frames, hidden 1024.
 MAIN_PATH_CASES = {
     "ragged_decode_attention": "ragged_bf16_main_path",
     "inplace_row_update": "inplace_kv_bf16_k1_main_path",
+    "ada_rmsnorm": "ada_rmsnorm_bf16_main_path",
+    "row_quantize_int8": "row_quantize_int8_bf16_main_path",
+    "ada_rmsnorm_quantize": "ada_rmsnorm_quantize_bf16_main_path",
+    "silu_mul_quantize": "silu_mul_quantize_bf16_main_path",
 }
 
 
@@ -265,7 +449,7 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                      seed=16),
         inplace_case("inplace_unaligned_rows", device, timing, cache_shape=(4, 16, 3),
                      span=2, cache_dtype=f32, seed=17),
-    ]
+    ] + row_cases(device, timing, full_size)
 
 
 def main(argv=None):

@@ -11,6 +11,13 @@ checkpoints, the split of the leading layer axis::
     decoder/layers_3/self_attention_0/query/kernel   (unrolled)
     decoder/layers/self_attention_0/query/kernel[3]  (scan-stacked, axis 0)
       -> decoder.layers_3.self_attention_0.query.kernel
+
+The S2A model and the codec decoder cross the same way
+(:func:`s2a_params_from_jax`, :func:`codec_decoder_params_from_jax`; back
+with :func:`params_to_jax`, bfloat16 tensors as float32 arrays): float,
+dynamic-int8 (float kernels) and offline-int8 trees (``kernel`` int8
+``[in, out]``, ``kernel_scale`` float32 ``[1, out]``), bfloat16 leaves as
+``ml_dtypes`` numpy arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +28,16 @@ import numpy as np
 import torch
 
 _SCAN_REGIONS = ("layers",)
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor that owns writable, contiguous memory. numpy has no native
+    bfloat16: such leaves arrive as ``ml_dtypes`` arrays and cross bit for
+    bit."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -105,3 +122,27 @@ def params_to_jax(state_dict, scan_layers: bool = False) -> dict:
             stacked = stack([dec.pop(u) for u in units])
             dec["layers"] = stacked
     return tree
+
+
+def tree_to_state_dict(tree) -> dict[str, torch.Tensor]:
+    """Nested mapping with numpy leaves (the ``params`` level may be present
+    or not) -> flat ``a.b.c`` state dict, leaves unchanged."""
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    flat: dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def s2a_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The JAX package's ``S2AModel`` parameter tree -> state dict of this
+    package's ``audio.s2a.S2AModel`` (float, dynamic-int8 or offline-int8;
+    the names are the same)."""
+    return tree_to_state_dict(tree)
+
+
+def codec_decoder_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The JAX package's ``AcousticCodec`` parameter tree -> state dict of
+    this package's ``audio.acoustic.AcousticCodec``, which holds the decode
+    side only: the ``encoder`` subtree is left out."""
+    return {k: v for k, v in tree_to_state_dict(tree).items() if not k.startswith("encoder.")}

@@ -172,6 +172,10 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
 @pytest.mark.parametrize("source,replaced", [
     ("ragged_decode_attention.cuh", "ragged_decode_attention_v2"),
     ("inplace_update.cu", "inplace_row_update"),
+    ("row_kernels.cuh", "ada_rmsnorm"),
+    ("row_kernels.cuh", "row_quantize_int8"),
+    ("row_kernels.cuh", "ada_rmsnorm_quantize"),
+    ("row_kernels.cuh", "silu_mul_quantize"),
 ])
 def test_kernel_sources_carry_their_note(source, replaced):
     with open(os.path.join(PORT_DIR, "csrc", source)) as fh:
@@ -184,16 +188,25 @@ def test_kernel_sources_carry_their_note(source, replaced):
 @pytest.mark.parametrize("module,plain", [
     ("ragged_decode_attention", "ragged_decode_attention_plain"),
     ("inplace_update", "inplace_row_update_plain"),
+    ("ada_rmsnorm", "ada_rmsnorm_plain"),
+    ("quant_kernels", "row_quantize_int8_plain"),
+    ("quant_kernels", "ada_rmsnorm_quantize_plain"),
+    ("quant_kernels", "silu_mul_quantize_plain"),
 ])
 def test_wrappers_have_plain_version_and_launch_count_and_no_library_call(module, plain):
     mod = importlib.import_module(f"maxtext_indextts2_tpu_torch.ops.{module}")
-    assert callable(getattr(mod, plain)) and isinstance(mod.launch_count, int)
+    assert callable(getattr(mod, plain))
+    if module == "quant_kernels":  # three kernels, one count each
+        assert plain[: -len("_plain")] in mod.launch_counts
+        assert all(isinstance(n, int) for n in mod.launch_counts.values())
+    else:
+        assert isinstance(mod.launch_count, int)
     with open(mod.__file__) as fh:
         tree = ast.parse(fh.read())
     called = {n.func.attr for n in ast.walk(tree)
               if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
     assert not called & {"scaled_dot_product_attention", "compile", "index_put_", "scatter_",
-                         "index_copy_"}
+                         "index_copy_", "rms_norm", "quantize_per_tensor", "silu"}
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), "no try that falls back"
 
 
@@ -205,6 +218,137 @@ def test_build_module_targets_sm_90a_into_an_ignored_directory():
         ignored = fh.read().split()
     assert os.path.relpath(_build.BUILD_DIR, REPO) + "/" in ignored
     assert {os.path.basename(s) for s in _build._sources()} >= {
-        "inplace_update.cu", "ragged_decode_attention_bf16.cu"}
+        "inplace_update.cu", "ragged_decode_attention_bf16.cu", "ada_rmsnorm.cu",
+        "row_quantize.cu", "ada_rmsnorm_quantize.cu", "silu_mul_quantize.cu"}
+    assert {"ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",
+            "silu_mul_quantize"} <= set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         assert argtypes[0] is _build._P and argtypes[-1] is _build._P, name
+
+
+def _tiny_backend():
+    from maxtext_indextts2_tpu_torch.audio import acoustic, pipeline, quantize, s2a
+
+    cfg = load_config([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"), "s2a_hidden_size=64",
+                       "s2a_num_layers=1", "s2a_num_heads=2", "s2a_num_quantizers=2",
+                       "s2a_codebook_size=16", "s2a_cond_codebook_size=16"])
+    pipe = pipeline.build_tiny_pipeline(cfg, device="cpu")
+    return pipe, acoustic, quantize, s2a
+
+
+# what of the TTS back end's modules waits for a later item of the port queue
+NOT_PORTED = {
+    "s2a.compute_loss": (lambda p: p.s2a.compute_loss(None, None, None), "4"),
+    "s2a.__call__": (lambda p: p.s2a(None, None, None), "4"),
+    "vq.encode_latents": (lambda p: p.codec.decoder.quantizer.vq_0.encode_latents(None), "3"),
+    "vq.latent2dist": (lambda p: p.codec.decoder.quantizer.vq_0.latent2dist(None), "3"),
+    "vq.__call__": (lambda p: p.codec.decoder.quantizer.vq_0(None), "3"),
+    "rvq.quantize": (lambda p: p.codec.decoder.quantizer.quantize(None), "3"),
+    "rvq.latent2dist": (lambda p: p.codec.decoder.quantizer.latent2dist(None), "3"),
+    "rvq.__call__": (lambda p: p.codec.decoder.quantizer(None), "3"),
+    "decoder.quantize": (lambda p: p.codec.decoder.quantize(None), "3"),
+    "decoder.latent2dist": (lambda p: p.codec.decoder.latent2dist(None), "3"),
+    "decoder.__call__": (lambda p: p.codec.decoder(None), "4"),
+    "codec.tokenize": (lambda p: p.codec.tokenize(None), "3"),
+    "codec.__call__": (lambda p: p.codec(None), "4"),
+    "pipeline.synthesize": (lambda p: p.synthesize("a", None, None), "3"),
+    "pipeline.synthesize_batch": (lambda p: p.synthesize_batch([]), "3"),
+    "pipeline.frontend_batch": (lambda p: p.frontend_batch([]), "3"),
+    "pipeline.map_semantic": (lambda p: p.map_semantic([1]), "3"),
+    "pipeline.text_and_prompt_to_lm_prompt": (
+        lambda p: p.text_and_prompt_to_lm_prompt("a", [1]), "3"),
+    "pipeline.load_torch_audio_weights": (lambda p: p.load_torch_audio_weights("x"), "3"),
+}
+
+
+@pytest.mark.parametrize("name", list(NOT_PORTED))
+def test_unported_back_end_methods_name_their_queue_item(name):
+    call, item = NOT_PORTED[name]
+    pipe, *_ = _tiny_backend()
+    with pytest.raises(NotImplementedError, match=rf"port queue: {item}"):
+        call(pipe)
+
+
+def test_port_reads_no_kernel_switch_from_the_environment():
+    """The JAX package picks its S2A kernels by environment variables; the
+    port picks by where the tensor lies and reads none of them."""
+    for path in _python_sources():
+        with open(path) as fh:
+            text = fh.read()
+        for var in ("MTT_FUSED_QUANT", "MTT_FUSED_ADALN", "MTT_S2A_FLASH", "MTT_S2A_SEQ_FLASH"):
+            assert var not in text, (os.path.relpath(path, REPO), var)
+
+
+@pytest.mark.parametrize("kernel", ["ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",
+                                    "silu_mul_quantize"])
+def test_row_kernel_wrappers_raise_rather_than_take_the_plain_version(kernel, monkeypatch):
+    """``impl="cuda"`` on a machine without CUDA raises; so does a CUDA-routed
+    call whose library cannot be built. Nothing quietly runs the plain version."""
+    from maxtext_indextts2_tpu_torch.ops import _build, ada_rmsnorm, quant_kernels
+
+    x, w = torch.ones((1, 2, 8)), torch.ones((1, 8))
+    calls = {
+        "ada_rmsnorm": lambda **kw: ada_rmsnorm.ada_rmsnorm(x, w, **kw),
+        "row_quantize_int8": lambda **kw: quant_kernels.row_quantize_int8(x, **kw),
+        "ada_rmsnorm_quantize": lambda **kw: quant_kernels.ada_rmsnorm_quantize(x, w, **kw),
+        "silu_mul_quantize": lambda **kw: quant_kernels.silu_mul_quantize(x, x, **kw),
+    }
+    with pytest.raises(ValueError, match="CUDA device"):
+        calls[kernel](impl="cuda")
+
+    # a tensor that claims to lie on the GPU reaches the build, which fails here
+    monkeypatch.setattr(ada_rmsnorm, "route", lambda *a, **k: "cuda")
+    monkeypatch.setattr(quant_kernels, "route", lambda *a, **k: "cuda")
+
+    def no_build(*a, **k):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        calls[kernel]()
+
+
+@pytest.mark.parametrize("quantize_out", [False, True], ids=["float_out", "quantize_out"])
+@pytest.mark.parametrize("x_shape,cond_shape", [
+    ((2, 5, 8), (2, 8)), ((2, 8), (2, 8)), ((2, 5, 8), (2, 5, 8)),
+], ids=["rows_3d", "rows_2d", "per_position_cond"])
+def test_adaptive_rmsnorm_goes_through_the_wrappers_for_every_shape(x_shape, cond_shape,
+                                                                    quantize_out):
+    """The module has no arithmetic of its own: whatever the shapes, a call
+    asked to use the kernel reaches the wrapper's routing (and raises here,
+    without CUDA), and the CPU call agrees with the wrapper on [N,1,D] rows."""
+    from maxtext_indextts2_tpu_torch.audio.s2a import AdaptiveRMSNorm
+    from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, quant_kernels
+
+    gen = torch.Generator().manual_seed(0)
+    norm = AdaptiveRMSNorm(8, device="cpu")
+    norm.to_weight.kernel.data.normal_(0.0, 0.3, generator=gen)
+    x = torch.randn(x_shape, generator=gen)
+    cond = torch.randn(cond_shape, generator=gen)
+    with pytest.raises(ValueError, match="CUDA device"):
+        norm(x, cond, quantize_out, impl="cuda")
+
+    got = norm(x, cond, quantize_out)
+    w = norm.to_weight(cond)
+    if len(cond_shape) == len(x_shape):
+        rows, w = x.reshape(-1, 1, 8), w.reshape(-1, 8)
+    else:
+        rows = x
+    if quantize_out:
+        q, s = quant_kernels.ada_rmsnorm_quantize(rows, w)
+        assert got[0].shape == x_shape and got[1].shape == x_shape[:-1]
+        assert torch.equal(got[0], q.reshape(x_shape))
+        assert torch.equal(got[1], s.reshape(x_shape[:-1]))
+    else:
+        assert torch.equal(got, ada_rmsnorm.ada_rmsnorm(rows, w).reshape(x_shape))
+
+
+@pytest.mark.parametrize("quantize_out", [False, True], ids=["float_out", "quantize_out"])
+def test_adaptive_rmsnorm_refuses_a_pairing_the_kernels_do_not_take(quantize_out):
+    from maxtext_indextts2_tpu_torch.audio.s2a import AdaptiveRMSNorm
+
+    norm = AdaptiveRMSNorm(8, device="cpu")
+    with pytest.raises(ValueError, match=r"need x \[B,S,D\] and w \[B,D\]"):
+        norm(torch.ones((2, 5, 8)), torch.ones((1, 8)), quantize_out)
+    with pytest.raises(ValueError, match=r"need x \[B,S,D\] and w \[B,D\]"):
+        norm(torch.ones((2, 3, 5, 8)), torch.ones((2, 8)), quantize_out)
