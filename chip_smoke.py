@@ -13,7 +13,13 @@ Vocos/ISTFT; seeded random weights) through ``TTSPipeline.s2a_vocoder_batch``
 for 8 requests, served as ``int8_offline`` and as ``bfloat16``, checks the
 launch counts of the four row kernels against what the code predicts, and
 compares the kernel path with the plain path inside the denoiser and the
-sampler. Every phase prints one JSON object on a line; the last line is
+sampler. Last it drives the whole zero-shot pipeline at its full width (the
+semantic tokenizer and codec encoder of the prompt, the LM, the S2A sampler,
+the vocoder): ``TTSPipeline.synthesize`` for one request, whose fixed-length
+sampler runs the S2A attention kernel, compares that kernel and the prompt
+tokenizers (card against CPU) with their plain routes, and serves 8
+concurrent ``POST /tts`` requests through ``make_server``. Every phase prints
+one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
 non-zero exit code, and so does a machine without a GPU: nothing here falls
 back to the CPU.
@@ -21,6 +27,8 @@ back to the CPU.
 
 from __future__ import annotations
 
+import base64
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,6 +70,9 @@ KERNELS = [
     dict(name="silu_mul_quantize", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/row_kernels.cuh",
          replaces="maxtext_indextts2_tpu/ops/quant_kernels.py:140"),
+    dict(name="s2a_attention", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/s2a_attention.cu",
+         replaces="maxtext_indextts2_tpu/ops/s2a_attention.py:81"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -98,6 +109,33 @@ TOL_NORM_MODULE = 2.0 ** -5
 # waveforms agree to 1e-3 of the largest sample (both take the same vocoder path).
 MIN_BACKEND_F32_CODE_AGREEMENT = 0.995
 TOL_BACKEND_F32_WAV = 1e-3
+
+# The whole pipeline: `synthesize` with a 3-s prompt and 256 target frames;
+# /tts with 8 concurrent requests, prompts of 3-6 s, texts of 40-160 bytes,
+# 200-500 frames each (force_frames), one batch.
+SYNTH_PROMPT_SECONDS, SYNTH_FRAMES = 3.0, 256
+HTTP_REQUESTS = 8
+# K12 against its plain version inside one full-width conditional forward of
+# the fixed-length sampler (`all_valid`, [1, P + T, 1024], 16 layers).
+# (a) Every K12 call of the kernel route against the plain version on the
+# same q, k, v (the model's own tensors): K12's case tolerances, one bfloat16
+# step at |o| <= 2 and float32 summation order.
+TOL_K12_IN_MODEL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# (b) The forward's output, kernel route against plain route. float32: the
+# layers carry K12's last-bit differences on, atol 1e-3 at |y| ~5.
+# int8_offline (the served model): where the routes' attention outputs differ
+# by one bfloat16 step, the next int8 product's row scale or codes can move by
+# one step, and 16 layers of random weights spread that over every row: the
+# routes then differ like two int8 roundings of one forward (measured on an
+# H100: max 0.21, mean 0.034 at |y| ~5). Bound: max 0.5, mean 0.05; a wrong
+# attention moves the mean by the outputs' own scale (~1).
+TOL_SYNTH_INT8_MAX, TOL_SYNTH_INT8_MEAN = 0.5, 0.05
+TOL_SYNTH_F32 = 1e-3
+# The prompt's ids on the card against the same module on the CPU (float32,
+# TF32 off on the card): a float32 last-bit difference flips an argmax only
+# between near-equal candidates, and a flipped RVQ stage changes the stages
+# after it at that frame: at least 0.9 of the ids equal.
+MIN_FRONTEND_ID_AGREEMENT = 0.9
 
 
 def emit(phase: str, t0: float, **fields):
@@ -268,7 +306,7 @@ def phase_http(engine):
     from maxtext_indextts2_tpu_torch.infer.server import make_server
 
     t0 = time.perf_counter()
-    server, orch = make_server(engine.cfg, port=0, engine=engine, host="127.0.0.1")
+    server, orch, _ = make_server(engine.cfg, port=0, engine=engine, host="127.0.0.1")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -516,6 +554,294 @@ def phase_tts_backend_parity(pipe_int8, pipe_bf16):
          f32_wav_max_err_of_peak=wav_err, tol_f32_wav=TOL_BACKEND_F32_WAV)
 
 
+def _k12_count() -> int:
+    from maxtext_indextts2_tpu_torch.ops import s2a_attention
+
+    return s2a_attention.launch_count
+
+
+def _reset_all_counts():
+    from maxtext_indextts2_tpu_torch.ops import (
+        inplace_update, ragged_decode_attention, s2a_attention,
+    )
+
+    _reset_row_kernel_counts()
+    ragged_decode_attention.launch_count = inplace_update.launch_count = 0
+    s2a_attention.launch_count = 0
+
+
+def _all_counts() -> dict:
+    from maxtext_indextts2_tpu_torch.ops import inplace_update, ragged_decode_attention
+
+    return {"ragged_decode_attention": ragged_decode_attention.launch_count,
+            "inplace_row_update": inplace_update.launch_count, **_row_kernel_counts(),
+            "s2a_attention": _k12_count()}
+
+
+def _audio_only_lm(pipe):
+    """Zero the LM's output columns of every id that is not an audio token,
+    so that greedy decoding with random weights emits audio tokens only."""
+    e2a = pipe.mapping.embedding_to_audio_array(pipe.cfg.vocab_size)
+    not_audio = torch.from_numpy((e2a < 0) | (e2a >= pipe.mapping.codebook_size))
+    with torch.no_grad():
+        pipe.engine.model.logits_dense.kernel[:, not_audio.to(pipe.device)] = 0
+
+
+def phase_pipeline_load():
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_pipeline
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline("int8_offline")  # no device given: the GPU, or an error
+    _audio_only_lm(pipe)
+    torch.cuda.synchronize()
+    enc = pipe.semantic_tokenizer.encoder_cfg
+    emit("pipeline_load", t0, lm_params=sum(p.numel() for p in pipe.engine.model.parameters()),
+         semantic_tokenizer_params=sum(p.numel() for p in pipe.semantic_tokenizer.parameters()),
+         s2a_params=sum(p.numel() for p in pipe.s2a.parameters()),
+         codec_params=sum(p.numel() for p in pipe.codec.parameters()),
+         conformer=[enc.hidden_size, enc.num_heads, enc.intermediate_size, enc.conv_kernel_size,
+                    enc.output_layer], slots=pipe.engine.num_slots,
+         tf32={"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32})
+    return pipe
+
+
+def phase_tts_synthesize(pipe):
+    """The main path of this slice: one request through ``synthesize``; its
+    fixed-length sampler runs every denoiser attention through K12."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import prompt_signal
+
+    t0 = time.perf_counter()
+    w16 = prompt_signal(40, SYNTH_PROMPT_SECONDS, 16_000)
+    w24 = prompt_signal(40, SYNTH_PROMPT_SECONDS, 24_000)
+    text = "A zero-shot voice reads this sentence aloud on the card."
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t1 = time.perf_counter()
+    wav, info = pipe.synthesize(text, w16, w24, max_new_tokens=SYNTH_FRAMES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = _all_counts()
+
+    c = pipe.s2a.cfg
+    forwards = _denoiser_forwards(pipe)
+    hop = int(np.prod(pipe.codec.strides))
+    check(info["semantic_tokens"] == SYNTH_FRAMES,
+          f"tts_synthesize: {info['semantic_tokens']} frames for max_new_tokens={SYNTH_FRAMES}")
+    check(wav.shape == (SYNTH_FRAMES * hop,) and bool(np.isfinite(wav).all())
+          and float(wav.std()) > 0, f"tts_synthesize: a waveform of {wav.shape}, not finite "
+                                    "or constant")
+    want_k12 = c.num_layers * forwards
+    check(launches["s2a_attention"] == want_k12,
+          f"tts_synthesize: s2a_attention launched {launches['s2a_attention']} times, predicted "
+          f"{want_k12} ({c.num_layers} layers x {forwards} denoiser forwards)")
+    layers = pipe.engine.cfg.num_decoder_layers
+    want = {"ragged_decode_attention": layers * (SYNTH_FRAMES - 1),
+            "inplace_row_update": 2 * layers * (SYNTH_FRAMES - 1),
+            "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
+            "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
+            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12}
+    check(launches == want, f"tts_synthesize: launches {launches} != predicted {want}")
+    emit("tts_synthesize", t0, call_seconds=seconds, info=info, denoiser_forwards=forwards,
+         prompt_seconds=SYNTH_PROMPT_SECONDS, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def _k12_forward_parity(s2a, seed):
+    """One conditional denoiser forward at the ``synthesize`` shape with every
+    key valid, the kernel route against the plain route; in the kernel route
+    each K12 output is also held against the plain version on the same
+    q, k, v. Returns the forward's (max, mean) absolute difference, its
+    largest output, the largest in-model K12 difference and K12's launches in
+    the kernel route (the plain route must launch none)."""
+    from maxtext_indextts2_tpu_torch.audio import s2a as s2a_mod
+    from maxtext_indextts2_tpu_torch.ops.s2a_attention import s2a_attention_plain
+
+    c = s2a.cfg
+    s = 149 + SYNTH_FRAMES  # P + T of the synthesize phase
+    device = s2a.mask_emb.device
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((1, s, c.hidden_size), generator=g, device=device).to(c.dtype)
+    cond = torch.randn((1, s, c.hidden_size), generator=g, device=device).to(c.dtype)
+    t = torch.rand((1,), generator=g, device=device)
+    ones = torch.ones((1, s), dtype=torch.int32, device=device)
+    kernel, in_model = s2a_mod.s2a_attention, []
+
+    def compared(q, k, v, impl=None):
+        o = kernel(q, k, v, impl=impl)
+        if impl is None:
+            err = (o.float() - s2a_attention_plain(q, k, v).float()).abs().max()
+            in_model.append((float(err.item()), TOL_K12_IN_MODEL[q.dtype]))
+        return o
+
+    _reset_all_counts()
+    s2a_mod.s2a_attention = compared
+    try:
+        with torch.no_grad():
+            got = s2a.denoiser(x, t, cond, ones, all_valid=True).float()
+            launched = _k12_count()
+            want = s2a.denoiser(x, t, cond, ones, impl="plain", all_valid=True).float()
+    finally:
+        s2a_mod.s2a_attention = kernel
+    torch.cuda.synchronize()
+    check(launched == c.num_layers and _k12_count() == launched,
+          f"tts_synthesize_parity: K12 launched {launched} times in the kernel route "
+          f"(want {c.num_layers}), {_k12_count() - launched} in the plain route")
+    check(len(in_model) == c.num_layers and all(e <= tol for e, tol in in_model),
+          f"tts_synthesize_parity: K12 inside the model against its plain version: {in_model}")
+    check(bool(torch.isfinite(got).all().item()), "tts_synthesize_parity: output not finite")
+    diff = (got - want).abs()
+    return (float(diff.max().item()), float(diff.mean().item()), float(want.abs().max().item()),
+            max(e for e, _ in in_model), launched)
+
+
+def phase_tts_synthesize_parity(pipe):
+    """K12 inside full-width conditional denoiser forwards against the plain
+    route, and the prompt tokenizers on the card against the CPU."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_serving_s2a, s2a_config_from
+
+    t0 = time.perf_counter()
+    c = pipe.s2a.cfg
+    err, mean, scale, k12_err, k12_kernel = _k12_forward_parity(pipe.s2a, 15)
+    check(err <= TOL_SYNTH_INT8_MAX and mean <= TOL_SYNTH_INT8_MEAN,
+          f"tts_synthesize_parity: int8_offline all_valid forward differs by max {err}, "
+          f"mean {mean}")
+    f32 = build_serving_s2a(s2a_config_from(pipe.cfg), "float32", device=pipe.device,
+                            generator=torch.Generator(device=pipe.device).manual_seed(16))
+    f32_err, f32_mean, f32_scale, f32_k12_err, _ = _k12_forward_parity(f32, 16)
+    check(f32_err <= TOL_SYNTH_F32,
+          f"tts_synthesize_parity: float32 all_valid forward differs by {f32_err}")
+    del f32
+    torch.cuda.empty_cache()
+
+    # the prompt tokenizers: the same modules and wav on the card and the CPU
+    import copy
+
+    from maxtext_indextts2_tpu_torch.audio.pipeline import prompt_signal
+
+    w16 = prompt_signal(41, SYNTH_PROMPT_SECONDS, 16_000)
+    w24 = prompt_signal(41, SYNTH_PROMPT_SECONDS, 24_000)
+    sem_gpu, _ = pipe.semantic_tokenizer.tokenize(w16[None])
+    ac_gpu = pipe.codec.tokenize(torch.from_numpy(w24[None]).to(pipe.device))
+    tok_cpu = copy.deepcopy(pipe.semantic_tokenizer).to("cpu")
+    enc_cpu = copy.deepcopy(pipe.codec.encoder).to("cpu")
+    quant_cpu = copy.deepcopy(pipe.codec.decoder.quantizer).to("cpu")
+    with torch.no_grad():
+        sem_cpu, _ = tok_cpu.tokenize(w16[None])
+        _, ac_cpu = quant_cpu.quantize(enc_cpu(torch.from_numpy(w24[None])))
+    check(sem_gpu.shape == sem_cpu.shape and ac_gpu.shape == ac_cpu.shape,
+          "tts_synthesize_parity: frontend ids of different shapes on the card and the CPU")
+    sem_share = float((sem_gpu.cpu() == sem_cpu).float().mean().item())
+    ac_share = float((ac_gpu.cpu() == ac_cpu).float().mean().item())
+    check(min(sem_share, ac_share) >= MIN_FRONTEND_ID_AGREEMENT,
+          f"tts_synthesize_parity: frontend ids agree only {sem_share} / {ac_share}")
+    emit("tts_synthesize_parity", t0, denoiser_shape=[1, 149 + SYNTH_FRAMES, c.hidden_size],
+         int8_offline_max_abs_err=err, int8_offline_mean_abs_err=mean, int8_offline_max_abs=scale,
+         tol_int8_offline=[TOL_SYNTH_INT8_MAX, TOL_SYNTH_INT8_MEAN],
+         int8_offline_k12_in_model_max_abs_err=k12_err,
+         f32_max_abs_err=f32_err, f32_mean_abs_err=f32_mean, f32_max_abs=f32_scale,
+         tol_f32=TOL_SYNTH_F32, f32_k12_in_model_max_abs_err=f32_k12_err,
+         tol_k12_in_model={str(k): v for k, v in TOL_K12_IN_MODEL.items()},
+         k12_launches_kernel_route=k12_kernel,
+         semantic_ids=int(sem_cpu.numel()), semantic_ids_equal_share=sem_share,
+         acoustic_ids=int(ac_cpu.numel()), acoustic_ids_equal_share=ac_share,
+         min_id_agreement=MIN_FRONTEND_ID_AGREEMENT,
+         tf32_in_force={"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                        "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+
+def _tts_bodies(seed: int):
+    """``tts_requests`` as JSON bodies: the first with float32 base64 both
+    ways, the others with JSON lists."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import tts_requests
+
+    bodies, seconds = [], []
+    for i, r in enumerate(tts_requests(seed, HTTP_REQUESTS)):
+        w16, w24 = r.pop("prompt_wav_16k"), r.pop("prompt_wav_24k")
+        seconds.append(len(w16) / 16_000.0)
+        if i == 0:
+            r.update(prompt_wav_16k_b64=base64.b64encode(w16.astype("<f4").tobytes()).decode(),
+                     prompt_wav_24k_b64=base64.b64encode(w24.astype("<f4").tobytes()).decode(),
+                     wav_encoding="b64")
+        else:
+            r.update(prompt_wav_16k=w16.tolist(), prompt_wav_24k=w24.tolist())
+        bodies.append(r)
+    return bodies, [r["max_new_tokens"] for r in bodies], seconds
+
+
+def phase_tts_http(pipe):
+    """8 concurrent ``POST /tts`` at full width through ``make_server``: the
+    batched path (masked sampler), so K12 must not launch."""
+    from maxtext_indextts2_tpu_torch.infer.server import make_server
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(pipe.cfg, tts_allow_force_frames=True,
+                              tts_batch_max=HTTP_REQUESTS, tts_batch_window_ms=2000)
+    bodies, frames, prompt_seconds = _tts_bodies(60)
+    payloads = [json.dumps(b).encode() for b in bodies]
+    server, orch, batcher = make_server(cfg, port=0, tts_pipeline=pipe, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = [None] * HTTP_REQUESTS
+
+    def post(i):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/tts", data=payloads[i],
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            answers[i] = json.loads(resp.read())
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t1 = time.perf_counter()
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(HTTP_REQUESTS)]
+        for p in posts:
+            p.start()
+        for p in posts:
+            p.join(timeout=900)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = _all_counts()
+        steps = orch.stats["decode_steps_total"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+        orch.stop()
+        thread.join(timeout=30)
+
+    check(all(a is not None and "error" not in a for a in answers),
+          f"tts_http: failed answers {[a for a in answers if a is None or 'error' in a][:1]}")
+    hop = int(np.prod(pipe.codec.strides))
+    for i, (a, n) in enumerate(zip(answers, frames)):
+        wav = (np.frombuffer(base64.b64decode(a["wav_b64"]), "<f4") if i == 0
+               else np.asarray(a["wav"], np.float32))
+        check(a["info"]["semantic_tokens"] == n and wav.shape == (n * hop,),
+              f"tts_http: request {i} got {wav.shape} samples for {n} frames")
+        check(bool(np.isfinite(wav).all()) and float(wav.std()) > 0,
+              f"tts_http: request {i}'s waveform is not finite or is constant")
+    info = answers[0]["info"]
+    forwards = _denoiser_forwards(pipe) * batcher.batches
+    c, layers = pipe.s2a.cfg, pipe.engine.cfg.num_decoder_layers
+    want = {"ragged_decode_attention": layers * steps, "inplace_row_update": 2 * layers * steps,
+            "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
+            "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
+            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0}
+    check(launches == want, f"tts_http: launches {launches} != predicted {want} "
+                            f"({steps} decode steps, {batcher.batches} batches)")
+    audio = sum(n * hop for n in frames) / 24_000.0
+    emit("tts_http", t0, requests=HTTP_REQUESTS, batches=batcher.batches, frames=frames,
+         prompt_seconds=prompt_seconds, text_bytes=[len(b["text"]) for b in bodies],
+         http_seconds=seconds, audio_seconds=audio, t_frontend=info["t_frontend"],
+         t_lm=info["t_lm"], t_s2a=info["t_s2a"], t_vocoder=info["t_vocoder"],
+         t_total=info["t_total"], batch_rtf=info["batch_rtf"], decode_steps=steps,
+         launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
 def kernels_line(cases, launches):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes that path's run gives the kernel (the error in
@@ -564,6 +890,12 @@ def main():
     launches.update(backend_launches)
     pipe_bf16 = phase_tts_backend_bf16()
     phase_tts_backend_parity(pipe_int8, pipe_bf16)
+    del pipe_int8, pipe_bf16
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline_load()
+    launches["s2a_attention"] = phase_tts_synthesize(pipe)["s2a_attention"]
+    phase_tts_synthesize_parity(pipe)
+    phase_tts_http(pipe)
     check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
           f"a kernel of a main path never ran: {launches}")
     emit("total", t_all)

@@ -1,9 +1,10 @@
-"""Acoustic codec, decode side: 12-layer RVQ lookup + Vocos (or DAC-style
-conv) decoder to a 24 kHz waveform.
+"""Acoustic codec: DAC/SoundStream-style encoder + 12-layer RVQ + Vocos (or
+DAC-style conv) decoder, 24 kHz audio, total encoder stride 480 -> 50 Hz.
 
-Counterpart of the JAX package's ``audio/acoustic.py`` for serving: token
-ids ``[Q, B, T]`` -> embeddings -> waveform ``[B, T * 480]``. The encoder,
-``tokenize`` and the training call are not ported yet. Layout ``[B, T, C]``
+Counterpart of the JAX package's ``audio/acoustic.py`` for serving:
+``tokenize`` (waveform ``[B, T]`` -> encoder latents -> residual VQ ids
+``[Q, B, T / 480]``) and ``detokenize`` (ids -> embeddings -> waveform
+``[B, T * 480]``). The training calls wait with training. Layout ``[B, T, C]``
 channels-last (``[B, T]`` waveforms).
 """
 
@@ -45,6 +46,51 @@ class ResidualUnit(nn.Module):
 
     def forward(self, x):
         return x + self.conv2(self.snake2(self.conv1(self.snake1(x))))
+
+
+class EncoderBlock(nn.Module):
+    """3 dilated residual units -> Snake -> strided conv (kernel 2 * stride,
+    padding ceil(stride / 2) on both sides) doubling the channels."""
+
+    def __init__(self, out_dim: int, stride: int, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        in_dim = out_dim // 2
+        self.res1 = ResidualUnit(in_dim, 1, **kw)
+        self.res2 = ResidualUnit(in_dim, 3, **kw)
+        self.res3 = ResidualUnit(in_dim, 9, **kw)
+        self.snake = Snake1d(in_dim, device)
+        self.down = Conv1d(in_dim, out_dim, 2 * stride, stride=stride,
+                           padding=math.ceil(stride / 2), **kw)
+
+    def forward(self, x):
+        return self.down(self.snake(self.res3(self.res2(self.res1(x)))))
+
+
+class CodecEncoder(nn.Module):
+    """24 kHz wav ``[B, T]`` -> ``[B, T / 480, out_channels]`` latents."""
+
+    def __init__(self, d_model: int = 96, strides: tuple[int, ...] = (3, 4, 5, 8),
+                 out_channels: int = 256, use_tanh: bool = False, device=None,
+                 generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.use_tanh = use_tanh
+        self.num_blocks = len(strides)
+        d = d_model
+        self.conv_in = Conv1d(1, d, 7, **kw)
+        for i, s in enumerate(strides):
+            d *= 2
+            setattr(self, f"block_{i}", EncoderBlock(d, s, **kw))
+        self.snake_out = Snake1d(d, device)
+        self.conv_out = Conv1d(d, out_channels, 3, **kw)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(wav[..., None])
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x)
+        x = self.conv_out(self.snake_out(x))
+        return torch.tanh(x) if self.use_tanh else x
 
 
 class UpsampleConv(nn.Module):
@@ -159,8 +205,8 @@ class CodecDecoder(nn.Module):
 
 
 class AcousticCodec(nn.Module):
-    """Decoder with the ``detokenize()`` inference API. (The encoder and
-    ``tokenize()`` come with the audio frontend.)"""
+    """Encoder + decoder pair with the ``tokenize()`` / ``detokenize()``
+    inference API."""
 
     def __init__(self, d_model: int = 96, strides: tuple[int, ...] = (3, 4, 5, 8),
                  latent_dim: int = 256, num_quantizers: int = 12, codebook_size: int = 1024,
@@ -170,6 +216,8 @@ class AcousticCodec(nn.Module):
         super().__init__()
         self.d_model, self.strides, self.latent_dim = d_model, tuple(strides), latent_dim
         self.num_quantizers, self.codebook_size = num_quantizers, codebook_size
+        self.encoder = CodecEncoder(d_model, self.strides, latent_dim, device=device,
+                                    generator=generator)
         self.decoder = CodecDecoder(
             in_channels=latent_dim, num_quantizers=num_quantizers, codebook_size=codebook_size,
             codebook_dim=codebook_dim, quantizer_dropout=quantizer_dropout,
@@ -181,8 +229,11 @@ class AcousticCodec(nn.Module):
         """[Q, B, T] token ids -> [B, T*480] waveform."""
         return self.decoder.decode(self.decoder.vq2emb(indices))
 
-    def tokenize(self, wav):
-        _unsupported("AcousticCodec.tokenize (codec encoder)", "3, audio frontend")
+    @torch.no_grad()
+    def tokenize(self, wav: torch.Tensor) -> torch.Tensor:
+        """[B, T] 24 kHz wav -> [Q, B, T/480] acoustic token ids (int64)."""
+        _, idx = self.decoder.quantize(self.encoder(wav))
+        return idx
 
     def forward(self, wav, dropout_rng=None):
         _unsupported("AcousticCodec.__call__ (codec autoencoder training)", "4, training step")

@@ -57,12 +57,12 @@ class Dense(nn.Module):
 
 class Conv1d(nn.Module):
     """1-D convolution over ``[B, T, C]`` with a flax kernel ``[k, in / groups,
-    out]``. ``padding``: ``"SAME"`` (odd kernels, stride 1) or an int applied
-    to both sides."""
+    out]``. ``padding``: ``"SAME"`` (odd kernels, stride 1), an int applied
+    to both sides, or ``(left, right)``. ``use_bias=False`` holds no bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 dilation: int = 1, groups: int = 1, padding="SAME", device=None,
-                 generator=None):
+                 dilation: int = 1, groups: int = 1, padding="SAME", use_bias: bool = True,
+                 device=None, generator=None):
         super().__init__()
         if padding == "SAME":
             if stride != 1 or kernel_size % 2 == 0:
@@ -73,14 +73,21 @@ class Conv1d(nn.Module):
                              dtype=torch.float32, device=device)
         lecun_normal_(kernel, kernel_size * in_channels // groups, generator)
         self.kernel = nn.Parameter(kernel)
-        self.bias = nn.Parameter(torch.zeros((out_channels,), dtype=torch.float32, device=device))
+        self.bias = None
+        if use_bias:
+            self.bias = nn.Parameter(
+                torch.zeros((out_channels,), dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _promoted(x, self.kernel, self.bias)
         # [k, in/groups, out] -> conv1d's [out, in/groups, k]; [B, T, C] -> [B, C, T]
-        y = F.conv1d(x.to(dt).transpose(1, 2), self.kernel.to(dt).permute(2, 1, 0),
-                     self.bias.to(dt), stride=self.stride, padding=self.padding,
-                     dilation=self.dilation, groups=self.groups)
+        x = x.to(dt).transpose(1, 2)
+        padding = self.padding
+        if isinstance(padding, tuple):
+            x, padding = F.pad(x, padding), 0
+        y = F.conv1d(x, self.kernel.to(dt).permute(2, 1, 0),
+                     None if self.bias is None else self.bias.to(dt), stride=self.stride,
+                     padding=padding, dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
 

@@ -1,9 +1,12 @@
-"""Vector quantizers, decode side: factorized VQ and residual VQ.
+"""Vector quantizers: factorized VQ and residual VQ, for inference.
 
 Counterpart of the JAX package's ``audio/quantize.py`` for what serving
-needs: token ids -> codebook rows -> input-space embeddings. The encode side
-(nearest-neighbour search, losses, quantizer dropout) belongs to ``tokenize``
-and training and is not ported yet. Layout: ``[B, T, D]`` channels-last.
+needs: the encode side of ``tokenize`` (project to the 8-d codebook space,
+l2-normalise, nearest codebook row as the argmax of one similarity product,
+the residual chain of ``ResidualVQ.quantize``) and the decode side (token ids
+-> codebook rows -> input-space embeddings). The losses, quantizer dropout,
+``__call__`` and ``latent2dist`` belong to training and are not ported yet.
+Layout: ``[B, T, D]`` channels-last.
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
 from maxtext_indextts2_tpu_torch.models.layers import _unsupported
 
-_ENCODE_SIDE = "3, audio frontend (tokenize) / 4, training step"
+_TRAINING = "4, training step"
+
+
+def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True) + eps)
 
 
 class FactorizedVectorQuantize(nn.Module):
@@ -26,13 +33,14 @@ class FactorizedVectorQuantize(nn.Module):
             input_dim, codebook_size, codebook_dim)
         self.use_l2_normalize = use_l2_normalize
         if input_dim != codebook_dim:
-            # in_proj is held (same parameter tree as the JAX package) but
-            # only the encode side uses it
             self.in_proj = Dense(input_dim, codebook_dim, device=device, generator=generator)
             self.out_proj = Dense(codebook_dim, input_dim, device=device, generator=generator)
         self.codebook = nn.Parameter(torch.empty(
             (codebook_size, codebook_dim), dtype=torch.float32, device=device
         ).normal_(0.0, 1.0, generator=generator))
+
+    def _project_in(self, x: torch.Tensor) -> torch.Tensor:
+        return self.in_proj(x) if self.input_dim != self.codebook_dim else x
 
     def _project_out(self, z: torch.Tensor) -> torch.Tensor:
         return self.out_proj(z) if self.input_dim != self.codebook_dim else z
@@ -45,14 +53,34 @@ class FactorizedVectorQuantize(nn.Module):
         """indices [B,T] -> input-space embeddings [B,T,input_dim]."""
         return self._project_out(self.decode_code(indices))
 
-    def encode_latents(self, x):
-        _unsupported("FactorizedVectorQuantize.encode_latents (RVQ encode side)", _ENCODE_SIDE)
+    def encode_latents(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x [B,T,input_dim] -> (z_e [B,T,cb_dim], indices [B,T] int64).
+
+        z_e is the UNNORMALISED projected latent; only the nearest-neighbour
+        search sees l2-normalised vectors, where argmin ||z - c|| is argmax
+        z.c (one [B*T, K] product)."""
+        z_e = self._project_in(x)
+        zn, cb = z_e, self.codebook
+        if self.use_l2_normalize:
+            zn, cb = _l2norm(zn), _l2norm(cb)
+        sim = torch.einsum("btd,kd->btk", zn, cb)
+        if not self.use_l2_normalize:
+            sim = 2 * sim - torch.sum(torch.square(cb), dim=-1)[None, None, :]
+        return z_e, torch.argmax(sim, dim=-1)
+
+    def quantize(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The inference half of ``__call__``: (quantized [B,T,input_dim],
+        indices [B,T]). The codebook row goes through the straight-through
+        form ``z_e + (z_q - z_e)`` as there, which rounds like it."""
+        z_e, indices = self.encode_latents(x)
+        z_q = self.decode_code(indices)
+        return self._project_out(z_e + (z_q - z_e)), indices
 
     def latent2dist(self, x):
-        _unsupported("FactorizedVectorQuantize.latent2dist (RVQ encode side)", _ENCODE_SIDE)
+        _unsupported("FactorizedVectorQuantize.latent2dist (training)", _TRAINING)
 
     def forward(self, x):
-        _unsupported("FactorizedVectorQuantize.__call__ (RVQ encode side)", _ENCODE_SIDE)
+        _unsupported("FactorizedVectorQuantize.__call__ (losses, training)", _TRAINING)
 
 
 class ResidualVQ(nn.Module):
@@ -78,11 +106,20 @@ class ResidualVQ(nn.Module):
             out = e if out is None else out + e
         return out
 
-    def quantize(self, x, n_quantizers: int | None = None):
-        _unsupported("ResidualVQ.quantize (RVQ encode side)", _ENCODE_SIDE)
+    def quantize(self, x: torch.Tensor, n_quantizers: int | None = None):
+        """x [B,T,D] -> (summed quantized [B,T,D], indices [Q,B,T] int64):
+        each stage quantizes what the stages before it left over."""
+        n = n_quantizers or self.num_quantizers
+        residual, out, idx = x, torch.zeros_like(x), []
+        for i in range(n):
+            quantized, indices = getattr(self, f"vq_{i}").quantize(residual)
+            residual = residual - quantized
+            out = out + quantized
+            idx.append(indices)
+        return out, torch.stack(idx)
 
     def latent2dist(self, x, n_quantizers: int | None = None):
-        _unsupported("ResidualVQ.latent2dist (RVQ encode side)", _ENCODE_SIDE)
+        _unsupported("ResidualVQ.latent2dist (training)", _TRAINING)
 
     def forward(self, x, n_quantizers: int | None = None, dropout_rng=None):
-        _unsupported("ResidualVQ.__call__ (RVQ encode side)", _ENCODE_SIDE)
+        _unsupported("ResidualVQ.__call__ (losses, quantizer dropout, training)", _TRAINING)

@@ -15,8 +15,12 @@ Noise is an input: the sampler draws its uniforms from a ``torch.Generator``
 or takes them from a callable ``noise(layer, step, draw, shape)``, so a test
 can hand it another framework's draws.
 
-Not ported here: ``compute_loss`` / training (ROADMAP queue item 4) and the
-opt-in attention kernels of the JAX package (items 3 and 4).
+The fixed-length sampler (no pad masks: every key valid, ``all_valid``)
+runs its attention through ``ops/s2a_attention.py`` (a CUDA kernel on the
+GPU); the masked path of batched serving keeps the materialised logits.
+
+Not ported here: ``compute_loss`` / training and the opt-in sequence flash
+attention of the JAX package (ROADMAP queue item 4).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from maxtext_indextts2_tpu_torch.ops.quant_kernels import (
 from maxtext_indextts2_tpu_torch.ops.quantization import (
     absmax_scale, quantize_weight_for_serving,
 )
+from maxtext_indextts2_tpu_torch.ops.s2a_attention import s2a_attention
 
 
 @dataclass(frozen=True)
@@ -233,23 +238,27 @@ class NARBlock(nn.Module):
         self.up = _dense(cfg, h, 4 * h, **kw)
         self.down = _dense(cfg, 4 * h, h, **kw)
 
-    def forward(self, x, t_cond, masks, sin_cos, impl: str | None = None):
+    def forward(self, x, t_cond, masks, sin_cos, impl: str | None = None,
+                all_valid: bool = False):
         """``masks``: the pad mask as the attention paths want it, from
-        :func:`_attention_masks`; ``sin_cos``: RoPE angles of this length."""
+        :func:`_attention_masks`; ``sin_cos``: RoPE angles of this length;
+        ``all_valid``: no position is padding (the fixed-length sampler), so
+        the attention is ``ops.s2a_attention`` and ``masks`` is not read."""
         if self.cfg.int8_matmul:
             # producer-fused quantization: the AdaLN outputs feed the int8
             # products as (int8, scales); the normalized float tensors are
             # never written
             hq, hs = self.input_norm(x, t_cond, quantize_out=True, impl=impl)
-            x = x + self._self_attention(None, masks, sin_cos, hq, hs, x.dtype, impl)
+            x = x + self._self_attention(None, masks, sin_cos, hq, hs, x.dtype, impl, all_valid)
             hq, hs = self.post_attn_norm(x, t_cond, quantize_out=True, impl=impl)
             return x + self._swiglu_mlp(None, hq, hs, x.dtype, impl)
         h = self.input_norm(x, t_cond, impl=impl)
-        x = x + self._self_attention(h, masks, sin_cos, impl=impl)
+        x = x + self._self_attention(h, masks, sin_cos, impl=impl, all_valid=all_valid)
         h = self.post_attn_norm(x, t_cond, impl=impl)
         return x + self._swiglu_mlp(h, impl=impl)
 
-    def _self_attention(self, x, masks, sin_cos, xq=None, xs=None, out_dtype=None, impl=None):
+    def _self_attention(self, x, masks, sin_cos, xq=None, xs=None, out_dtype=None, impl=None,
+                        all_valid=False):
         cfg = self.cfg
         b, s, _ = (x if xq is None else xq).shape
         n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
@@ -264,7 +273,14 @@ class NARBlock(nn.Module):
         k = rope_lib.apply_rope(k.reshape(b, s, n, d), None, None, False, sin_cos=sin_cos)
         v = v.reshape(b, s, n, d)
 
-        if cfg.dtype == torch.bfloat16:
+        if all_valid:
+            # every key valid: the sampler's one-pass kernel, float32 logits,
+            # probabilities rounded to the operands' dtype (bfloat16 in the
+            # bfloat16 and int8 modes); q, k, v stay in the projection layout
+            ad = torch.bfloat16 if cfg.dtype == torch.bfloat16 else x_dtype
+            o = s2a_attention((q * (1.0 / math.sqrt(d))).to(ad), k.to(ad), v.to(ad), impl=impl)
+            o = o.to(x_dtype).reshape(b, s, cfg.hidden_size)
+        elif cfg.dtype == torch.bfloat16:
             # bfloat16-stored logits, float32 softmax, bfloat16 probabilities,
             # float32-accumulated PV
             qb = (q * (1.0 / math.sqrt(d))).to(torch.bfloat16).transpose(1, 2)  # [B,N,S,D]
@@ -326,13 +342,14 @@ class _CondMLPs(nn.Module):
     def _t_cond(self, t):
         return self.t1(F.silu(self.t0(sinusoidal_time_emb(t, self.cfg.hidden_size))))
 
-    def _blocks(self, x, t_cond, pad_mask, impl):
+    def _blocks(self, x, t_cond, pad_mask, impl, all_valid=False):
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
         sin_cos = rope_lib.rope_sin_cos(pos, self.inv_freq)
-        masks = _attention_masks(pad_mask)
+        masks = None if all_valid else _attention_masks(pad_mask)
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layers_{i}")(x, t_cond, masks, sin_cos, impl=impl)
+            x = getattr(self, f"layers_{i}")(x, t_cond, masks, sin_cos, impl=impl,
+                                             all_valid=all_valid)
         return self.final_norm(x, t_cond, impl=impl)
 
 
@@ -342,9 +359,11 @@ class NARDenoiser(_CondMLPs):
     def __init__(self, cfg: S2AConfig, device=None, generator=None):
         super().__init__(cfg, True, device, generator)
 
-    def forward(self, x, t, cond, pad_mask, impl: str | None = None):
+    def forward(self, x, t, cond, pad_mask, impl: str | None = None, all_valid: bool = False):
+        """``all_valid=True``: ``pad_mask`` is all ones (the fixed-length
+        sampler) and the attention skips it."""
         cond_emb = self.c1(F.silu(self.c0(cond)))
-        return self._blocks(x + cond_emb, self._t_cond(t), pad_mask, impl)
+        return self._blocks(x + cond_emb, self._t_cond(t), pad_mask, impl, all_valid)
 
 
 class PrefixNARDenoiser(_CondMLPs):
@@ -446,9 +465,11 @@ class S2AModel(nn.Module):
         cur = cur + self.mask_emb * float(c.num_quantizers - 1 - layer)
 
         xt_input = cur if p == 0 else torch.cat([prompt_sum, cur], dim=1)
-        embeds = self.denoiser(xt_input.to(c.dtype), t_vec, cond_in, full_mask, impl=impl)[:, p:]
+        embeds = self.denoiser(xt_input.to(c.dtype), t_vec, cond_in, full_mask, impl=impl,
+                               all_valid=all_valid)[:, p:]
         if cfg_scale > 0 and p > 0:
-            uncond = self.denoiser(cur.to(c.dtype), t_vec, uncond_in, x_mask, impl=impl)
+            uncond = self.denoiser(cur.to(c.dtype), t_vec, uncond_in, x_mask, impl=impl,
+                                   all_valid=all_valid)
             steered = embeds + cfg_scale * (embeds - uncond)
             if all_valid:
                 # population deviation, computed in float32 and rounded to

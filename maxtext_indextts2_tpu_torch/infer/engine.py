@@ -43,16 +43,30 @@ from maxtext_indextts2_tpu_torch.models import (
 from maxtext_indextts2_tpu_torch.models.layers import _unsupported, to_dtype
 
 
+def set_cuda_numerics() -> None:
+    """float32 products and convolutions on the GPU in full float32, never
+    TF32. PyTorch's default runs float32 convolutions in TF32 (about three
+    decimal digits); the codec encoder's and the conformer's convolutions
+    feed argmax/argmin decisions (RVQ and RepCodec ids), where a TF32 rounding
+    can flip an id and, in a residual quantizer, every later stage with it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU, and no GPU is an error: entry points never
-    fall back to the CPU on their own. Tests pass ``device="cpu"``."""
+    fall back to the CPU on their own. Tests pass ``device="cpu"``. A CUDA
+    device gets :func:`set_cuda_numerics`."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: this package runs on the GPU unless the caller "
                 "asks for the CPU explicitly (device='cpu')")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        set_cuda_numerics()
+    return device
 
 
 def _flat_caches(cache) -> list:

@@ -1,19 +1,24 @@
 """Continuous-batching inference server.
 
-Counterpart of the JAX package's ``infer/server.py`` for the token LM: an
-in-process orchestrator (request queue -> fused admission -> shared decode
-loop over slots) behind a dependency-free HTTP/JSON server (stdlib):
+Counterpart of the JAX package's ``infer/server.py``: an in-process
+orchestrator (request queue -> fused admission -> shared decode loop over
+slots) behind a dependency-free HTTP/JSON server (stdlib):
 ``POST /generate {"prompt": [ids...], "max_new_tokens": N} -> {"tokens":
-[...]}`` and ``GET /metrics`` (Prometheus text).
+[...]}``, ``GET /metrics`` (Prometheus text) and, with a TTS pipeline,
+``POST /tts {"text": ..., "prompt_wav_16k": [...], "prompt_wav_24k": [...]}
+-> {"wav": [...], "info": {...}}`` (``*_b64`` prompts and
+``"wav_encoding": "b64"`` carry little-endian float32 as base64).
 
-One thread, the decode loop, owns the device. A device call that raises is
-NOT retried: after a CUDA error the context is unusable, so the loop fails
-every in-flight and queued request with that error and ends; later
-submissions fail at once.
+One thread, the decode loop, owns the device: the TTS batcher hands its
+device stages to it (``Orchestrator.run_on_loop``) between decode rounds. A
+device call of the decode loop that raises is NOT retried: after a CUDA
+error the context is unusable, so the loop fails every in-flight and queued
+request with that error and ends; later submissions fail at once.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import queue
 import threading
@@ -56,6 +61,8 @@ class Orchestrator:
         self.remaining = np.zeros(engine.num_slots, np.int32)
         self._carry: list[_Request] = []  # popped but not yet admitted, in arrival order
         self._loop_dead = threading.Event()  # set when _loop has exited
+        # closures other threads need run ON the device thread (run_on_loop)
+        self._thunks: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.decode_state = None
@@ -81,6 +88,49 @@ class Orchestrator:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=30)
+
+    def run_on_loop(self, fn, timeout: float = 600.0):
+        """Run ``fn()`` on the decode loop between decode rounds and return
+        its result (or raise its exception). The TTS batcher runs its device
+        stages this way, so all device work stays on one thread. Fails at once
+        when the loop has exited."""
+        if self._loop_dead.is_set():
+            raise RuntimeError(self.fatal_error or "device loop is not running")
+        box = {"done": threading.Event(), "fn": fn}
+        self._thunks.put(box)
+        if self._loop_dead.is_set():
+            # the loop may have exited between its final drain and this put
+            self._fail_pending_thunks(RuntimeError("device loop exited"))
+        if not box["done"].wait(timeout):
+            raise TimeoutError("device-loop thunk timed out")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _drain_thunks(self, limit: int = 1):
+        """Run up to ``limit`` queued thunks on this (the device) thread."""
+        for _ in range(limit):
+            try:
+                box = self._thunks.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["result"] = box["fn"]()
+            except Exception as e:  # noqa: BLE001 - re-raised in the caller's thread
+                box["error"] = e
+            box["done"].set()
+
+    def _fail_pending_thunks(self, err: Exception):
+        """Complete every queued thunk with ``err``: the loop is exiting and
+        will never run them."""
+        while True:
+            try:
+                box = self._thunks.get_nowait()
+            except queue.Empty:
+                return
+            if not box["done"].is_set():
+                box["error"] = err
+                box["done"].set()
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> _Request:
         req = _Request(np.asarray(prompt, np.int32).reshape(-1), int(max_new_tokens))
@@ -148,6 +198,7 @@ class Orchestrator:
             self._fail_all(e)
         finally:
             self._loop_dead.set()
+            self._fail_pending_thunks(RuntimeError(self.fatal_error or "device loop exited"))
 
     def _loop_body(self):
         while not self._stop.is_set():
@@ -155,6 +206,7 @@ class Orchestrator:
                 admitted = self._admit_interleaved()
             else:
                 admitted = self._admit_sequential()
+            self._drain_thunks()
             if not any(r is not None for r in self.slots):
                 if not admitted:
                     time.sleep(0.001)
@@ -290,22 +342,222 @@ class Orchestrator:
         return "\n".join(lines) + "\n"
 
 
+@dataclass
+class _TTSRequest:
+    body: dict
+    done: threading.Event = field(default_factory=threading.Event)
+    result: tuple | None = None
+    error: str | None = None
+
+
+class _PartialLMFailure(RuntimeError):
+    """Some (not necessarily all) streams of a batched LM generation failed.
+    ``tokens`` is aligned with the submitted batch: a token list per stream
+    that succeeded, None per failed one; ``errors`` holds the failures."""
+
+    def __init__(self, tokens, errors):
+        super().__init__(f"LM generation failed for {sum(t is None for t in tokens)}/"
+                         f"{len(tokens)} streams: {errors[0] if errors else ''}")
+        self.tokens = tokens
+        self.errors = errors
+
+
+class TTSBatcher:
+    """Collects /tts requests into one masked S2A pass.
+
+    Requests arriving within ``window_ms`` of each other (up to
+    ``max_batch``) are served together. With an orchestrator and a pipeline
+    that has the stage methods (``frontend_batch``, ``s2a_vocoder_batch``),
+    every device stage runs on the orchestrator's thread (``run_on_loop``) and
+    the LM stage goes through its shared slots; otherwise the batch is one
+    ``pipeline.synthesize_batch`` call."""
+
+    def __init__(self, pipeline, max_batch: int = 8, window_ms: int = 50,
+                 orchestrator: Orchestrator | None = None, allow_force_frames: bool = False):
+        self.pipeline = pipeline
+        self.max_batch = max(1, max_batch)
+        self.window_s = window_ms / 1e3
+        self.orch = orchestrator
+        # force_frames disables the stop at a non-audio token: a load-testing
+        # knob, not something an untrusted /tts client may set; stripped at
+        # submit unless the server was built with tts_allow_force_frames
+        self.allow_force_frames = allow_force_frames
+        self.queue: queue.Queue[_TTSRequest] = queue.Queue()
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.batches = 0
+        self.requests = 0
+
+    def _generate_via_orch(self, lm_prompts, max_tokens):
+        """The LM stage through the orchestrator's shared slots. A failed
+        stream raises _PartialLMFailure, so that the batcher fails THAT
+        request and still synthesizes the rest."""
+        reqs = [self.orch.submit(np.asarray(p, np.int32), int(m))
+                for p, m in zip(lm_prompts, max_tokens)]
+        oks, errs = [], []
+        for r in reqs:
+            if not r.done.wait(timeout=600):
+                r.error = "LM generation timed out"
+            oks.append(r.error is None)
+            if r.error is not None:
+                errs.append(str(r.error))
+        if not all(oks):
+            raise _PartialLMFailure(
+                tokens=[r.tokens if ok else None for r, ok in zip(reqs, oks)], errors=errs)
+        return [r.tokens for r in reqs]
+
+    def start(self):
+        self.thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self.thread.join(timeout=30)
+
+    def submit(self, body: dict) -> _TTSRequest:
+        if not self.allow_force_frames:
+            body.pop("force_frames", None)
+        req = _TTSRequest(body=body)
+        self.queue.put(req)
+        return req
+
+    def _collect(self) -> list[_TTSRequest]:
+        try:
+            first = self.queue.get(timeout=0.05)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.monotonic() + self.window_s
+        while len(batch) < self.max_batch:
+            wait = deadline - time.monotonic()
+            if wait <= 0:
+                break
+            try:
+                batch.append(self.queue.get(timeout=wait))
+            except queue.Empty:
+                break
+        return batch
+
+    def _loop(self):
+        while not self._stop.is_set():
+            batch = self._collect()
+            if not batch:
+                continue
+            phased = self.orch is not None and hasattr(self.pipeline, "frontend_batch")
+            all_reqs = list(batch)  # done-signalling covers the failed ones too
+            try:
+                if phased:
+                    results, batch = self._run_phased(batch)
+                else:
+                    kw = {"generate_fn": self._generate_via_orch} if self.orch else {}
+                    # one batch shape whatever the window collected
+                    kw["pad_to_batch"] = self.max_batch
+                    results = self.pipeline.synthesize_batch([r.body for r in batch], **kw)
+                for req, res in zip(batch, results):
+                    req.result = res
+            except _PartialLMFailure as e:
+                # non-phased path only: fail the broken streams, re-run the
+                # survivors with their ALREADY-GENERATED tokens
+                survivors, cached = [], []
+                for req, toks in zip(batch, e.tokens):
+                    if toks is None:
+                        req.error = f"{type(e).__name__}: {e}"
+                    else:
+                        survivors.append(req)
+                        cached.append(toks)
+                if survivors:
+                    try:
+                        results = self.pipeline.synthesize_batch(
+                            [r.body for r in survivors], generate_fn=lambda p, m: cached,
+                            pad_to_batch=self.max_batch)
+                        for req, res in zip(survivors, results):
+                            req.result = res
+                    except Exception as e2:  # noqa: BLE001 - surfaced to every caller
+                        for req in survivors:
+                            req.error = f"{type(e2).__name__}: {e2}"
+            except Exception as e:  # noqa: BLE001 - surfaced to every caller
+                for req in batch:
+                    if req.error is None and req.result is None:
+                        req.error = f"{type(e).__name__}: {e}"
+            self.batches += 1
+            self.requests += len(all_reqs)
+            for req in all_reqs:
+                req.done.set()
+
+    def _run_phased(self, batch):
+        """One batch with every device stage on the orchestrator's thread:
+        frontend -> LM (shared slots) -> S2A + vocoder. A stream whose LM
+        generation failed is failed alone; the survivors go on to the S2A
+        pass with their frontend outputs. The results' ``t_frontend`` and
+        ``t_lm`` are the stages' wall times (the JAX server reports 0 there).
+        Returns (results, survivors)."""
+        pipeline, orch = self.pipeline, self.orch
+        bodies = [r.body for r in batch]
+        t0 = time.perf_counter()
+        sems, acs = orch.run_on_loop(
+            lambda: pipeline.frontend_batch(bodies, pad_to_batch=self.max_batch))
+        t1 = time.perf_counter()
+        lm_prompts = [pipeline.text_and_prompt_to_lm_prompt(b["text"], s)
+                      for b, s in zip(bodies, sems)]
+        mnts = [int(b.get("max_new_tokens", 256)) for b in bodies]
+        try:
+            outs = self._generate_via_orch(lm_prompts, mnts)
+        except _PartialLMFailure as e:
+            keep = []
+            for i, (req, toks) in enumerate(zip(batch, e.tokens)):
+                if toks is None:
+                    req.error = f"{type(e).__name__}: {e}"
+                else:
+                    keep.append(i)
+            if not keep:
+                return [], []
+            batch = [batch[i] for i in keep]
+            bodies = [bodies[i] for i in keep]
+            sems = [sems[i] for i in keep]
+            acs = [acs[i] for i in keep]
+            outs = [e.tokens[i] for i in keep]
+        gens = [pipeline.map_semantic(o, force_frames=bool(b.get("force_frames")))
+                for o, b in zip(outs, bodies)]
+        timings = {"t_frontend": t1 - t0, "t_lm": time.perf_counter() - t1, "t_start": t0}
+        results = orch.run_on_loop(lambda: pipeline.s2a_vocoder_batch(
+            bodies, sems, acs, gens, pad_to_batch=self.max_batch, timings=timings))
+        return results, batch
+
+
+def _tts_payload(body: dict, result) -> bytes:
+    wav, info = result
+    if body.get("wav_encoding") == "b64":
+        # base64 of little-endian float32: ~7x smaller than a JSON list
+        wav32 = np.asarray(wav, "<f4")
+        return json.dumps({"wav_b64": base64.b64encode(wav32.tobytes()).decode(),
+                           "dtype": "float32", "info": info}).encode()
+    return json.dumps({"wav": np.asarray(wav).tolist(), "info": info}).encode()
+
+
 def make_server(cfg: Config, port: int | None = None, engine: Engine | None = None,
-                device=None, host: str = "0.0.0.0"):
-    """Build the HTTP server without blocking. Returns (httpd, orch):
-    callers run ``httpd.serve_forever()`` themselves (``serve``) or in a
-    thread. ``port=0`` asks the system for a free port
+                device=None, host: str = "0.0.0.0", tts_pipeline=None):
+    """Build the HTTP server without blocking. Returns (httpd, orch,
+    tts_batcher): callers run ``httpd.serve_forever()`` themselves (``serve``)
+    or in a thread. ``port=0`` asks the system for a free port
     (``httpd.server_address[1]``). Endpoints: POST /generate, GET /metrics,
-    GET anything else -> "ok" (health check)."""
+    GET anything else -> "ok" (health check), and POST /tts when a TTS
+    pipeline is given (its engine serves the LM unless ``engine`` is)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+    if engine is None:
+        engine = tts_pipeline.engine if tts_pipeline is not None else Engine(cfg, device=device)
     orch = Orchestrator(
-        engine or Engine(cfg, device=device),
+        engine,
         steps_per_dispatch=cfg.serving_steps_per_dispatch,
         mode=cfg.serving_mode,
         admission_fusion_max=cfg.serving_admission_fusion_max,
     )
     orch.start()
+    tts_batcher = None
+    if tts_pipeline is not None:
+        tts_batcher = TTSBatcher(tts_pipeline, cfg.tts_batch_max, cfg.tts_batch_window_ms,
+                                 orchestrator=orch,
+                                 allow_force_frames=cfg.tts_allow_force_frames)
+        tts_batcher.start()
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: bytes, ctype: str = "application/json"):
@@ -316,6 +568,9 @@ def make_server(cfg: Config, port: int | None = None, engine: Engine | None = No
             self.wfile.write(payload)
 
         def do_POST(self):
+            if self.path == "/tts" and tts_batcher is not None:
+                self._do_tts()
+                return
             if self.path != "/generate":
                 self.send_error(404)
                 return
@@ -334,6 +589,25 @@ def make_server(cfg: Config, port: int | None = None, engine: Engine | None = No
             self._send(200 if ok else 500, json.dumps(
                 {"tokens": req.tokens} if ok else {"error": req.error}).encode())
 
+        def _do_tts(self):
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                body = json.loads(self.rfile.read(length) or "{}")
+                body["text"]  # validated before it is queued
+                for k in ("prompt_wav_16k", "prompt_wav_24k"):
+                    if k + "_b64" in body:  # binary prompt upload (float32 LE)
+                        body[k] = np.frombuffer(base64.b64decode(body.pop(k + "_b64")), "<f4")
+            except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
+                self._send(400, json.dumps({"error": f"bad request: {e}"}).encode())
+                return
+            req = tts_batcher.submit(body)
+            finished = req.done.wait(timeout=870)
+            if req.error is not None or not finished or req.result is None:
+                err = req.error or ("timed out" if not finished else "no result")
+                self._send(500, json.dumps({"error": err}).encode())
+                return
+            self._send(200, _tts_payload(body, req.result))
+
         def do_GET(self):
             if self.path == "/metrics":
                 self._send(200, orch.metrics_text().encode(), "text/plain; version=0.0.4")
@@ -345,16 +619,20 @@ def make_server(cfg: Config, port: int | None = None, engine: Engine | None = No
 
     server = ThreadingHTTPServer(
         (host, cfg.inference_server_port if port is None else port), Handler)
-    return server, orch
+    return server, orch, tts_batcher
 
 
-def serve(cfg: Config, port: int | None = None, engine: Engine | None = None, device=None):
+def serve(cfg: Config, port: int | None = None, engine: Engine | None = None, device=None,
+          tts_pipeline=None):
     """Blocking HTTP server."""
-    server, orch = make_server(cfg, port, engine, device)
+    server, orch, tts_batcher = make_server(cfg, port, engine, device,
+                                            tts_pipeline=tts_pipeline)
     try:
         server.serve_forever()
     finally:
         orch.stop()
+        if tts_batcher is not None:
+            tts_batcher.stop()
         server.server_close()
 
 

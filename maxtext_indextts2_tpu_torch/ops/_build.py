@@ -52,6 +52,8 @@ SIGNATURES = {
     "ada_rmsnorm_quantize": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     # (g, u, q, scales, rows, d, dtype, stream)
     "silu_mul_quantize": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype, stream)
+    "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _P],
 }
 
 _lock = threading.Lock()

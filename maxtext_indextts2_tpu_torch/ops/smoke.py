@@ -33,6 +33,7 @@ from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm as arn
 from maxtext_indextts2_tpu_torch.ops import inplace_update as iu
 from maxtext_indextts2_tpu_torch.ops import quant_kernels as qk
 from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention as rda
+from maxtext_indextts2_tpu_torch.ops import s2a_attention as s2a
 from maxtext_indextts2_tpu_torch.ops.quantization import quantize_kv
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense).
@@ -84,22 +85,29 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, tries: int = 3) -> float | None:
     """Device-busy milliseconds of one call of ``fn``, from ``torch.profiler``:
     the summed device time of every GPU kernel and copy the call launches.
     ``time_ms`` above times back-to-back calls through the Python wrapper, so
     for a kernel of a few microseconds it reads the host's cost of a call; this
-    reads what the card spent."""
+    reads what the card spent. The trace sometimes loses events or their
+    times: a trace whose count of device events is not a positive multiple of
+    ``iters``, or whose time is 0, is taken again, up to ``tries`` times, and
+    then the time is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.device_time_total for e in on_device) / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in on_device)
+        if busy > 0 and len(on_device) % iters == 0:
+            return busy / 1e3 / iters
+    return None
 
 
 def spread_lengths(b: int, s: int, seed: int, serving_max: int = 0) -> torch.Tensor:
@@ -390,11 +398,99 @@ def row_cases(device, timing, full_size=True):
     return out
 
 
+def _attention_inputs(b, s, n, d, dtype, seed, device, fused):
+    """q (scale folded in), k, v [B,S,N,D]; with ``fused`` the three are
+    strided views of one [B, S, 3*N*D] projection output, as in the denoiser."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if fused:
+        qkv = torch.randn((b, s, 3 * n * d), generator=g, device=device).to(dtype)
+        qkv[..., : n * d] *= 1.0 / math.sqrt(d)
+        q, k, v = (t.reshape(b, s, n, d) for t in torch.split(qkv, n * d, dim=-1))
+        return q, k, v
+    q = (torch.randn((b, s, n, d), generator=g, device=device) / math.sqrt(d)).to(dtype)
+    k = torch.randn((b, s, n, d), generator=g, device=device).to(dtype)
+    v = torch.randn((b, s, n, d), generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def attention_case(name, device, timing, *, b, s, n=16, d=64, dtype=torch.bfloat16, seed=0,
+                   fused=False):
+    """K12 against its plain version: S non-multiple of the 64-row tile, one
+    row, strided views."""
+    q, k, v = _attention_inputs(b, s, n, d, dtype, seed, device, fused)
+    got = s2a.s2a_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = s2a.s2a_attention(q, k, v, impl="plain")
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (b, s, n, d)
+    err = float((got.float() - want.float()).abs().max().item())
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    finite = bool(torch.isfinite(got).all().item())
+    res = dict(name=name, kernel="s2a_attention", max_abs_err=err, tol=tol,
+               ok=bool(finite and err <= tol), finite=finite,
+               shape=dict(b=b, s=s, n=n, d=d, dtype=str(dtype), strided_views=fused))
+    if timing:
+        esz = q.element_size()
+        nbytes = 4 * b * s * n * d * esz  # q, k, v read once, the output written once
+        ops = 4 * b * n * s * s * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        res.update(
+            kernel_ms=time_ms(lambda: s2a.s2a_attention(q, k, v)),
+            plain_ms=time_ms(lambda: s2a.s2a_attention(q, k, v, impl="plain"), warmup=1,
+                             iters=5),
+            bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved=nbytes, flops=ops,
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, scale=1.0), warmup=1, iters=10),
+            device_ms=device_ms(lambda: s2a.s2a_attention(q, k, v)),
+            plain_device_ms=device_ms(lambda: s2a.s2a_attention(q, k, v, impl="plain"),
+                                      iters=3),
+        )
+    return res
+
+
+# ``synthesize`` at full width with a 3-s prompt (149 semantic / 150 acoustic
+# frames, so P = 149) and 256 target frames: the conditional denoiser forward
+# attends over P + T rows, the unconditional one over T.
+SYNTH_PROMPT, SYNTH_TARGET = 149, 256
+
+
+def attention_cases(device, timing, full_size=True):
+    """K12: the ``synthesize`` shapes in bfloat16 (the int8 serving modes) and
+    float32, short and ragged S, the batched [8, 768] shape, strided views."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cond, uncond = SYNTH_PROMPT + SYNTH_TARGET, SYNTH_TARGET
+    batched = dict(b=8, s=768) if full_size else dict(b=2, s=200)
+    return [
+        attention_case("s2a_attention_bf16_main_path", device, timing, b=1, s=cond, seed=200),
+        attention_case("s2a_attention_bf16_uncond", device, timing, b=1, s=uncond, seed=201),
+        attention_case("s2a_attention_f32_cond", device, timing, b=1, s=cond, dtype=f32,
+                       seed=202),
+        attention_case("s2a_attention_f32_uncond", device, timing, b=1, s=uncond, dtype=f32,
+                       seed=203),
+        attention_case("s2a_attention_bf16_s1", device, timing, b=2, s=1, seed=204),
+        attention_case("s2a_attention_f32_s63", device, timing, b=2, s=63, dtype=f32, seed=205),
+        attention_case("s2a_attention_bf16_s65", device, timing, b=2, s=65, seed=206),
+        attention_case("s2a_attention_f32_s130_d128", device, timing, b=1, s=130, n=4, d=128,
+                       dtype=f32, seed=207),
+        attention_case("s2a_attention_bf16_s130_d32", device, timing, b=3, s=130, n=8, d=32,
+                       seed=208),
+        attention_case("s2a_attention_bf16_batched", device, timing, **batched, seed=209),
+        attention_case("s2a_attention_bf16_strided_views", device, timing, b=2, s=406,
+                       fused=True, seed=210),
+        attention_case("s2a_attention_f32_strided_views", device, timing, b=1, s=130, fused=True,
+                       dtype=f32, seed=211),
+    ]
+
+
 # The cases at the shapes the main paths of ``chip_smoke.py`` give the
 # kernels. Serving run: 32 slots of the tts-1b cache, each holding a prompt of
 # up to 400 tokens plus up to 128 generated ones. TTS back end: 8 requests, the
 # prompt padded to 256 and the target bucketed to 512 frames, hidden 1024.
+# ``synthesize``: one request, the conditional forward over P + T rows.
 MAIN_PATH_CASES = {
+    "s2a_attention": "s2a_attention_bf16_main_path",
     "ragged_decode_attention": "ragged_bf16_main_path",
     "inplace_row_update": "inplace_kv_bf16_k1_main_path",
     "ada_rmsnorm": "ada_rmsnorm_bf16_main_path",
@@ -449,7 +545,7 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                      seed=16),
         inplace_case("inplace_unaligned_rows", device, timing, cache_shape=(4, 16, 3),
                      span=2, cache_dtype=f32, seed=17),
-    ] + row_cases(device, timing, full_size)
+    ] + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size)
 
 
 def main(argv=None):

@@ -12,12 +12,15 @@ checkpoints, the split of the leading layer axis::
     decoder/layers/self_attention_0/query/kernel[3]  (scan-stacked, axis 0)
       -> decoder.layers_3.self_attention_0.query.kernel
 
-The S2A model and the codec decoder cross the same way
-(:func:`s2a_params_from_jax`, :func:`codec_decoder_params_from_jax`; back
-with :func:`params_to_jax`, bfloat16 tensors as float32 arrays): float,
+The S2A model, the acoustic codec and the semantic tokenizer cross the same
+way (:func:`s2a_params_from_jax`, :func:`codec_params_from_jax`,
+:func:`codec_decoder_params_from_jax`, :func:`semantic_tokenizer_params_from_jax`;
+back with :func:`params_to_jax`, bfloat16 tensors as float32 arrays): float,
 dynamic-int8 (float kernels) and offline-int8 trees (``kernel`` int8
 ``[in, out]``, ``kernel_scale`` float32 ``[1, out]``), bfloat16 leaves as
-``ml_dtypes`` numpy arrays.
+``ml_dtypes`` numpy arrays. Convolution kernels keep flax's ``[k, in /
+groups, out]`` on both sides (``audio.layers.Conv1d`` permutes at the call),
+so a depthwise kernel (``feature_group_count = C``) crosses as ``[k, 1, C]``.
 """
 
 from __future__ import annotations
@@ -142,7 +145,23 @@ def s2a_params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 
 def codec_decoder_params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """The JAX package's ``AcousticCodec`` parameter tree -> state dict of
-    this package's ``audio.acoustic.AcousticCodec``, which holds the decode
-    side only: the ``encoder`` subtree is left out."""
+    """The decode side of the JAX package's ``AcousticCodec`` parameter tree
+    -> state dict for ``audio.acoustic.AcousticCodec.load_state_dict(...,
+    strict=False)``: the ``encoder`` subtree is left out (serving that only
+    detokenizes needs no encoder weights)."""
     return {k: v for k, v in tree_to_state_dict(tree).items() if not k.startswith("encoder.")}
+
+
+def codec_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The JAX package's ``AcousticCodec`` tree -> state dict of this
+    package's ``audio.acoustic.AcousticCodec``, encoder and decoder."""
+    return tree_to_state_dict(tree)
+
+
+def semantic_tokenizer_params_from_jax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's ``SemanticTokenizer.params`` (``{"encoder": <the
+    SemanticEncoder tree, with stat_mean / stat_std>, "repcodec": <the RepCodec
+    tree>}``, each with or without its ``params`` level, numpy leaves) ->
+    state dict of this package's ``audio.semantic_tokenizer.SemanticTokenizer``."""
+    return {f"{half}.{name}": leaf for half in ("encoder", "repcodec")
+            for name, leaf in tree_to_state_dict(params[half]).items()}

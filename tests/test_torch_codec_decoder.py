@@ -188,11 +188,13 @@ def test_codec_params_cross_from_the_jax_tree_without_the_encoder():
     tcodec, jcodec, params = h.codec_pair(seed=18)
     state = codec_decoder_params_from_jax(h.to_numpy_tree(params))
     assert state and not any(k.startswith("encoder.") for k in state)
-    assert set(state) == set(tcodec.state_dict())
+    decoder_keys = {k for k in tcodec.state_dict() if not k.startswith("encoder.")}
+    assert set(state) == decoder_keys
     fresh = acoustic.AcousticCodec(**h.TINY_CODEC, device="cpu")
-    fresh.load_state_dict(state)
-    for k, v in tcodec.state_dict().items():
-        assert torch.equal(v, fresh.state_dict()[k]), k
+    missing, unexpected = fresh.load_state_dict(state, strict=False)
+    assert not unexpected and missing and all(k.startswith("encoder.") for k in missing)
+    for k in decoder_keys:
+        assert torch.equal(tcodec.state_dict()[k], fresh.state_dict()[k]), k
     # and back: the decoder subtree, leaf for leaf
     back = params_to_jax(tcodec.state_dict())
     flat_back = jax.tree_util.tree_leaves_with_path(back["decoder"])

@@ -362,9 +362,14 @@ def _sampler_args(case):
 
 @pytest.mark.parametrize("case", list(SAMPLER_CASES))
 @pytest.mark.parametrize("mode", h.MODES)
-def test_reverse_diffusion_matches_jax_with_its_noise(mode, case):
+def test_reverse_diffusion_matches_jax_with_its_noise(mode, case, monkeypatch):
+    """Without pad masks every key is valid and the PyTorch sampler's
+    attention is ``s2a_attention`` (float32 logits); the JAX package is made to
+    take its own ``s2a_attention`` branch there, so like is held to like."""
     tm, jm, params = h.s2a_pair(mode)
     cond, prompt, kw, masks = _sampler_args(case)
+    if masks is None:
+        h.use_jax_s2a_attention_kernel(monkeypatch)
     key = jax.random.PRNGKey(7)
     jkw, tkw = dict(kw), dict(kw)
     valid = np.ones((B, T), bool)

@@ -124,7 +124,7 @@ def test_device_error_fails_requests_and_stops_the_loop(engine):
 
 
 def test_http_generate_and_metrics_round_trip(engine):
-    server, orch = make_server(engine.cfg, port=0, engine=engine, host="127.0.0.1")
+    server, orch, _ = make_server(engine.cfg, port=0, engine=engine, host="127.0.0.1")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()

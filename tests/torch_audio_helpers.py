@@ -6,6 +6,8 @@ package's state-dict layout and carried to the JAX package's tree by
 sampler draw by draw.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from maxtext_indextts2_tpu.audio import s2a as jax_s2a
 from maxtext_indextts2_tpu.audio.acoustic import AcousticCodec as JaxAcousticCodec
+from maxtext_indextts2_tpu.ops import s2a_attention as jax_s2a_attention
 from maxtext_indextts2_tpu_torch.audio import s2a as s2a_lib
 from maxtext_indextts2_tpu_torch.audio.acoustic import AcousticCodec
 from maxtext_indextts2_tpu_torch.audio.pipeline import build_serving_s2a
@@ -88,6 +91,32 @@ def s2a_pair(mode, weights=None, **overrides):
     return tmodel, jmodel, params
 
 
+class _TPUView:
+    """``jax`` as the JAX package's ``audio/s2a.py`` sees it, reporting a TPU
+    backend: its opt-in branches are chosen by backend and environment."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"
+
+
+def use_jax_s2a_attention_kernel(monkeypatch):
+    """Make the JAX package's S2A denoiser take its ``s2a_attention`` branch
+    (the Pallas kernel, in interpret mode on the CPU) wherever every key is
+    valid, as the PyTorch package always does: ``MTT_S2A_FLASH=1`` and a TPU
+    backend as that module sees it, with its other TPU-only kernels
+    (``MTT_FUSED_QUANT``, ``MTT_FUSED_ADALN``) left off."""
+    monkeypatch.setenv("MTT_S2A_FLASH", "1")
+    monkeypatch.setenv("MTT_FUSED_QUANT", "0")
+    monkeypatch.setenv("MTT_FUSED_ADALN", "0")
+    monkeypatch.setattr(jax_s2a, "jax", _TPUView())
+    monkeypatch.setattr(jax_s2a_attention, "s2a_attention", functools.partial(
+        jax_s2a_attention.s2a_attention, interpret=True))
+
+
 def jax_noise(rng):
     """The uniforms ``S2AModel.reverse_diffusion`` of the JAX package draws
     from ``rng``, as the callable the PyTorch sampler takes: keys
@@ -122,16 +151,44 @@ def codec_weights(seed=0, **kwargs):
 
 
 def codec_pair(seed=0, **kwargs):
-    """(PyTorch AcousticCodec on the CPU, JAX AcousticCodec, JAX params). The
-    JAX tree also holds an encoder; it is initialised by the JAX package and
-    not used."""
+    """(PyTorch AcousticCodec on the CPU, JAX AcousticCodec, JAX params), the
+    same numpy weights on both sides, encoder and decoder."""
     kw = {**TINY_CODEC, **kwargs}
     weights = codec_weights(seed, **kwargs)
     tcodec = AcousticCodec(**kw, device="cpu").eval()
     tcodec.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
     jcodec = JaxAcousticCodec(**kw)
-    hop = int(np.prod(jcodec.strides))
-    init = jcodec.init(jax.random.PRNGKey(0), jnp.zeros((1, hop * 2)))
-    tree = to_jnp(params_to_jax(weights))
-    params = {"params": {**init["params"], "decoder": tree["decoder"]}}
+    params = {"params": to_jnp(params_to_jax(weights))}
     return tcodec, jcodec, params
+
+
+def seeded_state(model, seed=0):
+    """A state dict of numpy arrays for any of the audio modules: kernels
+    normal with variance 1 / fan-in (``[.., in, out]`` layouts: all axes but
+    the last), scales, snake alphas and the tap's ``stat_std`` around 1, layer
+    scales around 0.5, biases and ``stat_mean`` small, codebooks and distance
+    embeddings standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if name.endswith(("scale", "alpha", "stat_std")):
+            w = 1.0 + 0.1 * rng.normal(size=shape)
+        elif name.endswith("gamma"):
+            w = 0.5 + 0.1 * rng.normal(size=shape)
+        elif name.endswith("kernel"):
+            w = rng.normal(size=shape) / np.sqrt(max(1, int(np.prod(shape[:-1]))))
+        elif name.endswith(("bias", "stat_mean")):
+            w = 0.1 * rng.normal(size=shape)
+        else:  # codebooks, distance embeddings
+            w = rng.normal(size=shape)
+        out[name] = w.astype(np.float32)
+    return out
+
+
+def load_seeded(model, seed=0):
+    """``model`` with :func:`seeded_state` loaded; returns (model, the numpy
+    state dict)."""
+    state = seeded_state(model, seed)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.eval(), state

@@ -63,6 +63,19 @@ def numpy_weights(cfg, seed=0):
     return out
 
 
+def audio_only_lm_weights(cfg, seed=0):
+    """:func:`numpy_weights` with the output columns of every id that is not
+    an audio token (text, markers, pad rows) set to zero: greedy decoding with
+    these random weights emits audio tokens only, so a TTS request keeps its
+    full frame budget."""
+    from maxtext_indextts2_tpu_torch.vocab.mapping import default_mapping
+
+    weights = numpy_weights(cfg, seed)
+    e2a = default_mapping(cfg).embedding_to_audio_array(cfg.vocab_size)
+    weights["logits_dense.kernel"][:, (e2a < 0) | (e2a >= cfg.audio_codebook_size)] = 0.0
+    return weights
+
+
 def jax_tree(weights, scan_layers=False):
     """The same weights as the JAX package's parameter tree (jnp leaves)."""
     def to_jnp(node):
