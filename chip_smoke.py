@@ -18,7 +18,13 @@ semantic tokenizer and codec encoder of the prompt, the LM, the S2A sampler,
 the vocoder): ``TTSPipeline.synthesize`` for one request, whose fixed-length
 sampler runs the S2A attention kernel, compares that kernel and the prompt
 tokenizers (card against CPU) with their plain routes, and serves 8
-concurrent ``POST /tts`` requests through ``make_server``. Every phase prints
+concurrent ``POST /tts`` requests through ``make_server``. Then it trains:
+the ``tts-1b`` recipe at full width (4 x 2048 tokens a step, bf16 weights,
+``attention=flash``, remat ``save_attn_and_mlp``) for a few steps through
+the training entry point, shows with the launch counts that every step ran
+the flash-attention kernels K9-K11 as often as the code predicts, and holds
+one 2-layer float32 step's loss and gradients through the kernels against the
+plain route. Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
 non-zero exit code, and so does a machine without a GPU: nothing here falls
@@ -73,6 +79,15 @@ KERNELS = [
     dict(name="s2a_attention", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/s2a_attention.cu",
          replaces="maxtext_indextts2_tpu/ops/s2a_attention.py:81"),
+    dict(name="flash_fwd", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/flash_attention.cuh",
+         replaces="maxtext_indextts2_tpu/ops/flash_attention.py:165"),
+    dict(name="flash_bwd_dq", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/flash_attention.cuh",
+         replaces="maxtext_indextts2_tpu/ops/flash_attention.py:392"),
+    dict(name="flash_bwd_dkv", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/flash_attention.cuh",
+         replaces="maxtext_indextts2_tpu/ops/flash_attention.py:426"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -136,6 +151,29 @@ TOL_SYNTH_F32 = 1e-3
 # between near-equal candidates, and a flipped RVQ stage changes the stages
 # after it at that frame: at least 0.9 of the ids equal.
 MIN_FRONTEND_ID_AGREEMENT = 0.9
+
+# Training: the JAX package's committed 1B recipe (configs/perf/v5e/tts_1b.sh)
+# without its TPU tiling flash_block_sizes, through the training entry point.
+TRAIN_STEPS = 5
+TRAIN_ARGS = [
+    TTS_1B, "dataset_type=synthetic", "per_device_batch_size=4",
+    "remat_policy=save_attn_and_mlp", "attention=flash", "weight_dtype=bfloat16",
+    "scan_layers=false", "cast_logits_to_fp32=false", f"steps={TRAIN_STEPS}",
+]
+# Launches a step, read from the code before the first run (PERF.md): every
+# layer's attention region is recomputed in the backward (no remat anchor
+# holds the flash kernel's residuals), so K9 runs twice a layer; K10 and K11
+# once a layer.
+TRAIN_LAUNCHES_PER_LAYER = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+TRAIN_MAX_PEAK_BYTES = 40e9
+# One 2-layer float32 step at full width, kernel route against plain route, the
+# same weights and batch (TF32 off). Both routes run the same float32
+# arithmetic; only the attention's sums run in another order (~1e-6 relative
+# of each row), which the softmax backward and two layers carry to ~1e-5 of a
+# gradient: the loss within 1e-4 (values ~9), the global grad norm within
+# 1e-4 relative, every gradient within 1e-3 of its own largest entry. A wrong
+# mask, scale or group sum moves them by their own size.
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD_NORM_REL, TOL_TRAIN_GRAD_REL = 1e-4, 1e-4, 1e-3
 
 
 def emit(phase: str, t0: float, **fields):
@@ -562,20 +600,27 @@ def _k12_count() -> int:
 
 def _reset_all_counts():
     from maxtext_indextts2_tpu_torch.ops import (
-        inplace_update, ragged_decode_attention, s2a_attention,
+        flash_attention, inplace_update, ragged_decode_attention, s2a_attention,
     )
 
     _reset_row_kernel_counts()
     ragged_decode_attention.launch_count = inplace_update.launch_count = 0
     s2a_attention.launch_count = 0
+    for name in flash_attention.launch_counts:
+        flash_attention.launch_counts[name] = 0
 
 
 def _all_counts() -> dict:
-    from maxtext_indextts2_tpu_torch.ops import inplace_update, ragged_decode_attention
+    from maxtext_indextts2_tpu_torch.ops import (
+        flash_attention, inplace_update, ragged_decode_attention,
+    )
 
     return {"ragged_decode_attention": ragged_decode_attention.launch_count,
             "inplace_row_update": inplace_update.launch_count, **_row_kernel_counts(),
-            "s2a_attention": _k12_count()}
+            "s2a_attention": _k12_count(), **flash_attention.launch_counts}
+
+
+NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def _audio_only_lm(pipe):
@@ -641,7 +686,8 @@ def phase_tts_synthesize(pipe):
             "inplace_row_update": 2 * layers * (SYNTH_FRAMES - 1),
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
-            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12}
+            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12,
+            **NO_FLASH}
     check(launches == want, f"tts_synthesize: launches {launches} != predicted {want}")
     emit("tts_synthesize", t0, call_seconds=seconds, info=info, denoiser_forwards=forwards,
          prompt_seconds=SYNTH_PROMPT_SECONDS, launches=launches,
@@ -830,7 +876,7 @@ def phase_tts_http(pipe):
     want = {"ragged_decode_attention": layers * steps, "inplace_row_update": 2 * layers * steps,
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
-            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0}
+            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0, **NO_FLASH}
     check(launches == want, f"tts_http: launches {launches} != predicted {want} "
                             f"({steps} decode steps, {batcher.batches} batches)")
     audio = sum(n * hop for n in frames) / 24_000.0
@@ -842,6 +888,92 @@ def phase_tts_http(pipe):
          launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
+def phase_train():
+    """The main path of this slice: the tts-1b recipe at full width through
+    the training entry point; K9-K11 launch counts a step, losses, memory."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = train.main(list(TRAIN_ARGS))  # no device given: the GPU, or an error
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train: losses {losses} over {len(hist)} of {TRAIN_STEPS} steps")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    check(all(np.isfinite(h["grad_norm"]) for h in hist), "train: a grad norm is not finite")
+    layers = cfg.num_decoder_layers
+    want = {k: 0 for k in _all_counts()}
+    want.update({k: n * layers * TRAIN_STEPS for k, n in TRAIN_LAUNCHES_PER_LAYER.items()})
+    check(launches == want, f"train: launches {launches} != predicted {want} "
+                            f"({TRAIN_STEPS} steps x {layers} layers)")
+    check(peak < TRAIN_MAX_PEAK_BYTES, f"train: peak memory {peak / 1e9:.1f} GB")
+    steady = hist[1:]  # the first step pays for the allocator's warm-up
+    step_s = float(np.median([h["step_time_s"] for h in steady]))
+    tflops = flops.training_tflops_per_step(cfg)
+    emit("train", t0, steps=TRAIN_STEPS, losses=losses,
+         grad_norms=[h["grad_norm"] for h in hist], param_norm=hist[-1]["param_norm"],
+         step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+         tokens_per_step=cfg.global_batch_size_to_train_on * cfg.max_target_length,
+         tokens_per_s=cfg.global_batch_size_to_train_on * cfg.max_target_length / step_s,
+         tflops_per_step=tflops, mfu_at_989_tflops=flops.mfu(tflops, step_s),
+         launches=launches, launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         params=sum(p.numel() for p in Transformer(cfg, device="meta").parameters()),
+         peak_memory_bytes=peak)
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+
+
+def phase_train_parity():
+    """One 2-layer float32 step at full width: the kernel route against the
+    plain route (the materialised flash-attention versions) from one set of
+    seeded weights and one batch: loss, grad norm, every gradient."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_ARGS + ["base_num_decoder_layers=2", "weight_dtype=float32",
+                                    "dtype=float32"])
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    names, leaves = list(state.params), list(state.params.values())
+    out = {}
+    for impl in (None, "plain"):
+        _reset_all_counts()
+        loss, _ = train.loss_fn(state.model, cfg, batch, impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[impl] = (float(loss.detach()), grads, float(train._global_norm(grads)),
+                     dict(_all_counts()))
+    (loss_k, g_k, norm_k, n_k), (loss_p, g_p, norm_p, n_p) = out[None], out["plain"]
+    want = {"flash_fwd": 2 * cfg.num_decoder_layers, "flash_bwd_dq": cfg.num_decoder_layers,
+            "flash_bwd_dkv": cfg.num_decoder_layers}
+    check({k: n_k[k] for k in want} == want and not any(n_p[k] for k in want),
+          f"train_parity: kernel route launched {n_k}, plain route {n_p}")
+    rel = {name: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+           for name, a, b in zip(names, g_k, g_p)}
+    worst = max(rel, key=rel.get)
+    check(all(np.isfinite([loss_k, norm_k])), "train_parity: loss or grad norm not finite")
+    check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+          f"train_parity: loss {loss_k} (kernels) vs {loss_p} (plain)")
+    check(abs(norm_k - norm_p) <= TOL_TRAIN_GRAD_NORM_REL * norm_p,
+          f"train_parity: grad norm {norm_k} (kernels) vs {norm_p} (plain)")
+    check(rel[worst] <= TOL_TRAIN_GRAD_REL,
+          f"train_parity: gradient {worst} differs by {rel[worst]:.3g} of its largest entry")
+    emit("train_parity", t0, layers=cfg.num_decoder_layers, loss_kernels=loss_k,
+         loss_plain=loss_p, grad_norm_kernels=norm_k, grad_norm_plain=norm_p,
+         worst_grad=worst, worst_grad_rel_err=rel[worst], tol_grad_rel=TOL_TRAIN_GRAD_REL,
+         grads_compared=len(rel), launches_kernel_route={k: n_k[k] for k in want})
+
+
 def kernels_line(cases, launches):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes that path's run gives the kernel (the error in
@@ -849,8 +981,11 @@ def kernels_line(cases, launches):
     closest to its own tolerance."""
     from maxtext_indextts2_tpu_torch.ops.smoke import MAIN_PATH_CASES
 
+    def err(c):  # the error in the case's unit: ``max_err`` where that is not output values
+        return c.get("max_err", c["max_abs_err"])
+
     def closeness(c):
-        return c["max_abs_err"] / c["tol"] if c["tol"] else c["max_abs_err"]
+        return err(c) / c["tol"] if c["tol"] else err(c)
 
     out = []
     for k in KERNELS:
@@ -861,14 +996,16 @@ def kernels_line(cases, launches):
                                                 "tol_scale_rel") if key in main}
         out.append(dict(
             k, launches=launches[k["name"]],
-            max_abs_err=main["max_abs_err"], tol=main["tol"],
+            max_abs_err=main["max_abs_err"], max_err=err(main), tol=main["tol"],
             unit=main.get("unit", "output values"), **accuracy,
             worst_case=dict(name=worst["name"], max_abs_err=worst["max_abs_err"],
-                            tol=worst["tol"], unit=worst.get("unit", "output values")),
+                            max_err=err(worst), tol=worst["tol"],
+                            unit=worst.get("unit", "output values")),
             ms=main["kernel_ms"], device_ms=main["device_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], bytes_moved=main["bytes_moved"],
+            library_ms=main["library_ms"], library_call=main.get("library_call"),
+            bytes_moved=main["bytes_moved"],
             shape=main["shape"], cases=len(own)))
     return {"kernels": out}
 
@@ -896,6 +1033,10 @@ def main():
     launches["s2a_attention"] = phase_tts_synthesize(pipe)["s2a_attention"]
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    launches.update(phase_train())
+    phase_train_parity()
     check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
           f"a kernel of a main path never ran: {launches}")
     emit("total", t_all)

@@ -19,7 +19,7 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Conv1d, lecun_normal_
 from maxtext_indextts2_tpu_torch.audio.quantize import ResidualVQ
 from maxtext_indextts2_tpu_torch.audio.vocos import ISTFTHead, VocosBackbone
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -201,7 +201,7 @@ class CodecDecoder(nn.Module):
 
     def forward(self, latents, n_quantizers: int | None = None, dropout_rng=None):
         _unsupported("CodecDecoder.__call__ (codec training: quantize + decode)",
-                     "4, training step")
+                     "4b, rest of training: codec training")
 
 
 class AcousticCodec(nn.Module):
@@ -236,4 +236,5 @@ class AcousticCodec(nn.Module):
         return idx
 
     def forward(self, wav, dropout_rng=None):
-        _unsupported("AcousticCodec.__call__ (codec autoencoder training)", "4, training step")
+        _unsupported("AcousticCodec.__call__ (codec autoencoder training)",
+                     "4b, rest of training: codec training")

@@ -29,9 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.audio.layers import Conv1d, Dense, LayerNorm
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_CHECKPOINTS = "4, weight import (once checkpoint files are in the repo)"
+_CHECKPOINTS = "4b, rest of training: weight import (once checkpoint files are in the repo)"
 
 
 @dataclass(frozen=True)

@@ -35,7 +35,7 @@ from maxtext_indextts2_tpu_torch.audio.s2a import (
 from maxtext_indextts2_tpu_torch.audio.semantic_tokenizer import SemanticTokenizer
 from maxtext_indextts2_tpu_torch.config import Config, load_config
 from maxtext_indextts2_tpu_torch.infer.engine import Engine, resolve_device
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.train.data.tokenizer import build_tokenizer
 from maxtext_indextts2_tpu_torch.vocab.mapping import AudioVocabMapping, default_mapping
 
@@ -75,7 +75,7 @@ class TTSPipeline:
 
     def load_torch_audio_weights(self, *args, **kwargs):
         _unsupported("TTSPipeline.load_torch_audio_weights (published checkpoints)",
-                     "4, weight import (once checkpoint files are in the repo)")
+                     "4b, rest of training: weight import (once checkpoint files are in the repo)")
 
     # ------------------------------------------------------------ stages
     def text_and_prompt_to_lm_prompt(self, text: str, prompt_semantic) -> np.ndarray:

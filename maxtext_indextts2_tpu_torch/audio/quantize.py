@@ -15,9 +15,9 @@ import torch
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_TRAINING = "4, training step"
+_TRAINING = "4b, rest of training: codec training"
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -16,7 +16,7 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
 from maxtext_indextts2_tpu_torch.audio.quantize import ResidualVQ
 from maxtext_indextts2_tpu_torch.audio.vocos import VocosBackbone
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 class RepCodec(nn.Module):
@@ -47,4 +47,5 @@ class RepCodec(nn.Module):
         return self.quantizer.vq2emb(indices[None])
 
     def forward(self, feats):
-        _unsupported("RepCodec.__call__ (the training autoencoder)", "4, training step")
+        _unsupported("RepCodec.__call__ (the training autoencoder)",
+                     "4b, rest of training: RepCodec training")

@@ -20,7 +20,7 @@ runs its attention through ``ops/s2a_attention.py`` (a CUDA kernel on the
 GPU); the masked path of batched serving keeps the materialised logits.
 
 Not ported here: ``compute_loss`` / training and the opt-in sequence flash
-attention of the JAX package (ROADMAP queue item 4).
+attention of the JAX package (ROADMAP queue item 4b).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense, lecun_normal_
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
 from maxtext_indextts2_tpu_torch.models.attention import dot_product_attention
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import ada_rmsnorm
 from maxtext_indextts2_tpu_torch.ops.quant_kernels import (
     ada_rmsnorm_quantize, row_quantize_int8, silu_mul_quantize,
@@ -439,7 +439,7 @@ class S2AModel(nn.Module):
 
     # ---------------------------------------------------------------- train
     def compute_loss(self, x0, x_mask, cond_code, rng=None):
-        _unsupported("S2AModel.compute_loss (S2A training)", "4, training step")
+        _unsupported("S2AModel.compute_loss (S2A training)", "4b, rest of training: S2A training")
 
     def forward(self, x0, x_mask, cond_code, rng=None):
         return self.compute_loss(x0, x_mask, cond_code, rng)

@@ -20,9 +20,9 @@ from maxtext_indextts2_tpu_torch.audio import mel
 from maxtext_indextts2_tpu_torch.audio.conformer import ConformerConfig, SemanticEncoder
 from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
 from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_CHECKPOINTS = "4, weight import (once checkpoint files are in the repo)"
+_CHECKPOINTS = "4b, rest of training: weight import (once checkpoint files are in the repo)"
 
 
 class SemanticTokenizer(nn.Module):

@@ -40,7 +40,8 @@ from maxtext_indextts2_tpu_torch.models import (
     MODE_PREFILL,
     Transformer,
 )
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported, to_dtype
+from maxtext_indextts2_tpu_torch.models.layers import to_dtype
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 def set_cuda_numerics() -> None:
@@ -115,7 +116,7 @@ class Engine:
         cast. No checkpoint format is ported yet."""
         path = path or self.cfg.load_parameters_path
         if path:
-            _unsupported("loading a checkpoint from disk", "4, checkpointing")
+            _unsupported("loading a checkpoint from disk", "4b, rest of training: checkpointing")
         self.model.init_params(self.cfg.init_weights_seed)
         self._cast_for_serving(cast_dtype)
         self.params = self.model.state_dict()

@@ -29,7 +29,7 @@ import numpy as np
 
 from maxtext_indextts2_tpu_torch.config import Config
 from maxtext_indextts2_tpu_torch.infer.engine import Engine
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 @dataclass

@@ -1,10 +1,16 @@
-"""Attention: projections, RoPE, mask generation, decode kernel dispatch, KV cache.
+"""Attention: projections, RoPE, mask generation, kernel dispatch, KV cache.
 
-Counterpart of the JAX package's ``models/attention.py`` for the serving
-slice: ``MODE_TRAIN`` and ``MODE_PREFILL`` compute attention with plain
+Counterpart of the JAX package's ``models/attention.py``. ``MODE_TRAIN``
+takes ``attention`` ``flash`` (K9-K11, the hand-written CUDA kernels of
+``ops/flash_attention``, with their backward) or ``dot_product`` (plain
+einsum/softmax); ``autoselected`` picks flash on a CUDA device at S >= 1024
+(the JAX package: on a TPU). ``MODE_PREFILL`` computes attention with plain
 einsum/softmax (as the JAX serving path does outside any kernel), and
 ``MODE_AUTOREGRESSIVE`` takes ``decode_attention`` ``dot_product`` or
 ``ragged`` (the hand-written CUDA kernel of ``ops/ragged_decode_attention``).
+:meth:`Attention.attend` is the training forward up to the output
+projection: its result is the ``attn_out`` remat anchor of
+``models/decoder.py``.
 
 The KV cache is explicit state: a :class:`KVCache` per layer, handed to the
 module and UPDATED IN PLACE (the JAX package threads it through as a flax
@@ -20,12 +26,14 @@ import torch
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
-from maxtext_indextts2_tpu_torch.models.layers import DenseGeneral, RMSNorm, _unsupported
+from maxtext_indextts2_tpu_torch.models.layers import DenseGeneral, RMSNorm
+from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
 from maxtext_indextts2_tpu_torch.ops.inplace_update import inplace_row_update
 from maxtext_indextts2_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from maxtext_indextts2_tpu_torch.ops.ragged_decode_attention import (
     ragged_decode_attention_v2,
 )
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 # Large negative for masked logits.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -209,7 +217,7 @@ class Attention(nn.Module):
         num_kv_heads: int,
         head_dim: int,
         max_target_length: int = 2048,
-        attention_kernel: str = "autoselected",  # autoselected | dot_product
+        attention_kernel: str = "autoselected",  # autoselected | dot_product | flash
         decode_attention: str = "dot_product",  # dot_product | ragged
         dtype: torch.dtype = torch.bfloat16,
         weight_dtype: torch.dtype = torch.float32,
@@ -240,10 +248,7 @@ class Attention(nn.Module):
         super().__init__()
         if paged_attention:
             _unsupported("paged_attention (page-table decode kernel)", "5, decode extras")
-        if attention_kernel == "flash":
-            _unsupported("attention=flash (training flash-attention kernels)",
-                         "4, training step")
-        if attention_kernel not in ("autoselected", "dot_product"):
+        if attention_kernel not in ("autoselected", "dot_product", "flash"):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
         if decode_attention == "bucketed":
             _unsupported("decode_attention=bucketed", "5, decode extras")
@@ -258,6 +263,7 @@ class Attention(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.max_target_length = max_target_length
+        self.attention_kernel = attention_kernel
         self.decode_attention = decode_attention
         self.dtype = dtype
         self.float32_qk_product = float32_qk_product
@@ -308,6 +314,58 @@ class Attention(nn.Module):
         cache: KVCache | None = None,
         impl: str | None = None,  # "plain": the kernels' plain versions (comparisons only)
     ) -> torch.Tensor:
+        if mode == MODE_TRAIN:
+            return self.out(self.attend(inputs_q, inputs_kv, positions, segment_ids, impl))
+        if mode not in (MODE_PREFILL, MODE_AUTOREGRESSIVE):
+            _unsupported(f"attention mode {mode!r} (speculative verify)", "5, decode extras")
+        if cache is None:
+            raise ValueError(f"mode {mode!r} needs a KVCache")
+        q, k, v = self._project(inputs_q, inputs_kv, positions)
+        true_lengths = None
+        if mode == MODE_PREFILL and segment_ids is not None:
+            true_lengths = torch.sum((segment_ids != 0).to(torch.int32), dim=1)
+        ck, cv, cseg, cidx, kv_scales = cache.update(k, v, mode, true_lengths, impl)
+
+        if mode == MODE_PREFILL:
+            # attend only within the prefill segment(s)
+            out = self._masked_attention(q, k, v, positions, segment_ids)
+        elif (
+            self.decode_attention == "ragged"
+            and self.chunk_attn_window_size == 0
+            and self.attn_logits_soft_cap == 0.0
+        ):
+            # positions < cidx always hold real tokens of this slot: the
+            # kernel reads only those rows; int8 stays int8 in memory
+            scales = kv_scales or (None, None)
+            out = ragged_decode_attention_v2(
+                q[:, 0], ck, cv, cidx, sliding_window=self.sliding_window_size,
+                k_scale=scales[0], v_scale=scales[1], impl=impl,
+            ).to(q.dtype)[:, None]
+        else:
+            s_len = cache.max_length
+            kv_positions = torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
+            nxt = cidx[:, None]  # next write position; the query sits at nxt-1
+            valid = kv_positions < nxt
+            if self.sliding_window_size > 0:
+                valid &= kv_positions > (nxt - 1) - self.sliding_window_size
+            if self.chunk_attn_window_size > 0:
+                valid &= (kv_positions // self.chunk_attn_window_size) == (
+                    (nxt - 1) // self.chunk_attn_window_size
+                )
+            valid &= cseg > 0
+            if kv_scales is not None:
+                dk = dequantize_kv(ck, kv_scales[0], self.dtype)
+                dv = dequantize_kv(cv, kv_scales[1], self.dtype)
+            else:
+                dk, dv = ck, cv
+            out = dot_product_attention(
+                q, dk, dv, valid[:, None, None, :], self.attn_logits_soft_cap,
+                self.float32_qk_product,
+            )
+        return self.out(out)
+
+    def _project(self, inputs_q, inputs_kv, positions):
+        """q, k, v [B, S, N, D]: projections, qk-norm, RoPE, gemma's q scale."""
         q = self.query(inputs_q)
         k = self.key(inputs_kv)
         v = self.value(inputs_kv)
@@ -324,57 +382,26 @@ class Attention(nn.Module):
         if self.query_pre_attn_scalar is not None:
             # gemma semantics: scores = qk / sqrt(query_pre_attn_scalar)
             q = q * (math.sqrt(self.head_dim) / math.sqrt(self.query_pre_attn_scalar))
+        return q, k, v
 
-        if mode == MODE_TRAIN:
-            out = self._masked_attention(q, k, v, positions, segment_ids).to(self.dtype)
-        elif mode in (MODE_PREFILL, MODE_AUTOREGRESSIVE):
-            if cache is None:
-                raise ValueError(f"mode {mode!r} needs a KVCache")
-            true_lengths = None
-            if mode == MODE_PREFILL and segment_ids is not None:
-                true_lengths = torch.sum((segment_ids != 0).to(torch.int32), dim=1)
-            ck, cv, cseg, cidx, kv_scales = cache.update(k, v, mode, true_lengths, impl)
+    def attend(self, inputs_q, inputs_kv, positions, segment_ids, impl: str | None = None):
+        """The training forward up to the output projection, in ``dtype``:
+        the ``attn_out`` remat anchor (``models/decoder.py``)."""
+        q, k, v = self._project(inputs_q, inputs_kv, positions)
+        return self._train_attention(q, k, v, positions, segment_ids, impl).to(self.dtype)
 
-            if mode == MODE_PREFILL:
-                # attend only within the prefill segment(s)
-                out = self._masked_attention(q, k, v, positions, segment_ids)
-            elif (
-                self.decode_attention == "ragged"
-                and self.chunk_attn_window_size == 0
-                and self.attn_logits_soft_cap == 0.0
-            ):
-                # positions < cidx always hold real tokens of this slot: the
-                # kernel reads only those rows; int8 stays int8 in memory
-                scales = kv_scales or (None, None)
-                out = ragged_decode_attention_v2(
-                    q[:, 0], ck, cv, cidx, sliding_window=self.sliding_window_size,
-                    k_scale=scales[0], v_scale=scales[1], impl=impl,
-                ).to(q.dtype)[:, None]
-            else:
-                s_len = cache.max_length
-                kv_positions = torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
-                nxt = cidx[:, None]  # next write position; the query sits at nxt-1
-                valid = kv_positions < nxt
-                if self.sliding_window_size > 0:
-                    valid &= kv_positions > (nxt - 1) - self.sliding_window_size
-                if self.chunk_attn_window_size > 0:
-                    valid &= (kv_positions // self.chunk_attn_window_size) == (
-                        (nxt - 1) // self.chunk_attn_window_size
-                    )
-                valid &= cseg > 0
-                if kv_scales is not None:
-                    dk = dequantize_kv(ck, kv_scales[0], self.dtype)
-                    dv = dequantize_kv(cv, kv_scales[1], self.dtype)
-                else:
-                    dk, dv = ck, cv
-                out = dot_product_attention(
-                    q, dk, dv, valid[:, None, None, :], self.attn_logits_soft_cap,
-                    self.float32_qk_product,
-                )
-        else:
-            _unsupported(f"attention mode {mode!r} (speculative verify)", "5, decode extras")
-
-        return self.out(out)
+    def _train_attention(self, q, k, v, positions, segment_ids, impl=None):
+        kernel = self.attention_kernel
+        if kernel == "autoselected":
+            kernel = "flash" if (q.device.type == "cuda" and q.shape[1] >= 1024) \
+                else "dot_product"
+        if kernel == "flash":
+            return flash_attention_sharded(
+                q, k, v, segment_ids, positions=positions, causal=True,
+                sliding_window=self.sliding_window_size,
+                chunk_size=self.chunk_attn_window_size,
+                logits_soft_cap=self.attn_logits_soft_cap, impl=impl)
+        return self._masked_attention(q, k, v, positions, segment_ids)
 
     def _masked_attention(self, q, k, v, positions, segment_ids):
         mask = make_attention_mask(

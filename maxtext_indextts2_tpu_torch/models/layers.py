@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from maxtext_indextts2_tpu_torch.unported import _unsupported
+
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -35,13 +37,6 @@ def _canon_tuple(x) -> tuple[int, ...]:
     if isinstance(x, Iterable) and not isinstance(x, (str, bytes)):
         return tuple(int(v) for v in x)
     return (int(x),)
-
-
-def _unsupported(what: str, roadmap_item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        f"(ROADMAP.md, port queue: {roadmap_item})"
-    )
 
 
 def _truncated_normal_(t: torch.Tensor, std: float, generator) -> torch.Tensor:
@@ -237,9 +232,14 @@ class MlpBlock(nn.Module):
             setattr(self, name, DenseGeneral(in_features, intermediate_dim, **kw))
         self.wo = DenseGeneral(intermediate_dim, in_features, **kw)
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def pre_wo(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The product of the activations, the input of ``wo``: the
+        ``mlp_pre_wo`` remat anchor (``models/decoder.py``)."""
         x = None
         for name, act_name in zip(self.wi_names, self.activations):
             a = ACTIVATIONS[act_name](getattr(self, name)(inputs))
             x = a if x is None else x * a
-        return self.wo(x)
+        return x
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        return self.wo(self.pre_wo(inputs))

@@ -17,10 +17,10 @@ from maxtext_indextts2_tpu_torch.models.layers import (
     DenseGeneral,
     Embed,
     RMSNorm,
-    _unsupported,
     to_dtype,
 )
 from maxtext_indextts2_tpu_torch.models.registry import get_block_style
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 class Transformer(nn.Module):

@@ -55,6 +55,14 @@ SIGNATURES = {
     # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype, stream)
     "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _P],
 }
+# flash attention K9-K11, one entry per element type: (tensors, lse / delta,
+# q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides
+# of every [B,S,N,D] tensor, causal, window, chunk, soft_cap, scale, stream)
+_FLASH_TAIL = [_I, _I, _I, _F, _F, _P]
+for _dt in ("f32", "bf16"):
+    SIGNATURES[f"flash_fwd_{_dt}"] = [_P] * 9 + [_I] * 6 + [_LL] * 12 + _FLASH_TAIL
+    SIGNATURES[f"flash_bwd_dq_{_dt}"] = [_P] * 11 + [_I] * 6 + [_LL] * 15 + _FLASH_TAIL
+    SIGNATURES[f"flash_bwd_dkv_{_dt}"] = [_P] * 12 + [_I] * 6 + [_LL] * 18 + _FLASH_TAIL
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -16,9 +16,10 @@ run's inputs: bytes moved (each input read once, each output written once,
 only the cache rows the lengths make valid) over the memory rate, or
 operations over the peak rate of the input type, whichever is larger.
 
-Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small]`` (needs the
-GPU; ``small`` shrinks the serving shapes for a quick first check of a
-changed kernel; the repo's ``chip_smoke.py`` calls :func:`run_all`).
+Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash]``
+(needs the GPU; ``small`` shrinks the serving and training shapes for a
+quick first check of a changed kernel, ``flash`` runs the K9-K11 cases only;
+the repo's ``chip_smoke.py`` calls :func:`run_all`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm as arn
+from maxtext_indextts2_tpu_torch.ops import flash_attention as fa
 from maxtext_indextts2_tpu_torch.ops import inplace_update as iu
 from maxtext_indextts2_tpu_torch.ops import quant_kernels as qk
 from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention as rda
@@ -484,6 +486,206 @@ def attention_cases(device, timing, full_size=True):
     ]
 
 
+# K9-K11 against their plain versions ON THE CARD.
+# float32: summation order only, 2e-5 of the largest value of the plain result
+# (at least 1).
+# bfloat16, element by element: both sides round float32 values that differ in
+# their last bits (K9 also rounds its probabilities against a running max, the
+# plain version against the row's max), so an element may differ by a bfloat16
+# step of itself (2**-8 to 2**-7 relative) plus the rounding noise of its sum,
+# a few 2**-9 of the row's scale. The error of each element is taken relative
+# to max(|plain|, mean |plain|, 2**-10), the mean standing for that scale where
+# a sum cancels to near 0, and may be at most 2**-5 (four bfloat16 steps at the
+# coarse end). 2**-10 is a floor far above float32 rounding noise and below
+# the values of these cases: where the exact result is 0 (at S = 1, dq and dk:
+# a softmax over one key has no gradient) both sides return rounding noise of
+# ~1e-7, which has no scale of its own.
+# lse is float32 in both dtypes, from exact products of the inputs, summed in
+# another order: 1e-4 absolute.
+TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -5}
+TOL_FLASH_FLOOR = 2.0 ** -10
+TOL_FLASH_UNIT = {torch.float32: "relative to max(1, max |plain|)",
+                  torch.bfloat16: "each element relative to max(|plain|, mean |plain|, 2**-10)"}
+TOL_FLASH_LSE = 1e-4
+# The training step's attention: per_device_batch_size 4 x 2048 tokens of
+# tts-1b, 16 query / 8 kv heads of 128.
+FLASH_MAIN = dict(b=4, s=2048, h=16, hkv=8, d=128)
+
+
+def _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments, positions):
+    """q [B,S,H,D], k, v [B,S,Hkv,D] and the output cotangent in the model's
+    layout; positions and segment ids [B,S] int32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(n):
+        return torch.randn((b, s, n, d), generator=g, device=device).to(dtype)
+
+    q, k, v, do = rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].repeat(b, 1)
+    if positions == "reordered":  # a context-parallel load-balanced permutation
+        pos = fa.load_balanced_reorder(pos, 2)
+    seg = torch.ones((b, s), dtype=torch.int32, device=device)
+    if segments == "packed":  # documents of 3/8, 1/2 and the rest of a row, then padding
+        cuts = [0, 3 * s // 8, 7 * s // 8, s - max(1, s // 16), s]
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            seg[:, lo:hi] = i + 1 if hi < s else 0
+            pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device=device)
+    return q, k, v, do, pos, seg
+
+
+def _flash_pairs(pos, seg, causal, window, chunk) -> int:
+    """Visible (query, key) pairs over the batch: the work the data needs."""
+    return int(fa._mask(pos, pos, seg, seg, causal, window, chunk).sum().item())
+
+
+def _flash_library(q, k, v, do):
+    """SDPA with is_causal and enable_gqa on the same [B,N,S,D] views, forward,
+    and its autograd backward (dq, dk and dv in one call): a yardstick only."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    out = f(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = do.transpose(1, 2)
+    fwd = time_ms(lambda: f(qt, kt, vt, is_causal=True, enable_gqa=True), warmup=2, iters=10)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True),
+                  warmup=2, iters=10)
+    return fwd, bwd
+
+
+def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, causal=True,
+               window=0, chunk=0, cap=0.0, segments="one", positions="arange", seed=0):
+    """K9, K10 and K11 against their plain versions on the same inputs: three
+    results, ``{name}_fwd``, ``{name}_dq`` and ``{name}_dkv``. The backward
+    kernels and their plain versions get the same lse and delta (the kernel's)."""
+    q, k, v, do, pos, seg = _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments,
+                                          positions)
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # [B,N,S,D] views
+    ids = (pos, pos, seg, seg)
+    mask = (causal, window, chunk, cap, None)
+    o, lse = fa.flash_fwd(qh, kh, vh, *ids, *mask)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd(qh, kh, vh, *ids, *mask, impl="plain")
+    delta = torch.sum(o.float() * doh.float(), dim=-1)
+    dq = fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, *ids, *mask)
+    dk, dv = fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *ids, *mask)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, *ids, *mask, impl="plain")
+    dk_ref, dv_ref = fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *ids, *mask, impl="plain")
+    torch.cuda.synchronize()
+
+    def rel_err(got, want):
+        """(max |err|, the largest error in the dtype's unit, see ``TOL_FLASH``)."""
+        diff = (got.float() - want.float()).abs()
+        mag = want.float().abs()
+        if dtype == torch.float32:
+            scale = torch.clamp(mag.max(), min=1.0)
+        else:
+            scale = torch.clamp(mag, min=max(float(mag.mean().item()), TOL_FLASH_FLOOR))
+        return float(diff.max().item()), float((diff / scale).max().item())
+
+    shape = dict(b=b, s=s, h=h, hkv=hkv, d=d, dtype=str(dtype), causal=causal, window=window,
+                 chunk=chunk, soft_cap=cap, segments=segments, positions=positions)
+    tol = TOL_FLASH[dtype]
+    lse_ok = bool(torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref)))
+    fin = torch.isfinite(lse_ref)
+    lse_err = float((lse[fin] - lse_ref[fin]).abs().max().item()) if fin.any() else 0.0
+    padding_zero = bool((o.transpose(1, 2)[seg == 0] == 0).all().item())
+    checks = {
+        "flash_fwd": [rel_err(o, o_ref)],
+        "flash_bwd_dq": [rel_err(dq, dq_ref)],
+        "flash_bwd_dkv": [rel_err(dk, dk_ref), rel_err(dv, dv_ref)],
+    }
+    outs = {"flash_fwd": [o], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dk, dv]}
+    results = []
+    for kernel, errs in checks.items():
+        finite = all(bool(torch.isfinite(t).all().item()) for t in outs[kernel])
+        worst = max(e[1] for e in errs)
+        ok = finite and worst <= tol
+        res = dict(name=f"{name}_{kernel[len('flash_'):].replace('bwd_', '')}", kernel=kernel,
+                   max_abs_err=max(e[0] for e in errs), max_err=worst, tol=tol,
+                   unit=TOL_FLASH_UNIT[dtype], finite=finite, shape=shape)
+        if kernel == "flash_fwd":
+            ok = ok and lse_ok and lse_err <= TOL_FLASH_LSE and padding_zero
+            res.update(lse_max_abs_err=lse_err, tol_lse=TOL_FLASH_LSE,
+                       lse_minus_inf_rows_equal=lse_ok, padding_rows_zero=padding_zero)
+        res["ok"] = bool(ok)
+        results.append(res)
+    if timing:
+        pairs = _flash_pairs(pos, seg, causal, window, chunk)
+        esz = q.element_size()
+        n_q, n_kv = q.numel(), k.numel()
+        stats = b * h * s * 4  # one float32 per query row and head (lse, delta)
+        ids_bytes = 4 * 4 * b * s
+        work = {  # bytes moved (inputs once, outputs once), flops of the visible pairs
+            "flash_fwd": ((2 * n_q + 2 * n_kv) * esz + stats + ids_bytes, 4 * d * h * pairs),
+            "flash_bwd_dq": ((3 * n_q + 2 * n_kv) * esz + 2 * stats + ids_bytes,
+                             6 * d * h * pairs),
+            "flash_bwd_dkv": ((2 * n_q + 4 * n_kv) * esz + 2 * stats + ids_bytes,
+                              8 * d * h * pairs),
+        }
+        calls = {
+            "flash_fwd": lambda impl=None: fa.flash_fwd(qh, kh, vh, *ids, *mask, impl=impl),
+            "flash_bwd_dq": lambda impl=None: fa.flash_bwd_dq(qh, kh, vh, doh, lse, delta, *ids,
+                                                              *mask, impl=impl),
+            "flash_bwd_dkv": lambda impl=None: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta,
+                                                                *ids, *mask, impl=impl),
+        }
+        library = (None, None)
+        if causal and not (window or chunk or cap) and segments == "one" \
+                and positions == "arange":
+            library = _flash_library(q, k, v, do)
+        for res in results:
+            kernel = res["kernel"]
+            nbytes, ops = work[kernel]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+            res.update(
+                kernel_ms=time_ms(calls[kernel], warmup=1, iters=5),
+                device_ms=device_ms(calls[kernel], iters=3),
+                plain_ms=time_ms(lambda: calls[kernel]("plain"), warmup=1, iters=2),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes_moved=nbytes,
+                flops=ops, visible_pairs=pairs,
+                library_ms=library[0] if kernel == "flash_fwd" else library[1],
+                library_call=None if library[0] is None else (
+                    "scaled_dot_product_attention(is_causal, enable_gqa)" + (
+                        "" if kernel == "flash_fwd" else ": its autograd backward (dq, dk, dv)")),
+            )
+    return results
+
+
+def flash_cases(device, timing, full_size=True):
+    """K9-K11: the training step's shape (bfloat16 and float32), packed
+    documents with a segment-0 tail, sliding window, chunks, soft cap,
+    non-causal, permuted positions, D = 64 at a ragged S, S = 1 and S = 130."""
+    main = dict(FLASH_MAIN) if full_size else dict(FLASH_MAIN, b=1, s=512)
+    small = dict(b=2, s=1024 if full_size else 256, h=16, hkv=8, d=128)
+    f32 = torch.float32
+    groups = [
+        flash_case("flash_bf16_main_path", device, timing, **main, seed=300),
+        flash_case("flash_f32", device, timing, **main, dtype=f32, seed=301),
+        flash_case("flash_bf16_packed_padding", device, timing, **dict(small, s=small["s"] - 24),
+                   segments="packed", seed=302),
+        flash_case("flash_f32_packed_padding", device, timing, **dict(small, s=small["s"] - 24),
+                   dtype=f32, segments="packed", seed=303),
+        flash_case("flash_bf16_window256", device, timing, **small, window=256, seed=304),
+        flash_case("flash_bf16_chunk512", device, timing, **dict(small, s=3 * small["s"] // 2),
+                   chunk=512, seed=305),
+        flash_case("flash_bf16_softcap30", device, timing, **small, cap=30.0, seed=306),
+        flash_case("flash_f32_softcap30", device, timing, **small, cap=30.0, dtype=f32,
+                   seed=307),
+        flash_case("flash_bf16_noncausal", device, timing, **small, causal=False, seed=308),
+        flash_case("flash_bf16_reordered_positions", device, timing, **small,
+                   positions="reordered", seed=309),
+        flash_case("flash_bf16_d64_s405_group4", device, timing, b=2, s=405, h=8, hkv=2, d=64,
+                   seed=310),
+        flash_case("flash_f32_d64_s405_group1", device, timing, b=2, s=405, h=4, hkv=4, d=64,
+                   dtype=f32, seed=311),
+        flash_case("flash_bf16_s1", device, timing, b=3, s=1, h=4, hkv=2, d=128, seed=312),
+        flash_case("flash_f32_s130_group4", device, timing, b=2, s=130, h=8, hkv=2, d=128,
+                   dtype=f32, seed=313),
+    ]
+    return [r for g in groups for r in g]
+
+
 # The cases at the shapes the main paths of ``chip_smoke.py`` give the
 # kernels. Serving run: 32 slots of the tts-1b cache, each holding a prompt of
 # up to 400 tokens plus up to 128 generated ones. TTS back end: 8 requests, the
@@ -497,6 +699,9 @@ MAIN_PATH_CASES = {
     "row_quantize_int8": "row_quantize_int8_bf16_main_path",
     "ada_rmsnorm_quantize": "ada_rmsnorm_quantize_bf16_main_path",
     "silu_mul_quantize": "silu_mul_quantize_bf16_main_path",
+    "flash_fwd": "flash_bf16_main_path_fwd",
+    "flash_bwd_dq": "flash_bf16_main_path_dq",
+    "flash_bwd_dkv": "flash_bf16_main_path_dkv",
 }
 
 
@@ -545,18 +750,23 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                      seed=16),
         inplace_case("inplace_unaligned_rows", device, timing, cache_shape=(4, 16, 3),
                      span=2, cache_dtype=f32, seed=17),
-    ] + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size)
+    ] + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
+        + flash_cases(device, timing, full_size)
 
 
 def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["small"]):
-        raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small]")
+    if not set(argv) <= {"small", "flash"}:
+        raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
-    results = run_all(full_size=not argv)
+    full = "small" not in argv
+    if "flash" in argv:  # K9-K11 only: a quick first check of a changed flash kernel
+        results = flash_cases(torch.device("cuda"), timing=True, full_size=full)
+    else:
+        results = run_all(full_size=full)
     for r in results:
         print(json.dumps(r))
     if not all(r["ok"] for r in results):

@@ -50,9 +50,13 @@ def row_kernel_name(event_name: str) -> str | None:
     return ROW_KERNEL_MODES.get(int(found.group(1)), "row_kernel") if found else "row_kernel"
 
 
-def profiled(fn, what: str, card: str, repeats: int = 5, **fields) -> dict:
+def profiled(fn, what: str, card: str, repeats: int = 5, own_kernel_name=row_kernel_name,
+             category=None, **fields) -> dict:
     """Host-clock time of ``fn`` (median of ``repeats``, each synchronised)
-    and one traced run of it: device-busy time, idle share, launches."""
+    and one traced run of it: device-busy time, idle share, launches, and the
+    device time of this package's own kernels (``own_kernel_name`` maps a
+    profiler event's name to its wrapper, or None); with ``category`` (a
+    profiler event's name -> a group) the device time by group as well."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up: builds the kernels, fills the allocator's caches
@@ -74,10 +78,16 @@ def profiled(fn, what: str, card: str, repeats: int = 5, **fields) -> dict:
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3
     own: dict[str, list[float]] = {}
     for name, times in by_name.items():
-        wrapper = row_kernel_name(name)
+        wrapper = own_kernel_name(name)
         if wrapper:
             own.setdefault(wrapper, []).extend(times)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    if category is not None:
+        groups: dict[str, list[float]] = {}
+        for name, times in by_name.items():
+            groups.setdefault(category(name), []).extend(times)
+        fields["device_ms_by_category"] = {
+            k: {"device_ms": sum(v) / 1e3, "launches": len(v)} for k, v in sorted(groups.items())}
     return {
         "phase": what, "card": card, **fields, "ms_host_clock": wall_ms,
         "ms_host_clock_repeats": reps, "device_busy_ms": busy_ms,

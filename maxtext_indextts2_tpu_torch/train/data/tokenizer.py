@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Protocol
 
-from maxtext_indextts2_tpu_torch.models.layers import _unsupported
+from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 class Tokenizer(Protocol):
@@ -53,5 +53,5 @@ def build_tokenizer(cfg) -> Tokenizer:
         return ByteTokenizer(cfg.add_bos, cfg.add_eos)
     if kind in ("huggingface", "sentencepiece", "tiktoken"):
         _unsupported(f"tokenizer_type={kind!r} (needs vocabulary files or packages)",
-                     "4, weight import")
+                     "4b, rest of training: weight import")
     raise ValueError(f"unknown tokenizer_type: {kind}")

@@ -12,6 +12,11 @@ checkpoints, the split of the leading layer axis::
     decoder/layers/self_attention_0/query/kernel[3]  (scan-stacked, axis 0)
       -> decoder.layers_3.self_attention_0.query.kernel
 
+The optimizer state crosses the same way (:func:`opt_state_from_jax`,
+:func:`opt_state_to_jax`): ``count``, ``mu`` and ``nu`` of adamw and
+adam_pax (optax's ``ScaleByAdamState``, alone or inside adamw's chain) and
+sgd's ``count``, with ``mu`` and ``nu`` under the parameters' names.
+
 The S2A model, the acoustic codec and the semantic tokenizer cross the same
 way (:func:`s2a_params_from_jax`, :func:`codec_params_from_jax`,
 :func:`codec_decoder_params_from_jax`, :func:`semantic_tokenizer_params_from_jax`;
@@ -67,6 +72,21 @@ def params_from_jax(tree, cfg=None) -> dict[str, torch.Tensor]:
     level may be present or not) -> state dict for ``Transformer`` /
     ``Engine.set_params``. Handles both layer layouts. ``cfg``, when given,
     checks the number of layers."""
+    flat = _flat_from_jax(tree)
+    if cfg is not None:
+        units = {p.split(".")[1] for p in flat if p.startswith("decoder.layers_")}
+        from maxtext_indextts2_tpu_torch.models.registry import get_block_style
+
+        want = cfg.num_decoder_layers // len(get_block_style(cfg.decoder_block).attention_pattern)
+        if len(units) != want:
+            raise ValueError(f"tree has {len(units)} decoder units, config wants {want}")
+    # np.array copies: the tensors own writable, contiguous memory
+    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def _flat_from_jax(tree) -> dict[str, np.ndarray]:
+    """A parameter-shaped JAX tree -> flat ``a.b.c`` names, scan-stacked
+    layers split into ``layers_{i}``."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     flat: dict[str, np.ndarray] = {}
@@ -90,15 +110,55 @@ def params_from_jax(tree, cfg=None) -> dict[str, torch.Tensor]:
         else:
             top[key] = val
     _flatten(top, "", flat)
-    if cfg is not None:
-        units = {p.split(".")[1] for p in flat if p.startswith("decoder.layers_")}
-        from maxtext_indextts2_tpu_torch.models.registry import get_block_style
+    return flat
 
-        want = cfg.num_decoder_layers // len(get_block_style(cfg.decoder_block).attention_pattern)
-        if len(units) != want:
-            raise ValueError(f"tree has {len(units)} decoder units, config wants {want}")
-    # np.array copies: the tensors own writable, contiguous memory
-    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+def _field(node, name):
+    if isinstance(node, Mapping):
+        return node.get(name)
+    if name in getattr(node, "_fields", ()):  # a named tuple (a plain tuple has .count too)
+        return getattr(node, name)
+    return None
+
+
+def _find_state(node, name):
+    """The first node of an optimizer state (a mapping, a named tuple or a
+    tuple of them, as optax nests them) that has field ``name``."""
+    if _field(node, name) is not None:
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_state(child, name)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """The JAX package's optimizer state (numpy leaves) -> this package's
+    ``train/optimizers.py`` state: ``{"count": int, "mu": {name: tensor},
+    "nu": {name: tensor}}`` for adamw and adam_pax, ``{"count": int}`` for
+    sgd. Moments keep their dtype (bfloat16 as ``ml_dtypes`` arrays)."""
+    adam = _find_state(opt_state, "mu")
+    if adam is not None:
+        return {"count": int(np.asarray(_field(adam, "count"))),
+                "mu": {k: _to_tensor(v) for k, v in _flat_from_jax(_field(adam, "mu")).items()},
+                "nu": {k: _to_tensor(v) for k, v in _flat_from_jax(_field(adam, "nu")).items()}}
+    counted = _find_state(opt_state, "count")
+    if counted is None:
+        raise ValueError("no optimizer state with a count or moments found")
+    return {"count": int(np.asarray(_field(counted, "count")))}
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The inverse: ``{"count": int32 array, "mu": tree, "nu": tree}`` with
+    numpy leaves in the JAX package's unrolled layout (bfloat16 moments as
+    float32 arrays); the caller wraps them in optax's state types."""
+    out = {"count": np.asarray(state["count"], np.int32)}
+    for name in ("mu", "nu"):
+        if name in state:
+            out[name] = params_to_jax(state[name])
+    return out
 
 
 def params_to_jax(state_dict, scan_layers: bool = False) -> dict:

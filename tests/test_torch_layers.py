@@ -254,10 +254,13 @@ def test_kvcache_write_past_the_end_lands_on_the_last_row():
 
 def test_unported_attention_options_raise():
     base = dict(emb_dim=32, num_query_heads=2, num_kv_heads=2, head_dim=16)
-    for kw in (dict(paged_attention=True), dict(attention_kernel="flash"),
-               dict(decode_attention="bucketed")):
+    for kw in (dict(paged_attention=True), dict(decode_attention="bucketed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attn.Attention(**base, **kw)
+    # attention=flash is ported (K9-K11, the training step); an unknown kernel is an error
+    assert attn.Attention(**base, attention_kernel="flash").attention_kernel == "flash"
+    with pytest.raises(ValueError, match="unknown attention kernel"):
+        attn.Attention(**base, attention_kernel="splash")
     mod = attn.Attention(**base)
     x = torch.zeros((1, 2, 32))
     pos = torch.zeros((1, 2), dtype=torch.int32)

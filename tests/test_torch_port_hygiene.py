@@ -80,7 +80,8 @@ def test_package_imports_in_a_process_without_jax():
     code = (
         "import sys\n"
         "import maxtext_indextts2_tpu_torch.infer.server, maxtext_indextts2_tpu_torch.infer.decode\n"
-        "import maxtext_indextts2_tpu_torch.ops.smoke\n"
+        "import maxtext_indextts2_tpu_torch.ops.smoke, maxtext_indextts2_tpu_torch.train.train\n"
+        "import maxtext_indextts2_tpu_torch.tools.profile_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'yaml', 'maxtext_indextts2_tpu')]\n"
         "assert not bad, bad\n"
@@ -158,6 +159,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         decode.main([os.path.join(PORT_DIR, "configs", "tiny_tts.yml")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server.make_server(cfg, port=0)
+    from maxtext_indextts2_tpu_torch.train import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"), "dataset_type=synthetic",
+                    "steps=1"])
     assert Engine(cfg, device="cpu").device.type == "cpu"  # only when asked
 
 
@@ -178,6 +184,9 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
     ("row_kernels.cuh", "ada_rmsnorm_quantize"),
     ("row_kernels.cuh", "silu_mul_quantize"),
     ("s2a_attention.cu", "s2a_attention"),
+    ("flash_attention.cuh", "_flash_fwd"),
+    ("flash_attention.cuh", "_bwd_dq_kernel"),
+    ("flash_attention.cuh", "_bwd_dkv_kernel"),
 ])
 def test_kernel_sources_carry_their_note(source, replaced):
     with open(os.path.join(PORT_DIR, "csrc", source)) as fh:
@@ -195,11 +204,14 @@ def test_kernel_sources_carry_their_note(source, replaced):
     ("quant_kernels", "ada_rmsnorm_quantize_plain"),
     ("quant_kernels", "silu_mul_quantize_plain"),
     ("s2a_attention", "s2a_attention_plain"),
+    ("flash_attention", "flash_fwd_plain"),
+    ("flash_attention", "flash_bwd_dq_plain"),
+    ("flash_attention", "flash_bwd_dkv_plain"),
 ])
 def test_wrappers_have_plain_version_and_launch_count_and_no_library_call(module, plain):
     mod = importlib.import_module(f"maxtext_indextts2_tpu_torch.ops.{module}")
     assert callable(getattr(mod, plain))
-    if module == "quant_kernels":  # three kernels, one count each
+    if hasattr(mod, "launch_counts"):  # several kernels, one count each
         assert plain[: -len("_plain")] in mod.launch_counts
         assert all(isinstance(n, int) for n in mod.launch_counts.values())
     else:
@@ -223,9 +235,11 @@ def test_build_module_targets_sm_90a_into_an_ignored_directory():
     assert {os.path.basename(s) for s in _build._sources()} >= {
         "inplace_update.cu", "ragged_decode_attention_bf16.cu", "ada_rmsnorm.cu",
         "row_quantize.cu", "ada_rmsnorm_quantize.cu", "silu_mul_quantize.cu",
-        "s2a_attention.cu"}
+        "s2a_attention.cu", "flash_attention_bf16.cu", "flash_attention_f32.cu"}
     assert {"ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",
-            "silu_mul_quantize", "s2a_attention"} <= set(_build.SIGNATURES)
+            "silu_mul_quantize", "s2a_attention", "flash_fwd_bf16", "flash_fwd_f32",
+            "flash_bwd_dq_bf16", "flash_bwd_dq_f32", "flash_bwd_dkv_bf16",
+            "flash_bwd_dkv_f32"} <= set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         assert argtypes[0] is _build._P and argtypes[-1] is _build._P, name
 
@@ -372,6 +386,8 @@ COPIES = [
      ["hz_to_mel", "mel_to_hz", "mel_filterbank"]),
     ("maxtext_indextts2_tpu_torch.train.data.tokenizer",
      "maxtext_indextts2_tpu.train.data.tokenizer", ["ByteTokenizer"]),
+    ("maxtext_indextts2_tpu_torch.train.data.synthetic",
+     "maxtext_indextts2_tpu.train.data.synthetic", ["make_batch"]),
 ]
 
 
