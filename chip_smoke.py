@@ -24,7 +24,13 @@ the ``tts-1b`` recipe at full width (4 x 2048 tokens a step, bf16 weights,
 the training entry point, shows with the launch counts that every step ran
 the flash-attention kernels K9-K11 as often as the code predicts, and holds
 one 2-layer float32 step's loss and gradients through the kernels against the
-plain route. Every phase prints
+plain route. Last it serves the ``tts-1b`` audio LM again with a PAGED KV
+cache (``paged_attention=true``: 128-row pages, a 32,768-token context, a
+97-page pool) through the ``Orchestrator``, whose page reservations hold
+requests back, shows with the launch counts that every decode step ran the
+paged kernel K4 once a layer (and K1, K2 never), that every page came back,
+and holds K4 inside the model against its plain version and the paged
+streams against the dense ones. Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
 non-zero exit code, and so does a machine without a GPU: nothing here falls
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -55,12 +62,20 @@ SERVE_ARGS = [
 ]
 STEPS_PER_DISPATCH = 4
 NUM_REQUESTS = 80
+# Paged serving: the same model and traffic with a paged KV cache: 128-row
+# pages, a 32,768-token context (a dense cache of it for 32 slots would not
+# fit the card), 96 usable pages (fewer than 32 slots x 5 worst-case pages).
+PAGED_ARGS = SERVE_ARGS + ["paged_attention=true", "pagedattn_tokens_per_page=128",
+                           "max_target_length=32768", "pagedattn_num_pages=97"]
 
 # File and line of the TPU kernel each CUDA kernel replaces (JAX package).
 KERNELS = [
     dict(name="ragged_decode_attention", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/ragged_decode_attention.cuh",
          replaces="maxtext_indextts2_tpu/ops/ragged_decode_attention.py:373"),
+    dict(name="paged_decode_attention", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/paged_decode_attention.cuh",
+         replaces="maxtext_indextts2_tpu/ops/ragged_decode_attention.py:581"),
     dict(name="inplace_row_update", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/inplace_update.cu",
          replaces="maxtext_indextts2_tpu/ops/inplace_update.py:30"),
@@ -285,9 +300,25 @@ def phase_serve():
 
 
 def _clone_state(state):
-    return {"cache": [[c.clone() for c in unit] for unit in state["cache"]],
-            "tokens": state["tokens"].clone(), "pos": state["pos"].clone(),
-            "active": state["active"].clone()}
+    out = {"cache": [[c.clone() for c in unit] for unit in state["cache"]],
+           "tokens": state["tokens"].clone(), "pos": state["pos"].clone(),
+           "active": state["active"].clone()}
+    if "page_state" in state:
+        out["page_state"] = type(state["page_state"])(*(t.clone() for t in state["page_state"]))
+    return out
+
+
+def _parity_admissions(engine, state, prompts):
+    """Two packed admissions of four prompts each into the even slots 0-14,
+    then three decode steps: the populated state of both parity phases."""
+    for i in (0, 4):
+        state, _ = engine.prefill_insert_many(
+            state, prompts[i:i + 4], [2 * j for j in range(i, i + 4)])
+    state, _ = engine.generate_n(state, 3)
+    return state
+
+
+PARITY_PROMPT_LENGTHS = (5, 64, 130, 17, 250, 33, 120, 96)
 
 
 def phase_serve_parity(engine):
@@ -299,13 +330,9 @@ def phase_serve_parity(engine):
     rng = np.random.default_rng(1)
     vocab = engine.cfg.vocab_size
     # (a) the bfloat16 20-layer model: one step from one populated state
-    state = engine.init_decode_state()
     prompts = [rng.integers(1, vocab, size=int(n)).astype(np.int32)
-               for n in (5, 64, 130, 17, 250, 33, 120, 96)]
-    for i in (0, 4):
-        state, _ = engine.prefill_insert_many(
-            state, prompts[i:i + 4], [2 * j for j in range(i, i + 4)])
-    state, _ = engine.generate_n(state, 3)
+               for n in PARITY_PROMPT_LENGTHS]
+    state = _parity_admissions(engine, engine.init_decode_state(), prompts)
     twin = _clone_state(state)
     _, logits_kernel = engine._generate_step(state)
     _, logits_plain = engine._generate_step(twin, impl="plain")
@@ -365,6 +392,148 @@ def phase_http(engine):
           f"http: bad /generate answer {tokens}")
     check("serving_requests_completed 1" in metrics, "http: /metrics does not count the request")
     emit("http", t0, tokens=tokens)
+
+
+def phase_serve_paged():
+    """The main path of this slice: ``tts-1b`` at full width behind the
+    Orchestrator with a paged KV cache, the serve phase's 80 requests."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    t0 = time.perf_counter()
+    cfg = load_config(PAGED_ARGS)
+    engine = Engine(cfg)  # no device given: the GPU, or an error
+    engine.load_params()
+    prompts, budgets = make_requests(np.random.default_rng(0), cfg.vocab_size)
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    held_back = set()  # requests the page reservations kept waiting at the head of the line
+    can_admit = orch._can_admit
+
+    def counted_can_admit(req):
+        ok = can_admit(req)
+        if not ok:
+            held_back.add(id(req))
+        return ok
+
+    orch._can_admit = counted_can_admit
+    orch.start()
+    pools = [c for unit in orch.decode_state["cache"] for c in unit]
+    pool_bytes = sum(p.key_pages.nbytes + p.value_pages.nbytes for p in pools)
+    # what a dense cache of this configuration would hold (not allocated)
+    dense_bytes = (engine.num_slots * cfg.max_target_length * cfg.num_decoder_layers
+                   * cfg.num_kv_heads * cfg.head_dim * 2 * pools[0].key_pages.element_size())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()  # every count to 0 just before the main path, read just after
+    t1 = time.perf_counter()
+    reqs = [orch.submit(p, n) for p, n in zip(prompts, budgets)]
+    most_active, deadline = 0, time.monotonic() + 600
+    while not all(r.done.is_set() for r in reqs) and time.monotonic() < deadline:
+        most_active = max(most_active, orch.active_slots())
+        time.sleep(0.005)
+    finished = all(r.done.is_set() for r in reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    orch.stop()
+    launches = _all_counts()
+
+    check(finished, "serve_paged: a request did not finish in 600 s")
+    errors = [r.error for r in reqs if r.error]
+    check(not errors, f"serve_paged: {len(errors)} requests failed, first: {errors[:1]}")
+    check(all(len(r.tokens) == n for r, n in zip(reqs, budgets)),
+          "serve_paged: a request did not get exactly its token budget")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          "serve_paged: a token outside [0, vocab)")
+    steps = orch.stats["decode_steps_total"]
+    layers = cfg.num_decoder_layers
+    want = {k: 0 for k in launches}
+    want["paged_decode_attention"] = layers * steps
+    check(steps > 0 and launches == want,
+          f"serve_paged: kernel launches {launches} != expected {want} ({steps} decode steps)")
+    ps = orch.decode_state["page_state"]
+    free = int((ps.page_status == 0).sum().item())
+    check(int(orch._pages_reserved.sum()) == 0 and free == cfg.pagedattn_num_pages - 1
+          and int(ps.seq_lens.abs().sum().item()) == 0,
+          f"serve_paged: pages not all back ({int(orch._pages_reserved.sum())} reserved, "
+          f"{free} of {cfg.pagedattn_num_pages - 1} free)")
+    worst = max(orch._pages_needed(r) for r in reqs)
+    tokens = sum(len(r.tokens) for r in reqs)
+    emit("serve_paged", t0, requests=len(reqs), tokens=tokens, serve_seconds=seconds,
+         tokens_per_s=tokens / seconds, decode_steps=steps,
+         admission_dispatches=orch.stats["admission_dispatches_total"],
+         most_active_slots_seen=most_active, requests_held_back_for_pages=len(held_back),
+         slots=engine.num_slots,
+         usable_pages=cfg.pagedattn_num_pages - 1, worst_request_pages=worst,
+         tokens_per_page=cfg.pagedattn_tokens_per_page, context=cfg.max_target_length,
+         launches=launches, distinct_tokens=len({t for r in reqs for t in r.tokens}),
+         pool_bytes=pool_bytes, dense_cache_bytes_not_allocated=dense_bytes,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return engine, launches["paged_decode_attention"]
+
+
+def phase_serve_paged_parity(engine):
+    """K4 inside the model against its plain version; paged streams against
+    the dense ones."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention as rda
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    vocab = engine.cfg.vocab_size
+    prompts = [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+               for n in PARITY_PROMPT_LENGTHS]
+    # (a) the bfloat16 20-layer paged model: one step from one populated state
+    state = _parity_admissions(engine, engine.init_decode_state(), prompts)
+    twin = _clone_state(state)
+    _reset_all_counts()
+    _, logits_kernel = engine._generate_step(state)
+    torch.cuda.synchronize()
+    k4_step = rda.paged_launch_count
+    _, logits_plain = engine._generate_step(twin, impl="plain")
+    torch.cuda.synchronize()
+    check(k4_step == engine.cfg.num_decoder_layers and rda.paged_launch_count == k4_step,
+          f"serve_paged_parity: K4 ran {k4_step} times in the kernel step, "
+          f"{rda.paged_launch_count - k4_step} in the plain step")
+    active = state["active"]
+    err = float((logits_kernel[active] - logits_plain[active]).abs().max().item())
+    finite = bool(torch.isfinite(logits_kernel).all().item())
+    scale = float(logits_plain[active].abs().max().item())
+    check(finite and err <= TOL_PARITY_BF16_LOGITS,
+          f"serve_paged_parity: bfloat16 logits differ by {err} > {TOL_PARITY_BF16_LOGITS}")
+    del state, twin
+
+    # (b) full width, 4 layers, float32: paged-K4, paged-plain and dense-K1
+    # give identical greedy streams
+    common = [TTS_1B, "dtype=float32", "base_num_decoder_layers=4", "per_device_batch_size=8",
+              "max_prefill_predict_length=1024", "scan_layers=false"]
+    paged = Engine(load_config(common + ["paged_attention=true", "pagedattn_tokens_per_page=16",
+                                         "pagedattn_num_pages=400"]))
+    paged.load_params()
+    dense = Engine(load_config(common + ["decode_attention=ragged"]))
+    dense.set_params(paged.params)
+    streams, counts = {}, {}
+    for name, eng, impl in (("paged_k4", paged, None), ("paged_plain", paged, "plain"),
+                            ("dense_k1", dense, None)):
+        st = eng.init_decode_state()
+        st, first = eng.prefill_insert_many(st, prompts[:4], [0, 1, 2, 3])
+        st, second = eng.prefill_insert_many(st, prompts[4:], [4, 5, 6, 7])
+        _reset_all_counts()
+        st, toks = eng.generate_n(st, 31, impl=impl)
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in _all_counts().items() if v}
+        streams[name] = torch.cat([torch.cat([first, second])[None], toks]).cpu().numpy()
+        del st
+    same = all(bool((streams[n] == streams["dense_k1"]).all()) for n in streams)
+    check(streams["paged_k4"].shape == (32, 8) and same,
+          "serve_paged_parity: float32 greedy streams of paged-K4, paged-plain and dense-K1 differ")
+    check(counts["paged_k4"] == {"paged_decode_attention": 4 * 31} and not counts["paged_plain"],
+          f"serve_paged_parity: launches {counts}")
+    emit("serve_paged_parity", t0, bf16_logits_max_abs_err=err, tol=TOL_PARITY_BF16_LOGITS,
+         bf16_logits_max_abs=scale, f32_streams_identical=same,
+         f32_tokens_compared=int(streams["paged_k4"].size),
+         f32_distinct_tokens=int(len(np.unique(streams["paged_k4"]))), launches=counts)
 
 
 def _reset_row_kernel_counts():
@@ -605,6 +774,7 @@ def _reset_all_counts():
 
     _reset_row_kernel_counts()
     ragged_decode_attention.launch_count = inplace_update.launch_count = 0
+    ragged_decode_attention.paged_launch_count = 0
     s2a_attention.launch_count = 0
     for name in flash_attention.launch_counts:
         flash_attention.launch_counts[name] = 0
@@ -616,11 +786,13 @@ def _all_counts() -> dict:
     )
 
     return {"ragged_decode_attention": ragged_decode_attention.launch_count,
+            "paged_decode_attention": ragged_decode_attention.paged_launch_count,
             "inplace_row_update": inplace_update.launch_count, **_row_kernel_counts(),
             "s2a_attention": _k12_count(), **flash_attention.launch_counts}
 
 
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+NO_PAGED = {"paged_decode_attention": 0}
 
 
 def _audio_only_lm(pipe):
@@ -687,7 +859,7 @@ def phase_tts_synthesize(pipe):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12,
-            **NO_FLASH}
+            **NO_FLASH, **NO_PAGED}
     check(launches == want, f"tts_synthesize: launches {launches} != predicted {want}")
     emit("tts_synthesize", t0, call_seconds=seconds, info=info, denoiser_forwards=forwards,
          prompt_seconds=SYNTH_PROMPT_SECONDS, launches=launches,
@@ -876,7 +1048,8 @@ def phase_tts_http(pipe):
     want = {"ragged_decode_attention": layers * steps, "inplace_row_update": 2 * layers * steps,
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
-            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0, **NO_FLASH}
+            "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0, **NO_FLASH,
+            **NO_PAGED}
     check(launches == want, f"tts_http: launches {launches} != predicted {want} "
                             f"({steps} decode steps, {batcher.batches} batches)")
     audio = sum(n * hop for n in frames) / 24_000.0
@@ -1022,18 +1195,29 @@ def main():
     phase_serve_parity(engine)
     phase_http(engine)
     del engine
+    # the HTTP servers (and serve_paged's counting hook) hold what a phase
+    # built in reference cycles: collect them, so that each phase's peak
+    # memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, launches["paged_decode_attention"] = phase_serve_paged()
+    phase_serve_paged_parity(engine)
+    del engine
+    gc.collect()
     torch.cuda.empty_cache()
     pipe_int8, backend_launches = phase_tts_backend()
     launches.update(backend_launches)
     pipe_bf16 = phase_tts_backend_bf16()
     phase_tts_backend_parity(pipe_int8, pipe_bf16)
     del pipe_int8, pipe_bf16
+    gc.collect()
     torch.cuda.empty_cache()
     pipe = phase_pipeline_load()
     launches["s2a_attention"] = phase_tts_synthesize(pipe)["s2a_attention"]
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
     del pipe
+    gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train())
     phase_train_parity()

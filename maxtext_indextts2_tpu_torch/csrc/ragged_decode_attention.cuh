@@ -36,6 +36,10 @@
 // v_scale multiplies the probabilities after they were summed into l; the
 // result is acc / max(l, 1e-30) in the output dtype. A slot with length 0
 // (or an empty window) gets zeros -- never NaN, and row 0 is never read.
+//
+// Where a row lies is a template argument (`Rows`): DenseRows below for the
+// [B, S, nkv, D] cache of this kernel, PagedRows (paged_decode_attention.cuh)
+// for the page pools of K4. Everything else is the same kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,6 +101,16 @@ __device__ __forceinline__ void load_row(const int8_t* p, float (&out)[N]) {
   }
 }
 
+// Row `row` of slot b of a [B, S, nkv, D] cache is buffer row b*S + row. A
+// buffer row holds nkv*D elements; the scale of (buffer row, h) is at
+// buffer_row*nkv + h.
+struct DenseRows {
+  int s_len;
+  __device__ __forceinline__ size_t operator()(int b, int row) const {
+    return static_cast<size_t>(b) * s_len + row;
+  }
+};
+
 __device__ __forceinline__ float load_q(const void* q, size_t i, bool is_bf16) {
   return is_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(q)[i])
                  : reinterpret_cast<const float*>(q)[i];
@@ -111,17 +125,18 @@ __device__ __forceinline__ void store_out(void* o, size_t i, float v, bool is_bf
 }
 
 // D: head dim; KV: cache element type; GP: query heads per kv head, padded
-// to a power of two (heads g >= group are skipped at run time).
-template <int D, typename KV, int GP>
+// to a power of two (heads g >= group are skipped at run time); Rows: the
+// buffer row of (slot, cache row). Lengths are clamped to [0, max_len].
+template <int D, typename KV, int GP, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf16
-                     const KV* __restrict__ k,              // [B, S, nkv, D]
-                     const KV* __restrict__ v,              // [B, S, nkv, D]
+                     const KV* __restrict__ k,              // buffer rows of nkv*D
+                     const KV* __restrict__ v,
                      const int* __restrict__ lengths,       // [B]
-                     const float* __restrict__ k_scale,     // [B, S, nkv] or null
-                     const float* __restrict__ v_scale,     // [B, S, nkv] or null
+                     const float* __restrict__ k_scale,     // [buffer rows, nkv] or null
+                     const float* __restrict__ v_scale,
                      void* __restrict__ out,                // [B, nq, D] f32|bf16
-                     int s_len, int nkv, int group, int sliding_window,
+                     Rows rows, int max_len, int nkv, int group, int sliding_window,
                      float scale, int q_is_bf16, int out_is_bf16) {
   constexpr int EPT0 = KvTraits<KV>::ept0;
   constexpr int TPR = (D / EPT0 > 32) ? 32 : D / EPT0;  // lanes per row
@@ -139,7 +154,7 @@ ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf
   const int nq = nkv * group;
 
   int length = lengths[b];
-  length = length < 0 ? 0 : (length > s_len ? s_len : length);
+  length = length < 0 ? 0 : (length > max_len ? max_len : length);
   const int hi = length;
   int lo = 0;
   if (sliding_window > 0) lo = length - sliding_window > 0 ? length - sliding_window : 0;
@@ -170,8 +185,7 @@ ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf
   }
 
   const size_t row_stride = static_cast<size_t>(nkv) * D;  // elements between rows
-  const size_t kv_base = (static_cast<size_t>(b) * s_len * nkv + h) * D + sub * EPT;
-  const size_t sc_base = static_cast<size_t>(b) * s_len * nkv + h;
+  const size_t kv_col = static_cast<size_t>(h) * D + sub * EPT;  // within a buffer row
   const bool quantized = k_scale != nullptr;
 
   const int n_rows = hi - lo;
@@ -190,12 +204,13 @@ ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf
       ks[u] = 1.0f;
       vs[u] = 1.0f;
       if (ok[u]) {
-        const size_t off = kv_base + static_cast<size_t>(row) * row_stride;
+        const size_t buf_row = rows(b, row);
+        const size_t off = buf_row * row_stride + kv_col;
         load_row<EPT>(k + off, kf[u]);
         load_row<EPT>(v + off, vf[u]);
         if (quantized) {
-          ks[u] = __ldg(k_scale + sc_base + static_cast<size_t>(row) * nkv);
-          vs[u] = __ldg(v_scale + sc_base + static_cast<size_t>(row) * nkv);
+          ks[u] = __ldg(k_scale + buf_row * nkv + h);
+          vs[u] = __ldg(v_scale + buf_row * nkv + h);
         }
       } else {
 #pragma unroll
@@ -297,24 +312,25 @@ ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf
   }
 }
 
-template <int D, typename KV, int GP>
+template <int D, typename KV, int GP, typename Rows>
 inline cudaError_t launch_one(const void* q, const void* k, const void* v, const int* lengths,
                               const float* k_scale, const float* v_scale, void* out, int b_sz,
-                              int s_len, int nkv, int group, int sliding_window, float scale,
-                              int q_is_bf16, int out_is_bf16, cudaStream_t stream) {
+                              Rows rows, int max_len, int nkv, int group, int sliding_window,
+                              float scale, int q_is_bf16, int out_is_bf16, cudaStream_t stream) {
   const dim3 grid(nkv, b_sz);
-  ragged_decode_kernel<D, KV, GP><<<grid, kThreads, 0, stream>>>(
+  ragged_decode_kernel<D, KV, GP, Rows><<<grid, kThreads, 0, stream>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), lengths, k_scale, v_scale, out,
-      s_len, nkv, group, sliding_window, scale, q_is_bf16, out_is_bf16);
+      rows, max_len, nkv, group, sliding_window, scale, q_is_bf16, out_is_bf16);
   return cudaGetLastError();
 }
 
-template <int D, typename KV>
+template <int D, typename KV, typename Rows>
 inline cudaError_t launch_group(const void* q, const void* k, const void* v, const int* lengths,
                                 const float* k_scale, const float* v_scale, void* out, int b_sz,
-                                int s_len, int nkv, int group, int sliding_window, float scale,
-                                int q_is_bf16, int out_is_bf16, cudaStream_t stream) {
-#define RDA_ARGS q, k, v, lengths, k_scale, v_scale, out, b_sz, s_len, nkv, group, \
+                                Rows rows, int max_len, int nkv, int group, int sliding_window,
+                                float scale, int q_is_bf16, int out_is_bf16,
+                                cudaStream_t stream) {
+#define RDA_ARGS q, k, v, lengths, k_scale, v_scale, out, b_sz, rows, max_len, nkv, group, \
                  sliding_window, scale, q_is_bf16, out_is_bf16, stream
   if (group == 1) return launch_one<D, KV, 1>(RDA_ARGS);
   if (group == 2) return launch_one<D, KV, 2>(RDA_ARGS);
@@ -324,17 +340,18 @@ inline cudaError_t launch_group(const void* q, const void* k, const void* v, con
 #undef RDA_ARGS
 }
 
-// One entry per cache element type: dispatches on head_dim and group.
-// Returns cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape
-// no instantiation takes). Does not synchronise and allocates nothing.
-template <typename KV>
-inline int launch(const void* q, const void* k, const void* v, const int* lengths,
-                  const float* k_scale, const float* v_scale, void* out, int b_sz, int s_len,
-                  int nkv, int group, int head_dim, int sliding_window, float scale,
-                  int q_is_bf16, int out_is_bf16, void* stream) {
+// Dispatches on head_dim and group for any row layout. Returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape no
+// instantiation takes). Does not synchronise and allocates nothing.
+template <typename KV, typename Rows>
+inline int launch_rows(const void* q, const void* k, const void* v, const int* lengths,
+                       const float* k_scale, const float* v_scale, void* out, int b_sz,
+                       Rows rows, int max_len, int nkv, int group, int head_dim,
+                       int sliding_window, float scale, int q_is_bf16, int out_is_bf16,
+                       void* stream) {
   if (b_sz <= 0 || nkv <= 0 || b_sz > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RDA_ARGS q, k, v, lengths, k_scale, v_scale, out, b_sz, s_len, nkv, group, \
+#define RDA_ARGS q, k, v, lengths, k_scale, v_scale, out, b_sz, rows, max_len, nkv, group, \
                  sliding_window, scale, q_is_bf16, out_is_bf16, st
   switch (head_dim) {
     case 32: return static_cast<int>(launch_group<32, KV>(RDA_ARGS));
@@ -344,6 +361,17 @@ inline int launch(const void* q, const void* k, const void* v, const int* length
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RDA_ARGS
+}
+
+// One entry per cache element type, over a [B, S, nkv, D] cache.
+template <typename KV>
+inline int launch(const void* q, const void* k, const void* v, const int* lengths,
+                  const float* k_scale, const float* v_scale, void* out, int b_sz, int s_len,
+                  int nkv, int group, int head_dim, int sliding_window, float scale,
+                  int q_is_bf16, int out_is_bf16, void* stream) {
+  return launch_rows<KV>(q, k, v, lengths, k_scale, v_scale, out, b_sz, DenseRows{s_len},
+                         s_len, nkv, group, head_dim, sliding_window, scale, q_is_bf16,
+                         out_is_bf16, stream);
 }
 
 }  // namespace rda

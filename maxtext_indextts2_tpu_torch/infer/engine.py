@@ -8,6 +8,16 @@ dictionary::
      "pos": [slots] int32 next position,
      "active": [slots] bool}
 
+With ``paged_attention`` the cache is a per-layer pool of pages instead
+(``infer/paged_attention.PagedKVCache``, ``pagedattn_num_pages`` pages of
+``pagedattn_tokens_per_page`` rows) and the state gains ``"page_state"``
+(``infer/page_manager.PageState``: which pages each slot owns, and its
+length): ``insert`` reserves ``ceil(length / tokens_per_page)`` pages and
+writes the prompt's rows into them, each decode step first advances every
+active slot (``allocate_decode_step``, taking a page at each boundary), and a
+release gives the slot's pages back. A slot's length SATURATES at
+``max_pages_per_slot * tokens_per_page`` (see ``page_manager``).
+
 ``prefill`` runs the model over one prompt and returns a prefix (a cache of
 batch 1 plus the first token); ``insert`` copies that prefix into a slot of
 the decode state; ``generate`` advances every slot one token;
@@ -34,6 +44,12 @@ import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.config import Config
+from maxtext_indextts2_tpu_torch.infer import page_manager
+from maxtext_indextts2_tpu_torch.infer.paged_attention import (
+    paged_decode_step,
+    prefill_rows,
+    write_rows,
+)
 from maxtext_indextts2_tpu_torch.infer.sampling import sample_tokens
 from maxtext_indextts2_tpu_torch.models import (
     MODE_AUTOREGRESSIVE,
@@ -79,6 +95,18 @@ class Engine:
     def __init__(self, cfg: Config, device=None, model: Transformer | None = None,
                  params=None):
         self.device = resolve_device(device)
+        if cfg.paged_attention:
+            # the prompt's dense prefill KV is written into per-layer page
+            # pools: no layer-stacked cache and no int8 codes with scales
+            if cfg.scan_layers and not cfg.serve_unroll_layers:
+                raise ValueError(
+                    "paged_attention=true requires scan_layers=false (per-layer page "
+                    "pools; a scan-stacked cache has a layer axis the page writes "
+                    "cannot address)")
+            if cfg.quantize_kvcache:
+                raise ValueError(
+                    "paged_attention=true is incompatible with quantize_kvcache (the "
+                    "page pool stores raw KV)")
         if cfg.scan_layers:
             if not cfg.serve_unroll_layers and model is None:
                 _unsupported("serving with scan-stacked layers (serve_unroll_layers=false)",
@@ -86,8 +114,6 @@ class Engine:
             # the model is always built unrolled; scan-stacked weights are
             # unstacked by utils/param_bridge.py
             cfg = dataclasses.replace(cfg, scan_layers=False)
-        if cfg.paged_attention:
-            _unsupported("paged_attention", "5, decode extras")
         if cfg.spec_num_draft_tokens > 0:
             _unsupported("speculative decoding", "5, decode extras")
         self.cfg = cfg
@@ -185,17 +211,58 @@ class Engine:
         return prefix, first_token
 
     # ------------------------------------------------------- decode state
+    @property
+    def _tokens_per_page(self) -> int:
+        return int(self.cfg.pagedattn_tokens_per_page)
+
+    @property
+    def _max_pages_per_slot(self) -> int:
+        tpp = self._tokens_per_page
+        return (int(self.cfg.max_target_length) + tpp - 1) // tpp
+
     def init_decode_state(self):
         cfg = self.cfg
         slots = self.num_slots
-        return {
-            "cache": self.model.init_cache(slots, cfg.max_target_length, self.device),
+        state = {
             "tokens": torch.zeros((slots,), dtype=torch.int32, device=self.device),
             "pos": torch.zeros((slots,), dtype=torch.int32, device=self.device),
             "active": torch.zeros((slots,), dtype=torch.bool, device=self.device),
         }
+        if not cfg.paged_attention:
+            state["cache"] = self.model.init_cache(slots, cfg.max_target_length, self.device)
+            return state
+        if cfg.pagedattn_num_pages <= slots:
+            raise ValueError(f"page pool must exceed the slot count ({cfg.pagedattn_num_pages} "
+                             f"pages, {slots} slots)")
+        state["cache"] = self.model.init_paged_cache(
+            cfg.pagedattn_num_pages, self._tokens_per_page, self.device)
+        state["page_state"] = page_manager.init_page_state(
+            cfg.pagedattn_num_pages, slots, self._max_pages_per_slot, self.device)
+        return state
 
     # ------------------------------------------------------------- insert
+    def _insert_rows(self, decode_state, pre, slot: int, start: int, length: int):
+        """Rows [start, start+length) of the prefix cache ``pre`` into ``slot``:
+        dense or paged, in place."""
+        if self.cfg.paged_attention:
+            self._insert_paged(decode_state, pre, slot, start, length)
+        else:
+            self._insert_cache(decode_state["cache"], pre, slot, start, length)
+
+    def _insert_paged(self, decode_state, pre, slot: int, start: int, length: int):
+        """Reserve ``ceil(length / tokens_per_page)`` pages for the slot (after
+        releasing what it held) and write the prompt's rows into them in
+        every layer's pools. Only the prompt's rows are written: no padded
+        page, never the null page."""
+        state, page_ids = page_manager.allocate_prefill(
+            decode_state["page_state"], slot, length, self._tokens_per_page,
+            self._max_pages_per_slot)
+        decode_state["page_state"] = state
+        rows = prefill_rows(page_ids, length, self._tokens_per_page)  # once for every layer
+        for pool, src in zip(_flat_caches(decode_state["cache"]), _flat_caches(pre)):
+            write_rows(pool, rows, src.cached_key[0, start:start + length],
+                       src.cached_value[0, start:start + length])
+
     @staticmethod
     def _insert_cache(full, pre, slot: int, start: int, length: int):
         """Copy rows [start, start+length) of batch row 0 of the prefix cache
@@ -217,7 +284,7 @@ class Engine:
         slot, n = int(slot), int(prefix["length"])
         if not 0 <= slot < self.num_slots:
             raise ValueError(f"slot {slot} outside [0, {self.num_slots})")
-        self._insert_cache(decode_state["cache"], prefix["cache"], slot, 0, n)
+        self._insert_rows(decode_state, prefix["cache"], slot, 0, n)
         decode_state["tokens"][slot] = prefix["token"][0]
         decode_state["pos"][slot] = n
         decode_state["active"][slot] = True
@@ -271,7 +338,7 @@ class Engine:
         first_tokens = self._sample(logits[0, last_rows])  # [k]
 
         for slot, start, n in zip(slots, starts, lengths):
-            self._insert_cache(decode_state["cache"], cache, int(slot), start, n)
+            self._insert_rows(decode_state, cache, int(slot), start, n)
         slot_idx = torch.as_tensor([int(s) for s in slots], dtype=torch.long, device=dev)
         decode_state["tokens"][slot_idx] = first_tokens
         decode_state["pos"][slot_idx] = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
@@ -281,14 +348,20 @@ class Engine:
     # ------------------------------------------------------------ release
     @torch.no_grad()
     def release_slot(self, decode_state, slot: int):
-        """Mark a finished request's slot inactive (its ``pos`` stops)."""
+        """Mark a finished request's slot inactive (its ``pos`` stops) and,
+        paged, give its pages back to the pool."""
         return self.release_slots(decode_state, [int(slot)])
 
     @torch.no_grad()
     def release_slots(self, decode_state, slots):
+        slots = [int(s) for s in slots]
         mask = np.zeros(self.num_slots, bool)
-        mask[list(slots)] = True
+        mask[slots] = True
         decode_state["active"] &= ~torch.as_tensor(mask, device=self.device)
+        if self.cfg.paged_attention:
+            for s in slots:
+                decode_state["page_state"] = page_manager.release_slot(
+                    decode_state["page_state"], s)
         return decode_state
 
     # ------------------------------------------------------------ generate
@@ -299,12 +372,20 @@ class Engine:
         cfg = self.cfg
         tokens = decode_state["tokens"][:, None]
         pos = decode_state["pos"][:, None]
+        active = decode_state["active"]
+        step = None
+        if cfg.paged_attention:
+            # advance every active slot one token (a page at each boundary)
+            # BEFORE the model call: attention writes at seq_lens - 1
+            page_state = page_manager.allocate_decode_step(
+                decode_state["page_state"], self._tokens_per_page, active=active)
+            decode_state["page_state"] = page_state
+            step = paged_decode_step(page_state, self._tokens_per_page)
         logits = self.model(
             tokens, pos, torch.ones_like(tokens), mode=MODE_AUTOREGRESSIVE,
-            cache=decode_state["cache"], impl=impl,
+            cache=decode_state["cache"], impl=impl, paged_step=step,
         )[:, 0]
         new_tokens = self._sample(logits)
-        active = decode_state["active"]
         decode_state["tokens"] = torch.where(active, new_tokens, decode_state["tokens"])
         # SATURATE at the cache end: a slot whose stream finished host-side
         # but was never released keeps active=True and would otherwise step

@@ -14,6 +14,13 @@ device stages to it (``Orchestrator.run_on_loop``) between decode rounds. A
 device call of the decode loop that raises is NOT retried: after a CUDA
 error the context is unusable, so the loop fails every in-flight and queued
 request with that error and ends; later submissions fail at once.
+
+With a paged engine (``paged_attention``) admission is controlled by pages:
+the device's page allocator has no error path (an exhausted pool hands out
+the null page), so each request reserves, host-side, the pages it can reach
+at worst (prompt + budget + the dispatch's overshoot) and waits at the head
+of the line until the pool has them; admission is then one request at a
+time (prefill + insert), as in the JAX server.
 """
 
 from __future__ import annotations
@@ -59,6 +66,11 @@ class Orchestrator:
         self.queue: queue.Queue[_Request] = queue.Queue()
         self.slots: list[_Request | None] = [None] * engine.num_slots
         self.remaining = np.zeros(engine.num_slots, np.int32)
+        self._paged = bool(engine.cfg.paged_attention)
+        if self._paged:
+            self._tpp = int(engine.cfg.pagedattn_tokens_per_page)
+            self._pages_total = int(engine.cfg.pagedattn_num_pages) - 1  # the null page
+            self._pages_reserved = np.zeros(engine.num_slots, np.int64)
         self._carry: list[_Request] = []  # popped but not yet admitted, in arrival order
         self._loop_dead = threading.Event()  # set when _loop has exited
         # closures other threads need run ON the device thread (run_on_loop)
@@ -153,6 +165,12 @@ class Orchestrator:
             self._fail(req, ValueError(f"max_new_tokens {req.max_new_tokens} < 1"))
             return req
         req.max_new_tokens = min(req.max_new_tokens, budget)
+        if self._paged and self._pages_needed(req) > self._pages_total:
+            # it would wait at the head of the line for ever
+            self._fail(req, ValueError(
+                f"request needs {self._pages_needed(req)} pages, the pool has "
+                f"{self._pages_total}"))
+            return req
         self.queue.put(req)
         if self._loop_dead.is_set():
             # the loop may have exited between its last drain and this put
@@ -200,9 +218,21 @@ class Orchestrator:
             self._loop_dead.set()
             self._fail_pending_thunks(RuntimeError(self.fatal_error or "device loop exited"))
 
+    def _pages_needed(self, req: _Request) -> int:
+        # the device advances a slot up to steps_per_dispatch - 1 steps past
+        # prompt + budget before the host finishes it: reserve that too, or a
+        # full pool could hand the allocator's null page to a live slot
+        overshoot = max(0, self.steps_per_dispatch - 1)
+        return -(-(len(req.prompt) + req.max_new_tokens + overshoot) // self._tpp)
+
+    def _can_admit(self, req: _Request) -> bool:
+        if not self._paged:
+            return True
+        return int(self._pages_reserved.sum()) + self._pages_needed(req) <= self._pages_total
+
     def _loop_body(self):
         while not self._stop.is_set():
-            if self.admission_fusion_max > 1:
+            if self.admission_fusion_max > 1 and not self._paged:
                 admitted = self._admit_interleaved()
             else:
                 admitted = self._admit_sequential()
@@ -214,17 +244,22 @@ class Orchestrator:
             self._decode_round()
 
     def _next_request(self) -> _Request | None:
-        if self._carry:
-            return self._carry.pop(0)
-        try:
-            return self.queue.get_nowait()
-        except queue.Empty:
-            return None
+        """The next request in arrival order, if the pool can take it (paged:
+        the head of the line waits for pages; it is never failed for want of
+        them)."""
+        if not self._carry:
+            try:
+                self._carry.append(self.queue.get_nowait())
+            except queue.Empty:
+                return None
+        return self._carry.pop(0) if self._can_admit(self._carry[0]) else None
 
     def _admit_bookkeeping(self, slot: int, req: _Request, first_tok: int):
         self._emit(req, first_tok)
         self.slots[slot] = req
         self.remaining[slot] = req.max_new_tokens - 1
+        if self._paged:
+            self._pages_reserved[slot] = self._pages_needed(req)
         if self.remaining[slot] <= 0 or first_tok == self.eos_id:
             self._finish(slot)
 
@@ -274,7 +309,8 @@ class Orchestrator:
             admitted = True
 
     def _admit_sequential(self) -> bool:
-        """Per-request admission: one prefill and one insert for each."""
+        """Per-request admission: one prefill and one insert for each (paged:
+        while the pool has the pages each reserves)."""
         admitted = False
         while True:
             free = [i for i, r in enumerate(self.slots) if r is None]
@@ -321,7 +357,10 @@ class Orchestrator:
         req = self.slots[slot]
         self.slots[slot] = None
         # mark the slot inactive on the device too: its pos stops advancing
+        # (paged: its pages go back to the pool)
         self.decode_state = self.engine.release_slot(self.decode_state, slot)
+        if self._paged:
+            self._pages_reserved[slot] = 0
         if req is not None:
             self.stats["requests_completed"] += 1
             req.done.set()

@@ -7,7 +7,13 @@ einsum/softmax); ``autoselected`` picks flash on a CUDA device at S >= 1024
 (the JAX package: on a TPU). ``MODE_PREFILL`` computes attention with plain
 einsum/softmax (as the JAX serving path does outside any kernel), and
 ``MODE_AUTOREGRESSIVE`` takes ``decode_attention`` ``dot_product`` or
-``ragged`` (the hand-written CUDA kernel of ``ops/ragged_decode_attention``).
+``ragged`` (the hand-written CUDA kernel of ``ops/ragged_decode_attention``);
+with a paged cache (``paged_attention``: an ``infer/paged_attention.PagedKVCache``
+from :meth:`Attention.init_paged_cache`, handed in with the engine's
+``PagedDecodeStep``) it takes K4, the paged kernel of the same module, on a
+CUDA tensor without a logit soft cap, and otherwise
+the gather route of ``infer/paged_attention.py`` (the JAX package's route
+off the TPU), chosen by where the tensor lies.
 :meth:`Attention.attend` is the training forward up to the output
 projection: its result is the ``attn_out`` remat anchor of
 ``models/decoder.py``.
@@ -25,12 +31,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from maxtext_indextts2_tpu_torch.infer.paged_attention import (
+    PagedKVCache,
+    init_paged_cache,
+    paged_decode_attention,
+    write_rows,
+)
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
 from maxtext_indextts2_tpu_torch.models.layers import DenseGeneral, RMSNorm
 from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
 from maxtext_indextts2_tpu_torch.ops.inplace_update import inplace_row_update
 from maxtext_indextts2_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from maxtext_indextts2_tpu_torch.ops.ragged_decode_attention import (
+    paged_decode_attention_v2,
     ragged_decode_attention_v2,
 )
 from maxtext_indextts2_tpu_torch.unported import _unsupported
@@ -242,12 +255,9 @@ class Attention(nn.Module):
         quantization: str = "",
         quantize_kvcache: bool = False,
         lora_rank: int = 0,
-        paged_attention: bool = False,
         device=None,
     ):
         super().__init__()
-        if paged_attention:
-            _unsupported("paged_attention (page-table decode kernel)", "5, decode extras")
         if attention_kernel not in ("autoselected", "dot_product", "flash"):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
         if decode_attention == "bucketed":
@@ -304,6 +314,13 @@ class Attention(nn.Module):
                        self.head_dim, self.dtype, self.quantize_kvcache,
                        device if device is not None else self.query.kernel.device)
 
+    def init_paged_cache(self, num_pages: int, tokens_per_page: int,
+                         device=None) -> PagedKVCache:
+        """This layer's page pools ``[num_pages, tokens_per_page, nkv, d]``."""
+        return init_paged_cache(num_pages, tokens_per_page, self.num_kv_heads, self.head_dim,
+                                self.dtype,
+                                device if device is not None else self.query.kernel.device)
+
     def forward(
         self,
         inputs_q: torch.Tensor,  # [B, S, E]
@@ -311,8 +328,9 @@ class Attention(nn.Module):
         positions: torch.Tensor,  # [B, S]
         segment_ids: torch.Tensor | None,
         mode: str = MODE_TRAIN,
-        cache: KVCache | None = None,
+        cache: KVCache | PagedKVCache | None = None,
         impl: str | None = None,  # "plain": the kernels' plain versions (comparisons only)
+        paged_step=None,  # infer.paged_attention.PagedDecodeStep, with a PagedKVCache
     ) -> torch.Tensor:
         if mode == MODE_TRAIN:
             return self.out(self.attend(inputs_q, inputs_kv, positions, segment_ids, impl))
@@ -321,6 +339,8 @@ class Attention(nn.Module):
         if cache is None:
             raise ValueError(f"mode {mode!r} needs a KVCache")
         q, k, v = self._project(inputs_q, inputs_kv, positions)
+        if isinstance(cache, PagedKVCache):
+            return self.out(self._paged_decode(q, k, v, mode, cache, paged_step, impl))
         true_lengths = None
         if mode == MODE_PREFILL and segment_ids is not None:
             true_lengths = torch.sum((segment_ids != 0).to(torch.int32), dim=1)
@@ -363,6 +383,24 @@ class Attention(nn.Module):
                 self.float32_qk_product,
             )
         return self.out(out)
+
+    def _paged_decode(self, q, k, v, mode, cache, step, impl):
+        """One token per slot against the page pools: write it at row
+        ``seq_lens - 1`` of its slot, then attend over ``seq_lens`` rows."""
+        if mode != MODE_AUTOREGRESSIVE:
+            raise ValueError(f"a paged cache serves decode steps only, not mode {mode!r}")
+        if step is None:
+            raise ValueError("paged decode needs the engine's PagedDecodeStep")
+        if self.sliding_window_size or self.chunk_attn_window_size:
+            raise ValueError("paged decode supports global causal attention only")
+        write_rows(cache, step.rows, k[:, 0], v[:, 0], step.live)
+        state = step.page_state
+        if q.device.type == "cuda" and self.attn_logits_soft_cap == 0.0:
+            return paged_decode_attention_v2(
+                q[:, 0], cache.key_pages, cache.value_pages, state.page_map, state.seq_lens,
+                impl=impl,
+            )[:, None]
+        return paged_decode_attention(q, cache, state, self.attn_logits_soft_cap)
 
     def _project(self, inputs_q, inputs_kv, positions):
         """q, k, v [B, S, N, D]: projections, qk-norm, RoPE, gemma's q scale."""

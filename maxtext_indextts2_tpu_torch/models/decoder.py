@@ -84,7 +84,6 @@ def _attention_kwargs(cfg: Config, block, attention_type: str) -> dict[str, Any]
         quantization=cfg.quantization,
         quantize_kvcache=cfg.quantize_kvcache,
         lora_rank=cfg.lora_rank,
-        paged_attention=cfg.paged_attention,
     )
 
 
@@ -156,12 +155,17 @@ class DecoderLayer(nn.Module):
         return [getattr(self, f"self_attention_{i}").init_cache(batch, max_length, device)
                 for i in range(len(self.block.attention_pattern))]
 
+    def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
+        return [getattr(self, f"self_attention_{i}").init_paged_cache(
+            num_pages, tokens_per_page, device) for i in range(len(self.block.attention_pattern))]
+
     def forward(self, x, positions, segment_ids, mode: str = MODE_TRAIN, cache=None,
-                impl: str | None = None, remat: str | None = None):
+                impl: str | None = None, remat: str | None = None, paged_step=None):
         """``remat``: a policy of :func:`_remat_policy`, applied in
-        ``MODE_TRAIN`` while gradients are recorded."""
+        ``MODE_TRAIN`` while gradients are recorded. ``paged_step``: the
+        engine's ``PagedDecodeStep`` when ``cache`` holds page pools."""
         if mode != MODE_TRAIN or remat is None or not torch.is_grad_enabled():
-            return self._unit(x, positions, segment_ids, mode, cache, impl)
+            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step)
         if remat == "full":
             return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl,
                               use_reentrant=False)
@@ -178,12 +182,12 @@ class DecoderLayer(nn.Module):
                 x = self._after_mlp(i, x1, pre)
         return x
 
-    def _unit(self, x, positions, segment_ids, mode, cache, impl):
+    def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None):
         for i in range(len(self.block.attention_pattern)):
             h = self._pre_attn(i, x)
             attn_out = getattr(self, f"self_attention_{i}")(
                 h, h, positions, segment_ids, mode=mode,
-                cache=None if cache is None else cache[i], impl=impl)
+                cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step)
             x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out))
         return x
 
@@ -242,11 +246,16 @@ class Decoder(nn.Module):
         return [getattr(self, f"layers_{i}").init_cache(batch, max_length, device)
                 for i in range(self.num_units)]
 
+    def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
+        """Per-unit list of per-sub-layer page pools (PagedKVCaches)."""
+        return [getattr(self, f"layers_{i}").init_paged_cache(num_pages, tokens_per_page, device)
+                for i in range(self.num_units)]
+
     def forward(self, y: torch.Tensor, positions, segment_ids, mode: str = MODE_TRAIN,
-                cache=None, impl: str | None = None) -> torch.Tensor:
+                cache=None, impl: str | None = None, paged_step=None) -> torch.Tensor:
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
         for i in range(self.num_units):
             y = getattr(self, f"layers_{i}")(
                 y, positions, segment_ids, mode,
-                None if cache is None else cache[i], impl, remat)
+                None if cache is None else cache[i], impl, remat, paged_step)
         return y

@@ -60,6 +60,10 @@ class Transformer(nn.Module):
     def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
         return self.decoder.init_cache(batch, max_length, device)
 
+    def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
+        """Page pools for paged decode, nested as :meth:`init_cache`."""
+        return self.decoder.init_paged_cache(num_pages, tokens_per_page, device)
+
     def _unembed(self, y: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         y = self.decoder_norm(y)
@@ -81,10 +85,12 @@ class Transformer(nn.Module):
         mode: str = MODE_TRAIN,
         cache: list | None = None,  # from init_cache(); updated in place
         impl: str | None = None,  # "plain": kernels' plain versions (comparisons only)
+        paged_step=None,  # paged decode: infer.paged_attention.PagedDecodeStep
     ) -> torch.Tensor:
         emb = self.token_embedder(tokens)
         if self.block.scale_embedding:
             emb = emb * torch.tensor(self.cfg.emb_dim ** 0.5, dtype=emb.dtype,
                                      device=emb.device)
-        y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl)
+        y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
+                         paged_step=paged_step)
         return self._unembed(y)

@@ -42,6 +42,10 @@ SIGNATURES = {
     "ragged_decode_attention_f32": _RAGGED_ARGS,
     "ragged_decode_attention_bf16": _RAGGED_ARGS,
     "ragged_decode_attention_int8": _RAGGED_ARGS,
+    # (q, k_pages, v_pages, page_map, lengths, out, B, num_pages, tpp, max_pages,
+    #  nkv, group, head_dim, scale, q_is_bf16, out_is_bf16, stream)
+    "paged_decode_attention_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "paged_decode_attention_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "inplace_row_update_bytes": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "inplace_row_update_convert": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
     # (x, w, out, rows, s_len, d, dtype, w_is_f32, stream)

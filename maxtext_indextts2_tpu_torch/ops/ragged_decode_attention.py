@@ -1,4 +1,4 @@
-"""Ragged decode attention: one-token-per-slot GQA over variable lengths.
+"""Ragged and paged decode attention: one-token-per-slot GQA over variable lengths.
 
 ``softmax(q k^T / sqrt(d)) v`` over each slot's first ``lengths[b]`` cache
 rows (with ``sliding_window > 0`` only the last ``sliding_window`` of them),
@@ -7,12 +7,15 @@ Counterpart of the JAX package's ``ops/ragged_decode_attention.py``:
 ``ragged_decode_attention_v2`` is what the decode step calls;
 ``ragged_decode_attention`` keeps the older entry's signature (scales with a
 trailing unit axis, float32 result for an int8 cache) and launches the same
-kernel.
+kernel. ``paged_decode_attention_v2`` (K4) is the same attention over a
+paged cache: K/V pools ``[num_pages, tokens_per_page, nkv, d]`` read through
+a per-slot ``page_map`` (``infer/paged_attention.py``), float pools only.
 
 On a CUDA tensor the hand-written kernel in
-``csrc/ragged_decode_attention.cuh`` runs (or the call raises); the plain
-PyTorch version below is taken only for a tensor on the CPU, or when a test
-or an on-device comparison asks for it with ``impl="plain"``.
+``csrc/ragged_decode_attention.cuh`` (K4: ``csrc/paged_decode_attention.cuh``,
+the same kernel with a paged row address) runs, or the call raises; the
+plain PyTorch version below is taken only for a tensor on the CPU, or when a
+test or an on-device comparison asks for it with ``impl="plain"``.
 
 Where this differs from the TPU kernel, on purpose: a slot of length 0 gets
 ZEROS (the TPU kernel returns a finite mean of masked rows, the jnp
@@ -30,8 +33,10 @@ import torch
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 8
 
-# launches of the CUDA kernel by this process (see ops/inplace_update.py)
+# launches of the CUDA kernels by this process (see ops/inplace_update.py):
+# the ragged kernel (K1, both entries) and the paged one (K4)
 launch_count = 0
+paged_launch_count = 0
 
 _ENTRY = {
     torch.float32: "ragged_decode_attention_f32",
@@ -176,3 +181,96 @@ def ragged_decode_attention(
     return ragged_decode_attention_v2(
         q, k, v, lengths, sliding_window=sliding_window, k_scale=k_scale,
         v_scale=v_scale, impl=impl, out_dtype=torch.float32 if quantized else None)
+
+
+_PAGED_ENTRY = {
+    torch.float32: "paged_decode_attention_f32",
+    torch.bfloat16: "paged_decode_attention_bf16",
+}
+
+
+def paged_decode_attention_v2_plain(
+    q: torch.Tensor, key_pages: torch.Tensor, value_pages: torch.Tensor,
+    page_map: torch.Tensor, lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version: gather the pages the longest slot reaches (one
+    read of that length on the host: this version serves comparisons and the
+    CPU), then the ragged plain version over the gathered rows."""
+    b_sz, nq, d = q.shape
+    num_pages, tpp, nkv, _ = key_pages.shape
+    lengths = torch.clamp(lengths.to(torch.long), min=0, max=tpp * page_map.shape[1])
+    n_pages = max(1, -(-int(lengths.max().item()) // tpp))
+    pm = torch.clamp(page_map[:, :n_pages].to(torch.long), min=0, max=num_pages - 1)
+    k = key_pages[pm].reshape(b_sz, n_pages * tpp, nkv, d)
+    v = value_pages[pm].reshape(b_sz, n_pages * tpp, nkv, d)
+    return ragged_decode_attention_plain(q, k, v, lengths)
+
+
+def _check_paged(q, key_pages, value_pages, page_map, lengths):
+    if q.ndim != 3 or key_pages.ndim != 4 or value_pages.shape != key_pages.shape \
+            or page_map.ndim != 2:
+        raise ValueError(f"need q [B,nq,d], pools [num_pages,tpp,nkv,d], page_map [B,max_pages]; "
+                         f"got {tuple(q.shape)}, {tuple(key_pages.shape)}, "
+                         f"{tuple(value_pages.shape)}, {tuple(page_map.shape)}")
+    b_sz, nq, d = q.shape
+    if key_pages.shape[3] != d or nq % key_pages.shape[2] != 0:
+        raise ValueError(f"q {tuple(q.shape)} does not match the pools {tuple(key_pages.shape)}")
+    if page_map.shape[0] != b_sz or lengths.shape != (b_sz,):
+        raise ValueError(f"page_map must be [B, max_pages] and lengths [B] with B={b_sz}, got "
+                         f"{tuple(page_map.shape)}, {tuple(lengths.shape)}")
+    if key_pages.dtype not in _PAGED_ENTRY or value_pages.dtype != key_pages.dtype:
+        raise TypeError(f"paged decode attention takes float32 or bfloat16 pools, got "
+                        f"{key_pages.dtype}/{value_pages.dtype}")
+    if q.dtype != key_pages.dtype:
+        raise TypeError(f"q is {q.dtype} but the pools are {key_pages.dtype}")
+    if page_map.dtype.is_floating_point or lengths.dtype.is_floating_point:
+        raise TypeError("page_map and lengths must be integer tensors")
+
+
+def paged_decode_attention_v2(
+    q: torch.Tensor,  # [B, nq, d] float32 | bfloat16
+    key_pages: torch.Tensor,  # [num_pages, tpp, nkv, d], q's dtype
+    value_pages: torch.Tensor,
+    page_map: torch.Tensor,  # [B, max_pages] integer page ids (clamped to the pool)
+    lengths: torch.Tensor,  # [B] integer; clamped to [0, tpp * max_pages]
+    impl: str | None = None,
+) -> torch.Tensor:
+    """K4: returns [B, nq, d] in q's dtype; a slot of length 0 gets zeros."""
+    global paged_launch_count
+    _check_paged(q, key_pages, value_pages, page_map, lengths)
+    if impl == "plain" or (impl is None and q.device.type == "cpu"):
+        return paged_decode_attention_v2_plain(q, key_pages, value_pages, page_map, lengths)
+    if impl not in (None, "cuda"):
+        raise ValueError(f"impl must be None, 'plain' or 'cuda', got {impl!r}")
+
+    b_sz, nq, d = q.shape
+    num_pages, tpp, nkv, _ = key_pages.shape
+    max_pages = page_map.shape[1]
+    group = nq // nkv
+    tensors = (q, key_pages, value_pages, page_map, lengths)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged decode kernel: all tensors must lie on one CUDA device")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged decode kernel: head_dim {d} not in {HEAD_DIMS}")
+    if group > MAX_GROUP:
+        raise ValueError(f"paged decode kernel: nq/nkv = {group} > {MAX_GROUP}")
+    if not (key_pages.is_contiguous() and value_pages.is_contiguous()):
+        raise ValueError("paged decode kernel: the page pools must be contiguous "
+                         "(they are never copied)")
+
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    q = q.contiguous()
+    pm32 = page_map.to(torch.int32).contiguous()
+    # clamped here as well as in the kernel (as the TPU kernel's wrapper does)
+    lengths32 = torch.clamp(lengths, min=0, max=tpp * max_pages).to(torch.int32).contiguous()
+    out = torch.empty((b_sz, nq, d), dtype=q.dtype, device=q.device)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    code = getattr(lib, _PAGED_ENTRY[key_pages.dtype])(
+        q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), pm32.data_ptr(),
+        lengths32.data_ptr(), out.data_ptr(), b_sz, num_pages, tpp, max_pages, nkv, group, d,
+        1.0 / math.sqrt(d), is_bf16, is_bf16, torch.cuda.current_stream(q.device).cuda_stream)
+    paged_launch_count += 1
+    _build.check_launch(code, "paged_decode_attention")
+    return out

@@ -16,9 +16,10 @@ run's inputs: bytes moved (each input read once, each output written once,
 only the cache rows the lengths make valid) over the memory rate, or
 operations over the peak rate of the input type, whichever is larger.
 
-Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash]``
+Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash | paged]``
 (needs the GPU; ``small`` shrinks the serving and training shapes for a
-quick first check of a changed kernel, ``flash`` runs the K9-K11 cases only;
+quick first check of a changed kernel, ``flash`` runs the K9-K11 cases only,
+``paged`` the K4 cases only;
 the repo's ``chip_smoke.py`` calls :func:`run_all`).
 """
 
@@ -213,6 +214,120 @@ def ragged_case(name, device, timing, *, b, s, nq, nkv, d, dtype=torch.bfloat16,
         if name in MAIN_PATH_CASES.values():
             res.update(device_ms=device_ms(lambda: run(None)))
     return res
+
+
+def _paged_inputs(b, tpp, max_pages, nq, nkv, d, dtype, seed, device, serving_max=0,
+                  lengths=None, spare_pages=8):
+    """A pool holding every slot's pages in shuffled order (page 0 is the
+    null page and holds nobody's rows), q, the page map and the lengths.
+    Map entries past a slot's pages point at random pages: never read."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    cap = tpp * max_pages
+    if lengths is None:
+        lengths = spread_lengths(b, cap, seed, serving_max)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32)
+    held = [-(-min(max(int(n), 0), cap) // tpp) for n in lengths.tolist()]
+    num_pages = 1 + sum(held) + spare_pages
+    order = rng.permutation(np.arange(1, num_pages))
+    page_map = rng.integers(0, num_pages, size=(b, max_pages))
+    off = 0
+    for i, n in enumerate(held):
+        page_map[i, :n] = order[off:off + n]
+        off += n
+    q = torch.randn((b, nq, d), generator=g, device=device, dtype=torch.float32).to(dtype)
+    shape = (num_pages, tpp, nkv, d)
+    kp = torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+    vp = torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+    pm = torch.as_tensor(page_map, dtype=torch.int32, device=device)
+    return q, kp, vp, pm, lengths.to(device)
+
+
+def _paged_library(q, kp, vp, pm, lengths):
+    """Two PyTorch calls for the same function: the gather of the pages the
+    longest slot reaches, by the page map, and SDPA with a length mask."""
+    b, nq, d = q.shape
+    tpp, nkv = kp.shape[1], kp.shape[2]
+    lens = torch.clamp(lengths.long(), 1, tpp * pm.shape[1])  # an empty row would be NaN
+    n_pages = -(-int(lens.max().item()) // tpp)
+    idx = pm[:, :n_pages].long()
+    mask = (torch.arange(n_pages * tpp, device=q.device)[None, :] < lens[:, None])[:, None, None]
+    q4 = q[:, :, None, :]
+
+    def run():
+        k = kp[idx].reshape(b, n_pages * tpp, nkv, d).transpose(1, 2)
+        v = vp[idx].reshape(b, n_pages * tpp, nkv, d).transpose(1, 2)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True)
+    return run
+
+
+def paged_case(name, device, timing, *, b, tpp, max_pages, nq, nkv, d, dtype=torch.bfloat16,
+               seed=0, serving_max=0, lengths=None):
+    q, kp, vp, pm, lengths = _paged_inputs(b, tpp, max_pages, nq, nkv, d, dtype, seed, device,
+                                           serving_max, lengths)
+    run = lambda impl: rda.paged_decode_attention_v2(q, kp, vp, pm, lengths, impl=impl)
+    out = run(None)
+    torch.cuda.synchronize()
+    ref = run("plain")
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape, (out.dtype, ref.dtype)
+    finite = bool(torch.isfinite(out).all().item())
+    empty_zero = bool((out[lengths <= 0] == 0).all().item())
+    err = float((out.float() - ref.float()).abs().max().item())
+    tol = TOL_BF16 if out.dtype == torch.bfloat16 else TOL_F32
+    cap = tpp * max_pages
+    valid = torch.clamp(lengths.long(), 0, cap)
+    res = dict(
+        name=name, kernel="paged_decode_attention", max_abs_err=err, tol=tol,
+        ok=bool(err <= tol and finite and empty_zero), finite=finite,
+        empty_rows_zero=empty_zero,
+        shape=dict(b=b, tpp=tpp, max_pages=max_pages, num_pages=kp.shape[0], nq=nq, nkv=nkv,
+                   d=d, dtype=str(dtype), sum_lengths=int(valid.sum().item())),
+    )
+    if timing:
+        rows = int(valid.sum().item())
+        pages = int((-(-valid // tpp)).sum().item())
+        nbytes = (2 * q.numel() * q.element_size() + lengths.numel() * 4 + pages * 4
+                  + rows * nkv * d * 2 * kp.element_size())
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 4 * rows * nq * d / PEAK_OPS_PER_S[dtype]
+        res.update(
+            kernel_ms=time_ms(lambda: run(None)),
+            plain_ms=time_ms(lambda: run("plain"), warmup=1, iters=3),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations", bytes_moved=nbytes,
+            library_ms=time_ms(_paged_library(q, kp, vp, pm, lengths), warmup=1, iters=5),
+            library_call="gather by page_map (indexing) + scaled_dot_product_attention "
+                         "with a length mask: two calls",
+        )
+        if name in MAIN_PATH_CASES.values():
+            res.update(device_ms=device_ms(lambda: run(None)))
+    return res
+
+
+def paged_cases(device, timing, full_size=True, serve_slots=32):
+    """K4 at the serving path's shape (32 slots, 128 rows a page, a 32,768-row
+    context, the K1 main path's lengths) and at small shapes that cross
+    every edge: lengths 0, 1, tpp-1, tpp, tpp+1, full and past the end; pages
+    of 1, 4, 7, 16 and 64 rows; groups 1 to 8; d 64 and 128; both types."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = dict(b=serve_slots, tpp=128, max_pages=256 if full_size else 8, nq=16, nkv=8, d=128)
+
+    def edges(tpp, max_pages):
+        full = tpp * max_pages
+        return [0, 1, tpp - 1, tpp, tpp + 1, full, full + 5, 0, 2 * tpp + 3]
+
+    out = [paged_case("paged_bf16_main_path", device, timing, **main, serving_max=528, seed=30)]
+    for i, (tpp, mp, nq, nkv, d, dtype) in enumerate([
+            (16, 8, 16, 8, 128, bf16), (16, 8, 16, 8, 128, f32), (64, 4, 8, 4, 64, bf16),
+            (4, 16, 8, 8, 64, f32), (7, 9, 8, 1, 128, bf16), (1, 40, 4, 1, 64, f32),
+            (64, 3, 16, 4, 128, f32)]):
+        out.append(paged_case(
+            f"paged_{'bf16' if dtype == bf16 else 'f32'}_tpp{tpp}_g{nq // nkv}_d{d}", device,
+            timing, b=9, tpp=tpp, max_pages=mp, nq=nq, nkv=nkv, d=d, dtype=dtype, seed=31 + i,
+            lengths=edges(tpp, mp)))
+    return out
 
 
 def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
@@ -694,6 +809,7 @@ def flash_cases(device, timing, full_size=True):
 MAIN_PATH_CASES = {
     "s2a_attention": "s2a_attention_bf16_main_path",
     "ragged_decode_attention": "ragged_bf16_main_path",
+    "paged_decode_attention": "paged_bf16_main_path",
     "inplace_row_update": "inplace_kv_bf16_k1_main_path",
     "ada_rmsnorm": "ada_rmsnorm_bf16_main_path",
     "row_quantize_int8": "row_quantize_int8_bf16_main_path",
@@ -750,7 +866,8 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                      seed=16),
         inplace_case("inplace_unaligned_rows", device, timing, cache_shape=(4, 16, 3),
                      span=2, cache_dtype=f32, seed=17),
-    ] + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
+    ] + paged_cases(device, timing, full_size, serve_slots) \
+        + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
         + flash_cases(device, timing, full_size)
 
 
@@ -758,13 +875,16 @@ def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "flash"}:
-        raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash]")
+    if not set(argv) <= {"small", "flash", "paged"}:
+        raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
+                         "[flash | paged]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
     if "flash" in argv:  # K9-K11 only: a quick first check of a changed flash kernel
         results = flash_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "paged" in argv:  # K4 only
+        results = paged_cases(torch.device("cuda"), timing=True, full_size=full)
     else:
         results = run_all(full_size=full)
     for r in results:

@@ -1,8 +1,9 @@
 """Where one decode step of the served audio LM spends its time on the GPU.
 
 Builds the ``tts-1b`` engine with seeded random weights (bfloat16, ragged
-decode attention), fills every slot with a prompt, and reports, one JSON
-object per line:
+decode attention, or with ``paged=true`` a paged KV cache of ``tpp``-row
+pages read by K4, the pool just large enough for the run), fills every slot
+with a prompt, and reports, one JSON object per line:
 
 * ``step``: host-clock milliseconds per decode step of ``generate_n`` (ends
   in a device-to-host copy; median of five repeats, all five listed), and
@@ -15,7 +16,7 @@ object per line:
 Run on the machine with the GPU::
 
     python -m maxtext_indextts2_tpu_torch.tools.profile_decode [slots=32] [prompt_len=270] \\
-        [steps=16] [layers=20]
+        [steps=16] [layers=20] [paged=true] [tpp=128]
 """
 
 from __future__ import annotations
@@ -43,20 +44,27 @@ def _card() -> str:
 
 
 def main(argv=None):
-    opts = dict(slots=32, prompt_len=270, steps=16, layers=20)
+    opts = dict(slots=32, prompt_len=270, steps=16, layers=20, paged=0, tpp=128)
     for a in (sys.argv[1:] if argv is None else argv):
         k, _, v = a.partition("=")
         if k not in opts:
             raise SystemExit(f"unknown option {k!r}; known: {sorted(opts)}")
-        opts[k] = int(v)
+        opts[k] = int({"true": 1, "false": 0}.get(v.lower(), v))
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     card = _card()
 
-    cfg = load_config([
+    args = [
         os.path.join(_PKG, "configs", "models", "tts-1b.yml"), "decode_attention=ragged",
         "serve_params_dtype=bfloat16", "max_prefill_predict_length=1024", "scan_layers=false",
-        f"per_device_batch_size={opts['slots']}", f"base_num_decoder_layers={opts['layers']}"])
+        f"per_device_batch_size={opts['slots']}", f"base_num_decoder_layers={opts['layers']}"]
+    if opts["paged"]:
+        # every step this tool takes (4 warm-up, 5 x steps, 2 x 8 profiled) fits
+        rows = opts["prompt_len"] + 4 + 5 * opts["steps"] + 16
+        pages = opts["slots"] * -(-rows // opts["tpp"]) + 1
+        args += ["paged_attention=true", f"pagedattn_tokens_per_page={opts['tpp']}",
+                 f"pagedattn_num_pages={pages}"]
+    cfg = load_config(args)
     engine = Engine(cfg)
     engine.load_params()
     rng = np.random.default_rng(0)
@@ -85,6 +93,7 @@ def main(argv=None):
     step_ms = float(np.median(reps_ms))
     print(json.dumps({
         "phase": "step", "card": card, "slots": opts["slots"], "layers": cfg.num_decoder_layers,
+        "paged": bool(opts["paged"]), "tokens_per_page": opts["tpp"] if opts["paged"] else None,
         "prompt_len": opts["prompt_len"], "step_ms_host_clock": step_ms,
         "step_ms_host_clock_repeats": reps_ms,
         "tokens_per_s_decode_only": opts["slots"] / step_ms * 1e3,
@@ -115,7 +124,7 @@ def main(argv=None):
         "device_busy_ms_per_step": busy_ms, "step_ms_host_clock": wall_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
         "device_launches_per_step": len(kernels) / steps,
-        "own_kernels": [{"name": k[:60], "device_ms_per_launch": sum(v) / 1e3 / len(v),
+        "own_kernels": [{"name": k[:90], "device_ms_per_launch": sum(v) / 1e3 / len(v),
                          "launches_per_step": len(v) / steps} for k, v in own.items()],
         "top_kernels": [{"name": k[:80], "ms_per_step": sum(v) / 1e3 / steps,
                          "launches_per_step": len(v) / steps} for k, v in top]}), flush=True)

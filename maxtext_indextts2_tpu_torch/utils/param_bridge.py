@@ -26,6 +26,12 @@ dynamic-int8 (float kernels) and offline-int8 trees (``kernel`` int8
 ``ml_dtypes`` numpy arrays. Convolution kernels keep flax's ``[k, in /
 groups, out]`` on both sides (``audio.layers.Conv1d`` permutes at the call),
 so a depthwise kernel (``feature_group_count = C``) crosses as ``[k, 1, C]``.
+
+A paged decode state crosses with :func:`paged_decode_state_from_jax`: the
+JAX engine's page pools (its ``cache`` tree, ``.../kv_cache/key_pages``) and
+its ``PageState`` (numpy leaves) become this engine's per-layer
+``PagedKVCache`` list and ``PageState``, so that both packages can start from
+one populated state.
 """
 
 from __future__ import annotations
@@ -225,3 +231,36 @@ def semantic_tokenizer_params_from_jax(params) -> dict[str, torch.Tensor]:
     state dict of this package's ``audio.semantic_tokenizer.SemanticTokenizer``."""
     return {f"{half}.{name}": leaf for half in ("encoder", "repcodec")
             for name, leaf in tree_to_state_dict(params[half]).items()}
+
+
+def paged_decode_state_from_jax(cache_tree, page_state, device=None):
+    """The JAX engine's paged decode cache (a nested mapping with numpy leaves
+    ``decoder/layers_{i}/self_attention_{j}/kv_cache/{key,value}_pages``) and
+    its ``PageState`` (``page_status``, ``page_map``, ``seq_lens`` as numpy
+    arrays, a named tuple or a mapping) -> (this engine's cache: a list per
+    unit of a list per sub-layer of ``PagedKVCache``, and its ``PageState``),
+    on ``device``."""
+    from maxtext_indextts2_tpu_torch.infer.page_manager import PageState
+    from maxtext_indextts2_tpu_torch.infer.paged_attention import PagedKVCache
+
+    flat: dict[str, np.ndarray] = {}
+    _flatten(cache_tree, "", flat)
+    pools: dict[int, dict[int, dict[str, torch.Tensor]]] = {}
+    for path, leaf in flat.items():
+        parts = path.split(".")
+        if parts[-1] not in ("key_pages", "value_pages"):
+            continue
+        unit = next(int(p[len("layers_"):]) for p in parts if p.startswith("layers_"))
+        sub = next(int(p[len("self_attention_"):]) for p in parts
+                   if p.startswith("self_attention_"))
+        pools.setdefault(unit, {}).setdefault(sub, {})[parts[-1]] = \
+            _to_tensor(leaf).to(device)
+    if not pools:
+        raise KeyError("the cache tree holds no key_pages/value_pages leaves")
+    cache = [[PagedKVCache(pools[u][j]["key_pages"], pools[u][j]["value_pages"])
+              for j in sorted(pools[u])] for u in sorted(pools)]
+    fields = {name: _to_numpy(_field(page_state, name))
+              for name in ("page_status", "page_map", "seq_lens")}
+    state = PageState(**{name: _to_tensor(arr.astype(np.int32)).to(device)
+                         for name, arr in fields.items()})
+    return cache, state

@@ -157,7 +157,7 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    for extra in (["paged_attention=true"], ["spec_num_draft_tokens=2"],
+    for extra in (["spec_num_draft_tokens=2"],
                   ["decode_attention=bucketed"], ["quantization=int8"],
                   ["load_parameters_path=/nonexistent"]):
         cfg = load_config(TINY_TTS + extra)

@@ -254,7 +254,7 @@ def test_kvcache_write_past_the_end_lands_on_the_last_row():
 
 def test_unported_attention_options_raise():
     base = dict(emb_dim=32, num_query_heads=2, num_kv_heads=2, head_dim=16)
-    for kw in (dict(paged_attention=True), dict(decode_attention="bucketed")):
+    for kw in (dict(decode_attention="bucketed"),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attn.Attention(**base, **kw)
     # attention=flash is ported (K9-K11, the training step); an unknown kernel is an error

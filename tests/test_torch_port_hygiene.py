@@ -82,6 +82,8 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.infer.server, maxtext_indextts2_tpu_torch.infer.decode\n"
         "import maxtext_indextts2_tpu_torch.ops.smoke, maxtext_indextts2_tpu_torch.train.train\n"
         "import maxtext_indextts2_tpu_torch.tools.profile_train\n"
+        "import maxtext_indextts2_tpu_torch.infer.page_manager\n"
+        "import maxtext_indextts2_tpu_torch.infer.paged_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'yaml', 'maxtext_indextts2_tpu')]\n"
         "assert not bad, bad\n"
@@ -178,6 +180,7 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
 
 @pytest.mark.parametrize("source,replaced", [
     ("ragged_decode_attention.cuh", "ragged_decode_attention_v2"),
+    ("paged_decode_attention.cuh", "paged_decode_attention_v2"),
     ("inplace_update.cu", "inplace_row_update"),
     ("row_kernels.cuh", "ada_rmsnorm"),
     ("row_kernels.cuh", "row_quantize_int8"),
@@ -198,6 +201,7 @@ def test_kernel_sources_carry_their_note(source, replaced):
 
 @pytest.mark.parametrize("module,plain", [
     ("ragged_decode_attention", "ragged_decode_attention_plain"),
+    ("ragged_decode_attention", "paged_decode_attention_v2_plain"),
     ("inplace_update", "inplace_row_update_plain"),
     ("ada_rmsnorm", "ada_rmsnorm_plain"),
     ("quant_kernels", "row_quantize_int8_plain"),
@@ -214,6 +218,8 @@ def test_wrappers_have_plain_version_and_launch_count_and_no_library_call(module
     if hasattr(mod, "launch_counts"):  # several kernels, one count each
         assert plain[: -len("_plain")] in mod.launch_counts
         assert all(isinstance(n, int) for n in mod.launch_counts.values())
+    elif plain.startswith("paged_"):  # K4 beside K1 in one module
+        assert isinstance(mod.paged_launch_count, int)
     else:
         assert isinstance(mod.launch_count, int)
     with open(mod.__file__) as fh:
@@ -235,11 +241,13 @@ def test_build_module_targets_sm_90a_into_an_ignored_directory():
     assert {os.path.basename(s) for s in _build._sources()} >= {
         "inplace_update.cu", "ragged_decode_attention_bf16.cu", "ada_rmsnorm.cu",
         "row_quantize.cu", "ada_rmsnorm_quantize.cu", "silu_mul_quantize.cu",
-        "s2a_attention.cu", "flash_attention_bf16.cu", "flash_attention_f32.cu"}
+        "s2a_attention.cu", "flash_attention_bf16.cu", "flash_attention_f32.cu",
+        "paged_decode_attention_bf16.cu", "paged_decode_attention_f32.cu"}
     assert {"ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",
             "silu_mul_quantize", "s2a_attention", "flash_fwd_bf16", "flash_fwd_f32",
             "flash_bwd_dq_bf16", "flash_bwd_dq_f32", "flash_bwd_dkv_bf16",
-            "flash_bwd_dkv_f32"} <= set(_build.SIGNATURES)
+            "flash_bwd_dkv_f32", "paged_decode_attention_bf16",
+            "paged_decode_attention_f32"} <= set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         assert argtypes[0] is _build._P and argtypes[-1] is _build._P, name
 
