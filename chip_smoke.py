@@ -1195,9 +1195,9 @@ def main():
     phase_serve_parity(engine)
     phase_http(engine)
     del engine
-    # the HTTP servers (and serve_paged's counting hook) hold what a phase
-    # built in reference cycles: collect them, so that each phase's peak
-    # memory is its own
+    # serve_paged's counting hook (orch._can_admit, a closure over orch) holds
+    # what that phase built in a reference cycle, and a phase may leave others:
+    # collect them, so that each phase's peak memory is its own
     gc.collect()
     torch.cuda.empty_cache()
     engine, launches["paged_decode_attention"] = phase_serve_paged()

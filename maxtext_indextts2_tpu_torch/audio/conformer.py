@@ -31,7 +31,7 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Conv1d, Dense, LayerNorm
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_CHECKPOINTS = "4b, rest of training: weight import (once checkpoint files are in the repo)"
+_CHECKPOINTS = "4b, rest of training: weight import, item 4b.1"
 
 
 @dataclass(frozen=True)

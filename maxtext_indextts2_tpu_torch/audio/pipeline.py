@@ -75,7 +75,7 @@ class TTSPipeline:
 
     def load_torch_audio_weights(self, *args, **kwargs):
         _unsupported("TTSPipeline.load_torch_audio_weights (published checkpoints)",
-                     "4b, rest of training: weight import (once checkpoint files are in the repo)")
+                     "4b, rest of training: weight import, item 4b.1")
 
     # ------------------------------------------------------------ stages
     def text_and_prompt_to_lm_prompt(self, text: str, prompt_semantic) -> np.ndarray:

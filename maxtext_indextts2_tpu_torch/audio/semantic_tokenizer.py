@@ -22,7 +22,7 @@ from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
 from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_CHECKPOINTS = "4b, rest of training: weight import (once checkpoint files are in the repo)"
+_CHECKPOINTS = "4b, rest of training: weight import, item 4b.1"
 
 
 class SemanticTokenizer(nn.Module):

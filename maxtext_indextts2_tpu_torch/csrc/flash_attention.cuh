@@ -23,8 +23,9 @@
 // with the TPU kernels' rounding points: logits, running max and sum and every
 // accumulator in float32; in K9 the unnormalised probabilities exp(s - m) are
 // rounded to v's type before the PV product, the output to q's type; in K10 ds
-// is rounded to k's type before ds k; K11 is float32 throughout (q, do and v
-// read as float32) and dk, dv are rounded to k's and v's types once, at the end.
+// is rounded to k's type before ds k; K11 keeps p and ds in float32 (q, do and
+// v enter its products exactly; in bf16 p and ds enter as hi + lo, see below)
+// and rounds dk, dv to k's and v's types once, at the end.
 // The mask of a tile pair is decided from the tiles' min and max positions and
 // segment ids (as `_block_class_inkernel` does), never from their index:
 // positions need not increase (a context-parallel reorder permutes them). Empty
@@ -35,11 +36,11 @@
 // dimension in order and carries the online-softmax state and the dq / dk / dv
 // sums in VMEM scratch from one grid step to the next, stores the running
 // statistics (block_q, 128)-wide for its vector layout and uses blocks of up to
-// 512 x 512. Here one block of 256 threads owns one output tile and walks the
-// other axis in a loop: K9 and K10 a 64-query tile of one (batch, head), looping
-// over 64-key tiles; K11 a 64-key tile of one (batch, kv head), looping over
-// the group's q heads and every 64-query tile, so that dk and dv are summed in
-// registers and written once, without atomics: a step is deterministic.
+// 512 x 512. Here one block owns one output tile and walks the other axis in a
+// loop: K9 and K10 a 64-query tile of one (batch, head), looping over 64-key
+// tiles; K11 a 64-key tile of one (batch, kv head), looping over the group's q
+// heads and every query tile, so that dk and dv are summed in registers and
+// written once, without atomics: a step is deterministic.
 //
 // What bounds it on this card: at the training shape (S = 2048, D = 128, bf16)
 // a causal K9 call does 2 * 2 * S^2 / 2 * D flops per (batch, head) against
@@ -47,21 +48,55 @@
 // a byte, far past the ~295 where the tensor cores and not the memory are the
 // limit, so operations bound all three kernels (0.070 ms for K9 at 989 TFLOP/s
 // over a batch of 4 x 16 heads).
-// What the design does about it: nothing yet beyond skipping empty tile pairs.
-// The products run on the CUDA cores in float32 (a bf16 product is exact in
-// float32, so the rounding points above hold), tiles in shared memory as
-// float32 rows padded by one against bank conflicts, each thread 4 x 4 logits
-// (rows ty + 16 i, columns tx + 16 j) and 4 rows x D / 16 columns of its
-// accumulators. That is simple and right, and far from the tensor-core bound:
-// PERF.md has its times beside the bound; `mma.sync` / `wgmma` fragments are the
-// redesign. Any S >= 1 works; rows and keys past S are zero-filled, masked and
-// never written. Not built with --use_fast_math: divisions, expf, logf and tanhf
-// are IEEE-accurate.
+// What the design does about it: the bfloat16 K9 and K11 (`fwd_mma_kernel`,
+// `dkv_mma_kernel`) run their products on the tensor cores, as warp-level
+// `mma.sync.m16n8k16` bf16 products with float32 sums, 4 warps a block, 16 rows
+// (K9: queries, K11: keys) a warp:
+// - Tiles go to shared memory as bf16 by `cp.async` (16 bytes a copy, zero-filled
+//   past S) in two stages: the next non-empty tile loads while this one computes.
+//   Rows are cut in 16-byte chunks XOR-swizzled by the row's low 3 bits, so the
+//   8 rows of one `ldmatrix` hit 8 different bank groups. Operands come by
+//   `ldmatrix` (`.trans` for the B operand of P V, P^T dO and dS^T Q: nothing
+//   is transposed in memory).
+// - Every tile of the other axis is classified once, at the start of a block
+//   (the 4 warps share them), into a byte array in shared memory; the loop
+//   skips empty pairs and prefetches the next non-empty tile.
+// - K9: the Q fragments are loaded once. S = Q K^T lands in float32 C fragments;
+//   scale, cap and mask are applied in registers; the online softmax reduces a
+//   row over the quad of threads that hold it; l sums the float32 p; only then
+//   is p rounded to bf16, straight into the A fragments of P V (the C layout of
+//   m16n8k16 is its A layout: no trip through shared memory). Query tiles start
+//   in reverse (`blockIdx.z`), so the causal mask's heaviest tiles go first.
+// - K11: S^T = K Q^T and dP^T = V dO^T take bf16 operands (exact products); p and
+//   ds are float32 in registers. dV += P^T dO and dK += dS^T Q must not round p
+//   or ds to bf16, so each is split in two bf16 terms, hi = bf16(x) and
+//   lo = bf16(x - hi) (x - hi is exact in float32), and both products go into the
+//   same float32 sum: hi + lo is x to within 2^-17 |x|, no rounding point worth
+//   the name and far inside the card's 2**-5 check. That is 6 products a tile
+//   pair instead of 4. Register budget: dK and dV of a warp's 16 keys x D are D
+//   floats a thread (128 at D = 128); 32-query steps keep S^T and dP^T at 32
+//   more, and the K and V fragments are read from shared memory again every
+//   step, so nothing spills (64-query steps would need 64 registers more).
+//   Key tiles start at the first (the heaviest under a causal mask).
+// - bf16 rows are copied 16 bytes at a time: the wrapper checks 16-byte-aligned
+//   starts and strides that are multiples of 8 elements and raises otherwise.
+// What keeps them from the bound is not measured (`ncu` does not run on that
+// machine); the candidates are the float32 softmax between the products (expf,
+// the mask, the hi/lo split) on the CUDA cores and `mma.sync`'s rate, below
+// `wgmma`'s (a later step). The float32 instantiations and K10 (both
+// types) keep the first design: float32 tiles in shared memory padded by one
+// against bank conflicts, scalar fmaf products on the CUDA cores (float32 keeps
+// float32 products: no TF32), each thread 4 x 4 logits (rows ty + 16 i, columns
+// tx + 16 j) and 4 rows x D / 16 columns of its accumulators. Any S >= 1 works;
+// rows and keys past S are zero-filled, masked and never written. Not built with
+// --use_fast_math: divisions, expf, logf and tanhf are IEEE-accurate.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -112,13 +147,13 @@ __device__ __forceinline__ bool visible(const Problem& p, int qp, int kp, int qs
 }
 
 // min and max of positions and segment ids over the n valid rows of a tile
-// (n >= 1), by warp 0; lanes past n contribute nothing
+// (n >= 1), by one whole warp; lanes past n contribute nothing
 struct TileStats {
   int pos_lo, pos_hi, seg_lo, seg_hi;
 };
 
 __device__ __forceinline__ TileStats tile_stats_warp(const int* pos, const int* seg, int n) {
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x % 32;
   int plo = 0x7fffffff, phi = -0x7fffffff - 1, slo = 0x7fffffff, shi = -0x7fffffff - 1;
   for (int i = lane; i < n; i += 32) {
     plo = min(plo, pos[i]);
@@ -554,6 +589,508 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// ------------------------------------------- bf16 K9 and K11 on the tensor cores
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows each
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kFwdQ = 64;  // K9: query rows of a block
+constexpr int kFwdK = 64;  // K9: keys of a tile
+constexpr int kDkvK = 64;  // K11: keys of a block
+constexpr int kDkvQ = 32;  // K11: query rows of a step
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes global -> shared without a register; where !ok, zeros and no read
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i; `_t` transposes each
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b: A 16 x 16 (row), B 16 x 8 (col), bf16, exact products, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one register of two bf16 (the first in the low half)
+__device__ __forceinline__ unsigned pack_bf16(float x0, float x1) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// x = hi + lo to within 2^-17 |x|: hi = bf16(x), lo = bf16(x - hi), x - hi exact
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<unsigned*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile; the chunks
+// of a row are XOR-swizzled by r % 8 (D / 8 >= 8 chunks a row)
+template <int D>
+__device__ __forceinline__ unsigned swz(int r, int c) {
+  return static_cast<unsigned>(r * (D * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// rows [r0, r0 + ROWS) of one (batch, head) slice into a swizzled tile,
+// rows at or past `rows` as zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(unsigned dst, const bf16* base, long long s_stride,
+                                                int r0, int rows) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % kMmaThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / kMmaThreads; ++it) {
+    const int i = threadIdx.x + it * kMmaThreads, r = i / CH, c = i % CH, row = r0 + r;
+    const bool ok = row < rows;
+    cp_async16(dst + swz<D>(r, c), base + (long long)(ok ? row : 0) * s_stride + c * 8, ok);
+  }
+}
+
+// elements [r0, r0 + ROWS) of a 4-byte row vector (ids, lse, delta), zeros at or past `rows`
+template <int ROWS, typename U>
+__device__ __forceinline__ void load_rows_async(U* dst, const U* src, int r0, int rows) {
+  for (int i = threadIdx.x; i < ROWS; i += kMmaThreads) {
+    const bool ok = r0 + i < rows;
+    cp_async4(smem_addr(dst + i), src + (ok ? r0 + i : 0), ok);
+  }
+}
+
+// acc[16 rows x D] += X[16 rows x kDkvQ] M[kDkvQ x D]: X float32 C fragments,
+// each split into bf16 hi + lo A fragments; M a swizzled [kDkvQ][D] tile
+template <int D>
+__device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4],
+                                                 const float (&x)[kDkvQ / 8][4], unsigned m,
+                                                 int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
+    unsigned hi[4], lo[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      unsigned bm[4];
+      ldsm_x4_t(m + swz<D>(kk * 16 + (lane & 15), 2 * np + (lane >> 4)), bm);
+      mma_bf16(acc[2 * np], hi, bm[0], bm[1]);
+      mma_bf16(acc[2 * np + 1], hi, bm[2], bm[3]);
+      mma_bf16(acc[2 * np], lo, bm[0], bm[1]);
+      mma_bf16(acc[2 * np + 1], lo, bm[2], bm[3]);
+    }
+  }
+}
+
+template <int D> constexpr int fwd_mma_bytes() {  // Qs, Ks[2], Vs[2], key ids [2][2]
+  return (kFwdQ + 4 * kFwdK) * D * 2 + 2 * 2 * kFwdK * 4;
+}
+template <int D> constexpr int dkv_mma_bytes() {  // Ks, Vs, Qs[2], dOs[2], query rows [2][4]
+  return (2 * kDkvK + 4 * kDkvQ) * D * 2 + 2 * 4 * kDkvQ * 4;
+}
+
+// ------------------------------------------------------- K9, bf16: forward
+// grid (H, B, query tiles); the thread's rows are warp * 16 + lane / 4 (+ 8)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+               Strides qs, Strides ks, Strides vs, Strides os) {
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int TILE = kFwdK * D * 2;
+  const unsigned Qs = smem_addr(smem_u8);
+  const unsigned Ks = Qs + kFwdQ * D * 2, Vs = Ks + 2 * TILE;
+  int* kpos_s = reinterpret_cast<int*>(smem_u8 + kFwdQ * D * 2 + 4 * TILE);  // [2][kFwdK]
+  int* kseg_s = kpos_s + 2 * kFwdK;
+  unsigned char* cls_s = reinterpret_cast<unsigned char*>(kseg_s + 2 * kFwdK);  // [key tiles]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdQ;  // the heaviest causal tiles first
+  const int hk = h / (p.H / p.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
+  const bf16* kb = k + b * ks.b + hk * ks.n;
+  const bf16* vb = v + b * vs.b + hk * vs.n;
+  const int q_rows = min(kFwdQ, p.Sq - q0);
+  const int* qpos = p.q_pos + (long long)b * p.Sq;
+  const int* qseg = p.q_seg + (long long)b * p.Sq;
+  const int* kpos = p.kv_pos + (long long)b * p.Skv;
+  const int* kseg = p.kv_seg + (long long)b * p.Skv;
+
+  load_tile_async<D, kFwdQ>(Qs, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
+  cp_async_commit();
+
+  // classify every key tile against this query tile, the warps taking turns
+  const int nkt = (p.Skv + kFwdK - 1) / kFwdK;
+  const TileStats qst = tile_stats_warp(qpos + q0, qseg + q0, q_rows);
+  for (int t = warp; t < nkt; t += kMmaWarps) {
+    const int k0 = t * kFwdK, k_rows = min(kFwdK, p.Skv - k0);
+    const TileStats kst = tile_stats_warp(kpos + k0, kseg + k0, k_rows);
+    if (lane == 0) cls_s[t] = classify(p, qst, kst, q_rows == kFwdQ && k_rows == kFwdK);
+  }
+  int rpos[2], rseg[2];
+  bool rok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    rok[i] = r < q_rows;
+    rpos[i] = rok[i] ? qpos[q0 + r] : 0;
+    rseg[i] = rok[i] ? qseg[q0 + r] : 0;
+  }
+  __syncthreads();
+
+  auto next_tile = [&](int t) {
+    while (t < nkt && cls_s[t] == 0) ++t;
+    return t;
+  };
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * kFwdK;
+    load_tile_async<D, kFwdK>(Ks + st * TILE, kb, ks.s, k0, p.Skv);
+    load_tile_async<D, kFwdK>(Vs + st * TILE, vb, vs.s, k0, p.Skv);
+    load_rows_async<kFwdK>(kpos_s + st * kFwdK, kpos, k0, p.Skv);
+    load_rows_async<kFwdK>(kseg_s + st * kFwdK, kseg, k0, p.Skv);
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  unsigned qf[D / 16][4];
+  int t = next_tile(0);
+  if (t < nkt) load_kv(t, 0);
+  cp_async_commit();
+  for (int st = 0, first = 1; t < nkt; st ^= 1, first = 0) {
+    const int nt = next_tile(t + 1);
+    if (nt < nkt) load_kv(nt, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and this tile have landed
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(Qs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), qf[kk]);
+    }
+    const unsigned Kt = Ks + st * TILE, Vt = Vs + st * TILE;
+    const int* kp = kpos_s + st * kFwdK;
+    const int* kg = kseg_s + st * kFwdK;
+    const int k_rows = min(kFwdK, p.Skv - t * kFwdK), cls = cls_s[t];
+
+    // S = Q K^T: 8-key column blocks j; this thread's (row, key) = (r_i, 8 j + 2 t4 + e % 2)
+    float s[kFwdK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kFwdK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < kFwdK / 16; ++np) {
+        unsigned bk[4];
+        ldsm_x4(Kt + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)),
+                bk);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // scale, cap, mask (a full tile pair has none: one branch for the tile,
+    // so the unmasked loop stays compact); keys past Skv take no part in the max
+    unsigned vis_bits = ~0u;
+    float mc[2] = {-INFINITY, -INFINITY};
+    if (cls == 1) {
+#pragma unroll
+      for (int j = 0; j < kFwdK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float dcap;
+          s[j][e] = cap_logit(p, s[j][e], dcap);
+          mc[e >> 1] = fmaxf(mc[e >> 1], s[j][e]);
+        }
+    } else {
+      vis_bits = 0u;
+#pragma unroll
+      for (int j = 0; j < kFwdK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1), i = e >> 1;
+          float dcap;
+          float x = cap_logit(p, s[j][e], dcap);
+          const bool vis = c < k_rows && rok[i] && visible(p, rpos[i], kp[c], rseg[i], kg[c]);
+          if (!vis) x = c < k_rows ? kMaskValue : -INFINITY;
+          s[j][e] = x;
+          vis_bits |= vis ? (1u << (4 * j + e)) : 0u;
+          mc[i] = fmaxf(mc[i], x);
+        }
+    }
+    float mn[2], alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+      mn[i] = fmaxf(m[i], mc[i]);  // finite: every processed tile has a key
+      alpha[i] = expf(m[i] - mn[i]);
+    }
+    // p = exp(s - m) in float32, summed into l in float32, then rounded to bf16
+    // into the A fragments of P V: the kernel's one rounding of p
+#pragma unroll
+    for (int j = 0; j < kFwdK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = (vis_bits >> (4 * j + e)) & 1u ? expf(s[j][e] - mn[e >> 1]) : 0.f;
+        ls[e >> 1] += pv;
+        s[j][e] = pv;
+      }
+    unsigned pa[kFwdK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kFwdK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = l[i] * alpha[i] + ls[i];  // this thread's share of the row; summed at the end
+      m[i] = mn[i];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // O += P V: V's B fragments by ldmatrix.trans of its [key][d] rows
+#pragma unroll
+    for (int kk = 0; kk < kFwdK / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        unsigned bv[4];
+        ldsm_x4_t(Vt + swz<D>(kk * 16 + (lane & 15), 2 * np + (lane >> 4)), bv);
+        mma_bf16(acc[2 * np], pa[kk], bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], pa[kk], bv[2], bv[3]);
+      }
+    __syncthreads();  // every read of this stage is done before it is loaded again
+    t = nt;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = q0 + warp * 16 + lane / 4 + 8 * i;
+    if (row >= p.Sq) continue;
+    const bool none = l[i] == 0.f;
+    const float inv = none ? 1.f : l[i];
+    bf16* dst = o + b * os.b + (long long)row * os.s + h * os.n + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * i] / inv, acc[n][2 * i + 1] / inv);
+    if (t4 == 0)
+      lse[((long long)b * p.H + h) * p.Sq + row] = none ? -INFINITY : m[i] + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------ K11, bf16: dk, dv
+// grid (Hkv, B, key tiles); the thread's keys are warp * 16 + lane / 4 (+ 8)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Strides qs, Strides ks, Strides vs,
+               Strides dos, Strides dks, Strides dvs) {
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int KT = kDkvK * D * 2, QT = kDkvQ * D * 2;
+  const unsigned Ks = smem_addr(smem_u8), Vs = Ks + KT, Qs = Ks + 2 * KT, dOs = Qs + 2 * QT;
+  float* lse_s = reinterpret_cast<float*>(smem_u8 + 2 * KT + 4 * QT);  // [2][kDkvQ] each
+  float* delta_s = lse_s + 2 * kDkvQ;
+  int* qpos_s = reinterpret_cast<int*>(delta_s + 2 * kDkvQ);
+  int* qseg_s = qpos_s + 2 * kDkvQ;
+  unsigned char* cls_s = reinterpret_cast<unsigned char*>(qseg_s + 2 * kDkvQ);  // [q tiles]
+
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kDkvK;
+  const int group = p.H / p.Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
+  const int k_rows = min(kDkvK, p.Skv - k0);
+  const int* qpos = p.q_pos + (long long)b * p.Sq;
+  const int* qseg = p.q_seg + (long long)b * p.Sq;
+  const int* kpos = p.kv_pos + (long long)b * p.Skv;
+  const int* kseg = p.kv_seg + (long long)b * p.Skv;
+
+  load_tile_async<D, kDkvK>(Ks, k + b * ks.b + hk * ks.n, ks.s, k0, p.Skv);
+  load_tile_async<D, kDkvK>(Vs, v + b * vs.b + hk * vs.n, vs.s, k0, p.Skv);
+  cp_async_commit();
+
+  // classify every query tile against this key tile, the warps taking turns
+  const int nqt = (p.Sq + kDkvQ - 1) / kDkvQ;
+  const TileStats kst = tile_stats_warp(kpos + k0, kseg + k0, k_rows);
+  for (int t = warp; t < nqt; t += kMmaWarps) {
+    const int q0 = t * kDkvQ, q_rows = min(kDkvQ, p.Sq - q0);
+    const TileStats qst = tile_stats_warp(qpos + q0, qseg + q0, q_rows);
+    if (lane == 0) cls_s[t] = classify(p, qst, kst, q_rows == kDkvQ && k_rows == kDkvK);
+  }
+  int rpos[2], rseg[2];
+  bool rok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    rok[i] = r < k_rows;
+    rpos[i] = rok[i] ? kpos[k0 + r] : 0;
+    rseg[i] = rok[i] ? kseg[k0 + r] : 0;
+  }
+  __syncthreads();
+
+  // steps: (q head of the group, query tile), the empty ones skipped
+  const int steps = group * nqt;
+  auto next_step = [&](int it) {
+    while (it < steps && cls_s[it % nqt] == 0) ++it;
+    return it;
+  };
+  auto load_q = [&](int it, int st) {
+    const int h = hk * group + it / nqt, q0 = (it % nqt) * kDkvQ;
+    load_tile_async<D, kDkvQ>(Qs + st * QT, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
+    load_tile_async<D, kDkvQ>(dOs + st * QT, d_o + b * dos.b + h * dos.n, dos.s, q0, p.Sq);
+    const long long at = ((long long)b * p.H + h) * p.Sq;
+    load_rows_async<kDkvQ>(lse_s + st * kDkvQ, lse + at, q0, p.Sq);
+    load_rows_async<kDkvQ>(delta_s + st * kDkvQ, delta + at, q0, p.Sq);
+    load_rows_async<kDkvQ>(qpos_s + st * kDkvQ, qpos, q0, p.Sq);
+    load_rows_async<kDkvQ>(qseg_s + st * kDkvQ, qseg, q0, p.Sq);
+  };
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  int it = next_step(0);
+  if (it < steps) load_q(it, 0);
+  cp_async_commit();
+  for (int st = 0; it < steps; st ^= 1) {
+    const int nit = next_step(it + 1);
+    if (nit < steps) load_q(nit, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and this step's rows have landed
+    __syncthreads();
+    const unsigned Qt = Qs + st * QT, dOt = dOs + st * QT;
+    const float* ls = lse_s + st * kDkvQ;
+    const float* dl = delta_s + st * kDkvQ;
+    const int* qp = qpos_s + st * kDkvQ;
+    const int* qg = qseg_s + st * kDkvQ;
+    const int q_rows = min(kDkvQ, p.Sq - (it % nqt) * kDkvQ), cls = cls_s[it % nqt];
+
+    // S^T = K Q^T and dP^T = V dO^T: (key, query) = (r_i, 8 j + 2 t4 + e % 2)
+    float s[kDkvQ / 8][4], dp[kDkvQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < kDkvQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned ka[4], va[4];
+      ldsm_x4(Ks + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), ka);
+      ldsm_x4(Vs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), va);
+#pragma unroll
+      for (int np = 0; np < kDkvQ / 16; ++np) {
+        unsigned bq[4], bd[4];
+        const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3), c = 2 * kk + ((lane >> 3) & 1);
+        ldsm_x4(Qt + swz<D>(r, c), bq);
+        ldsm_x4(dOt + swz<D>(r, c), bd);
+        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * np], va, bd[0], bd[1]);
+        mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+      }
+    }
+    // p = exp(s - lse) where visible (else 0, never exp(mask - lse)) and
+    // ds = p (dp - delta) (1 - tanh^2) scale, float32, in place of s and dp;
+    // the mask is worked out only for a partial tile pair
+    unsigned vis_bits = ~0u;
+    if (cls != 1) {
+      vis_bits = 0u;
+#pragma unroll
+      for (int j = 0; j < kDkvQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1), i = e >> 1;
+          const bool ok = rok[i] && c < q_rows && visible(p, qp[c], rpos[i], qg[c], rseg[i]);
+          vis_bits |= ok ? (1u << (4 * j + e)) : 0u;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kDkvQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        float dcap;
+        const float sc = cap_logit(p, s[j][e], dcap);
+        const float pv = (vis_bits >> (4 * j + e)) & 1u ? expf(sc - ls[c]) : 0.f;
+        float ds = pv * (dp[j][e] - dl[c]);
+        ds = ds * dcap;
+        ds = ds * p.scale;
+        s[j][e] = pv;
+        dp[j][e] = ds;
+      }
+    // dV += P^T dO, then dK += dS^T Q (one at a time: fewer live registers),
+    // p and ds each as bf16 hi + lo (neither is rounded to bf16); dO's and Q's
+    // B fragments by ldmatrix.trans
+    accumulate_split<D>(dv_acc, s, dOt, lane);
+    accumulate_split<D>(dk_acc, dp, Qt, lane);
+    __syncthreads();  // every read of this stage is done before it is loaded again
+    it = nit;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + warp * 16 + lane / 4 + 8 * i;
+    if (row >= p.Skv) continue;
+    bf16* dkd = dk + b * dks.b + (long long)row * dks.s + hk * dks.n + 2 * t4;
+    bf16* dvd = dv + b * dvs.b + (long long)row * dvs.s + hk * dvs.n + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkd + 8 * n) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvd + 8 * n) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launches
 
 inline bool bad_problem(const Problem& p) {
@@ -562,23 +1099,57 @@ inline bool bad_problem(const Problem& p) {
 }
 
 template <typename K>
-inline int prepare(K kernel, int floats) {
-  const int bytes = floats * 4;
+inline int prepare(K kernel, int bytes) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return static_cast<int>(err);
 }
 
+template <int D>
+int launch_fwd_mma(const Problem& p, const void* q, const void* k, const void* v, void* o,
+                   float* lse, Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t st) {
+  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ, k_tiles = (p.Skv + kFwdK - 1) / kFwdK;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = fwd_mma_kernel<D>;
+  const int bytes = fwd_mma_bytes<D>() + k_tiles;  // + one class byte a key tile
+  if (int err = prepare(kernel, bytes)) return err;
+  kernel<<<dim3(p.H, p.B, q_tiles), kMmaThreads, bytes, st>>>(
+      p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, qs, ks, vs, os);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_mma(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
+                   const float* lse, const float* delta, void* dk, void* dv, Strides qs,
+                   Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+                   cudaStream_t st) {
+  const int k_tiles = (p.Skv + kDkvK - 1) / kDkvK, q_tiles = (p.Sq + kDkvQ - 1) / kDkvQ;
+  if (k_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = dkv_mma_kernel<D>;
+  const int bytes = dkv_mma_bytes<D>() + q_tiles;  // + one class byte a query tile
+  if (int err = prepare(kernel, bytes)) return err;
+  kernel<<<dim3(p.Hkv, p.B, k_tiles), kMmaThreads, bytes, st>>>(
+      p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      qs, ks, vs, dos, dks, dvs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_fwd(const Problem& p, const void* q, const void* k, const void* v, void* o, float* lse,
                Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t st) {
-  auto kernel = fwd_kernel<T, D>;
-  if (int err = prepare(kernel, fwd_floats<D>())) return err;
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
-  kernel<<<grid, kThreads, fwd_floats<D>() * 4, st>>>(
-      p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, qs, ks, vs, os);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_fwd_mma<D>(p, q, k, v, o, lse, qs, ks, vs, os, st);
+  } else {
+    auto kernel = fwd_kernel<T, D>;
+    if (int err = prepare(kernel, fwd_floats<D>() * 4)) return err;
+    const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+    kernel<<<grid, kThreads, fwd_floats<D>() * 4, st>>>(
+        p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, qs, ks, vs, os);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>
@@ -586,7 +1157,7 @@ int launch_dq(const Problem& p, const void* q, const void* k, const void* v, con
               const float* lse, const float* delta, void* dq, Strides qs, Strides ks, Strides vs,
               Strides dos, Strides dqs, cudaStream_t st) {
   auto kernel = dq_kernel<T, D>;
-  if (int err = prepare(kernel, dq_floats<D>())) return err;
+  if (int err = prepare(kernel, dq_floats<D>() * 4)) return err;
   const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
   kernel<<<grid, kThreads, dq_floats<D>() * 4, st>>>(
       p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -598,14 +1169,18 @@ template <typename T, int D>
 int launch_dkv(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
                const float* lse, const float* delta, void* dk, void* dv, Strides qs, Strides ks,
                Strides vs, Strides dos, Strides dks, Strides dvs, cudaStream_t st) {
-  auto kernel = dkv_kernel<T, D>;
-  if (int err = prepare(kernel, dkv_floats<D>())) return err;
-  const dim3 grid((p.Skv + kTile - 1) / kTile, p.Hkv, p.B);
-  kernel<<<grid, kThreads, dkv_floats<D>() * 4, st>>>(
-      p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), qs, ks,
-      vs, dos, dks, dvs);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dkv_mma<D>(p, q, k, v, d_o, lse, delta, dk, dv, qs, ks, vs, dos, dks, dvs, st);
+  } else {
+    auto kernel = dkv_kernel<T, D>;
+    if (int err = prepare(kernel, dkv_floats<D>() * 4)) return err;
+    const dim3 grid((p.Skv + kTile - 1) / kTile, p.Hkv, p.B);
+    kernel<<<grid, kThreads, dkv_floats<D>() * 4, st>>>(
+        p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), qs,
+        ks, vs, dos, dks, dvs);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace flash

@@ -31,6 +31,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
@@ -572,6 +573,72 @@ def _tts_payload(body: dict, result) -> bytes:
     return json.dumps({"wav": np.asarray(wav).tolist(), "info": info}).encode()
 
 
+class _Handler(BaseHTTPRequestHandler):
+    """The endpoints. A handler reaches the orchestrator and the TTS batcher
+    through its server (``self.server.orch``, ``self.server.tts_batcher``),
+    never through a closure: a class defined inside ``make_server`` would sit
+    in a reference cycle and keep a dropped server's engine, and its GPU
+    memory, alive until a collector pass."""
+
+    def _send(self, code: int, payload: bytes, ctype: str = "application/json"):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
+
+    def do_POST(self):
+        if self.path == "/tts" and self.server.tts_batcher is not None:
+            self._do_tts()
+            return
+        if self.path != "/generate":
+            self.send_error(404)
+            return
+        length = int(self.headers.get("Content-Length", 0))
+        try:
+            body = json.loads(self.rfile.read(length) or "{}")
+            prompt = np.asarray(body["prompt"], np.int32)
+            max_new = int(body.get("max_new_tokens", 32))
+        except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
+            self._send(400, json.dumps({"error": f"bad request: {e}"}).encode())
+            return
+        req = self.server.orch.submit(prompt, max_new)
+        if not req.done.wait(timeout=600):
+            req.error = "timed out"
+        ok = req.error is None
+        self._send(200 if ok else 500, json.dumps(
+            {"tokens": req.tokens} if ok else {"error": req.error}).encode())
+
+    def _do_tts(self):
+        length = int(self.headers.get("Content-Length", 0))
+        try:
+            body = json.loads(self.rfile.read(length) or "{}")
+            body["text"]  # validated before it is queued
+            for k in ("prompt_wav_16k", "prompt_wav_24k"):
+                if k + "_b64" in body:  # binary prompt upload (float32 LE)
+                    body[k] = np.frombuffer(base64.b64decode(body.pop(k + "_b64")), "<f4")
+        except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
+            self._send(400, json.dumps({"error": f"bad request: {e}"}).encode())
+            return
+        req = self.server.tts_batcher.submit(body)
+        finished = req.done.wait(timeout=870)
+        if req.error is not None or not finished or req.result is None:
+            err = req.error or ("timed out" if not finished else "no result")
+            self._send(500, json.dumps({"error": err}).encode())
+            return
+        self._send(200, _tts_payload(body, req.result))
+
+    def do_GET(self):
+        if self.path == "/metrics":
+            self._send(200, self.server.orch.metrics_text().encode(),
+                       "text/plain; version=0.0.4")
+            return
+        self._send(200, b"ok", "text/plain")
+
+    def log_message(self, *a):
+        pass
+
+
 def make_server(cfg: Config, port: int | None = None, engine: Engine | None = None,
                 device=None, host: str = "0.0.0.0", tts_pipeline=None):
     """Build the HTTP server without blocking. Returns (httpd, orch,
@@ -579,9 +646,9 @@ def make_server(cfg: Config, port: int | None = None, engine: Engine | None = No
     or in a thread. ``port=0`` asks the system for a free port
     (``httpd.server_address[1]``). Endpoints: POST /generate, GET /metrics,
     GET anything else -> "ok" (health check), and POST /tts when a TTS
-    pipeline is given (its engine serves the LM unless ``engine`` is)."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
+    pipeline is given (its engine serves the LM unless ``engine`` is). Once
+    stopped (``orch.stop()``, the batcher's ``stop()``, ``server_close()``),
+    dropping the three frees the engine at once, without a collector pass."""
     if engine is None:
         engine = tts_pipeline.engine if tts_pipeline is not None else Engine(cfg, device=device)
     orch = Orchestrator(
@@ -597,67 +664,9 @@ def make_server(cfg: Config, port: int | None = None, engine: Engine | None = No
                                  orchestrator=orch,
                                  allow_force_frames=cfg.tts_allow_force_frames)
         tts_batcher.start()
-
-    class Handler(BaseHTTPRequestHandler):
-        def _send(self, code: int, payload: bytes, ctype: str = "application/json"):
-            self.send_response(code)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(payload)))
-            self.end_headers()
-            self.wfile.write(payload)
-
-        def do_POST(self):
-            if self.path == "/tts" and tts_batcher is not None:
-                self._do_tts()
-                return
-            if self.path != "/generate":
-                self.send_error(404)
-                return
-            length = int(self.headers.get("Content-Length", 0))
-            try:
-                body = json.loads(self.rfile.read(length) or "{}")
-                prompt = np.asarray(body["prompt"], np.int32)
-                max_new = int(body.get("max_new_tokens", 32))
-            except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
-                self._send(400, json.dumps({"error": f"bad request: {e}"}).encode())
-                return
-            req = orch.submit(prompt, max_new)
-            if not req.done.wait(timeout=600):
-                req.error = "timed out"
-            ok = req.error is None
-            self._send(200 if ok else 500, json.dumps(
-                {"tokens": req.tokens} if ok else {"error": req.error}).encode())
-
-        def _do_tts(self):
-            length = int(self.headers.get("Content-Length", 0))
-            try:
-                body = json.loads(self.rfile.read(length) or "{}")
-                body["text"]  # validated before it is queued
-                for k in ("prompt_wav_16k", "prompt_wav_24k"):
-                    if k + "_b64" in body:  # binary prompt upload (float32 LE)
-                        body[k] = np.frombuffer(base64.b64decode(body.pop(k + "_b64")), "<f4")
-            except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
-                self._send(400, json.dumps({"error": f"bad request: {e}"}).encode())
-                return
-            req = tts_batcher.submit(body)
-            finished = req.done.wait(timeout=870)
-            if req.error is not None or not finished or req.result is None:
-                err = req.error or ("timed out" if not finished else "no result")
-                self._send(500, json.dumps({"error": err}).encode())
-                return
-            self._send(200, _tts_payload(body, req.result))
-
-        def do_GET(self):
-            if self.path == "/metrics":
-                self._send(200, orch.metrics_text().encode(), "text/plain; version=0.0.4")
-                return
-            self._send(200, b"ok", "text/plain")
-
-        def log_message(self, *a):
-            pass
-
     server = ThreadingHTTPServer(
-        (host, cfg.inference_server_port if port is None else port), Handler)
+        (host, cfg.inference_server_port if port is None else port), _Handler)
+    server.orch, server.tts_batcher = orch, tts_batcher
     return server, orch, tts_batcher
 
 

@@ -627,15 +627,16 @@ TOL_FLASH_LSE = 1e-4
 FLASH_MAIN = dict(b=4, s=2048, h=16, hkv=8, d=128)
 
 
-def _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments, positions):
+def _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments, positions, peak=1.0):
     """q [B,S,H,D], k, v [B,S,Hkv,D] and the output cotangent in the model's
-    layout; positions and segment ids [B,S] int32."""
+    layout; positions and segment ids [B,S] int32. ``peak`` scales q and k, so
+    that the logits' spread is ``peak**2`` times the unit one."""
     g = torch.Generator(device=device).manual_seed(seed)
 
-    def rnd(n):
-        return torch.randn((b, s, n, d), generator=g, device=device).to(dtype)
+    def rnd(n, scale=1.0):
+        return (torch.randn((b, s, n, d), generator=g, device=device) * scale).to(dtype)
 
-    q, k, v, do = rnd(h), rnd(hkv), rnd(hkv), rnd(h)
+    q, k, v, do = rnd(h, peak), rnd(hkv, peak), rnd(hkv), rnd(h)
     pos = torch.arange(s, dtype=torch.int32, device=device)[None].repeat(b, 1)
     if positions == "reordered":  # a context-parallel load-balanced permutation
         pos = fa.load_balanced_reorder(pos, 2)
@@ -667,12 +668,13 @@ def _flash_library(q, k, v, do):
 
 
 def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, causal=True,
-               window=0, chunk=0, cap=0.0, segments="one", positions="arange", seed=0):
+               window=0, chunk=0, cap=0.0, segments="one", positions="arange", peak=1.0,
+               seed=0):
     """K9, K10 and K11 against their plain versions on the same inputs: three
     results, ``{name}_fwd``, ``{name}_dq`` and ``{name}_dkv``. The backward
     kernels and their plain versions get the same lse and delta (the kernel's)."""
     q, k, v, do, pos, seg = _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments,
-                                          positions)
+                                          positions, peak)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # [B,N,S,D] views
     ids = (pos, pos, seg, seg)
     mask = (causal, window, chunk, cap, None)
@@ -698,7 +700,7 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
         return float(diff.max().item()), float((diff / scale).max().item())
 
     shape = dict(b=b, s=s, h=h, hkv=hkv, d=d, dtype=str(dtype), causal=causal, window=window,
-                 chunk=chunk, soft_cap=cap, segments=segments, positions=positions)
+                 chunk=chunk, soft_cap=cap, segments=segments, positions=positions, peak=peak)
     tol = TOL_FLASH[dtype]
     lse_ok = bool(torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref)))
     fin = torch.isfinite(lse_ref)
@@ -770,7 +772,11 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
 def flash_cases(device, timing, full_size=True):
     """K9-K11: the training step's shape (bfloat16 and float32), packed
     documents with a segment-0 tail, sliding window, chunks, soft cap,
-    non-causal, permuted positions, D = 64 at a ragged S, S = 1 and S = 130."""
+    non-causal, permuted positions, peaked logits (q and k scaled by 3: the
+    logits' spread is 9, so a few keys take most of a row's softmax and the
+    running max moves by many units between key tiles), D = 64 at ragged S
+    (405; 1000, which the 64- and 32-row tiles do not divide), S = 1 and
+    S = 130."""
     main = dict(FLASH_MAIN) if full_size else dict(FLASH_MAIN, b=1, s=512)
     small = dict(b=2, s=1024 if full_size else 256, h=16, hkv=8, d=128)
     f32 = torch.float32
@@ -797,6 +803,9 @@ def flash_cases(device, timing, full_size=True):
         flash_case("flash_bf16_s1", device, timing, b=3, s=1, h=4, hkv=2, d=128, seed=312),
         flash_case("flash_f32_s130_group4", device, timing, b=2, s=130, h=8, hkv=2, d=128,
                    dtype=f32, seed=313),
+        flash_case("flash_bf16_peaked_logits", device, timing, **small, peak=3.0, seed=314),
+        flash_case("flash_bf16_d64_s1000_group1", device, timing, b=2, s=1000, h=4, hkv=4,
+                   d=64, seed=315),
     ]
     return [r for g in groups for r in g]
 

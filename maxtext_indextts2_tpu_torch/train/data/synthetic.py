@@ -29,7 +29,7 @@ def make_batch(cfg: Config, step: int, batch_size: int | None = None) -> dict:
 class SyntheticDataIterator:
     """Yields the same batch forever (made once, on ``device``)."""
 
-    def __init__(self, cfg: Config, batch_size: int | None = None, device="cpu"):
+    def __init__(self, cfg: Config, batch_size: int | None = None, *, device):
         self.cfg = cfg
         self._step = 0
         self._batch = {k: torch.from_numpy(np.array(v)).to(device)

@@ -52,6 +52,6 @@ def build_tokenizer(cfg) -> Tokenizer:
     if kind in ("none", "byte", ""):
         return ByteTokenizer(cfg.add_bos, cfg.add_eos)
     if kind in ("huggingface", "sentencepiece", "tiktoken"):
-        _unsupported(f"tokenizer_type={kind!r} (needs vocabulary files or packages)",
-                     "4b, rest of training: weight import")
+        _unsupported(f"the tokenizer_type={kind!r} wrapper",
+                     "4b, rest of training: weight import and tokenizer wrappers, item 4b.1")
     raise ValueError(f"unknown tokenizer_type: {kind}")

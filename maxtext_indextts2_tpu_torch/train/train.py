@@ -172,14 +172,14 @@ def eval_step(cfg: Config, state: TrainState, batch: dict) -> dict:
     return {"eval_loss": loss, "eval_total_weights": aux["total_weights"]}
 
 
-def create_data_iterator(cfg: Config, device="cpu"):
+def create_data_iterator(cfg: Config, device):
     if cfg.colocated_python_data_input:
         _unsupported("colocated-python data input", "6, parallelism on torch.distributed")
     if cfg.dataset_type == "synthetic":
         return SyntheticDataIterator(cfg, device=device)
     if cfg.dataset_type in ("emilia_audio", "hf", "grain", "tfds", "c4_mlperf"):
-        _unsupported(f"dataset_type={cfg.dataset_type} (a data iterator over dataset files, "
-                     "none of which is in the repository)", f"{_REST}: data iterators")
+        _unsupported(f"the dataset_type={cfg.dataset_type} data iterator",
+                     f"{_REST}: data iterators, item 4b.3")
     raise ValueError(f"unknown dataset_type: {cfg.dataset_type}")
 
 
@@ -192,7 +192,7 @@ def run_eval(cfg: Config, state: TrainState, num_batches: int | None = None) -> 
     """Average eval loss over ``eval_steps`` synthetic batches."""
     n = num_batches or (cfg.eval_steps if cfg.eval_steps > 0 else 4)
     if cfg.dataset_type == "emilia_audio":
-        _unsupported("the emilia_audio eval iterator", f"{_REST}: data iterators")
+        _unsupported("the emilia_audio eval iterator", f"{_REST}: data iterators, item 4b.3")
     eval_iter = SyntheticDataIterator(cfg, cfg.global_batch_size_to_eval_on, device=state.device)
     total, weight = 0.0, 0.0
     for _ in range(n):

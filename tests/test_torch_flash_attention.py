@@ -181,3 +181,32 @@ def test_kernel_route_raises_on_what_it_cannot_take(monkeypatch):
         monkeypatch.undo()
         tfa.flash_fwd(torch.ones((1, 2, 8, 64)), torch.ones((1, 1, 8, 64)),
                       torch.ones((1, 1, 8, 64)), *ids, impl="cuda")
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("fault", ["start", "stride"])
+def test_kernel_args_refuse_bf16_rows_that_are_not_16_byte_pieces(which, fault):
+    """The bfloat16 kernels copy rows 16 bytes at a time (cp.async): the
+    wrapper raises on an operand whose start is not 16-byte aligned or whose
+    batch, sequence or head stride is not a multiple of 8 elements, and takes
+    the model's [B, S, N, D] projection views."""
+    b, h, hkv, s, d = 2, 4, 2, 16, 64
+    ops = {"q": _bf16(b, s, h, d).transpose(1, 2), "k": _bf16(b, s, hkv, d).transpose(1, 2),
+           "v": _bf16(b, s, hkv, d).transpose(1, 2), "do": _bf16(b, s, h, d).transpose(1, 2)}
+    assert tfa._kernel_args(ops["q"], ops["k"], ops["v"], ops["do"]) == (b, h, hkv, s, s, d)
+    shape = ops[which].shape
+    if fault == "start":  # one element into the allocation: 2 bytes off
+        bad = _bf16(ops[which].numel() + 1)[1:].view(shape)
+    else:  # rows padded to d + 4 elements: a sequence stride of 68
+        bad = _bf16(shape[0], shape[1], shape[2], d + 4)[..., :d]
+    ops[which] = bad
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._kernel_args(ops["q"], ops["k"], ops["v"], ops["do"])
+    # float32 operands keep the scalar loads of the CUDA-core kernels: any start
+    f32 = {n: torch.zeros(t.numel() + 1)[1:].view(t.shape) for n, t in ops.items()}
+    assert f32[which].data_ptr() % 16
+    tfa._kernel_args(f32["q"], f32["k"], f32["v"], f32["do"])

@@ -1,13 +1,16 @@
 """The PyTorch package's ``Orchestrator`` and HTTP server on the CPU: more
 requests than slots, each stream equal to the single-stream decode of its
 prompt (exact: greedy float32, same engine), the length guards, a failing
-device call, and a ``POST /generate`` round trip.
+device call, a ``POST /generate`` round trip, and a dropped server that frees
+its engine at once.
 """
 
+import gc
 import json
 import threading
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -164,3 +167,28 @@ def test_decode_cli_on_the_cpu(capsys):
     assert split_device_arg(["a=1", "device=cpu"]) == (["a=1"], "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode_cli.main(ARGS + ["device=cpu", "spec_draft=x.yml"])
+
+
+def test_a_dropped_server_frees_its_engine_without_a_collector_pass():
+    """The handler reaches the orchestrator through its server, not through a
+    closure: once stopped and dropped, the server's engine is freed by
+    reference counting alone (the garbage collector off throughout)."""
+    gc.disable()
+    try:
+        server, orch, tts_batcher = make_server(load_config(ARGS), port=0, device="cpu",
+                                                host="127.0.0.1")
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            assert "serving_decode_steps_total" in resp.read().decode()
+        server.shutdown()
+        server.server_close()
+        orch.stop()
+        thread.join(timeout=10)
+        engine = weakref.ref(orch.engine)
+        assert engine() is not None
+        del server, orch, tts_batcher, thread
+        assert engine() is None, "the stopped server's engine is still referenced"
+    finally:
+        gc.enable()

@@ -251,6 +251,42 @@ def test_unported_training_features_name_their_queue_item(extra, item):
         ttrain.train_loop(cfg, device="cpu", quiet=True)
 
 
+def _refuse_dataset(kind):
+    ttrain.create_data_iterator(load_config([f"dataset_type={kind}"]), "cpu")
+
+
+def _refuse_tokenizer(kind):
+    from maxtext_indextts2_tpu_torch.train.data import tokenizer
+
+    tokenizer.build_tokenizer(load_config([f"tokenizer_type={kind}"]))
+
+
+def _refuse_weights(where):
+    from maxtext_indextts2_tpu_torch.audio import conformer, pipeline, semantic_tokenizer
+
+    {"conformer": lambda: conformer.params_from_hf({}, conformer.ConformerConfig()),
+     "semantic_tokenizer": lambda: semantic_tokenizer.SemanticTokenizer.load_hf_encoder(None, {}),
+     "pipeline": lambda: pipeline.TTSPipeline.load_torch_audio_weights(None)}[where]()
+
+
+@pytest.mark.parametrize("refuse,arg,item", [
+    (_refuse_dataset, "emilia_audio", "4b.3"), (_refuse_dataset, "grain", "4b.3"),
+    (_refuse_dataset, "c4_mlperf", "4b.3"), (_refuse_tokenizer, "sentencepiece", "4b.1"),
+    (_refuse_weights, "conformer", "4b.1"), (_refuse_weights, "semantic_tokenizer", "4b.1"),
+    (_refuse_weights, "pipeline", "4b.1"),
+])
+def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
+                                                                                 item):
+    """The JAX package runs these on data, models and stubs a test makes, so
+    the port's refusal says only that the path is not ported yet and names
+    its queue item; it does not claim that a file is missing."""
+    with pytest.raises(NotImplementedError) as err:
+        refuse(arg)
+    text = str(err.value)
+    assert "not ported" in text and f"item {item}" in text
+    assert "file" not in text and "in the repo" not in text
+
+
 def test_make_batch_equals_the_jax_package():
     cfg, jcfg = configs(TRAIN, slots=ROWS)
     for step in (0, 3):
