@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): the training attention of the LM, its
 // forward (K9) and its two backward kernels (K10: dq; K11: dk and dv).
 //
-//   q            [B, Sq, H, D]    float32 or bfloat16, any strides over B, S and H
+//   q            [B, Sq, H, D]    float32 or bfloat16, any strides over B, S and H (bf16:
+//                                 16-byte-aligned rows, strides multiples of 8)
 //   k, v         [B, Skv, Hkv, D] (the last axis contiguous): the model's projection
 //                                 outputs are read where they lie, nothing is transposed
 //   q_pos, q_seg [B, Sq] int32, kv_pos, kv_seg [B, Skv] int32, contiguous
@@ -48,25 +49,45 @@
 // a byte, far past the ~295 where the tensor cores and not the memory are the
 // limit, so operations bound all three kernels (0.070 ms for K9 at 989 TFLOP/s
 // over a batch of 4 x 16 heads).
-// What the design does about it: the bfloat16 K9 and K11 (`fwd_mma_kernel`,
-// `dkv_mma_kernel`) run their products on the tensor cores, as warp-level
-// `mma.sync.m16n8k16` bf16 products with float32 sums, 4 warps a block, 16 rows
-// (K9: queries, K11: keys) a warp:
+// What the design does about it: the bfloat16 K9, K10 and K11 (`fwd_mma_kernel`,
+// `dq_mma_kernel`, `dkv_mma_kernel`) run their products on the tensor cores, as
+// warp-level `mma.sync.m16n8k16` bf16 products with float32 sums (mma_bf16.cuh), 4
+// warps a block, 16 rows (K9 and K10: queries, K11: keys) a warp:
 // - Tiles go to shared memory as bf16 by `cp.async` (16 bytes a copy, zero-filled
 //   past S) in two stages: the next non-empty tile loads while this one computes.
 //   Rows are cut in 16-byte chunks XOR-swizzled by the row's low 3 bits, so the
 //   8 rows of one `ldmatrix` hit 8 different bank groups. Operands come by
-//   `ldmatrix` (`.trans` for the B operand of P V, P^T dO and dS^T Q: nothing
+//   `ldmatrix` (`.trans` for the B operand of P V, dS K, P^T dO and dS^T Q: nothing
 //   is transposed in memory).
 // - Every tile of the other axis is classified once, at the start of a block
 //   (the 4 warps share them), into a byte array in shared memory; the loop
-//   skips empty pairs and prefetches the next non-empty tile.
+//   skips empty pairs and prefetches the next non-empty tile. A full pair skips
+//   the element mask (one branch a tile pair, JAX's `masked` flag).
 // - K9: the Q fragments are loaded once. S = Q K^T lands in float32 C fragments;
 //   scale, cap and mask are applied in registers; the online softmax reduces a
 //   row over the quad of threads that hold it; l sums the float32 p; only then
 //   is p rounded to bf16, straight into the A fragments of P V (the C layout of
 //   m16n8k16 is its A layout: no trip through shared memory). Query tiles start
 //   in reverse (`blockIdx.z`), so the causal mask's heaviest tiles go first.
+// - K10: S = Q K^T and dP = dO V^T land in float32 C fragments, a 64-key tile at
+//   a time; p = exp(s_capped - lse) (0 where masked, from the row's lse and delta
+//   held in registers) and ds = p (dp - delta) (1 - tanh^2) scale are float32;
+//   ds is rounded to bf16 straight into the A fragments of dS K, where JAX rounds
+//   it to k's type, with K the B operand by `ldmatrix.trans`; dQ is summed in
+//   float32 fragments and rounded to q's type once. Because ds is rounded to bf16,
+//   the low bits of s decide which way it rounds, and a flip of a large ds moves a
+//   dq row by a step of that ds. A tensor-core chain aligns its addends to the
+//   accumulator and truncates, and s sums to hundreds where the logits are
+//   peaked, while an absolute error in s is a relative error in p: so S is summed
+//   to nearest in float32 (each 16-product partial from zero on the tensor cores,
+//   the partials added on the CUDA cores). Chained, the peaked-logits case read
+//   0.048 against the 2**-5 check; to nearest, 0.022. dP (|dp| ~ 10) stays one
+//   chain: summing it to nearest too gained nothing on the worst case and
+//   spilled. Register budget: dQ of a warp's 16 rows x D is D / 2 floats a thread
+//   (64 at D = 128); the Q fragments are read from shared memory 16 columns at a
+//   time and the dO fragments once a step, instead of being held; at D = 128 a
+//   key tile is walked in two steps of 32 keys, one after the other, so that S
+//   and dP take 16 floats each. Query tiles start in reverse, as in K9.
 // - K11: S^T = K Q^T and dP^T = V dO^T take bf16 operands (exact products); p and
 //   ds are float32 in registers. dV += P^T dO and dK += dS^T Q must not round p
 //   or ds to bf16, so each is split in two bf16 terms, hi = bf16(x) and
@@ -83,13 +104,13 @@
 // What keeps them from the bound is not measured (`ncu` does not run on that
 // machine); the candidates are the float32 softmax between the products (expf,
 // the mask, the hi/lo split) on the CUDA cores and `mma.sync`'s rate, below
-// `wgmma`'s (a later step). The float32 instantiations and K10 (both
-// types) keep the first design: float32 tiles in shared memory padded by one
-// against bank conflicts, scalar fmaf products on the CUDA cores (float32 keeps
-// float32 products: no TF32), each thread 4 x 4 logits (rows ty + 16 i, columns
-// tx + 16 j) and 4 rows x D / 16 columns of its accumulators. Any S >= 1 works;
-// rows and keys past S are zero-filled, masked and never written. Not built with
-// --use_fast_math: divisions, expf, logf and tanhf are IEEE-accurate.
+// `wgmma`'s (a later step). The float32 instantiations keep the first design:
+// float32 tiles in shared memory padded by one against bank conflicts, scalar
+// fmaf products on the CUDA cores (float32 keeps float32 products: no TF32), each
+// thread 4 x 4 logits (rows ty + 16 i, columns tx + 16 j) and 4 rows x D / 16
+// columns of its accumulators. Any S >= 1 works; rows and keys past S are
+// zero-filled, masked and never written. Not built with --use_fast_math:
+// divisions, expf, logf and tanhf are IEEE-accurate.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,7 +119,11 @@
 
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace flash {
+
+using namespace hopper;
 
 constexpr float kMaskValue = -0.7f * 3.402823466e+38f;  // DEFAULT_MASK_VALUE
 constexpr int kTile = 64;      // rows of every tile (queries and keys)
@@ -111,15 +136,6 @@ template <> struct Elem<float> {
   static __device__ __forceinline__ float to_f(float x) { return x; }
   static __device__ __forceinline__ float round(float x) { return x; }
   static __device__ __forceinline__ float from_f(float x) { return x; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16_rn(x);
-  }
 };
 
 struct Strides {
@@ -589,66 +605,13 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
-// ------------------------------------------- bf16 K9 and K11 on the tensor cores
-using bf16 = __nv_bfloat16;
+// ------------------------------------- bf16 K9-K11 on the tensor cores
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows each
 constexpr int kMmaWarps = kMmaThreads / 32;
-constexpr int kFwdQ = 64;  // K9: query rows of a block
-constexpr int kFwdK = 64;  // K9: keys of a tile
+constexpr int kFwdQ = 64;  // K9 and K10: query rows of a block
+constexpr int kFwdK = 64;  // K9 and K10: keys of a tile
 constexpr int kDkvK = 64;  // K11: keys of a block
 constexpr int kDkvQ = 32;  // K11: query rows of a step
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 (or 4) bytes global -> shared without a register; where !ok, zeros and no read
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the row
-// addresses of matrix i; `_t` transposes each
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b: A 16 x 16 (row), B 16 x 8 (col), bf16, exact products, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16 (the first in the low half)
-__device__ __forceinline__ unsigned pack_bf16(float x0, float x1) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<unsigned*>(&v);
-}
 
 // x = hi + lo to within 2^-17 |x|: hi = bf16(x), lo = bf16(x - hi), x - hi exact
 __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
@@ -656,28 +619,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, uns
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<unsigned*>(&h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile; the chunks
-// of a row are XOR-swizzled by r % 8 (D / 8 >= 8 chunks a row)
-template <int D>
-__device__ __forceinline__ unsigned swz(int r, int c) {
-  return static_cast<unsigned>(r * (D * 2) + ((c ^ (r & 7)) << 4));
-}
-
-// rows [r0, r0 + ROWS) of one (batch, head) slice into a swizzled tile,
-// rows at or past `rows` as zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(unsigned dst, const bf16* base, long long s_stride,
-                                                int r0, int rows) {
-  constexpr int CH = D / 8;
-  static_assert(ROWS * CH % kMmaThreads == 0, "whole copies a thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * CH / kMmaThreads; ++it) {
-    const int i = threadIdx.x + it * kMmaThreads, r = i / CH, c = i % CH, row = r0 + r;
-    const bool ok = row < rows;
-    cp_async16(dst + swz<D>(r, c), base + (long long)(ok ? row : 0) * s_stride + c * 8, ok);
-  }
 }
 
 // elements [r0, r0 + ROWS) of a 4-byte row vector (ids, lse, delta), zeros at or past `rows`
@@ -717,6 +658,9 @@ __device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4],
 template <int D> constexpr int fwd_mma_bytes() {  // Qs, Ks[2], Vs[2], key ids [2][2]
   return (kFwdQ + 4 * kFwdK) * D * 2 + 2 * 2 * kFwdK * 4;
 }
+template <int D> constexpr int dq_mma_bytes() {  // Qs, dOs, Ks[2], Vs[2], key ids [2][2]
+  return (2 * kFwdQ + 4 * kFwdK) * D * 2 + 2 * 2 * kFwdK * 4;
+}
 template <int D> constexpr int dkv_mma_bytes() {  // Ks, Vs, Qs[2], dOs[2], query rows [2][4]
   return (2 * kDkvK + 4 * kDkvQ) * D * 2 + 2 * 4 * kDkvQ * 4;
 }
@@ -748,7 +692,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   const int* kpos = p.kv_pos + (long long)b * p.Skv;
   const int* kseg = p.kv_seg + (long long)b * p.Skv;
 
-  load_tile_async<D, kFwdQ>(Qs, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
+  load_tile_async<D, kFwdQ, kMmaThreads>(Qs, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
   cp_async_commit();
 
   // classify every key tile against this query tile, the warps taking turns
@@ -776,8 +720,8 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   };
   auto load_kv = [&](int t, int st) {
     const int k0 = t * kFwdK;
-    load_tile_async<D, kFwdK>(Ks + st * TILE, kb, ks.s, k0, p.Skv);
-    load_tile_async<D, kFwdK>(Vs + st * TILE, vb, vs.s, k0, p.Skv);
+    load_tile_async<D, kFwdK, kMmaThreads>(Ks + st * TILE, kb, ks.s, k0, p.Skv);
+    load_tile_async<D, kFwdK, kMmaThreads>(Vs + st * TILE, vb, vs.s, k0, p.Skv);
     load_rows_async<kFwdK>(kpos_s + st * kFwdK, kpos, k0, p.Skv);
     load_rows_async<kFwdK>(kseg_s + st * kFwdK, kseg, k0, p.Skv);
   };
@@ -798,11 +742,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_commit();
     cp_async_wait<1>();  // Q and this tile have landed
     __syncthreads();
-    if (first) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(Qs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), qf[kk]);
-    }
+    if (first) load_a<D>(qf, Qs, warp * 16, lane);
     const unsigned Kt = Ks + st * TILE, Vt = Vs + st * TILE;
     const int* kp = kpos_s + st * kFwdK;
     const int* kg = kseg_s + st * kFwdK;
@@ -810,20 +750,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // S = Q K^T: 8-key column blocks j; this thread's (row, key) = (r_i, 8 j + 2 t4 + e % 2)
     float s[kFwdK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kFwdK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < kFwdK / 16; ++np) {
-        unsigned bk[4];
-        ldsm_x4(Kt + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)),
-                bk);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
+    product_abt<D, kFwdK / 8>(s, qf, Kt, lane);
 
     // scale, cap, mask (a full tile pair has none: one branch for the tile,
     // so the unmasked loop stays compact); keys past Skv take no part in the max
@@ -873,13 +800,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
         s[j][e] = pv;
       }
     unsigned pa[kFwdK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kFwdK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    c_to_a<kFwdK / 16>(s, pa);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] = l[i] * alpha[i] + ls[i];  // this thread's share of the row; summed at the end
@@ -893,15 +814,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
       acc[n][3] *= alpha[1];
     }
     // O += P V: V's B fragments by ldmatrix.trans of its [key][d] rows
-#pragma unroll
-    for (int kk = 0; kk < kFwdK / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned bv[4];
-        ldsm_x4_t(Vt + swz<D>(kk * 16 + (lane & 15), 2 * np + (lane >> 4)), bv);
-        mma_bf16(acc[2 * np], pa[kk], bv[0], bv[1]);
-        mma_bf16(acc[2 * np + 1], pa[kk], bv[2], bv[3]);
-      }
+    product_am<D, kFwdK / 16>(acc, pa, Vt, lane);
     __syncthreads();  // every read of this stage is done before it is loaded again
     t = nt;
   }
@@ -922,6 +835,158 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
           __floats2bfloat162_rn(acc[n][2 * i] / inv, acc[n][2 * i + 1] / inv);
     if (t4 == 0)
       lse[((long long)b * p.H + h) * p.Sq + row] = none ? -INFINITY : m[i] + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------------- K10, bf16: dq
+// grid (H, B, query tiles); the thread's rows are warp * 16 + lane / 4 (+ 8)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+dq_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs, Strides dos,
+              Strides dqs) {
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int QT = kFwdQ * D * 2, TILE = kFwdK * D * 2;
+  constexpr int SK = D > 64 ? 32 : kFwdK;  // keys of a step: S, dP and dQ's 64 floats fit
+  const unsigned Qs = smem_addr(smem_u8), dOs = Qs + QT, Ks = dOs + QT, Vs = Ks + 2 * TILE;
+  int* kpos_s = reinterpret_cast<int*>(smem_u8 + 2 * QT + 4 * TILE);  // [2][kFwdK]
+  int* kseg_s = kpos_s + 2 * kFwdK;
+  unsigned char* cls_s = reinterpret_cast<unsigned char*>(kseg_s + 2 * kFwdK);  // [key tiles]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdQ;  // the heaviest causal tiles first
+  const int hk = h / (p.H / p.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
+  const bf16* kb = k + b * ks.b + hk * ks.n;
+  const bf16* vb = v + b * vs.b + hk * vs.n;
+  const int q_rows = min(kFwdQ, p.Sq - q0);
+  const int* qpos = p.q_pos + (long long)b * p.Sq;
+  const int* qseg = p.q_seg + (long long)b * p.Sq;
+  const int* kpos = p.kv_pos + (long long)b * p.Skv;
+  const int* kseg = p.kv_seg + (long long)b * p.Skv;
+
+  load_tile_async<D, kFwdQ, kMmaThreads>(Qs, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
+  load_tile_async<D, kFwdQ, kMmaThreads>(dOs, d_o + b * dos.b + h * dos.n, dos.s, q0, p.Sq);
+  cp_async_commit();
+
+  // classify every key tile against this query tile, the warps taking turns
+  const int nkt = (p.Skv + kFwdK - 1) / kFwdK;
+  const TileStats qst = tile_stats_warp(qpos + q0, qseg + q0, q_rows);
+  for (int t = warp; t < nkt; t += kMmaWarps) {
+    const int k0 = t * kFwdK, k_rows = min(kFwdK, p.Skv - k0);
+    const TileStats kst = tile_stats_warp(kpos + k0, kseg + k0, k_rows);
+    if (lane == 0) cls_s[t] = classify(p, qst, kst, q_rows == kFwdQ && k_rows == kFwdK);
+  }
+  // the thread's two rows: position, segment, lse and delta stay in registers
+  int rpos[2], rseg[2];
+  bool rok[2];
+  float rlse[2], rdelta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    const long long at = ((long long)b * p.H + h) * p.Sq + q0 + r;
+    rok[i] = r < q_rows;
+    rpos[i] = rok[i] ? qpos[q0 + r] : 0;
+    rseg[i] = rok[i] ? qseg[q0 + r] : 0;
+    rlse[i] = rok[i] ? lse[at] : 0.f;
+    rdelta[i] = rok[i] ? delta[at] : 0.f;
+  }
+  __syncthreads();
+
+  auto next_tile = [&](int t) {
+    while (t < nkt && cls_s[t] == 0) ++t;
+    return t;
+  };
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * kFwdK;
+    load_tile_async<D, kFwdK, kMmaThreads>(Ks + st * TILE, kb, ks.s, k0, p.Skv);
+    load_tile_async<D, kFwdK, kMmaThreads>(Vs + st * TILE, vb, vs.s, k0, p.Skv);
+    load_rows_async<kFwdK>(kpos_s + st * kFwdK, kpos, k0, p.Skv);
+    load_rows_async<kFwdK>(kseg_s + st * kFwdK, kseg, k0, p.Skv);
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int t = next_tile(0);
+  if (t < nkt) load_kv(t, 0);
+  cp_async_commit();
+  for (int st = 0; t < nkt; st ^= 1) {
+    const int nt = next_tile(t + 1);
+    if (nt < nkt) load_kv(nt, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and this tile have landed
+    __syncthreads();
+    const unsigned Kt = Ks + st * TILE, Vt = Vs + st * TILE;
+    const int* kp = kpos_s + st * kFwdK;
+    const int* kg = kseg_s + st * kFwdK;
+    const int k_rows = min(kFwdK, p.Skv - t * kFwdK), cls = cls_s[t];
+
+    // the tile in steps of SK keys, one after the other (registers, see the note)
+#pragma unroll 1
+    for (int k0 = 0; k0 < kFwdK; k0 += SK) {
+      const unsigned koff = k0 * D * 2;
+      // S = Q K^T (summed in float32 to nearest over D: ds is rounded to bf16
+      // from it), then dP = dO V^T: (row, key) = (r_i, k0 + 8 j + 2 t4 + e % 2);
+      // the Q and dO fragments are read again for every step
+      float s[SK / 8][4], dp[SK / 8][4];
+      product_abt_rn<D, SK / 8>(s, Qs, warp * 16, Kt + koff, lane);
+      {
+        unsigned a[D / 16][4];
+        load_a<D>(a, dOs, warp * 16, lane);
+        product_abt<D, SK / 8>(dp, a, Vt + koff, lane);
+      }
+      // p = exp(s_capped - lse) where visible (else 0, never exp(mask - lse)) and
+      // ds = p (dp - delta) (1 - tanh^2) scale, float32, in place of s; the mask
+      // is worked out only for a partial tile pair
+      unsigned vis_bits = ~0u;
+      if (cls != 1) {
+        vis_bits = 0u;
+#pragma unroll
+        for (int j = 0; j < SK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = k0 + 8 * j + 2 * t4 + (e & 1), i = e >> 1;
+            const bool ok = c < k_rows && rok[i] && visible(p, rpos[i], kp[c], rseg[i], kg[c]);
+            vis_bits |= ok ? (1u << (4 * j + e)) : 0u;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < SK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float dcap;
+          const float sc = cap_logit(p, s[j][e], dcap);
+          const float pv = (vis_bits >> (4 * j + e)) & 1u ? expf(sc - rlse[e >> 1]) : 0.f;
+          float ds = pv * (dp[j][e] - rdelta[e >> 1]);
+          ds = ds * dcap;
+          ds = ds * p.scale;
+          s[j][e] = ds;
+        }
+      // dQ += dS K: ds rounded to bf16 into the A fragments (the kernel's one
+      // rounding of ds), K's B fragments by ldmatrix.trans of its [key][d] rows
+      unsigned da[SK / 16][4];
+      c_to_a<SK / 16>(s, da);
+      product_am<D, SK / 16>(acc, da, Kt + koff, lane);
+    }
+    __syncthreads();  // every read of this stage is done before it is loaded again
+    t = nt;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + lane / 4 + 8 * i;
+    if (row >= p.Sq) continue;
+    bf16* dst = dq + b * dqs.b + (long long)row * dqs.s + h * dqs.n + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -952,8 +1017,8 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   const int* kpos = p.kv_pos + (long long)b * p.Skv;
   const int* kseg = p.kv_seg + (long long)b * p.Skv;
 
-  load_tile_async<D, kDkvK>(Ks, k + b * ks.b + hk * ks.n, ks.s, k0, p.Skv);
-  load_tile_async<D, kDkvK>(Vs, v + b * vs.b + hk * vs.n, vs.s, k0, p.Skv);
+  load_tile_async<D, kDkvK, kMmaThreads>(Ks, k + b * ks.b + hk * ks.n, ks.s, k0, p.Skv);
+  load_tile_async<D, kDkvK, kMmaThreads>(Vs, v + b * vs.b + hk * vs.n, vs.s, k0, p.Skv);
   cp_async_commit();
 
   // classify every query tile against this key tile, the warps taking turns
@@ -983,8 +1048,10 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   };
   auto load_q = [&](int it, int st) {
     const int h = hk * group + it / nqt, q0 = (it % nqt) * kDkvQ;
-    load_tile_async<D, kDkvQ>(Qs + st * QT, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
-    load_tile_async<D, kDkvQ>(dOs + st * QT, d_o + b * dos.b + h * dos.n, dos.s, q0, p.Sq);
+    load_tile_async<D, kDkvQ, kMmaThreads>(Qs + st * QT, q + b * qs.b + h * qs.n, qs.s, q0,
+                                           p.Sq);
+    load_tile_async<D, kDkvQ, kMmaThreads>(dOs + st * QT, d_o + b * dos.b + h * dos.n, dos.s,
+                                           q0, p.Sq);
     const long long at = ((long long)b * p.H + h) * p.Sq;
     load_rows_async<kDkvQ>(lse_s + st * kDkvQ, lse + at, q0, p.Sq);
     load_rows_async<kDkvQ>(delta_s + st * kDkvQ, delta + at, q0, p.Sq);
@@ -1120,6 +1187,21 @@ int launch_fwd_mma(const Problem& p, const void* q, const void* k, const void* v
 }
 
 template <int D>
+int launch_dq_mma(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
+                  const float* lse, const float* delta, void* dq, Strides qs, Strides ks,
+                  Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
+  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ, k_tiles = (p.Skv + kFwdK - 1) / kFwdK;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = dq_mma_kernel<D>;
+  const int bytes = dq_mma_bytes<D>() + k_tiles;  // + one class byte a key tile
+  if (int err = prepare(kernel, bytes)) return err;
+  kernel<<<dim3(p.H, p.B, q_tiles), kMmaThreads, bytes, st>>>(
+      p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dq), qs, ks, vs, dos, dqs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int launch_dkv_mma(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
                    const float* lse, const float* delta, void* dk, void* dv, Strides qs,
                    Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
@@ -1156,13 +1238,17 @@ template <typename T, int D>
 int launch_dq(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
               const float* lse, const float* delta, void* dq, Strides qs, Strides ks, Strides vs,
               Strides dos, Strides dqs, cudaStream_t st) {
-  auto kernel = dq_kernel<T, D>;
-  if (int err = prepare(kernel, dq_floats<D>() * 4)) return err;
-  const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
-  kernel<<<grid, kThreads, dq_floats<D>() * 4, st>>>(
-      p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dq), qs, ks, vs, dos, dqs);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dq_mma<D>(p, q, k, v, d_o, lse, delta, dq, qs, ks, vs, dos, dqs, st);
+  } else {
+    auto kernel = dq_kernel<T, D>;
+    if (int err = prepare(kernel, dq_floats<D>() * 4)) return err;
+    const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+    kernel<<<grid, kThreads, dq_floats<D>() * 4, st>>>(
+        p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dq), qs, ks, vs, dos, dqs);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

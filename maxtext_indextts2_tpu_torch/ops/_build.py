@@ -56,8 +56,9 @@ SIGNATURES = {
     "ada_rmsnorm_quantize": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     # (g, u, q, scales, rows, d, dtype, stream)
     "silu_mul_quantize": [_P, _P, _P, _P, _LL, _I, _I, _P],
-    # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype, stream)
-    "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _P],
+    # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype,
+    #  query rows of a block, stream)
+    "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _I, _P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

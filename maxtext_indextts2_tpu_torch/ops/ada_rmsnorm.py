@@ -57,6 +57,15 @@ def route(name: str, impl: str | None, *tensors: torch.Tensor) -> str:
     return "cuda"
 
 
+def rows_of_16_bytes(t: torch.Tensor) -> bool:
+    """True where ``cp.async`` can copy every row of ``t`` in 16-byte pieces: a
+    16-byte-aligned start and every stride but the last a multiple of 8
+    elements (a stride of an axis of length 1 is never used). The bfloat16
+    tensor-core kernels need it of their operands."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor, impl: str | None) -> torch.Tensor:
     global launch_count
     check_rows_and_scale("ada_rmsnorm", x, w)

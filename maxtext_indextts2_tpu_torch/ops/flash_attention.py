@@ -25,8 +25,8 @@ On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cuh``
 run (or the call raises). They read q, k and v through their strides, so the
 [B, S, N, D] projections of the model need no transposed copy, and they
 choose their own tiles (the TPU kernel's VMEM block sizes have no
-counterpart here). In bfloat16, K9 and K11 run on the tensor cores and copy
-rows 16 bytes at a time: the wrapper raises on an operand whose start or
+counterpart here). In bfloat16, K9, K10 and K11 run on the tensor cores and
+copy rows 16 bytes at a time: the wrapper raises on an operand whose start or
 strides do not allow that (the model's projections do). K11 splits its
 float32 p and ds into two bfloat16 terms for its products, so neither is
 rounded to bfloat16. The plain versions are taken only for a tensor that lies
@@ -46,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import FLOAT_DTYPES, route
+from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import FLOAT_DTYPES, route, rows_of_16_bytes
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -189,18 +189,11 @@ def _kernel_args(q, k, *more):
     if any(t.stride(-1) != 1 for t in (q, k, *more)):
         raise ValueError("flash_attention kernel: the last axis of every operand must be "
                          "contiguous")
-    if q.dtype == torch.bfloat16 and not all(map(_rows_of_16_bytes, (q, k, *more))):
+    if q.dtype == torch.bfloat16 and not all(map(rows_of_16_bytes, (q, k, *more))):
         raise ValueError("flash_attention kernel: bfloat16 rows are copied 16 bytes at a time: "
                          "every operand needs a 16-byte-aligned start and batch, sequence and "
                          "head strides that are multiples of 8 elements")
     return b, h, hkv, sq, skv, d
-
-
-def _rows_of_16_bytes(t: torch.Tensor) -> bool:
-    """True where ``cp.async`` can copy every row of ``t`` in 16-byte pieces
-    (a stride of an axis of length 1 is never used)."""
-    return t.data_ptr() % 16 == 0 and all(
-        st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
 
 
 def _bsn(t: torch.Tensor) -> tuple[int, int, int]:

@@ -16,10 +16,10 @@ run's inputs: bytes moved (each input read once, each output written once,
 only the cache rows the lengths make valid) over the memory rate, or
 operations over the peak rate of the input type, whichever is larger.
 
-Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash | paged]``
+Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash | paged | s2a]``
 (needs the GPU; ``small`` shrinks the serving and training shapes for a
 quick first check of a changed kernel, ``flash`` runs the K9-K11 cases only,
-``paged`` the K4 cases only;
+``paged`` the K4 cases only, ``s2a`` the K12 cases only;
 the repo's ``chip_smoke.py`` calls :func:`run_all`).
 """
 
@@ -533,19 +533,31 @@ def _attention_inputs(b, s, n, d, dtype, seed, device, fused):
 def attention_case(name, device, timing, *, b, s, n=16, d=64, dtype=torch.bfloat16, seed=0,
                    fused=False):
     """K12 against its plain version: S non-multiple of the 64-row tile, one
-    row, strided views."""
+    row, strided views. A bfloat16 case runs every block size of the kernel
+    (``s2a.BLOCK_ROWS``, the wrapper's choice first) and holds each to the
+    tolerance; with ``timing`` it also times each on the device."""
     q, k, v = _attention_inputs(b, s, n, d, dtype, seed, device, fused)
-    got = s2a.s2a_attention(q, k, v)
-    torch.cuda.synchronize()
     want = s2a.s2a_attention(q, k, v, impl="plain")
     torch.cuda.synchronize()
-    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (b, s, n, d)
-    err = float((got.float() - want.float()).abs().max().item())
+    tilings = [None]
+    if dtype == torch.bfloat16:
+        chosen = s2a.block_rows(b, s, n)
+        tilings = [chosen] + [r for r in s2a.BLOCK_ROWS if r != chosen]
+    errs, finite = {}, True
+    for rows in tilings:
+        got = s2a.s2a_attention(q, k, v, rows=rows)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape == (b, s, n, d)
+        errs[rows] = float((got.float() - want.float()).abs().max().item())
+        finite = finite and bool(torch.isfinite(got).all().item())
+    err = max(errs.values())
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-    finite = bool(torch.isfinite(got).all().item())
     res = dict(name=name, kernel="s2a_attention", max_abs_err=err, tol=tol,
                ok=bool(finite and err <= tol), finite=finite,
                shape=dict(b=b, s=s, n=n, d=d, dtype=str(dtype), strided_views=fused))
+    if tilings[0] is not None:
+        res.update(block_rows=tilings[0],
+                   max_abs_err_by_block_rows={str(r): e for r, e in errs.items()})
     if timing:
         esz = q.element_size()
         nbytes = 4 * b * s * n * d * esz  # q, k, v read once, the output written once
@@ -564,6 +576,10 @@ def attention_case(name, device, timing, *, b, s, n=16, d=64, dtype=torch.bfloat
             plain_device_ms=device_ms(lambda: s2a.s2a_attention(q, k, v, impl="plain"),
                                       iters=3),
         )
+        if tilings[0] is not None:
+            res["device_ms_by_block_rows"] = {
+                str(r): device_ms(lambda r=r: s2a.s2a_attention(q, k, v, rows=r))
+                for r in tilings}
     return res
 
 
@@ -575,7 +591,9 @@ SYNTH_PROMPT, SYNTH_TARGET = 149, 256
 
 def attention_cases(device, timing, full_size=True):
     """K12: the ``synthesize`` shapes in bfloat16 (the int8 serving modes) and
-    float32, short and ragged S, the batched [8, 768] shape, strided views."""
+    float32, short and ragged S, the batched [8, 768] shape, strided views
+    (bfloat16 also at the ``synthesize`` shape, as the denoiser hands them
+    over), D = 32, 64 and 128 in bfloat16."""
     bf16, f32 = torch.bfloat16, torch.float32
     cond, uncond = SYNTH_PROMPT + SYNTH_TARGET, SYNTH_TARGET
     batched = dict(b=8, s=768) if full_size else dict(b=2, s=200)
@@ -598,6 +616,10 @@ def attention_cases(device, timing, full_size=True):
                        fused=True, seed=210),
         attention_case("s2a_attention_f32_strided_views", device, timing, b=1, s=130, fused=True,
                        dtype=f32, seed=211),
+        attention_case("s2a_attention_bf16_s130_d128", device, timing, b=1, s=130, n=4, d=128,
+                       seed=212),
+        attention_case("s2a_attention_bf16_main_path_views", device, timing, b=1, s=cond,
+                       fused=True, seed=213),
     ]
 
 
@@ -884,9 +906,9 @@ def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "flash", "paged"}:
+    if not set(argv) <= {"small", "flash", "paged", "s2a"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[flash | paged]")
+                         "[flash | paged | s2a]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
@@ -894,6 +916,8 @@ def main(argv=None):
         results = flash_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "paged" in argv:  # K4 only
         results = paged_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "s2a" in argv:  # K12 only
+        results = attention_cases(torch.device("cuda"), timing=True, full_size=full)
     else:
         results = run_all(full_size=full)
     for r in results:

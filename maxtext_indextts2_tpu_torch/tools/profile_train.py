@@ -36,10 +36,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TTS_1B = os.path.join(_PKG, "configs", "models", "tts-1b.yml")
 
 # kernel of csrc/flash_attention.cuh -> the wrapper that launches it (the
-# float32 kernels and K10; the bfloat16 K9 and K11 on the tensor cores)
+# float32 kernels on the CUDA cores; the bfloat16 ones on the tensor cores)
 FLASH_KERNELS = {"fwd_kernel": "flash_fwd", "dq_kernel": "flash_bwd_dq",
                  "dkv_kernel": "flash_bwd_dkv", "fwd_mma_kernel": "flash_fwd",
-                 "dkv_mma_kernel": "flash_bwd_dkv"}
+                 "dq_mma_kernel": "flash_bwd_dq", "dkv_mma_kernel": "flash_bwd_dkv"}
 
 
 def flash_kernel_name(event_name: str) -> str | None:

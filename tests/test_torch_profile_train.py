@@ -1,7 +1,9 @@
 """``tools/profile_train.py`` groups the profiler's events by kernel: every
 instantiation of the flash-attention kernels of ``csrc/flash_attention.cuh``
-(the float32 ones and K10 on the CUDA cores, the bfloat16 K9 and K11 on the
-tensor cores) maps to the wrapper that launches it, and nothing else does.
+(the float32 ones on the CUDA cores, the bfloat16 K9, K10 and K11 on the
+tensor cores; the bfloat16 ``dq_kernel``, K10's first design, is kept as a
+name that must still map) maps to the wrapper that launches it, and nothing
+else does.
 The names are the demangled ones ``torch.profiler`` reports."""
 
 import pytest
@@ -30,6 +32,7 @@ def _instantiations():
         yield f"void flash::fwd_mma_kernel<{d}>" + _ARGS["fwd"].format(t=_BF16), "flash_fwd"
         yield f"void flash::dq_kernel<{_BF16}, {d}>" + _ARGS["dq"].format(t=_BF16), \
             "flash_bwd_dq"
+        yield f"void flash::dq_mma_kernel<{d}>" + _ARGS["dq"].format(t=_BF16), "flash_bwd_dq"
         yield f"void flash::dkv_mma_kernel<{d}>" + _ARGS["dkv"].format(t=_BF16), \
             "flash_bwd_dkv"
 

@@ -157,3 +157,85 @@ def test_route_cpu_tensor_takes_the_plain_version_and_impl_is_honoured(monkeypat
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k12.s2a_attention(q, k, v)
     assert k12.launch_count == 0
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _projection_views(dtype, b=2, s=16, n=4, d=64):
+    """q, k, v as ``audio/s2a.py`` hands them over: views of one [B, S, 3*N*D]
+    projection output."""
+    qkv = torch.zeros((b, s, 3 * n * d), dtype=dtype)
+    return [t.reshape(b, s, n, d) for t in torch.split(qkv, n * d, dim=-1)]
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("fault", ["start", "stride"])
+def test_kernel_args_refuse_bf16_rows_that_are_not_16_byte_pieces(which, fault, monkeypatch):
+    """The bfloat16 kernel copies rows 16 bytes at a time (cp.async): routed to
+    the kernel, the wrapper raises on an operand whose start is not 16-byte
+    aligned or whose sequence stride is not a multiple of 8 elements, before
+    any library load, and takes the denoiser's projection views. float32
+    operands keep the scalar loads of the CUDA-core kernel: any start and
+    stride."""
+    ops = dict(zip("qkv", _projection_views(torch.bfloat16)))
+    k12._kernel_args(ops["q"], ops["k"], ops["v"])
+    shape = ops[which].shape
+    b, s, n, d = shape
+    if fault == "start":  # one element into the allocation: 2 bytes off
+        bad = _bf16(ops[which].numel() + 1)[1:].view(shape)
+    else:  # sequence rows padded by 4 elements: a sequence stride of N*D + 4
+        bad = _bf16(b, s, n * d + 4)[..., :n * d].unflatten(-1, (n, d))
+        assert bad.stride(1) == n * d + 4 and bad.stride(2) == d
+    ops[which] = bad
+    with pytest.raises(ValueError, match="16-byte"):
+        k12._kernel_args(ops["q"], ops["k"], ops["v"])
+
+    monkeypatch.setattr(k12, "route", lambda *a, **kw: "cuda")
+
+    def no_build(*a, **kw):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    k12.launch_count = 0
+    with pytest.raises(ValueError, match="16-byte"):
+        k12.s2a_attention(ops["q"], ops["k"], ops["v"])
+    assert k12.launch_count == 0
+
+    f32 = {name: torch.zeros(t.numel() + 1)[1:].view(t.shape) for name, t in ops.items()}
+    f32[which] = torch.zeros(b, s, n * d + 4)[..., :n * d].unflatten(-1, (n, d))
+    assert f32["q" if which != "q" else "k"].data_ptr() % 16
+    k12._kernel_args(f32["q"], f32["k"], f32["v"])
+    with pytest.raises(RuntimeError, match="nvcc not found"):  # past every check
+        k12.s2a_attention(f32["q"], f32["k"], f32["v"])
+
+
+@pytest.mark.parametrize("n,d", [(16, 64), (8, 32), (4, 128)])
+def test_kernel_args_take_the_denoisers_projection_views(n, d):
+    """The views ``audio/s2a.py`` makes of its [B, S, 3*N*D] projection are
+    16-byte rows at every head dim the kernel takes, B = 1 included."""
+    for b in (1, 3):
+        q, k, v = _projection_views(torch.bfloat16, b=b, s=405, n=n, d=d)
+        assert not q.is_contiguous()
+        k12._kernel_args(q, k, v)
+
+
+@pytest.mark.parametrize("b,s,n", [(1, 405, 16), (1, 256, 16), (8, 768, 16), (3, 130, 8),
+                                   (1, 1, 1), (64, 4096, 16)])
+def test_block_rows_is_the_largest_that_fills_the_card(b, s, n):
+    """The bfloat16 kernel's query rows a block: the largest of ``BLOCK_ROWS``
+    whose grid has ``MIN_BLOCKS`` blocks, else the smallest."""
+    rows = k12.block_rows(b, s, n)
+    blocks = {r: b * n * -(-s // r) for r in k12.BLOCK_ROWS}
+    assert rows in k12.BLOCK_ROWS
+    larger = [r for r in k12.BLOCK_ROWS if r > rows]
+    assert all(blocks[r] < k12.MIN_BLOCKS for r in larger)
+    assert blocks[rows] >= k12.MIN_BLOCKS or rows == min(k12.BLOCK_ROWS)
+
+
+def test_kernel_route_refuses_a_block_size_it_has_no_kernel_for(monkeypatch):
+    q, k, v = _projection_views(torch.bfloat16)
+    monkeypatch.setattr(k12, "route", lambda *a, **kw: "cuda")
+    with pytest.raises(ValueError, match="rows 32"):
+        k12.s2a_attention(q, k, v, rows=32)
