@@ -220,8 +220,14 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load_library(verbose=False)
+    # K1 / K3 / K4's instantiations (`-Xptxas -v`): none may spill
+    decode = [[r["kernel"].split("(")[0], r.get("registers"), r.get("spill_stores"),
+               r.get("spill_loads")] for r in _build.ptxas_report("ragged_decode_kernel")]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
-        os.path.relpath(s, REPO) for s in _build._sources()))
+        os.path.relpath(s, REPO) for s in _build._sources()),
+        decode_attention_registers_spill_stores_loads=decode)
+    check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
+          f"a decode-attention instantiation spills: {decode}")
 
 
 def phase_kernels():
@@ -1177,7 +1183,8 @@ def kernels_line(cases, launches):
             ms=main["kernel_ms"], device_ms=main["device_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], library_call=main.get("library_call"),
+            library_ms=main["library_ms"], library_device_ms=main.get("library_device_ms"),
+            library_call=main.get("library_call"),
             bytes_moved=main["bytes_moved"],
             shape=main["shape"], cases=len(own)))
     return {"kernels": out}

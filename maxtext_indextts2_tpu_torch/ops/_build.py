@@ -37,15 +37,23 @@ NVCC_FLAGS = [
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> argtypes. Every pointer and the stream are c_void_p: without
 # argtypes ctypes would pass them as 32-bit ints and cut the address.
-_RAGGED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+# (q, k, v, lengths, k_scale, v_scale, out, B, S, nkv, group, head_dim, window,
+#  scale, q_is_bf16, out_is_bf16, cluster, stream)
+_RAGGED_ARGS = [_P] * 7 + [_I] * 6 + [_F, _I, _I, _I, _P]
+# (q, k_pages, v_pages, page_map, lengths, out, B, num_pages, tpp, tpp_shift,
+#  max_pages, nkv, group, head_dim, scale, q_is_bf16, out_is_bf16, cluster, stream)
+_PAGED_ARGS = [_P] * 6 + [_I] * 8 + [_F, _I, _I, _I, _P]
 SIGNATURES = {
     "ragged_decode_attention_f32": _RAGGED_ARGS,
     "ragged_decode_attention_bf16": _RAGGED_ARGS,
     "ragged_decode_attention_int8": _RAGGED_ARGS,
-    # (q, k_pages, v_pages, page_map, lengths, out, B, num_pages, tpp, max_pages,
-    #  nkv, group, head_dim, scale, q_is_bf16, out_is_bf16, stream)
-    "paged_decode_attention_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
-    "paged_decode_attention_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "paged_decode_attention_f32": _PAGED_ARGS,
+    "paged_decode_attention_bf16": _PAGED_ARGS,
+    # (int* blocks an SM holds, head_dim, group, cluster, int* clusters the card holds)
+    **{f"{e}_occupancy": [_P, _I, _I, _I, _P] for e in (
+        "ragged_decode_attention_f32", "ragged_decode_attention_bf16",
+        "ragged_decode_attention_int8", "paged_decode_attention_f32",
+        "paged_decode_attention_bf16")},
     "inplace_row_update_bytes": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "inplace_row_update_convert": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
     # (x, w, out, rows, s_len, d, dtype, w_is_f32, stream)
@@ -160,6 +168,43 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def ptxas_report(kernel: str) -> list[dict]:
+    """Registers, stack and spill bytes of every instantiation of ``kernel``
+    (a substring of its mangled name), from the ``-Xptxas -v`` lines that the
+    last build of this checkout wrote to ``_build/build.log``; names
+    demangled by ``c++filt`` where the machine has it."""
+    import re
+
+    with open(os.path.join(BUILD_DIR, "build.log")) as fh:
+        lines = fh.read().splitlines()
+    out, cur = [], None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1)) if kernel in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(r["kernel"] for r in out),
+                               stdout=subprocess.PIPE, text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for r, name in zip(out, names):
+                r["kernel"] = name
+    return out
 
 
 def check_launch(code: int, what: str) -> None:

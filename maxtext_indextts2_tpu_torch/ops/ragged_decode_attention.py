@@ -15,7 +15,11 @@ On a CUDA tensor the hand-written kernel in
 ``csrc/ragged_decode_attention.cuh`` (K4: ``csrc/paged_decode_attention.cuh``,
 the same kernel with a paged row address) runs, or the call raises; the
 plain PyTorch version below is taken only for a tensor on the CPU, or when a
-test or an on-device comparison asks for it with ``impl="plain"``.
+test or an on-device comparison asks for it with ``impl="plain"``. The kernel
+splits each (slot, kv head)'s rows across a cluster of :func:`cluster_size`
+blocks, a number taken from static shapes only, so that a call reads nothing
+back to the host; a cluster launch the card refuses raises like any other
+launch error.
 
 Where this differs from the TPU kernel, on purpose: a slot of length 0 gets
 ZEROS (the TPU kernel returns a finite mean of masked rows, the jnp
@@ -26,12 +30,16 @@ the CUDA kernel does, so the two differ by summation order only.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 8
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+# the fewest cache rows a block of a cluster gets at max_len
+MIN_ROWS_PER_BLOCK = 32
 
 # launches of the CUDA kernels by this process (see ops/inplace_update.py):
 # the ragged kernel (K1, both entries) and the paged one (K4)
@@ -43,6 +51,84 @@ _ENTRY = {
     torch.bfloat16: "ragged_decode_attention_bf16",
     torch.int8: "ragged_decode_attention_int8",
 }
+
+
+def cluster_size(b_sz: int, nkv: int, max_len: int, resident_blocks: int) -> int:
+    """Blocks that share one (slot, kv head): a power of two in 1..8, from
+    static shapes only -- slots x kv heads, the most rows a slot can attend to
+    (the cache's length, or a shorter sliding window) and how many blocks of
+    the kernel the card holds at once -- never from the lengths, which live on
+    the device. As many as keep the grid within one wave of resident blocks,
+    at least 2 (a split halves the longest slot's chain of loads even where
+    the grid already fills the card), and none with fewer than
+    ``MIN_ROWS_PER_BLOCK`` rows at max_len."""
+    want = min(max(2, resident_blocks // max(1, b_sz * nkv)), max_len // MIN_ROWS_PER_BLOCK,
+               MAX_CLUSTER)
+    c = 1
+    while 2 * c <= want:
+        c *= 2
+    return c
+
+
+def tpp_shift(tpp: int) -> int:
+    """log2(tpp) where tokens_per_page is a power of two (the kernel then
+    shifts and masks), else -1."""
+    return tpp.bit_length() - 1 if tpp > 0 and tpp & (tpp - 1) == 0 else -1
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(entry: str, head_dim: int, group: int, cluster: int,
+              device_index: int) -> tuple[int, int]:
+    """(blocks an SM holds, clusters of ``cluster`` blocks the card holds) of
+    the kernel behind C entry ``entry`` at (head_dim, group), from CUDA's
+    occupancy calculator: a property of the card and the instantiation, read
+    once a process. Needs the GPU."""
+    import ctypes
+
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = getattr(lib, f"{entry}_occupancy")(
+            ctypes.byref(per_sm), head_dim, group, cluster, ctypes.byref(clusters))
+    _build.check_launch(code, f"{entry}_occupancy")
+    return per_sm.value, clusters.value
+
+
+@functools.lru_cache(maxsize=None)
+def launch_cluster(entry: str, b_sz: int, nkv: int, max_len: int, head_dim: int, group: int,
+                   device: torch.device) -> int:
+    """The cluster size a launch of C entry ``entry`` takes at these shapes:
+    :func:`cluster_size` with the blocks of the kernel the whole card holds
+    (worked out once for each set of static shapes: a lookup a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    per_sm = occupancy(entry, head_dim, group, 1, index)[0]
+    resident = per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+    return cluster_size(b_sz, nkv, max_len, resident)
+
+
+def _max_rows(s_len: int, sliding_window: int) -> int:
+    """The most cache rows a slot can attend to: the cache's length, or the
+    window where it is shorter (both static)."""
+    return min(s_len, sliding_window) if sliding_window > 0 else s_len
+
+
+def _as_int32(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """``t`` itself where it is contiguous int32 (the serving path's lengths
+    and page map): no eager op. The kernel clamps lengths to [0, max_len] and
+    page ids to the pool; only a wider integer type is clamped here first, so
+    that its cast cannot wrap a length past the cache into the valid range."""
+    if t.dtype == torch.int32:
+        return t if t.is_contiguous() else t.contiguous()
+    return torch.clamp(t, min=-1, max=max_len).to(torch.int32).contiguous()
+
+
+def _check_16_byte_rows(*tensors: torch.Tensor) -> None:
+    # the kernel copies K/V rows in 16-byte pieces (cp.async)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("decode attention kernel: the K/V cache must start on a "
+                         "16-byte boundary")
 
 
 def ragged_decode_attention_plain(
@@ -142,13 +228,15 @@ def ragged_decode_attention_v2(
             and k_scale.is_contiguous() and v_scale.is_contiguous()):
         raise ValueError("ragged decode kernel: scales must be contiguous float32")
 
+    _check_16_byte_rows(k, v)
+
     from maxtext_indextts2_tpu_torch.ops import _build
 
     lib = _build.load_library()
     q = q.contiguous()
-    # clamp here as well as in the kernel: a length past the cache would be
-    # an illegal address, which ends the CUDA context for the whole process
-    lengths32 = torch.clamp(lengths, min=0, max=s_len).to(torch.int32).contiguous()
+    # the kernel clamps each length to [0, S]: a length past the cache never
+    # becomes an address
+    lengths32 = _as_int32(lengths, s_len)
     out = torch.empty((b_sz, nq, d), dtype=out_dtype, device=q.device)
     code = getattr(lib, _ENTRY[k.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths32.data_ptr(),
@@ -157,6 +245,8 @@ def ragged_decode_attention_v2(
         out.data_ptr(), b_sz, s_len, nkv, group, d, int(sliding_window),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16),
+        launch_cluster(_ENTRY[k.dtype], b_sz, nkv, _max_rows(s_len, sliding_window), d, group,
+                       q.device),
         torch.cuda.current_stream(q.device).cuda_stream)
     launch_count += 1
     _build.check_launch(code, "ragged_decode_attention")
@@ -258,19 +348,25 @@ def paged_decode_attention_v2(
         raise ValueError("paged decode kernel: the page pools must be contiguous "
                          "(they are never copied)")
 
+    _check_16_byte_rows(key_pages, value_pages)
+
     from maxtext_indextts2_tpu_torch.ops import _build
 
     lib = _build.load_library()
     q = q.contiguous()
-    pm32 = page_map.to(torch.int32).contiguous()
-    # clamped here as well as in the kernel (as the TPU kernel's wrapper does)
-    lengths32 = torch.clamp(lengths, min=0, max=tpp * max_pages).to(torch.int32).contiguous()
+    max_len = tpp * max_pages
+    # the kernel clamps page ids to the pool and lengths to tpp * max_pages
+    # (as the TPU kernel's wrapper does)
+    pm32 = _as_int32(page_map, num_pages)
+    lengths32 = _as_int32(lengths, max_len)
     out = torch.empty((b_sz, nq, d), dtype=q.dtype, device=q.device)
     is_bf16 = int(q.dtype == torch.bfloat16)
     code = getattr(lib, _PAGED_ENTRY[key_pages.dtype])(
         q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(), pm32.data_ptr(),
-        lengths32.data_ptr(), out.data_ptr(), b_sz, num_pages, tpp, max_pages, nkv, group, d,
-        1.0 / math.sqrt(d), is_bf16, is_bf16, torch.cuda.current_stream(q.device).cuda_stream)
+        lengths32.data_ptr(), out.data_ptr(), b_sz, num_pages, tpp, tpp_shift(tpp), max_pages,
+        nkv, group, d, 1.0 / math.sqrt(d), is_bf16, is_bf16,
+        launch_cluster(_PAGED_ENTRY[key_pages.dtype], b_sz, nkv, max_len, d, group, q.device),
+        torch.cuda.current_stream(q.device).cuda_stream)
     paged_launch_count += 1
     _build.check_launch(code, "paged_decode_attention")
     return out

@@ -16,11 +16,16 @@ run's inputs: bytes moved (each input read once, each output written once,
 only the cache rows the lengths make valid) over the memory rate, or
 operations over the peak rate of the input type, whichever is larger.
 
-Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [flash | paged | s2a]``
+The main-path cases also time the library call on the device
+(``library_device_ms``), so that kernel and yardstick compare device time
+with device time, and check that two launches of the kernel give bitwise
+equal outputs (``repeat_bitwise_equal``).
+
+Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [ragged | flash | paged | s2a]``
 (needs the GPU; ``small`` shrinks the serving and training shapes for a
-quick first check of a changed kernel, ``flash`` runs the K9-K11 cases only,
-``paged`` the K4 cases only, ``s2a`` the K12 cases only;
-the repo's ``chip_smoke.py`` calls :func:`run_all`).
+quick first check of a changed kernel, ``ragged`` runs the K1-K3 cases only,
+``flash`` the K9-K11 cases only, ``paged`` the K4 cases only, ``s2a`` the K12
+cases only; the repo's ``chip_smoke.py`` calls :func:`run_all`).
 """
 
 from __future__ import annotations
@@ -126,12 +131,44 @@ def spread_lengths(b: int, s: int, seed: int, serving_max: int = 0) -> torch.Ten
     return torch.tensor(lengths, dtype=torch.int32)
 
 
-def _ragged_inputs(b, s, nq, nkv, d, dtype, seed, device, int8=False, serving_max=0):
+def split_edge_lengths(max_len: int) -> list[int]:
+    """One slot per length at the edges of the kernel's split of a slot's rows
+    over a cluster of C blocks (``ceil(n / C)`` rows a block), for every C the
+    wrapper may take (1, 2, 4, 8): 1..9 rows (blocks with no row), multiples of
+    C and one past them, max_len and past it, 0."""
+    out = list(range(1, 10))
+    for c in (2, 4, 8):
+        out += [2 * c, 2 * c + 1, 5 * c - 1, 16 * c, 16 * c + 3]
+    out += [max_len - 1, max_len, max_len + 1, 3 * max_len, 0]
+    return sorted(set(out), key=out.index)
+
+
+def _cluster_info(entry, b, nkv, max_len, d, group, device) -> dict:
+    """The cluster a launch takes at these shapes, and the card's occupancy of
+    that instantiation (blocks an SM holds, clusters of that size it holds)."""
+    c = rda.launch_cluster(entry, b, nkv, max_len, d, group, device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    per_sm, clusters = rda.occupancy(entry, d, group, c, index)
+    return dict(cluster=c, blocks_per_sm=per_sm, max_active_clusters=clusters)
+
+
+def _repeat_equal(run) -> bool:
+    """Two launches give bitwise equal outputs (no atomics, a fixed merge order)."""
+    a = run(None)
+    b = run(None)
+    torch.cuda.synchronize()
+    return bool(torch.equal(a, b))
+
+
+def _ragged_inputs(b, s, nq, nkv, d, dtype, seed, device, int8=False, serving_max=0,
+                   lengths=None):
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn((b, nq, d), generator=g, device=device, dtype=torch.float32).to(dtype)
     k = torch.randn((b, s, nkv, d), generator=g, device=device, dtype=torch.float32)
     v = torch.randn((b, s, nkv, d), generator=g, device=device, dtype=torch.float32)
-    lengths = spread_lengths(b, s, seed, serving_max).to(device)
+    if lengths is None:
+        lengths = spread_lengths(b, s, seed, serving_max)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32).to(device)
     if int8:
         k, ks = quantize_kv(k)
         v, vs = quantize_kv(v)
@@ -175,9 +212,9 @@ def _sdpa_library(q, k, v, lengths, window):
 
 
 def ragged_case(name, device, timing, *, b, s, nq, nkv, d, dtype=torch.bfloat16,
-                int8=False, window=0, v1_entry=False, seed=0, serving_max=0):
+                int8=False, window=0, v1_entry=False, seed=0, serving_max=0, lengths=None):
     q, k, v, lengths, ks, vs = _ragged_inputs(b, s, nq, nkv, d, dtype, seed, device, int8,
-                                              serving_max)
+                                              serving_max, lengths)
     if v1_entry:
         kw = dict(sliding_window=window)
         if int8:
@@ -201,18 +238,26 @@ def ragged_case(name, device, timing, *, b, s, nq, nkv, d, dtype=torch.bfloat16,
         empty_rows_zero=empty_zero,
         shape=dict(b=b, s=s, nq=nq, nkv=nkv, d=d, q=str(q.dtype), kv=str(k.dtype),
                    window=window, sum_lengths=int(torch.clamp(lengths, 0, s).sum().item())),
+        **_cluster_info(rda._ENTRY[k.dtype], b, nkv, rda._max_rows(s, window), d, nq // nkv,
+                        device),
     )
+    main = name in MAIN_PATH_CASES.values()
+    if main:
+        res["repeat_bitwise_equal"] = _repeat_equal(run)
+        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         bound, by, nbytes = _ragged_bound_ms(q, k, lengths, window, int8, out.dtype)
+        library = None if int8 else _sdpa_library(q, k, v, lengths, window)
         res.update(
             kernel_ms=time_ms(lambda: run(None)),
             plain_ms=time_ms(lambda: run("plain"), warmup=1, iters=3),
             bound_ms=bound, bound_by=by, bytes_moved=nbytes,
-            library_ms=None if int8 else time_ms(_sdpa_library(q, k, v, lengths, window),
-                                                 warmup=1, iters=5),
+            library_ms=None if library is None else time_ms(library, warmup=1, iters=5),
+            device_ms=device_ms(lambda: run(None)),
         )
-        if name in MAIN_PATH_CASES.values():
-            res.update(device_ms=device_ms(lambda: run(None)))
+        if main:
+            res.update(library_device_ms=device_ms(library, iters=5),
+                       library_call="scaled_dot_product_attention with a length mask")
     return res
 
 
@@ -267,6 +312,7 @@ def paged_case(name, device, timing, *, b, tpp, max_pages, nq, nkv, d, dtype=tor
     q, kp, vp, pm, lengths = _paged_inputs(b, tpp, max_pages, nq, nkv, d, dtype, seed, device,
                                            serving_max, lengths)
     run = lambda impl: rda.paged_decode_attention_v2(q, kp, vp, pm, lengths, impl=impl)
+    main = name in MAIN_PATH_CASES.values()
     out = run(None)
     torch.cuda.synchronize()
     ref = run("plain")
@@ -283,8 +329,13 @@ def paged_case(name, device, timing, *, b, tpp, max_pages, nq, nkv, d, dtype=tor
         ok=bool(err <= tol and finite and empty_zero), finite=finite,
         empty_rows_zero=empty_zero,
         shape=dict(b=b, tpp=tpp, max_pages=max_pages, num_pages=kp.shape[0], nq=nq, nkv=nkv,
-                   d=d, dtype=str(dtype), sum_lengths=int(valid.sum().item())),
+                   d=d, dtype=str(dtype), sum_lengths=int(valid.sum().item()),
+                   tpp_shift=rda.tpp_shift(tpp)),
+        **_cluster_info(rda._PAGED_ENTRY[dtype], b, nkv, cap, d, nq // nkv, device),
     )
+    if main:
+        res["repeat_bitwise_equal"] = _repeat_equal(run)
+        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         rows = int(valid.sum().item())
         pages = int((-(-valid // tpp)).sum().item())
@@ -292,17 +343,19 @@ def paged_case(name, device, timing, *, b, tpp, max_pages, nq, nkv, d, dtype=tor
                   + rows * nkv * d * 2 * kp.element_size())
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = 4 * rows * nq * d / PEAK_OPS_PER_S[dtype]
+        library = _paged_library(q, kp, vp, pm, lengths)
         res.update(
             kernel_ms=time_ms(lambda: run(None)),
             plain_ms=time_ms(lambda: run("plain"), warmup=1, iters=3),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations", bytes_moved=nbytes,
-            library_ms=time_ms(_paged_library(q, kp, vp, pm, lengths), warmup=1, iters=5),
+            library_ms=time_ms(library, warmup=1, iters=5),
             library_call="gather by page_map (indexing) + scaled_dot_product_attention "
                          "with a length mask: two calls",
+            device_ms=device_ms(lambda: run(None)),
         )
-        if name in MAIN_PATH_CASES.values():
-            res.update(device_ms=device_ms(lambda: run(None)))
+        if main:
+            res.update(library_device_ms=device_ms(library, iters=5))
     return res
 
 
@@ -327,6 +380,18 @@ def paged_cases(device, timing, full_size=True, serve_slots=32):
             f"paged_{'bf16' if dtype == bf16 else 'f32'}_tpp{tpp}_g{nq // nkv}_d{d}", device,
             timing, b=9, tpp=tpp, max_pages=mp, nq=nq, nkv=nkv, d=d, dtype=dtype, seed=31 + i,
             lengths=edges(tpp, mp)))
+    # the cluster's split against the pages: lengths whose blocks' row ranges
+    # cross page boundaries inside one block, at a power-of-two tpp (shift and
+    # mask) and at tpps that are not (the cursor's counter), and the split's edges
+    for i, (tpp, mp, nq, nkv, d, dtype) in enumerate([
+            (16, 16, 16, 8, 128, bf16), (12, 24, 16, 8, 128, bf16), (12, 20, 8, 2, 64, f32),
+            (5, 40, 16, 8, 128, f32), (32, 12, 8, 4, 256, bf16)]):
+        cap = tpp * mp
+        lengths = split_edge_lengths(cap) + [3 * tpp + 5, 7 * tpp - 2, cap // 2 + 1]
+        out.append(paged_case(
+            f"paged_{'bf16' if dtype == bf16 else 'f32'}_split_tpp{tpp}_g{nq // nkv}_d{d}",
+            device, timing, b=len(lengths), tpp=tpp, max_pages=mp, nq=nq, nkv=nkv, d=d,
+            dtype=dtype, seed=40 + i, lengths=lengths))
     return out
 
 
@@ -379,7 +444,10 @@ def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
             library_ms=time_ms(lambda: cache.index_put_((rows, offs), kv_cast)),
         )
         if name in MAIN_PATH_CASES.values():
-            res.update(device_ms=device_ms(lambda: iu.inplace_row_update(cache, kv, idx)))
+            res.update(device_ms=device_ms(lambda: iu.inplace_row_update(cache, kv, idx)),
+                       library_device_ms=device_ms(
+                           lambda: cache.index_put_((rows, offs), kv_cast)),
+                       library_call="index_put_")
     return res
 
 
@@ -564,14 +632,18 @@ def attention_case(name, device, timing, *, b, s, n=16, d=64, dtype=torch.bfloat
         ops = 4 * b * n * s * s * d
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, scale=1.0)
+        if name in MAIN_PATH_CASES.values():
+            res.update(library_device_ms=device_ms(library, iters=5),
+                       library_call="scaled_dot_product_attention")
         res.update(
             kernel_ms=time_ms(lambda: s2a.s2a_attention(q, k, v)),
             plain_ms=time_ms(lambda: s2a.s2a_attention(q, k, v, impl="plain"), warmup=1,
                              iters=5),
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops
             else "operations", bytes_moved=nbytes, flops=ops,
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, scale=1.0), warmup=1, iters=10),
+            library_ms=time_ms(library, warmup=1, iters=10),
             device_ms=device_ms(lambda: s2a.s2a_attention(q, k, v)),
             plain_device_ms=device_ms(lambda: s2a.s2a_attention(q, k, v, impl="plain"),
                                       iters=3),
@@ -676,17 +748,20 @@ def _flash_pairs(pos, seg, causal, window, chunk) -> int:
     return int(fa._mask(pos, pos, seg, seg, causal, window, chunk).sum().item())
 
 
-def _flash_library(q, k, v, do):
+def _flash_library(q, k, v, do, on_device=False):
     """SDPA with is_causal and enable_gqa on the same [B,N,S,D] views, forward,
-    and its autograd backward (dq, dk and dv in one call): a yardstick only."""
+    and its autograd backward (dq, dk and dv in one call): a yardstick only.
+    (forward ms, backward ms), and with ``on_device`` their device times too."""
     f = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
     out = f(qt, kt, vt, is_causal=True, enable_gqa=True)
     gt = do.transpose(1, 2)
-    fwd = time_ms(lambda: f(qt, kt, vt, is_causal=True, enable_gqa=True), warmup=2, iters=10)
-    bwd = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True),
-                  warmup=2, iters=10)
-    return fwd, bwd
+    fwd = lambda: f(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
+    times = (time_ms(fwd, warmup=2, iters=10), time_ms(bwd, warmup=2, iters=10))
+    if on_device:
+        times += (device_ms(fwd, iters=5), device_ms(bwd, iters=5))
+    return times
 
 
 def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, causal=True,
@@ -771,7 +846,8 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
         library = (None, None)
         if causal and not (window or chunk or cap) and segments == "one" \
                 and positions == "arange":
-            library = _flash_library(q, k, v, do)
+            library = _flash_library(q, k, v, do, on_device=name in {
+                c[:-len("_fwd")] for c in MAIN_PATH_CASES.values() if c.endswith("_fwd")})
         for res in results:
             kernel = res["kernel"]
             nbytes, ops = work[kernel]
@@ -788,6 +864,8 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
                     "scaled_dot_product_attention(is_causal, enable_gqa)" + (
                         "" if kernel == "flash_fwd" else ": its autograd backward (dq, dk, dv)")),
             )
+            if len(library) == 4:
+                res["library_device_ms"] = library[2] if kernel == "flash_fwd" else library[3]
     return results
 
 
@@ -852,16 +930,23 @@ MAIN_PATH_CASES = {
 }
 
 
-def run_all(device="cuda", timing: bool = True, full_size: bool = True,
-            serve_slots: int = 32) -> list[dict]:
-    """Every kernel case. ``full_size=False`` shrinks the serving shapes (a
-    quick first check of a changed kernel)."""
-    device = torch.device(device)
+def ragged_cases(device, timing, full_size=True, serve_slots=32):
+    """K1-K3: K1 at the serving path's shape and at 128 slots x 2048 rows in
+    every cache type, the window, the v1 entry (K3), other head dims and
+    groups; the edges of the cluster's split of a slot's rows (blocks with no
+    row, multiples of the cluster size, max_len and past it, windows that are
+    no multiple of it, clusters of 8, 4, 2 and 1 block); K2's row updates."""
     big = dict(TTS_1B) if full_size else dict(b=8, s=256, nq=16, nkv=8, d=128)
     serve = dict(big, b=serve_slots)
     kv4 = (big["b"], big["s"], big["nkv"], big["d"])
     sc3 = (big["b"], big["s"], big["nkv"])
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+
+    def split(name, *, s, nq, nkv, d, seed, **kw):
+        lengths = split_edge_lengths(s)
+        return ragged_case(name, device, timing, b=len(lengths), s=s, nq=nq, nkv=nkv, d=d,
+                           lengths=lengths, seed=seed, **kw)
+
     return [
         ragged_case("ragged_bf16_main_path", device, timing, **serve,
                     serving_max=min(528, big["s"]), seed=20),
@@ -880,6 +965,16 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                     d=32, dtype=f32, window=50, seed=9),
         ragged_case("ragged_int8_d32_group3", device, timing, b=6, s=100, nq=6, nkv=2,
                     d=32, dtype=f32, int8=True, seed=10),
+        split("ragged_bf16_split_edges", s=512, nq=16, nkv=8, d=128, seed=50),
+        split("ragged_f32_split_edges_d64_group4", s=300, nq=8, nkv=2, d=64, dtype=f32, seed=51),
+        split("ragged_int8_split_edges_q_bf16", s=256, nq=16, nkv=8, d=128, int8=True, seed=52),
+        split("ragged_bf16_split_window29", s=512, nq=16, nkv=8, d=128, window=29, seed=53),
+        split("ragged_f32_split_window21_d32_group8", s=200, nq=8, nkv=1, d=32, dtype=f32,
+              window=21, seed=54),
+        split("ragged_v1_entry_int8_split_window13_q_f32", s=160, nq=4, nkv=2, d=256,
+              dtype=f32, int8=True, v1_entry=True, window=13, seed=55),
+        split("ragged_bf16_split_edges_cluster2", s=64, nq=16, nkv=8, d=128, seed=56),
+        split("ragged_f32_split_edges_cluster1", s=31, nq=4, nkv=4, d=64, dtype=f32, seed=57),
         inplace_case("inplace_kv_bf16_k1_main_path", device, timing,
                      cache_shape=(serve_slots,) + kv4[1:], span=1, cache_dtype=bf16, seed=21),
         inplace_case("inplace_kv_bf16_k1", device, timing, cache_shape=kv4, span=1,
@@ -897,7 +992,16 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
                      seed=16),
         inplace_case("inplace_unaligned_rows", device, timing, cache_shape=(4, 16, 3),
                      span=2, cache_dtype=f32, seed=17),
-    ] + paged_cases(device, timing, full_size, serve_slots) \
+    ]
+
+
+def run_all(device="cuda", timing: bool = True, full_size: bool = True,
+            serve_slots: int = 32) -> list[dict]:
+    """Every kernel case. ``full_size=False`` shrinks the serving shapes (a
+    quick first check of a changed kernel)."""
+    device = torch.device(device)
+    return ragged_cases(device, timing, full_size, serve_slots) \
+        + paged_cases(device, timing, full_size, serve_slots) \
         + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
         + flash_cases(device, timing, full_size)
 
@@ -906,13 +1010,15 @@ def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "flash", "paged", "s2a"}:
+    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[flash | paged | s2a]")
+                         "[ragged | flash | paged | s2a]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
-    if "flash" in argv:  # K9-K11 only: a quick first check of a changed flash kernel
+    if "ragged" in argv:  # K1-K3 only
+        results = ragged_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "flash" in argv:  # K9-K11 only: a quick first check of a changed flash kernel
         results = flash_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "paged" in argv:  # K4 only
         results = paged_cases(torch.device("cuda"), timing=True, full_size=full)
@@ -922,6 +1028,11 @@ def main(argv=None):
         results = run_all(full_size=full)
     for r in results:
         print(json.dumps(r))
+    if "flash" not in argv and "s2a" not in argv:  # K1 / K3 / K4: registers and spills
+        from maxtext_indextts2_tpu_torch.ops import _build
+
+        for r in _build.ptxas_report("ragged_decode_kernel"):
+            print(json.dumps(dict(ptxas=r)))
     if not all(r["ok"] for r in results):
         raise SystemExit(1)
 

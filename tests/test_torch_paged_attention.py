@@ -88,6 +88,46 @@ def test_k4_plain_clamps_lengths_past_the_page_map_as_the_pallas_kernel_does():
     np.testing.assert_allclose(got, want, atol=ATOL_F32, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tpp,max_pages", [(16, 16), (12, 24), (5, 40)],
+                         ids=["tpp16_shift", "tpp12_counter", "tpp5_counter"])
+def test_k4_plain_at_the_cluster_split_edges_matches_the_pallas_kernel(tpp, max_pages, dtype):
+    """The CUDA kernel splits a slot's rows over a cluster of C blocks and
+    walks each block's pages with a counter (a shift and a mask where tpp is
+    a power of two): lengths at the split's edges, and lengths whose blocks'
+    ranges cross page boundaries inside one block, as on the card."""
+    from maxtext_indextts2_tpu_torch.ops import smoke
+
+    nq, nkv, d = 4, 2, 64
+    cap = tpp * max_pages
+    lengths = smoke.split_edge_lengths(cap) + [3 * tpp + 5, 7 * tpp - 2, cap // 2 + 1]
+    q, kp, vp, page_map, lens = _paged_inputs(tpp * 13 + max_pages, tpp, max_pages, nq, nkv,
+                                              d, lengths)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jax_rda.paged_decode_attention_v2(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(page_map), jnp.asarray(lens), interpret=True).astype(jnp.float32))
+    got = rda.paged_decode_attention_v2(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt), torch.from_numpy(vp).to(tdt),
+        torch.from_numpy(page_map), torch.from_numpy(lens)).float().numpy()
+    rows = lens > 0
+    atol = ATOL_F32 if dtype == "float32" else REL_BF16 * float(np.abs(want[rows]).max())
+    np.testing.assert_allclose(got[rows], want[rows], atol=atol, rtol=0)
+    assert np.all(got[~rows] == 0.0)
+
+
+def test_k4_wrapper_takes_int64_negative_and_past_the_map_lengths_on_the_cpu_route():
+    tpp, max_pages, nq, nkv, d = 8, 2, 4, 2, 64
+    q, kp, vp, page_map, _ = _paged_inputs(5, tpp, max_pages, nq, nkv, d, [16, 16, 9, 0])
+    lens = torch.tensor([16, 2 ** 40, -4, 0], dtype=torch.int64)
+    args = [torch.from_numpy(a) for a in (q, kp, vp)]
+    got = rda.paged_decode_attention_v2(*args, torch.from_numpy(page_map).long(), lens)
+    want = rda.paged_decode_attention_v2_plain(
+        *args, torch.from_numpy(page_map), torch.tensor([16, 16, 0, 0], dtype=torch.int32))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert torch.all(got[2:] == 0)
+
+
 def test_k4_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros((2, 4, 64))
     pools = torch.zeros((5, 4, 2, 64))
