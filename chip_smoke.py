@@ -220,14 +220,19 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load_library(verbose=False)
-    # K1 / K3 / K4's instantiations (`-Xptxas -v`): none may spill
-    decode = [[r["kernel"].split("(")[0], r.get("registers"), r.get("spill_stores"),
-               r.get("spill_loads")] for r in _build.ptxas_report("ragged_decode_kernel")]
+    # K1 / K3 / K4's and K5 / K7's instantiations (`-Xptxas -v`): none may spill
+    reports = {kernel: [[r["kernel"].split("(")[0], r.get("registers"), r.get("spill_stores"),
+                         r.get("spill_loads")] for r in _build.ptxas_report(kernel)]
+               for kernel in ("ragged_decode_kernel", "norm_rows_kernel")}
+    decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
-        decode_attention_registers_spill_stores_loads=decode)
+        decode_attention_registers_spill_stores_loads=decode,
+        norm_rows_registers_spill_stores_loads=norm)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
+    check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
+          f"a norm_rows_kernel instantiation spills: {norm}")
 
 
 def phase_kernels():

@@ -4,6 +4,5 @@
 
 extern "C" int row_quantize_int8(const void* x, void* q, void* scales, long long rows, int d,
                                  int dtype, void* stream) {
-  return rowk::dispatch<rowk::kQuant>(dtype, x, nullptr, nullptr, 0, nullptr, q, scales, rows,
-                                      1, d, stream);
+  return rowk::dispatch<rowk::kQuant>(dtype, x, nullptr, q, scales, rows, d, stream);
 }

@@ -5,6 +5,5 @@
 
 extern "C" int silu_mul_quantize(const void* g, const void* u, void* q, void* scales,
                                  long long rows, int d, int dtype, void* stream) {
-  return rowk::dispatch<rowk::kSiluQuant>(dtype, g, u, nullptr, 0, nullptr, q, scales, rows, 1,
-                                          d, stream);
+  return rowk::dispatch<rowk::kSiluQuant>(dtype, g, u, q, scales, rows, d, stream);
 }

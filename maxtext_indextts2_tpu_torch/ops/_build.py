@@ -56,12 +56,17 @@ SIGNATURES = {
         "paged_decode_attention_bf16")},
     "inplace_row_update_bytes": [_P, _P, _P, _I, _I, _I, _LL, _P],
     "inplace_row_update_convert": [_P, _P, _P, _I, _I, _I, _LL, _I, _P],
-    # (x, w, out, rows, s_len, d, dtype, w_is_f32, stream)
-    "ada_rmsnorm": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (x, w, out, rows, s_len, d, dtype, w_is_f32, chunks, warps a row,
+    #  rows a worker, rounds, stream)
+    "ada_rmsnorm": [_P, _P, _P, _LL] + [_I] * 8 + [_P],
     # (x, q, scales, rows, d, dtype, stream)
     "row_quantize_int8": [_P, _P, _P, _LL, _I, _I, _P],
-    # (x, w, q, scales, rows, s_len, d, dtype, w_is_f32, stream)
-    "ada_rmsnorm_quantize": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # (x, w, q, scales, rows, s_len, d, dtype, w_is_f32, chunks, warps a row,
+    #  rows a worker, rounds, stream)
+    "ada_rmsnorm_quantize": [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P],
+    # (int* blocks an SM holds, dtype, w_is_f32, chunks, warps a row, rounds,
+    #  int* threads a block)
+    **{f"{e}_occupancy": [_P] + [_I] * 5 + [_P] for e in ("ada_rmsnorm", "ada_rmsnorm_quantize")},
     # (g, u, q, scales, rows, d, dtype, stream)
     "silu_mul_quantize": [_P, _P, _P, _P, _LL, _I, _I, _P],
     # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype,

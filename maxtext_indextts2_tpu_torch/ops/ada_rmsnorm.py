@@ -10,12 +10,17 @@ multiplied by ``w`` cast to x's dtype (three roundings for a bfloat16 x).
 On a CUDA tensor the hand-written kernel in ``csrc/ada_rmsnorm.cu`` runs (or
 the call raises); the plain PyTorch version below is taken only for a tensor
 that lies on the CPU, or when a test or an on-device comparison asks for it
-with ``impl="plain"``. The forward is wrapped in a ``torch.autograd.Function``
-whose backward is the closed formula in plain PyTorch, as the JAX package's
-custom VJP is plain jnp.
+with ``impl="plain"``. The kernel (``rowk::norm_rows_kernel``, shared with
+``ada_rmsnorm_quantize``) holds a row in a warp's registers; its launch shape
+comes from static shapes only (:func:`norm_row_shape`, :func:`rows_per_worker`).
+The forward is wrapped in a ``torch.autograd.Function`` whose backward is the
+closed formula in plain PyTorch, as the JAX package's custom VJP is plain jnp.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -24,6 +29,73 @@ FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # dtype code of the C entr
 
 # launches of the CUDA kernel by this process
 launch_count = 0
+
+# Launch shape of csrc/row_kernels.cuh's norm_rows_kernel (K5 and K7): a row
+# is cut into 16-byte chunks; a lane holds at most MAX_CHUNKS of them in
+# registers (one of CHUNK_COUNTS, the kernel's instantiations); a row too wide
+# for one warp is split over up to MAX_WARPS_PER_ROW warps of a block, and one
+# wider still is walked in rounds of that block's registers.
+CHUNK_BYTES = 16
+CHUNK_COUNTS = (1, 2, 4, 8)
+MAX_CHUNKS = CHUNK_COUNTS[-1]
+MAX_WARPS_PER_ROW = 8
+
+
+def norm_row_shape(d: int, elem_bytes: int) -> tuple[int, int, bool]:
+    """(chunks a lane, warps a row, rounds) for rows of ``d`` elements of
+    ``elem_bytes`` bytes: one warp while its lanes hold the row in at most
+    MAX_CHUNKS chunks each, else the fewest warps (up to MAX_WARPS_PER_ROW)
+    that do; each lane's chunks rounded up to the next of CHUNK_COUNTS. Rows
+    wider than MAX_WARPS_PER_ROW warps hold are walked in rounds."""
+    chunks = -(-d // (CHUNK_BYTES // elem_bytes))
+    warps = -(-chunks // (32 * MAX_CHUNKS))
+    if warps > MAX_WARPS_PER_ROW:
+        return MAX_CHUNKS, MAX_WARPS_PER_ROW, True
+    per_lane = -(-chunks // (32 * warps))
+    return next(c for c in CHUNK_COUNTS if c >= per_lane), warps, False
+
+
+def rows_per_worker(rows: int, warps_per_row: int, resident_warps: int) -> int:
+    """Consecutive rows each worker (``warps_per_row`` warps: one warp, or a
+    block of them) walks: as few as let one wave of the warps the card holds
+    at once cover every row."""
+    return max(1, math.ceil(rows / max(1, resident_warps // warps_per_row)))
+
+
+@functools.lru_cache(maxsize=None)
+def norm_occupancy(entry: str, dtype_code: int, w_is_f32: int, chunks: int, warps_per_row: int,
+                   rounds: bool, device_index: int) -> tuple[int, int]:
+    """(blocks an SM holds at once, threads a block) of the instantiation
+    behind C entry ``entry``, from CUDA's occupancy calculator and the
+    launcher's block size: a property of the card and the instantiation, read
+    once a process. Needs the GPU."""
+    import ctypes
+
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    per_sm, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = getattr(lib, f"{entry}_occupancy")(
+            ctypes.byref(per_sm), dtype_code, w_is_f32, chunks, warps_per_row, int(rounds),
+            ctypes.byref(threads))
+    _build.check_launch(code, f"{entry}_occupancy")
+    return per_sm.value, threads.value
+
+
+@functools.lru_cache(maxsize=None)
+def norm_launch(entry: str, rows: int, d: int, dtype: torch.dtype, w_is_f32: int,
+                device: torch.device) -> tuple[int, int, int, int]:
+    """(chunks, warps a row, rows a worker, rounds) of a launch of C entry
+    ``entry`` at these static shapes (worked out once for each: a lookup a
+    call)."""
+    chunks, warps, rounds = norm_row_shape(d, torch.empty((), dtype=dtype).element_size())
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    per_sm, threads = norm_occupancy(entry, FLOAT_DTYPES[dtype], w_is_f32, chunks, warps, rounds,
+                                     index)
+    resident_warps = (per_sm * threads // 32
+                      * torch.cuda.get_device_properties(index).multi_processor_count)
+    return chunks, warps, rows_per_worker(rows, warps, resident_warps), int(rounds)
 
 
 def ada_rmsnorm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,9 +151,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor, impl: str | None) -> torch.Tensor
     out = torch.empty_like(x)
     b, s, d = x.shape
     if b * s:
+        w_is_f32 = int(w.dtype == torch.float32)
         code = lib.ada_rmsnorm(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, s, d, FLOAT_DTYPES[x.dtype],
-            int(w.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
+            w_is_f32, *norm_launch("ada_rmsnorm", b * s, d, x.dtype, w_is_f32, x.device),
+            torch.cuda.current_stream(x.device).cuda_stream)
         launch_count += 1
         _build.check_launch(code, "ada_rmsnorm")
     return out

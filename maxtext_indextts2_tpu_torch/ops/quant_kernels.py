@@ -14,7 +14,8 @@ tensor never goes to device memory:
   float32 rounded to g's dtype, each product in g's dtype, quantized like that.
 
 An all-zero row gives scale 0 and zeros. On a CUDA tensor the hand-written
-kernels in ``csrc/`` run (or the call raises); the plain PyTorch versions
+kernels in ``csrc/`` run (or the call raises; ``ada_rmsnorm_quantize`` shares
+``ops.ada_rmsnorm``'s kernel and launch shape); the plain PyTorch versions
 below are taken only for tensors on the CPU or with ``impl="plain"``. These
 are serving-only and carry no gradient.
 """
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import (
-    FLOAT_DTYPES, ada_rmsnorm_plain, check_rows_and_scale, route,
+    FLOAT_DTYPES, ada_rmsnorm_plain, check_rows_and_scale, norm_launch, route,
 )
 from maxtext_indextts2_tpu_torch.ops.quantization import absmax_scale
 
@@ -105,9 +106,11 @@ def ada_rmsnorm_quantize(x: torch.Tensor, w: torch.Tensor, impl: str | None = No
     q, scales = _outputs(x)
     b, s, d = x.shape
     if b * s:
+        w_is_f32 = int(w.dtype == torch.float32)
         _launched("ada_rmsnorm_quantize", lib.ada_rmsnorm_quantize(
             x.data_ptr(), w.data_ptr(), q.data_ptr(), scales.data_ptr(), b * s, s, d,
-            FLOAT_DTYPES[x.dtype], int(w.dtype == torch.float32),
+            FLOAT_DTYPES[x.dtype], w_is_f32,
+            *norm_launch("ada_rmsnorm_quantize", b * s, d, x.dtype, w_is_f32, x.device),
             torch.cuda.current_stream(x.device).cuda_stream))
     return q, scales
 

@@ -19,12 +19,13 @@ operations over the peak rate of the input type, whichever is larger.
 The main-path cases also time the library call on the device
 (``library_device_ms``), so that kernel and yardstick compare device time
 with device time, and check that two launches of the kernel give bitwise
-equal outputs (``repeat_bitwise_equal``).
+equal outputs (``repeat_bitwise_equal``; K1, K4, K5 and K7).
 
-Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small] [ragged | flash | paged | s2a]``
-(needs the GPU; ``small`` shrinks the serving and training shapes for a
-quick first check of a changed kernel, ``ragged`` runs the K1-K3 cases only,
-``flash`` the K9-K11 cases only, ``paged`` the K4 cases only, ``s2a`` the K12
+Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small]
+[ragged | flash | paged | s2a | rows]`` (needs the GPU; ``small`` shrinks the
+serving and training shapes for a quick first check of a changed kernel,
+``ragged`` runs the K1-K3 cases only, ``flash`` the K9-K11 cases only,
+``paged`` the K4 cases only, ``s2a`` the K12 cases only, ``rows`` the K5-K8
 cases only; the repo's ``chip_smoke.py`` calls :func:`run_all`).
 """
 
@@ -451,11 +452,19 @@ def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
     return res
 
 
-def _row_inputs(kernel, b, s, d, dtype, seed, device, special):
-    """(x, second) for one row-kernel case: `second` is w [B,D] for the norm
-    kernels, u for silu_mul_quantize, None for row_quantize_int8."""
+def _row_inputs(kernel, b, s, d, dtype, seed, device, special, w_dtype=torch.float32,
+                misaligned=False):
+    """(x, second) for one row-kernel case: `second` is w [B,D] (in ``w_dtype``)
+    for the norm kernels, u for silu_mul_quantize, None for row_quantize_int8.
+    ``misaligned``: x is a contiguous view that starts one element past a
+    16-byte boundary."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = (torch.randn((b, s, d), generator=g, device=device, dtype=torch.float32) * 1.5).to(dtype)
+    if misaligned:
+        base = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        base[1:] = x.reshape(-1)
+        x = base[1:].view(b, s, d)
+        assert x.is_contiguous() and x.data_ptr() % 16
     if special:
         x[min(1, b - 1)] = 0  # an all-zero batch row (a dummy request, padding)
         # rows whose quotients land on .5: abs-max 127 gives scale 1.0 exactly
@@ -464,7 +473,8 @@ def _row_inputs(kernel, b, s, d, dtype, seed, device, special):
         x[0, : min(4, s)] = (half * torch.tensor([1.0, -1.0], device=device)[
             torch.arange(d, device=device) % 2]).to(dtype)
     if kernel in ("ada_rmsnorm", "ada_rmsnorm_quantize"):
-        second = 1.0 + 0.3 * torch.randn((b, d), generator=g, device=device, dtype=torch.float32)
+        second = (1.0 + 0.3 * torch.randn((b, d), generator=g, device=device,
+                                          dtype=torch.float32)).to(w_dtype)
     elif kernel == "silu_mul_quantize":
         second = torch.randn((b, s, d), generator=g, device=device, dtype=torch.float32).to(dtype)
     else:
@@ -480,11 +490,27 @@ _ROW_FUNCS = {
 }
 
 
+def _norm_launch_info(kernel, x, second) -> dict:
+    """The launch shape K5 / K7 take for these inputs (chunks a lane, warps a
+    row, rows a worker, rounds) and the card's occupancy of that
+    instantiation (blocks an SM holds)."""
+    rows, d = x.shape[0] * x.shape[1], x.shape[2]
+    w_is_f32 = int(second.dtype == torch.float32)
+    chunks, warps, per_worker, rounds = arn.norm_launch(kernel, rows, d, x.dtype, w_is_f32,
+                                                        x.device)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    per_sm, threads = arn.norm_occupancy(kernel, arn.FLOAT_DTYPES[x.dtype], w_is_f32, chunks,
+                                         warps, bool(rounds), index)
+    return dict(chunks_per_lane=chunks, warps_per_row=warps, rows_per_worker=per_worker,
+                rounds=bool(rounds), blocks_per_sm=per_sm, threads_per_block=threads)
+
+
 def row_case(name, device, timing, *, kernel, b, s, d, dtype=torch.bfloat16, seed=0,
-             special=False):
-    """One of the four S2A row kernels against its plain version."""
+             special=False, w_dtype=torch.float32, misaligned=False, repeat=False):
+    """One of the four S2A row kernels against its plain version. ``repeat``:
+    two launches must also give bitwise-equal outputs."""
     fn = _ROW_FUNCS[kernel]
-    x, second = _row_inputs(kernel, b, s, d, dtype, seed, device, special)
+    x, second = _row_inputs(kernel, b, s, d, dtype, seed, device, special, w_dtype, misaligned)
     got = fn(x, second, None)
     torch.cuda.synchronize()
     want = fn(x, second, "plain")
@@ -492,6 +518,10 @@ def row_case(name, device, timing, *, kernel, b, s, d, dtype=torch.bfloat16, see
     esz = x.element_size()
     n = x.numel()
     shape = dict(b=b, s=s, d=d, dtype=str(dtype), special_rows=special)
+    if second is not None and second.ndim == 2:
+        shape["w_dtype"] = str(second.dtype)
+    if misaligned:
+        shape["x_offset_bytes"] = x.data_ptr() % 16
     if kernel == "ada_rmsnorm":
         assert got.dtype == want.dtype == dtype and got.shape == want.shape
         diff = (got.float() - want.float()).abs()
@@ -527,6 +557,13 @@ def row_case(name, device, timing, *, kernel, b, s, d, dtype=torch.bfloat16, see
             nbytes += n * esz
         elif kernel == "ada_rmsnorm_quantize":
             nbytes += second.numel() * second.element_size()
+    if kernel in ("ada_rmsnorm", "ada_rmsnorm_quantize"):
+        res["launch"] = _norm_launch_info(kernel, x, second)
+    if repeat:
+        res["repeat_bitwise_equal"] = _repeat_equal(lambda impl: torch.cat([
+            t.reshape(-1).view(torch.uint8) for t in (
+                fn(x, second, impl) if kernel != "ada_rmsnorm" else (fn(x, second, impl),))]))
+        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         # rotate over enough copies of the inputs that a launch finds them in
         # device memory, not in the L2 left by the launch before
@@ -551,36 +588,68 @@ def row_case(name, device, timing, *, kernel, b, s, d, dtype=torch.bfloat16, see
     return res
 
 
-def row_cases(device, timing, full_size=True):
-    """K5-K8: the main-path shape in bfloat16 and float32, widths that are no
-    multiple of 128 (1000) or of the vector width (1001), a row count that is
-    no multiple of any block (650), an all-zero batch row and rows whose
-    quotients land on .5."""
+def row_case_specs(full_size=True) -> list[tuple[str, dict]]:
+    """(name, :func:`row_case` keywords) of every K5-K8 case: the main-path
+    shape in bfloat16 and float32, widths that are no multiple of 128 (1000)
+    or of the vector width (1001), a row count that is no multiple of any
+    block (650), an all-zero batch row and rows whose quotients land on .5;
+    for K5 and K7 also the edges of their kernel's launch shape: one row a
+    batch entry (x [B, D] through ``AdaptiveRMSNorm``), batch entries that end
+    inside one warp's and one block's rows, rows of 8, 24 and 2048 elements,
+    rows split over the warps of a block (8192) and walked in rounds, an x
+    that starts off a 16-byte boundary, and w in x's type."""
     bf16, f32 = torch.bfloat16, torch.float32
     main = dict(S2A_MAIN) if full_size else dict(b=2, s=96, d=1024)
     out = []
     for i, kernel in enumerate(_ROW_FUNCS):
         wide = dict(main, d=4 * main["d"]) if kernel == "silu_mul_quantize" else main
         seed = 100 + 10 * i
+        norm = kernel in ("ada_rmsnorm", "ada_rmsnorm_quantize")
         out += [
-            row_case(f"{kernel}_bf16_main_path", device, timing, kernel=kernel, **wide,
-                     seed=seed),
-            row_case(f"{kernel}_f32", device, timing, kernel=kernel, **wide, dtype=f32,
-                     seed=seed + 1),
-            row_case(f"{kernel}_bf16_uncond_512", device, timing, kernel=kernel,
-                     **dict(wide, s=min(512, wide["s"])), seed=seed + 2),
-            row_case(f"{kernel}_bf16_d1000_s650", device, timing, kernel=kernel, b=3, s=650,
-                     d=1000, seed=seed + 3),
-            row_case(f"{kernel}_f32_d1001", device, timing, kernel=kernel, b=2, s=77, d=1001,
-                     dtype=f32, seed=seed + 4),
-            row_case(f"{kernel}_bf16_d1001", device, timing, kernel=kernel, b=2, s=77, d=1001,
-                     seed=seed + 5),
-            row_case(f"{kernel}_bf16_zero_and_half_rows", device, timing, kernel=kernel, b=4,
-                     s=40, d=1024, seed=seed + 6, special=True),
-            row_case(f"{kernel}_f32_zero_and_half_rows", device, timing, kernel=kernel, b=4,
-                     s=40, d=256, dtype=f32, seed=seed + 7, special=True),
+            (f"{kernel}_bf16_main_path", dict(kernel=kernel, **wide, seed=seed, repeat=norm)),
+            (f"{kernel}_f32", dict(kernel=kernel, **wide, dtype=f32, seed=seed + 1)),
+            (f"{kernel}_bf16_uncond_512",
+             dict(kernel=kernel, **dict(wide, s=min(512, wide["s"])), seed=seed + 2)),
+            (f"{kernel}_bf16_d1000_s650", dict(kernel=kernel, b=3, s=650, d=1000, seed=seed + 3)),
+            (f"{kernel}_f32_d1001", dict(kernel=kernel, b=2, s=77, d=1001, dtype=f32,
+                                         seed=seed + 4)),
+            (f"{kernel}_bf16_d1001", dict(kernel=kernel, b=2, s=77, d=1001, seed=seed + 5)),
+            (f"{kernel}_bf16_zero_and_half_rows", dict(kernel=kernel, b=4, s=40, d=1024,
+                                                       seed=seed + 6, special=True)),
+            (f"{kernel}_f32_zero_and_half_rows", dict(kernel=kernel, b=4, s=40, d=256, dtype=f32,
+                                                      seed=seed + 7, special=True)),
+        ]
+        if not norm:
+            continue
+        out += [
+            (f"{kernel}_bf16_one_row_a_batch_entry",
+             dict(kernel=kernel, b=300, s=1, d=main["d"], seed=seed + 20)),
+            (f"{kernel}_bf16_batch_entries_end_inside_warps",
+             dict(kernel=kernel, b=1200, s=7, d=main["d"], seed=seed + 21)),
+            (f"{kernel}_bf16_d8192_batch_entries_end_inside_blocks",
+             dict(kernel=kernel, b=300, s=5, d=8192, seed=seed + 22)),
+            (f"{kernel}_bf16_d8", dict(kernel=kernel, b=3, s=50, d=8, seed=seed + 23)),
+            (f"{kernel}_f32_d24", dict(kernel=kernel, b=3, s=50, d=24, dtype=f32, seed=seed + 24)),
+            (f"{kernel}_bf16_d2048", dict(kernel=kernel, b=2, s=300, d=2048, seed=seed + 25)),
+            (f"{kernel}_f32_d2048_two_warps",
+             dict(kernel=kernel, b=2, s=200, d=2048, dtype=f32, seed=seed + 26)),
+            (f"{kernel}_bf16_zero_and_half_rows_d2048",
+             dict(kernel=kernel, b=4, s=40, d=2048, seed=seed + 27, special=True)),
+            (f"{kernel}_bf16_x_off_16_bytes",
+             dict(kernel=kernel, b=2, s=77, d=main["d"], seed=seed + 28, misaligned=True)),
+            (f"{kernel}_bf16_w_bf16",
+             dict(kernel=kernel, b=4, s=300, d=main["d"], seed=seed + 29, w_dtype=bf16)),
+            (f"{kernel}_bf16_rounds_d20000",
+             dict(kernel=kernel, b=2, s=5, d=20000, seed=seed + 30)),
+            (f"{kernel}_f32_rounds_d9001",
+             dict(kernel=kernel, b=2, s=5, d=9001, dtype=f32, seed=seed + 31)),
         ]
     return out
+
+
+def row_cases(device, timing, full_size=True):
+    """K5-K8, every case of :func:`row_case_specs`."""
+    return [row_case(name, device, timing, **kw) for name, kw in row_case_specs(full_size)]
 
 
 def _attention_inputs(b, s, n, d, dtype, seed, device, fused):
@@ -1010,9 +1079,9 @@ def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a"}:
+    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[ragged | flash | paged | s2a]")
+                         "[ragged | flash | paged | s2a | rows]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
@@ -1024,14 +1093,22 @@ def main(argv=None):
         results = paged_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "s2a" in argv:  # K12 only
         results = attention_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "rows" in argv:  # K5-K8 only
+        results = row_cases(torch.device("cuda"), timing=True, full_size=full)
     else:
         results = run_all(full_size=full)
     for r in results:
         print(json.dumps(r))
-    if "flash" not in argv and "s2a" not in argv:  # K1 / K3 / K4: registers and spills
-        from maxtext_indextts2_tpu_torch.ops import _build
+    from maxtext_indextts2_tpu_torch.ops import _build
 
-        for r in _build.ptxas_report("ragged_decode_kernel"):
+    selected = set(argv) - {"small"}
+    reports = []  # registers and spills of the instantiations these cases ran
+    if not selected & {"flash", "s2a", "rows"}:
+        reports.append("ragged_decode_kernel")  # K1 / K3 / K4
+    if not selected or "rows" in selected:
+        reports.append("norm_rows_kernel")  # K5 / K7
+    for kernel in reports:
+        for r in _build.ptxas_report(kernel):
             print(json.dumps(dict(ptxas=r)))
     if not all(r["ok"] for r in results):
         raise SystemExit(1)

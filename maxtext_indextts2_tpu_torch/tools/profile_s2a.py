@@ -37,13 +37,18 @@ import torch
 from maxtext_indextts2_tpu_torch.audio.pipeline import backend_requests, build_backend
 from maxtext_indextts2_tpu_torch.tools.profile_decode import _card
 
-# template argument of csrc/row_kernels.cuh's kernel -> the wrapper it serves
-ROW_KERNEL_MODES = {0: "ada_rmsnorm", 1: "row_quantize_int8", 2: "ada_rmsnorm_quantize",
-                    3: "silu_mul_quantize"}
+# template argument of csrc/row_kernels.cuh's row_kernel -> the wrapper it serves
+ROW_KERNEL_MODES = {1: "row_quantize_int8", 3: "silu_mul_quantize"}
 
 
 def row_kernel_name(event_name: str) -> str | None:
-    """The wrapper a profiler event of ``rowk::row_kernel<T, mode>`` belongs to."""
+    """The wrapper a profiler event of ``rowk::row_kernel<T, mode>`` or
+    ``rowk::norm_rows_kernel<T, W, quantize, ...>`` belongs to."""
+    if "norm_rows_kernel" in event_name:
+        found = re.search(r"norm_rows_kernel<[^,>]+,\s*[^,>]+,\s*(true|false|1|0)\b", event_name)
+        if not found:
+            return "norm_rows_kernel"
+        return "ada_rmsnorm_quantize" if found.group(1) in ("true", "1") else "ada_rmsnorm"
     if "row_kernel" not in event_name:
         return None
     found = re.search(r"row_kernel<[^,>]+,\s*(?:\(int\))?(\d+)>", event_name)
