@@ -30,7 +30,16 @@ cache (``paged_attention=true``: 128-row pages, a 32,768-token context, a
 requests back, shows with the launch counts that every decode step ran the
 paged kernel K4 once a layer (and K1, K2 never), that every page came back,
 and holds K4 inside the model against its plain version and the paged
-streams against the dense ones. Every phase prints
+streams against the dense ones. Then weights go out and in at full width, in a
+temporary directory removed at the end: ``lm_ckpt`` exports the served
+``tts-1b`` with HF names, converts it back with the converter CLI and serves
+the same 80 requests from ``Engine.load_params`` (the same greedy streams);
+``audio_ckpt`` writes the pipeline's audio weights as the reference's files and
+loads them into a pipeline built from another seed (the same prompt ids, codes
+and waveform); ``audio_cli`` runs the audio CLI in subprocesses on those files;
+``train_resume`` trains with asynchronous checkpoints, runs step 3 before the
+write is waited for, and resumes a fresh state to the same step 3, bitwise.
+Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
 non-zero exit code, and so does a machine without a GPU: nothing here falls
@@ -44,8 +53,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -189,6 +200,30 @@ TRAIN_MAX_PEAK_BYTES = 40e9
 # 1e-4 relative, every gradient within 1e-3 of its own largest entry. A wrong
 # mask, scale or group sum moves them by their own size.
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD_NORM_REL, TOL_TRAIN_GRAD_REL = 1e-4, 1e-4, 1e-3
+
+# Weights in and out. lm_ckpt: the served tts-1b weights exported with HF names
+# and converted back by the converter CLI, as the qwen3 family (the same
+# qk-norm llama layout as the tts block). train_resume: the train recipe with
+# asynchronous checkpoints every 2 steps, keeping 1; step 3 runs before the
+# write is waited for. Everything that crosses a file must come back BITWISE:
+# the same bits reach the same kernels (greedy streams, losses, weights, ids,
+# codes and waveforms all equal).
+LM_CKPT_CONVERT_ARGS = ["--model_name", "tts-1b", "decoder_block=qwen3"]
+TRAIN_RESUME_ARGS = TRAIN_ARGS + [
+    "enable_checkpointing=true", "async_checkpointing=true", "checkpoint_period=2",
+    "checkpoint_max_to_keep=1", "save_final_checkpoint=false", "steps=3"]
+RESUME_DECODE_TOKENS = 16
+# audio_ckpt: a second full-width pipeline from another seed loads the first's
+# weights from reference-named files (the ISTFT head carried across);
+# audio_cli: the CLI in a subprocess on those files, CLI_FRAMES frames.
+AUDIO_CKPT_SEED, CLI_FRAMES = 1, 64
+# the config of the pipeline that the CLI must rebuild (what no checkpoint tells)
+CLI_CONFIG_KEYS = (
+    "decoder_block", "base_emb_dim", "base_num_query_heads", "base_num_kv_heads", "base_mlp_dim",
+    "base_num_decoder_layers", "head_dim", "vocab_size", "audio_codebook_size",
+    "semantic_codebook_size", "max_target_length", "max_prefill_predict_length", "dtype",
+    "serve_params_dtype", "decode_attention", "decode_sampling_strategy", "s2a_num_heads",
+    "s2a_timesteps", "s2a_cfg_scale", "s2a_cfg_until", "s2a_serving_dtype")
 
 
 def emit(phase: str, t0: float, **fields):
@@ -1158,6 +1193,404 @@ def phase_train_parity():
          grads_compared=len(rel), launches_kernel_route={k: n_k[k] for k in want})
 
 
+def _bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _same_tensors(got: dict, want: dict) -> list[str]:
+    """Names whose tensors differ (or are missing) between two state dicts."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.to(b.device), b):
+            bad.append(k)
+    return bad
+
+
+def _serve_queued(engine, prompts, budgets):
+    """Every request queued before the Orchestrator's loop starts, so that its
+    admission groups do not depend on timing: the same engine weights give
+    the same streams, token for token. Returns (streams, decode steps)."""
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    reqs = [orch.submit(p, n) for p, n in zip(prompts, budgets)]
+    orch.start()
+    finished = all(r.done.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    orch.stop()
+    check(finished and not any(r.error for r in reqs), "a queued serve did not finish cleanly")
+    return [list(r.tokens) for r in reqs], orch.stats["decode_steps_total"]
+
+
+def phase_lm_ckpt(engine, tmp):
+    """tts-1b's served weights (bf16) out with HF names (``pytorch_model.bin``)
+    and back through the converter CLI to a params-only checkpoint, loaded by
+    a fresh ``Engine.load_params``; both engines serve the serve phase's 80
+    requests (32 slots, greedy): K1 and K2 on loaded weights, the same streams."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.ops import inplace_update, ragged_decode_attention
+    from maxtext_indextts2_tpu_torch.utils import ckpt_conversion
+
+    t0 = time.perf_counter()
+    hf_dir, ckpt = os.path.join(tmp, "lm_hf"), os.path.join(tmp, "lm_params")
+    os.makedirs(hf_dir)
+    t1 = time.perf_counter()
+    hf = ckpt_conversion.convert_framework_to_hf_llama(engine.params, engine.cfg)
+    torch.save(hf, os.path.join(hf_dir, "pytorch_model.bin"))
+    export_s, hf_tensors = time.perf_counter() - t1, len(hf)
+    del hf
+    t1 = time.perf_counter()
+    ckpt_conversion.main(["--hf_path", hf_dir, "--out_path", ckpt, *LM_CKPT_CONVERT_ARGS])
+    convert_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    loaded = Engine(load_config(SERVE_ARGS))
+    loaded.load_params(ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    differ = _same_tensors(loaded.params, engine.params)
+    check(not differ, f"lm_ckpt: loaded weights differ from the exported ones: {differ[:5]}")
+
+    prompts, budgets = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    want, _ = _serve_queued(engine, prompts, budgets)
+    ragged_decode_attention.launch_count = inplace_update.launch_count = 0
+    t1 = time.perf_counter()
+    got, steps = _serve_queued(loaded, prompts, budgets)
+    serve_s = time.perf_counter() - t1
+    launches = {"ragged_decode_attention": ragged_decode_attention.launch_count,
+                "inplace_row_update": inplace_update.launch_count}
+    layers = engine.cfg.num_decoder_layers
+    predicted = {"ragged_decode_attention": layers * steps,
+                 "inplace_row_update": 2 * layers * steps}
+    check(launches == predicted, f"lm_ckpt: launches {launches} != predicted {predicted}")
+    same = got == want
+    check(same, "lm_ckpt: the loaded engine's greedy streams differ from the exported engine's")
+    check(all(len(t) == n for t, n in zip(got, budgets)), "lm_ckpt: a stream is short")
+    emit("lm_ckpt", t0, hf_bin_bytes=_bytes(os.path.join(hf_dir, "pytorch_model.bin")),
+         hf_tensors=hf_tensors, params_ckpt_bytes=_bytes(ckpt), export_seconds=export_s,
+         convert_seconds=convert_s, load_seconds=load_s, serve_seconds=serve_s,
+         requests=len(got), tokens_compared=sum(len(t) for t in got), streams_equal=same,
+         decode_steps=steps, launches=launches)
+    del loaded
+    shutil.rmtree(hf_dir)
+    shutil.rmtree(ckpt)
+
+
+def phase_train_resume(tmp):
+    """The train recipe at full width with asynchronous checkpoints: 2 steps,
+    a save, step 3 BEFORE the write is waited for (the parameters and Adam
+    moments update in place), then the files against the state of step 2; a
+    fresh state restored through the training entry point runs step 3 again
+    and must give its loss and weights bitwise; the checkpoint's params then
+    serve one request through ``Engine.load_params`` and K1."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention
+    from maxtext_indextts2_tpu_torch.train import checkpointing, train
+
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "train_ckpt")
+    cfg = load_config(TRAIN_RESUME_ARGS + [f"checkpoint_dir={ckpt_dir}"])
+    state = train.setup_train_state(cfg)  # no device given: the GPU, or an error
+    batches = train.create_data_iterator(cfg, state.device)
+    manager, period = train.make_checkpointer(cfg)
+    _reset_all_counts()
+    losses = [float(train.train_step(cfg, state, next(batches))["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    step2 = {"params": {k: v.detach().clone() for k, v in state.params.items()},
+             **{m: {k: v.clone() for k, v in state.opt_state[m].items()} for m in ("mu", "nu")}}
+    t1 = time.perf_counter()
+    manager.save(period - 1, state)
+    save_return_s = time.perf_counter() - t1
+    losses.append(float(train.train_step(cfg, state, next(batches))["loss"]))  # step 3
+    torch.cuda.synchronize()
+    step3_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    manager.wait()
+    wait_s = time.perf_counter() - t1
+    launches = _all_counts()
+    step3_params = {k: v.detach().clone() for k, v in state.params.items()}
+    # the live tensors that step 3 moved: the files must still hold step 2's
+    moved = {"params": _same_tensors(step3_params, step2["params"]),
+             **{m: _same_tensors(state.opt_state[m], step2[m]) for m in ("mu", "nu")}}
+    check(all(moved.values()), f"train_resume: step 3 moved no tensor of "
+                               f"{[m for m, v in moved.items() if not v]}")
+    path = manager.step_path(period - 1)
+    t1 = time.perf_counter()
+    on_disk = {"params": dict(checkpointing.load_params_only(path)),
+               **{m: v for m, v in torch.load(os.path.join(path, checkpointing.OPT_FILE),
+                                              weights_only=True, mmap=True).items()
+                  if m in ("mu", "nu")}}
+    differ = {m: _same_tensors(on_disk[m], step2[m]) for m in step2}
+    read_s = time.perf_counter() - t1
+    check(not any(differ.values()), f"train_resume: the async save is not step 2's state: "
+                                    f"{ {m: d[:3] for m, d in differ.items()} }")
+    ckpt_bytes = _bytes(path)
+    del state, step2, on_disk, batches, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    resumed = train.train_loop(load_config(TRAIN_RESUME_ARGS + [
+        f"checkpoint_dir={ckpt_dir}", "save_final_checkpoint=true"]), quiet=True)
+    resume_s = time.perf_counter() - t1
+    resumed_losses = [h["loss"] for h in resumed["history"]]
+    check(resumed_losses == losses[2:], f"train_resume: resumed step 3 loss {resumed_losses} "
+                                        f"!= uninterrupted {losses[2:]}")
+    final = dict(checkpointing.load_params_only(ckpt_dir))
+    differ = _same_tensors(final, step3_params)
+    check(not differ, f"train_resume: resumed step 3 weights differ: {differ[:5]}")
+    kept = sorted(os.listdir(ckpt_dir))
+    check(kept == [str(cfg.steps - 1)], f"train_resume: max_to_keep=1 left {kept}")
+    del final, step3_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    engine = Engine(load_config(SERVE_ARGS + ["per_device_batch_size=1",
+                                              f"load_parameters_path={ckpt_dir}"]))
+    engine.load_params()
+    load_s = time.perf_counter() - t1
+    ragged_decode_attention.launch_count = 0
+    tokens = engine.generate_stream(np.arange(1, 33, dtype=np.int32), RESUME_DECODE_TOKENS)
+    k1 = ragged_decode_attention.launch_count
+    layers = cfg.num_decoder_layers
+    check(len(tokens) == RESUME_DECODE_TOKENS and all(0 <= t < cfg.vocab_size for t in tokens),
+          f"train_resume: decode from the checkpoint gave {tokens}")
+    check(k1 == layers * (RESUME_DECODE_TOKENS - 1),
+          f"train_resume: K1 launched {k1} times, predicted {layers * (RESUME_DECODE_TOKENS - 1)}")
+    want = {k: 0 for k in launches}
+    want.update({k: n * layers * 3 for k, n in TRAIN_LAUNCHES_PER_LAYER.items()})
+    check(launches == want, f"train_resume: launches of 3 steps {launches} != {want}")
+    emit("train_resume", t0, losses=losses, resumed_step3_loss=resumed_losses[0],
+         loss_bitwise_equal=True, weights_bitwise_equal=True, snapshot_untouched_by_step3=True,
+         tensors_moved_by_step3={m: len(v) for m, v in moved.items()},
+         checkpoint_bytes=ckpt_bytes, save_return_seconds=save_return_s,
+         step3_seconds_after_save=step3_s, wait_seconds=wait_s, read_back_seconds=read_s,
+         resume_run_seconds=resume_s, engine_load_seconds=load_s, decode_tokens=tokens,
+         k1_launches_decode=k1, launches_3_steps=launches)
+
+
+def _record_codes(pipe):
+    """Wraps ``pipe.s2a.reverse_diffusion`` to keep its codes; returns the list."""
+    codes, sample = [], pipe.s2a.reverse_diffusion
+
+    def recorded(*args, **kwargs):
+        codes.append(sample(*args, **kwargs))
+        return codes[-1]
+
+    pipe.s2a.reverse_diffusion = recorded
+    return codes
+
+
+def phase_audio_ckpt(pipe, tmp):
+    """The full-width pipeline's audio weights (its S2A rebuilt natively from
+    seeded float weights, non-trivial tap statistics) written as the
+    reference's files; a second pipeline from another seed loads them with
+    ``load_torch_audio_weights`` and ``SemanticTokenizer.load_torch_weights``,
+    the ISTFT head carried across; ``synthesize`` on the same prompt and
+    sampler seed through both: prompt ids, codes and waveform equal, K5-K8
+    and K12 launched as predicted."""
+    from maxtext_indextts2_tpu_torch.audio import torch_ckpt as tc
+    from maxtext_indextts2_tpu_torch.audio.conformer import config_from_hf_state_dict
+    from maxtext_indextts2_tpu_torch.audio.pipeline import (
+        build_serving_s2a, build_tiny_pipeline, prompt_signal, s2a_config_from,
+    )
+    from maxtext_indextts2_tpu_torch.audio.s2a import S2AModel
+    from maxtext_indextts2_tpu_torch.tools import reference_state_dicts as rsd
+
+    t0 = time.perf_counter()
+    device = pipe.device
+    gen = torch.Generator(device=device).manual_seed(AUDIO_CKPT_SEED + 100)
+    float_s2a = S2AModel(s2a_config_from(pipe.cfg), device=device, generator=gen).state_dict()
+    pipe.s2a = build_serving_s2a(s2a_config_from(pipe.cfg), pipe.cfg.s2a_serving_dtype,
+                                 float_s2a, device=device)
+    enc = pipe.semantic_tokenizer.encoder
+    with torch.no_grad():
+        enc.stat_mean.normal_(0.0, 0.1, generator=gen)
+        enc.stat_std.uniform_(0.5, 2.0, generator=gen)
+    t1 = time.perf_counter()
+    out_dir = os.path.join(tmp, "audio")
+    os.makedirs(out_dir)
+    artifacts = {
+        "s2a": rsd.s2a_state_dict(float_s2a),
+        "codec_encoder": rsd.codec_encoder_state_dict(pipe.codec.encoder),
+        "codec_decoder": rsd.codec_decoder_state_dict(pipe.codec.decoder),
+        "w2vbert": rsd.hf_w2vbert_state_dict(enc),
+        "repcodec": rsd.repcodec_state_dict(pipe.semantic_tokenizer.repcodec),
+        "stats": rsd.semantic_stats(enc),
+    }
+    files = {}
+    for name, sd in artifacts.items():
+        files[name] = os.path.join(out_dir, f"{name}.pt")
+        torch.save(sd, files[name])
+    del artifacts, float_s2a
+    export_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    sds = {k: torch.load(f, map_location="cpu", weights_only=True) for k, f in files.items()}
+    read_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # the second pipeline is sized from the files, as the CLI sizes it
+    ek = tc.codec_encoder_kwargs_from_torch(sds["codec_encoder"])
+    dk = tc.codec_decoder_kwargs_from_torch(sds["codec_decoder"])
+    codec_kwargs = dict(d_model=ek["d_model"], strides=ek["strides"], latent_dim=ek["out_channels"],
+                        **{k: dk[k] for k in ("num_quantizers", "codebook_size", "codebook_dim",
+                                              "vocos_dim", "vocos_intermediate_dim",
+                                              "vocos_num_layers")})
+    rep_kwargs = tc.repcodec_kwargs_from_torch(sds["repcodec"])
+    rep_kwargs.pop("hidden_size")
+    other = build_tiny_pipeline(
+        pipe.cfg, seed=AUDIO_CKPT_SEED, codec_kwargs=codec_kwargs, device=device,
+        engine=pipe.engine, semantic_encoder_cfg=config_from_hf_state_dict(sds["w2vbert"]),
+        semantic_repcodec_kwargs=rep_kwargs)
+    build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    other.load_torch_audio_weights(s2a_state_dict=sds["s2a"],
+                                   codec_encoder_state_dict=sds["codec_encoder"],
+                                   codec_decoder_state_dict=sds["codec_decoder"])
+    other.semantic_tokenizer.load_torch_weights(sds["w2vbert"], sds["repcodec"], sds["stats"])
+    other.codec.decoder.head.load_state_dict(pipe.codec.decoder.head.state_dict())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    del sds
+    for part in ("s2a", "codec", "semantic_tokenizer"):
+        differ = _same_tensors(getattr(other, part).state_dict(), getattr(pipe, part).state_dict())
+        check(not differ, f"audio_ckpt: loaded {part} differs: {differ[:5]}")
+
+    w16 = prompt_signal(42, SYNTH_PROMPT_SECONDS, 16_000)
+    w24 = prompt_signal(42, SYNTH_PROMPT_SECONDS, 24_000)
+    text = "Weights written as the reference's files read back on the card."
+    ids = [p._prompt_tokens(w16[None], [len(w16)], w24[None]) for p in (pipe, other)]
+    same_ids = all(np.array_equal(a, b) for a, b in zip(*ids))
+    check(same_ids, "audio_ckpt: prompt ids differ between the source and the loaded pipeline")
+    out = {}
+    for name, p in (("source", pipe), ("loaded", other)):
+        codes = _record_codes(p)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t1 = time.perf_counter()
+        try:
+            wav, info = p.synthesize(text, w16, w24, max_new_tokens=SYNTH_FRAMES,
+                                     generator=torch.Generator(device=device).manual_seed(5))
+        finally:
+            del p.s2a.reverse_diffusion
+        torch.cuda.synchronize()
+        out[name] = (wav, info, codes[0], _all_counts(), time.perf_counter() - t1)
+    (wav_a, info_a, codes_a, _, _), (wav_b, info_b, codes_b, launches, synth_s) = \
+        out["source"], out["loaded"]
+    c, layers = other.s2a.cfg, other.engine.cfg.num_decoder_layers
+    forwards = _denoiser_forwards(other)
+    want = {"ragged_decode_attention": layers * (SYNTH_FRAMES - 1),
+            "inplace_row_update": 2 * layers * (SYNTH_FRAMES - 1),
+            "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
+            "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
+            "silu_mul_quantize": c.num_layers * forwards,
+            "s2a_attention": c.num_layers * forwards, **NO_FLASH, **NO_PAGED}
+    check(launches == want, f"audio_ckpt: launches {launches} != predicted {want}")
+    check(info_b["semantic_tokens"] == info_a["semantic_tokens"] == SYNTH_FRAMES,
+          f"audio_ckpt: {info_b['semantic_tokens']} frames")
+    same_codes = bool(torch.equal(codes_a, codes_b))
+    check(same_codes, "audio_ckpt: acoustic codes differ")
+    wav_err = float(np.abs(wav_a - wav_b).max())
+    check(wav_a.shape == wav_b.shape and wav_err == 0.0,
+          f"audio_ckpt: waveforms differ by {wav_err}")
+    check(bool(np.isfinite(wav_b).all()) and float(wav_b.std()) > 0,
+          "audio_ckpt: a waveform that is not finite or is constant")
+    emit("audio_ckpt", t0, file_bytes={k: _bytes(f) for k, f in files.items()},
+         export_seconds=export_s, read_seconds=read_s, build_other_seed_seconds=build_s,
+         load_seconds=load_s,
+         semantic_encoder_layers=other.semantic_tokenizer.encoder_cfg.num_layers,
+         synthesize_seconds=synth_s, prompt_ids_equal=same_ids, codes_equal=same_codes,
+         codes_shape=list(codes_b.shape), wav_max_abs_err=wav_err, wav_samples=len(wav_b),
+         denoiser_forwards=forwards, launches=launches)
+    semantic = ids[0][0][0, : int(ids[0][1][0])]
+    del other
+    gc.collect()
+    torch.cuda.empty_cache()
+    return files, (w16, w24), semantic
+
+
+def _build_state() -> dict:
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    return {f: os.path.getmtime(os.path.join(_build.BUILD_DIR, f))
+            for f in sorted(os.listdir(_build.BUILD_DIR))}
+
+
+def _cli_value(v) -> str:
+    if isinstance(v, (tuple, list)):
+        return "[" + ",".join(str(x) for x in v) + "]"
+    return str(v)
+
+
+def phase_audio_cli(pipe, tmp, files, prompt, semantic):
+    """``python -m maxtext_indextts2_tpu_torch.audio.cli`` in subprocesses on
+    the card: ``tokenize`` of a scipy-written WAV with audio_ckpt's files (its
+    ids equal audio_ckpt's prompt ids), then ``synthesize`` with every stage
+    from files (the LM from a params-only checkpoint of the pipeline's
+    audio-only engine): exit 0 and a finite, non-constant WAV. The
+    subprocesses reuse the kernel library this run built."""
+    from scipy.io import wavfile
+
+    from maxtext_indextts2_tpu_torch.train.checkpointing import save_params_only
+
+    t0 = time.perf_counter()
+    w16, w24 = prompt
+    wav16, wav24 = os.path.join(tmp, "prompt16.wav"), os.path.join(tmp, "prompt24.wav")
+    wavfile.write(wav16, 16_000, w16)  # float32 WAVs: read back exactly
+    wavfile.write(wav24, 24_000, w24)
+    lm = os.path.join(tmp, "lm_audio_only")
+    save_params_only(lm, pipe.engine.params)
+    built = _build_state()
+    audio_args = [f"{k}={f}" for k, f in files.items()]
+    ids_path, out_wav = os.path.join(tmp, "ids.npy"), os.path.join(tmp, "cli_out.wav")
+    commands = {
+        "tokenize": ["tokenize", f"input={wav16}", f"out={ids_path}",
+                     *(a for a in audio_args if a.split("=")[0] in ("w2vbert", "repcodec",
+                                                                   "stats"))],
+        "synthesize": ["synthesize", "text=The command line reads the same files.",
+                       f"prompt={wav16}", f"prompt24k={wav24}", f"out={out_wav}",
+                       f"max_new_tokens={CLI_FRAMES}", *audio_args,
+                       f"load_parameters_path={lm}",
+                       *(f"{k}={_cli_value(getattr(pipe.cfg, k))}" for k in CLI_CONFIG_KEYS)],
+    }
+    seconds, printed = {}, {}
+    for name, args in commands.items():
+        t1 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "maxtext_indextts2_tpu_torch.audio.cli",
+                              *args], cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, timeout=600)
+        seconds[name] = time.perf_counter() - t1
+        check(run.returncode == 0, f"audio_cli {name}: exit {run.returncode}: "
+                                   f"{run.stdout[-2000:]}")
+        printed[name] = json.loads(run.stdout.strip().splitlines()[-1])
+    ids = np.load(ids_path)
+    same_ids = bool(np.array_equal(ids, semantic))
+    check(same_ids, f"audio_cli: tokenize ids ({len(ids)}) differ from audio_ckpt's "
+                    f"({len(semantic)})")
+    sr, data = wavfile.read(out_wav)
+    hop = int(np.prod(pipe.codec.strides))
+    check(sr == 24_000 and data.shape == (CLI_FRAMES * hop,),
+          f"audio_cli: a WAV of {data.shape} at {sr} Hz for {CLI_FRAMES} frames")
+    check(bool(np.isfinite(data).all()) and float(data.std()) > 0,
+          "audio_cli: the WAV is not finite or is constant")
+    rebuilt = _build_state() != built
+    check(not rebuilt, "audio_cli: a subprocess rebuilt the kernel library")
+    check(all(p.get("device", "").startswith("cuda") for p in printed.values()),
+          f"audio_cli: a subprocess did not run on the card: {printed}")
+    emit("audio_cli", t0, tokenize_seconds=seconds["tokenize"],
+         synthesize_seconds=seconds["synthesize"], lm_ckpt_bytes=_bytes(lm),
+         wav_bytes=_bytes(out_wav), ids=len(ids), ids_equal=same_ids, frames=CLI_FRAMES,
+         wav_std=float(data.std()), kernel_library_rebuilt=rebuilt,
+         tokenize=printed["tokenize"], synthesize=printed["synthesize"])
+
+
 def kernels_line(cases, launches):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes that path's run gives the kernel (the error in
@@ -1203,9 +1636,26 @@ def main():
     card = phase_device()
     phase_build()
     cases = phase_kernels()
+    # checkpoints and exported weights of the weights-in-and-out phases
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches = _phases(tmp)
+    check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
+          f"a kernel of a main path never ran: {launches}")
+    emit("total", t_all)
+    print(json.dumps(kernels_line(cases, launches)), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _phases(tmp) -> dict:
+    """Every main path after the kernel checks; returns the main paths'
+    launch counts for the kernels line."""
     engine, launches = phase_serve()
     phase_serve_parity(engine)
     phase_http(engine)
+    phase_lm_ckpt(engine, tmp)
     del engine
     # serve_paged's counting hook (orch._can_admit, a closure over orch) holds
     # what that phase built in a reference cycle, and a phase may leave others:
@@ -1228,19 +1678,17 @@ def main():
     launches["s2a_attention"] = phase_tts_synthesize(pipe)["s2a_attention"]
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
+    files, prompt, semantic = phase_audio_ckpt(pipe, tmp)
+    phase_audio_cli(pipe, tmp, files, prompt, semantic)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train())
     phase_train_parity()
-    check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
-          f"a kernel of a main path never ran: {launches}")
-    emit("total", t_all)
-    print(json.dumps(kernels_line(cases, launches)), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_resume(tmp)
+    return launches
 
 
 if __name__ == "__main__":

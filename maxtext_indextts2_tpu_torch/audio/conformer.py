@@ -10,7 +10,9 @@ and layouts:
   clipped to [-64, 8]) -> conv module (pointwise -> GLU -> *causal*
   depthwise k=31 -> LN -> swish -> pointwise) -> 0.5 * FFN -> final LN
 - ``SemanticEncoder``: the tap normalised by per-dim ``stat_mean`` /
-  ``stat_std``.
+  ``stat_std``;
+- ``config_from_hf_state_dict`` / ``params_from_hf``: a HF
+  ``Wav2Vec2BertModel`` state dict -> this config / this module's state dict.
 
 The relative bias is computed as the JAX package does: the ``[S, S, d]``
 table of distance embeddings is gathered and contracted with the queries
@@ -24,14 +26,12 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.audio.layers import Conv1d, Dense, LayerNorm
-from maxtext_indextts2_tpu_torch.unported import _unsupported
-
-_CHECKPOINTS = "4b, rest of training: weight import, item 4b.1"
 
 
 @dataclass(frozen=True)
@@ -184,9 +184,113 @@ class SemanticEncoder(nn.Module):
         return (x - self.stat_mean) / torch.clamp(self.stat_std, min=1e-6)
 
 
-def config_from_hf_state_dict(state_dict, output_layer: int = 17):
-    _unsupported("conformer.config_from_hf_state_dict (HF w2v-BERT checkpoints)", _CHECKPOINTS)
+def _numpy(state_dict) -> dict[str, np.ndarray]:
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in state_dict.items()}
 
 
-def params_from_hf(state_dict, cfg: ConformerConfig, stat_mean=None, stat_std=None):
-    _unsupported("conformer.params_from_hf (HF w2v-BERT checkpoints)", _CHECKPOINTS)
+def config_from_hf_state_dict(state_dict, output_layer: int = 17) -> ConformerConfig:
+    """A ConformerConfig from a HF ``Wav2Vec2BertModel`` state dict. Every
+    field but one is read off the weight shapes (the head count from the
+    relative-position ``distance_embedding``: rows = left + right + 1,
+    columns = head_dim); the left / right split is not, so the
+    w2v-bert-2.0 convention ``right = 8`` is assumed."""
+    sd = _numpy(state_dict)
+    hidden, input_dim = sd["feature_projection.projection.weight"].shape  # [hidden, input]
+    num_layers = 0
+    while f"encoder.layers.{num_layers}.final_layer_norm.weight" in sd:
+        num_layers += 1
+    dist = sd["encoder.layers.0.self_attn.distance_embedding.weight"]
+    head_dim = dist.shape[1]
+    right = 8 if dist.shape[0] > 9 else 1
+    return ConformerConfig(
+        input_dim=input_dim,
+        hidden_size=hidden,
+        num_layers=num_layers,
+        num_heads=hidden // head_dim,
+        intermediate_size=sd["encoder.layers.0.ffn1.intermediate_dense.weight"].shape[0],
+        conv_kernel_size=sd["encoder.layers.0.conv_module.depthwise_conv.weight"].shape[-1],
+        left_max_distance=dist.shape[0] - 1 - right,
+        right_max_distance=right,
+        output_layer=min(output_layer, num_layers),
+    )
+
+
+def params_from_hf(state_dict, cfg: ConformerConfig, stat_mean=None,
+                   stat_std=None) -> dict[str, torch.Tensor]:
+    """A HF ``Wav2Vec2BertModel`` state dict (torch tensors or numpy) -> the
+    state dict of ``SemanticEncoder(cfg)``: the layers up to the tap
+    (``min(output_layer, num_layers)``, the only ones this package builds),
+    ``stat_mean`` / ``stat_std`` (identity by default; the layer statistics
+    of the published ``wav2vec2bert_stats.pt``). A checkpoint with fewer
+    layers than the tap needs raises (the JAX package asks for
+    ``num_layers``: it holds the layers past the tap too)."""
+    sd = _numpy(state_dict)
+
+    def dense(prefix, bias=True):
+        p = {"kernel": sd[f"{prefix}.weight"].T}
+        if bias:
+            p["bias"] = sd[f"{prefix}.bias"]
+        return p
+
+    def ln(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    sd_layers = 0
+    while f"encoder.layers.{sd_layers}.final_layer_norm.weight" in sd:
+        sd_layers += 1
+    tap = min(cfg.output_layer, cfg.num_layers)
+    if sd_layers < tap:
+        raise ValueError(
+            f"state dict has {sd_layers} encoder layers but the tap needs {tap}: an "
+            "incomplete checkpoint (layers past it would stay random under the tap)")
+    enc = {"fp_layer_norm": ln("feature_projection.layer_norm"),
+           "fp_projection": dense("feature_projection.projection")}
+    for i in range(tap):
+        hf = f"encoder.layers.{i}"
+        enc[f"layers_{i}"] = {
+            "ffn1_layer_norm": ln(f"{hf}.ffn1_layer_norm"),
+            "ffn1": {"intermediate_dense": dense(f"{hf}.ffn1.intermediate_dense"),
+                     "output_dense": dense(f"{hf}.ffn1.output_dense")},
+            "self_attn_layer_norm": ln(f"{hf}.self_attn_layer_norm"),
+            "self_attn": {
+                "linear_q": dense(f"{hf}.self_attn.linear_q"),
+                "linear_k": dense(f"{hf}.self_attn.linear_k"),
+                "linear_v": dense(f"{hf}.self_attn.linear_v"),
+                "linear_out": dense(f"{hf}.self_attn.linear_out"),
+                "distance_embedding": sd[f"{hf}.self_attn.distance_embedding.weight"],
+            },
+            "conv_module": {
+                "layer_norm": ln(f"{hf}.conv_module.layer_norm"),
+                # HF Conv1d [out, in, 1] -> Dense kernel [in, out]
+                "pointwise_conv1": {
+                    "kernel": sd[f"{hf}.conv_module.pointwise_conv1.weight"][:, :, 0].T},
+                # HF depthwise [C, 1, K] -> Conv1d kernel [K, 1, C]
+                "depthwise_conv": {
+                    "kernel": sd[f"{hf}.conv_module.depthwise_conv.weight"].transpose(2, 1, 0)},
+                "depthwise_layer_norm": ln(f"{hf}.conv_module.depthwise_layer_norm"),
+                "pointwise_conv2": {
+                    "kernel": sd[f"{hf}.conv_module.pointwise_conv2.weight"][:, :, 0].T},
+            },
+            "ffn2_layer_norm": ln(f"{hf}.ffn2_layer_norm"),
+            "ffn2": {"intermediate_dense": dense(f"{hf}.ffn2.intermediate_dense"),
+                     "output_dense": dense(f"{hf}.ffn2.output_dense")},
+            "final_layer_norm": ln(f"{hf}.final_layer_norm"),
+        }
+    h = cfg.hidden_size
+    out = {f"encoder.{k}": v for k, v in _flat(enc).items()}
+    out["stat_mean"] = np.zeros(h, np.float32) if stat_mean is None else np.asarray(
+        stat_mean, np.float32)
+    out["stat_std"] = np.ones(h, np.float32) if stat_std is None else np.asarray(
+        stat_std, np.float32)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out

@@ -14,8 +14,8 @@ masks, so the denoiser's attention is ``ops/s2a_attention.py``);
 ``frontend_batch`` (prompt tokenizers, bucketed), the LM, then
 ``s2a_vocoder_batch`` (masked sampler + vocoder). ``build_tiny_pipeline``
 and ``build_pipeline`` make seeded pipelines (tiny, or at the full
-published width). Published checkpoints wait for weight import
-(``load_torch_audio_weights`` raises).
+published width); ``load_torch_audio_weights`` puts the reference's torch
+checkpoints (``audio/torch_ckpt.py``) into a running pipeline.
 """
 
 from __future__ import annotations
@@ -32,10 +32,9 @@ from maxtext_indextts2_tpu_torch.audio.conformer import ConformerConfig
 from maxtext_indextts2_tpu_torch.audio.s2a import (
     S2AConfig, S2AModel, cast_denoiser_params, quantize_s2a_params, serving_s2a_config,
 )
-from maxtext_indextts2_tpu_torch.audio.semantic_tokenizer import SemanticTokenizer
+from maxtext_indextts2_tpu_torch.audio.semantic_tokenizer import SemanticTokenizer, stats_mean_std
 from maxtext_indextts2_tpu_torch.config import Config, load_config
 from maxtext_indextts2_tpu_torch.infer.engine import Engine, resolve_device
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.train.data.tokenizer import build_tokenizer
 from maxtext_indextts2_tpu_torch.vocab.mapping import AudioVocabMapping, default_mapping
 
@@ -73,9 +72,81 @@ class TTSPipeline:
     def device(self) -> torch.device:
         return self.s2a.mask_emb.device
 
-    def load_torch_audio_weights(self, *args, **kwargs):
-        _unsupported("TTSPipeline.load_torch_audio_weights (published checkpoints)",
-                     "4b, rest of training: weight import, item 4b.1")
+    # ------------------------------------------------------- weight import
+    def load_torch_audio_weights(self, s2a_state_dict=None, codec_encoder_state_dict=None,
+                                 codec_decoder_state_dict=None,
+                                 semantic_encoder_state_dict=None,
+                                 semantic_repcodec_state_dict=None, semantic_stats=None):
+        """Any subset of the reference's audio checkpoints into the running
+        pipeline: the MaskGCT_S2A state dict, the acoustic CodecEncoder /
+        CodecDecoder state dicts, and the semantic tokenizer's HF w2v-BERT
+        state dict, RepCodec state dict and ``{"mean", "var"}`` statistics.
+        The S2A's and the codec's sizes are checked against the built modules
+        before they load (a mismatch raises ``ValueError``); the semantic
+        tokenizer's by ``load_state_dict``. The S2A weights are served as the
+        seeded build serves them: quantized offline under ``int8_offline``,
+        then, in both int8 modes, the denoiser's float parameters in
+        bfloat16. The acoustic decoder's ISTFT head has no counterpart in the
+        reference (which stops at the backbone's hidden states) and keeps
+        its current parameters."""
+        from maxtext_indextts2_tpu_torch.audio import torch_ckpt as tc
+
+        if s2a_state_dict is not None:
+            c = self.s2a.cfg
+            got = tc.s2a_kwargs_from_torch(s2a_state_dict)
+            want = dict(num_quantizers=c.num_quantizers, hidden_size=c.hidden_size,
+                        num_layers=c.num_layers, codebook_size=c.codebook_size,
+                        cond_codebook_size=c.cond_codebook_size)
+            if got != want:
+                raise ValueError(f"S2A checkpoint dims {got} != configured {want}; set the "
+                                 "s2a_* config keys to match (cli synthesize infers them)")
+            # quantized on the module's device, as the seeded build quantizes
+            params = {k: v.to(self.device) for k, v in
+                      tc.s2a_params_from_torch(s2a_state_dict).items()}
+            if c.int8_matmul == "offline":
+                params = quantize_s2a_params(params, self.s2a)
+            self.s2a.load_state_dict(params)
+            if c.int8_matmul:
+                cast_denoiser_params(self.s2a)  # bfloat16 residual stream
+        if codec_encoder_state_dict is not None:
+            got = tc.codec_encoder_kwargs_from_torch(codec_encoder_state_dict)
+            want = dict(d_model=self.codec.d_model, strides=tuple(self.codec.strides),
+                        out_channels=self.codec.latent_dim)
+            if got != want:
+                raise ValueError(f"codec encoder checkpoint dims {got} != configured {want}")
+            self.codec.encoder.load_state_dict(tc.codec_encoder_params_from_torch(
+                codec_encoder_state_dict, num_blocks=len(self.codec.strides)))
+        if codec_decoder_state_dict is not None:
+            got = tc.codec_decoder_kwargs_from_torch(codec_decoder_state_dict)
+            dec = self.codec.decoder
+            want = dict(in_channels=self.codec.latent_dim,
+                        num_quantizers=self.codec.num_quantizers,
+                        codebook_size=self.codec.codebook_size,
+                        codebook_dim=dec.quantizer.vq_0.codebook_dim,
+                        vocos_dim=dec.model.embed.kernel.shape[2],
+                        vocos_intermediate_dim=dec.model.convnext_0.pwconv1.kernel.shape[1],
+                        vocos_num_layers=dec.model.num_layers)
+            if got != want:
+                raise ValueError(f"codec decoder checkpoint dims {got} != configured {want}")
+            missing, unexpected = dec.load_state_dict(
+                tc.codec_decoder_params_from_torch(codec_decoder_state_dict), strict=False)
+            if unexpected or any(not k.startswith("head.") for k in missing):
+                raise KeyError(f"codec decoder checkpoint: missing {missing}, "
+                               f"unexpected {unexpected}")
+        tok = self.semantic_tokenizer
+        if semantic_encoder_state_dict is not None and semantic_repcodec_state_dict is not None:
+            tok.load_torch_weights(semantic_encoder_state_dict, semantic_repcodec_state_dict,
+                                   semantic_stats)
+        elif semantic_encoder_state_dict is not None:
+            mean = std = None
+            if semantic_stats is not None:
+                mean, std = stats_mean_std(semantic_stats)
+            tok.load_hf_encoder(semantic_encoder_state_dict, mean, std)
+        elif semantic_repcodec_state_dict is not None:
+            tok.load_torch_repcodec(semantic_repcodec_state_dict)
+        if semantic_stats is not None and semantic_encoder_state_dict is None:
+            # statistics without encoder weights still apply to the current encoder
+            tok.set_stats(semantic_stats)
 
     # ------------------------------------------------------------ stages
     def text_and_prompt_to_lm_prompt(self, text: str, prompt_semantic) -> np.ndarray:

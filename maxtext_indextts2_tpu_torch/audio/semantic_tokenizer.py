@@ -5,9 +5,11 @@ SeamlessM4T features (``audio/mel.py``) -> the w2v-BERT conformer tapped at
 layer 17 and normalised by its statistics (``conformer.SemanticEncoder``) ->
 ``RepCodec.quantize``. Batched; each row's true length drives the feature
 normalisation and the conformer's pad mask. The parameter tree is
-``{"encoder": ..., "repcodec": ...}`` as there. The loaders of published
-checkpoints (``load_hf_encoder``, ``load_torch_repcodec``,
-``load_torch_weights``, ``set_stats``) wait until such files are in the repo.
+``{"encoder": ..., "repcodec": ...}`` as there. The reference's three weight
+artifacts load into the running module: a HF ``Wav2Vec2BertModel`` state dict
+(``load_hf_encoder``), a RepCodec state dict (``load_torch_repcodec``) and the
+``wav2vec2bert_stats.pt`` dict ``{"mean", "var"}`` (``set_stats``; std =
+sqrt(var)); ``load_torch_weights`` takes all three.
 """
 
 from __future__ import annotations
@@ -17,12 +19,24 @@ import torch
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.audio import mel
-from maxtext_indextts2_tpu_torch.audio.conformer import ConformerConfig, SemanticEncoder
+from maxtext_indextts2_tpu_torch.audio.conformer import (
+    ConformerConfig, SemanticEncoder, params_from_hf,
+)
 from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
+from maxtext_indextts2_tpu_torch.audio.torch_ckpt import repcodec_params_from_torch
 from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_CHECKPOINTS = "4b, rest of training: weight import, item 4b.1"
+
+def _float32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def stats_mean_std(stats) -> tuple[np.ndarray, np.ndarray]:
+    """(mean, std) of a ``wav2vec2bert_stats.pt`` dict: std = sqrt(var),
+    in float32."""
+    return _float32(stats["mean"]), np.sqrt(_float32(stats["var"]))
 
 
 class SemanticTokenizer(nn.Module):
@@ -70,13 +84,31 @@ class SemanticTokenizer(nn.Module):
         return self.repcodec.quantize(hidden), feat_lengths
 
     def load_hf_encoder(self, state_dict, stat_mean=None, stat_std=None):
-        _unsupported("SemanticTokenizer.load_hf_encoder (HF w2v-BERT checkpoints)", _CHECKPOINTS)
+        """The encoder half from a HF ``Wav2Vec2BertModel`` state dict, with
+        the tap's statistics (identity by default); returns the state dict."""
+        self.encoder.load_state_dict(
+            params_from_hf(state_dict, self.encoder_cfg, stat_mean, stat_std))
+        return self.state_dict()
 
     def load_torch_repcodec(self, state_dict):
-        _unsupported("SemanticTokenizer.load_torch_repcodec (RepCodec checkpoints)", _CHECKPOINTS)
-
-    def load_torch_weights(self, encoder_state_dict, repcodec_state_dict, stats=None):
-        _unsupported("SemanticTokenizer.load_torch_weights (published checkpoints)", _CHECKPOINTS)
+        """The codec half from a reference RepCodec state dict."""
+        self.repcodec.load_state_dict(repcodec_params_from_torch(state_dict))
+        return self.state_dict()
 
     def set_stats(self, stats):
-        _unsupported("SemanticTokenizer.set_stats (published layer statistics)", _CHECKPOINTS)
+        """The tap's statistics (``{"mean": [H], "var": [H]}``) on the
+        current encoder, its weights untouched."""
+        mean, std = stats_mean_std(stats)
+        with torch.no_grad():
+            self.encoder.stat_mean.copy_(torch.from_numpy(mean))
+            self.encoder.stat_std.copy_(torch.from_numpy(std))
+        return self.state_dict()
+
+    def load_torch_weights(self, encoder_state_dict, repcodec_state_dict, stats=None):
+        """All three reference artifacts: the HF w2v-BERT state dict, the
+        RepCodec state dict and, optionally, the statistics dict."""
+        mean = std = None
+        if stats is not None:
+            mean, std = stats_mean_std(stats)
+        self.load_hf_encoder(encoder_state_dict, mean, std)
+        return self.load_torch_repcodec(repcodec_state_dict)

@@ -2,8 +2,9 @@
 
 Run: ``python -m maxtext_indextts2_tpu_torch.infer.decode <cfg.yml> key=value ...``
 Decodes ``prompt`` (comma-separated token ids) for ``max_new_tokens`` tokens
-with seeded random weights and prints the result. Runs on the GPU;
-``device=cpu`` asks for the CPU explicitly.
+and prints the result; the weights come from ``load_parameters_path`` (a
+checkpoint of ``train/checkpointing.py``), or are seeded random weights when
+it is empty. Runs on the GPU; ``device=cpu`` asks for the CPU explicitly.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def main(argv=None, prompt_ids=None, max_new_tokens: int = 16, device=None):
         prompt_ids = np.arange(1, 9, dtype=np.int32)
 
     engine = Engine(cfg, device=device)
-    engine.load_params()
+    engine.load_params(cfg.load_parameters_path or None)
     out = engine.generate_stream(prompt_ids, max_new_tokens)
     print("prompt:", prompt_ids.tolist())
     print("completion:", out)

@@ -116,6 +116,9 @@ class Engine:
             cfg = dataclasses.replace(cfg, scan_layers=False)
         if cfg.spec_num_draft_tokens > 0:
             _unsupported("speculative decoding", "5, decode extras")
+        if cfg.quantization == "int8w_serve":
+            _unsupported("int8w_serve (int8 serving weights, quantized from a float checkpoint"
+                         " or read from a quantized one)", "5, decode extras: item 5.6")
         self.cfg = cfg
         self.model = model if model is not None else Transformer(cfg, device=self.device)
         self.model.eval()
@@ -138,15 +141,26 @@ class Engine:
                 p.data = p.data.to(cast_dtype)
 
     def load_params(self, path: str | None = None, cast_dtype=None):
-        """Seeded random weights (``init_weights_seed``), then the serving
-        cast. No checkpoint format is ported yet."""
+        """Weights from ``path or cfg.load_parameters_path`` (a params-only
+        checkpoint or a training checkpoint's params, ``train/checkpointing.py``;
+        scan-stacked or unrolled, served unrolled), or seeded random weights
+        (``init_weights_seed``) when there is no path; then the serving cast
+        (``cast_dtype``, else ``serve_params_dtype``)."""
+        if self.cfg.spec_draft_parameters_path:
+            _unsupported("the draft model's weights (spec_draft_parameters_path)",
+                         "5, decode extras: item 5.2, speculative decoding")
         path = path or self.cfg.load_parameters_path
-        if path:
-            _unsupported("loading a checkpoint from disk", "4b, rest of training: checkpointing")
-        self.model.init_params(self.cfg.init_weights_seed)
-        self._cast_for_serving(cast_dtype)
-        self.params = self.model.state_dict()
-        return self.params
+        if not path:
+            self.model.init_params(self.cfg.init_weights_seed)
+            self._cast_for_serving(cast_dtype)
+            self.params = self.model.state_dict()
+            return self.params
+        from maxtext_indextts2_tpu_torch.train import checkpointing
+
+        params = checkpointing.load_params_only(path)
+        if checkpointing.names_are_scanned(params):
+            params = checkpointing.unroll_scanned_params(params)
+        return self.set_params(params, cast_dtype)
 
     def set_params(self, state_dict, cast_dtype=None):
         """Take weights from a state dict (e.g. ``utils.param_bridge

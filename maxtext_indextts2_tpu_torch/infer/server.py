@@ -92,7 +92,7 @@ class Orchestrator:
 
     def start(self):
         if self.engine.params is None:
-            self.engine.load_params()
+            self.engine.load_params(self.engine.cfg.load_parameters_path or None)
         self.decode_state = self.engine.init_decode_state()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()

@@ -10,9 +10,13 @@ the optimizer's moments are updated in place.
 
 Run: ``python -m maxtext_indextts2_tpu_torch.train.train <config.yml> key=value ...``
 on the GPU; ``device=cpu`` asks for the CPU explicitly. Only
-``dataset_type=synthetic`` runs here: the other data iterators, checkpoints,
-MTP and MoE auxiliary losses and the Zero-1 all-gather raise, naming their
-ROADMAP queue item.
+``dataset_type=synthetic`` runs here: the other data iterators, MTP and MoE
+auxiliary losses and the Zero-1 all-gather raise, naming their ROADMAP queue
+item. ``enable_checkpointing=true`` restores the newest checkpoint of
+``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
+steps and at the end (``train/checkpointing.py``; the emergency two-tier
+manager with ``enable_emergency_checkpoint``). As in the JAX package, the
+data iterator's position is not part of a checkpoint.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN
 from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops import losses
+from maxtext_indextts2_tpu_torch.train import checkpointing
 from maxtext_indextts2_tpu_torch.train.data.synthetic import SyntheticDataIterator
 from maxtext_indextts2_tpu_torch.train.optimizers import (
     GradientTransformation,
@@ -69,8 +74,6 @@ def check_training_config(cfg: Config) -> None:
     if cfg.zero1_fsdp_ag_once:
         _unsupported("zero1_fsdp_ag_once (a sharded all-gather)",
                      "6, parallelism on torch.distributed")
-    if cfg.enable_checkpointing:
-        _unsupported("training checkpoints", f"{_REST}: checkpointing")
     if cfg.enable_dropout and cfg.dropout_rate > 0:
         _unsupported("dropout in training", _REST)
     _remat_policy(cfg.remat_policy)
@@ -207,11 +210,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_checkpointer(cfg: Config):
+    """(checkpoint manager or None, save period): the emergency manager's
+    period is its local tier's, and it routes each save to the tiers due."""
+    if not cfg.enable_checkpointing:
+        return None, cfg.checkpoint_period
+    if cfg.enable_emergency_checkpoint:
+        manager = checkpointing.EmergencyCheckpointManager(cfg)
+        return manager, manager.local_period
+    return checkpointing.CheckpointManager(cfg), cfg.checkpoint_period
+
+
 def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
-    """Runs ``cfg.steps`` steps; returns the last step's metrics (floats) and,
-    under ``history``, every step's logged scalars."""
+    """Runs from the restored step (or 0) to ``cfg.steps``; returns the last
+    step's metrics (floats) and, under ``history``, every step's logged
+    scalars."""
     state = setup_train_state(cfg, device)
     data_iter = create_data_iterator(cfg, state.device)
+    checkpointer, save_period = make_checkpointer(cfg)
+    if checkpointer is not None:
+        checkpointer.maybe_restore(state)
     logger = MetricLogger(cfg, quiet=quiet)
     step_tflops = flops_lib.training_tflops_per_step(cfg)
     tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
@@ -228,6 +246,11 @@ def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
                                              tflops_per_step=step_tflops,
                                              tokens_per_step=tokens))
             last = now
+            final = cfg.save_final_checkpoint and step == cfg.steps - 1
+            if checkpointer is not None and ((step + 1) % save_period == 0 or final):
+                # forced on the final step: the emergency manager then writes
+                # the durable tier even off its cadence
+                checkpointer.save(step, state, force=final)
             if cfg.eval_interval > 0 and (step + 1) % cfg.eval_interval == 0:
                 eval_metrics = run_eval(cfg, state)
                 logger.write_step(step, eval_metrics, step_time=0.0)
@@ -239,6 +262,8 @@ def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
                 last = time.perf_counter()
     finally:
         logger.close()
+        if checkpointer is not None:
+            checkpointer.close()
     out = {k: float(v) for k, v in metrics.items()}
     out["history"] = history
     return out

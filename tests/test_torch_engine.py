@@ -159,10 +159,14 @@ def test_serving_cast_keeps_scales_float32():
 def test_engine_refuses_what_is_not_ported():
     for extra in (["spec_num_draft_tokens=2"],
                   ["decode_attention=bucketed"], ["quantization=int8"],
-                  ["load_parameters_path=/nonexistent"]):
+                  ["quantization=int8w_serve"], ["spec_draft_parameters_path=/draft"]):
         cfg = load_config(TINY_TTS + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu").load_params()
+    # checkpoints load now (test_torch_checkpointing.py); a missing one is an error
+    with pytest.raises(FileNotFoundError):
+        Engine(load_config(TINY_TTS + ["load_parameters_path=/nonexistent"]),
+               device="cpu").load_params()
     eng = Engine(load_config(TINY_TTS), device="cpu")
     with pytest.raises(RuntimeError, match="load_params"):
         eng.generate(eng.init_decode_state())

@@ -241,10 +241,10 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["dataset_type=emilia_audio"], "4b"), (["enable_checkpointing=true"], "4b"),
+    (["dataset_type=emilia_audio"], "4b"), (["enable_dropout=true", "dropout_rate=0.1"], "4b"),
     (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
     (["fused_vocab_ce_chunk=64"], "4b"), (["fused_vocab_ce_tile=128"], "4b"),
-], ids=["emilia_data", "checkpointing", "mtp", "zero1", "fused_ce_chunk", "fused_ce_tile"])
+], ids=["emilia_data", "dropout", "mtp", "zero1", "fused_ce_chunk", "fused_ce_tile"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
@@ -255,25 +255,14 @@ def _refuse_dataset(kind):
     ttrain.create_data_iterator(load_config([f"dataset_type={kind}"]), "cpu")
 
 
-def _refuse_tokenizer(kind):
-    from maxtext_indextts2_tpu_torch.train.data import tokenizer
-
-    tokenizer.build_tokenizer(load_config([f"tokenizer_type={kind}"]))
-
-
-def _refuse_weights(where):
-    from maxtext_indextts2_tpu_torch.audio import conformer, pipeline, semantic_tokenizer
-
-    {"conformer": lambda: conformer.params_from_hf({}, conformer.ConformerConfig()),
-     "semantic_tokenizer": lambda: semantic_tokenizer.SemanticTokenizer.load_hf_encoder(None, {}),
-     "pipeline": lambda: pipeline.TTSPipeline.load_torch_audio_weights(None)}[where]()
+def _refuse_eval(kind):
+    ttrain.run_eval(load_config([f"dataset_type={kind}"]), None)
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
     (_refuse_dataset, "emilia_audio", "4b.3"), (_refuse_dataset, "grain", "4b.3"),
-    (_refuse_dataset, "c4_mlperf", "4b.3"), (_refuse_tokenizer, "sentencepiece", "4b.1"),
-    (_refuse_weights, "conformer", "4b.1"), (_refuse_weights, "semantic_tokenizer", "4b.1"),
-    (_refuse_weights, "pipeline", "4b.1"),
+    (_refuse_dataset, "c4_mlperf", "4b.3"), (_refuse_dataset, "tfds", "4b.3"),
+    (_refuse_dataset, "hf", "4b.3"), (_refuse_eval, "emilia_audio", "4b.3"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):

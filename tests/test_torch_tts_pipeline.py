@@ -253,8 +253,17 @@ def test_synthesize_with_int8_offline_s2a():
 
 
 def test_load_torch_audio_weights_waits_for_weight_import(pipelines):
-    with pytest.raises(NotImplementedError, match="port queue: 4"):
-        pipelines[0].load_torch_audio_weights(s2a_state_dict={})
+    """The loader is ported (``test_torch_audio_cli.py``); a checkpoint of
+    other sizes is refused before anything loads."""
+    from maxtext_indextts2_tpu_torch.tools.reference_state_dicts import s2a_state_dict
+
+    pipe = pipelines[0]
+    before = {k: v.clone() for k, v in pipe.s2a.state_dict().items()}
+    other = h.s2a_weights(seed=1, num_layers=3)
+    with pytest.raises(ValueError, match="S2A checkpoint dims"):
+        pipe.load_torch_audio_weights(
+            s2a_state_dict=s2a_state_dict({k: torch.from_numpy(v) for k, v in other.items()}))
+    assert all(torch.equal(v, before[k]) for k, v in pipe.s2a.state_dict().items())
 
 
 def test_synthesize_of_a_stream_that_stops_at_once_is_empty(pipelines, monkeypatch):

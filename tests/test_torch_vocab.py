@@ -4,6 +4,8 @@ the LM prompt and the mapping of generated ids back to semantic tokens. All
 exact: this is integer bookkeeping.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -95,9 +97,14 @@ def test_build_tokenizer_takes_byte_and_names_the_queue_item_for_the_others():
         cfg = load_config([f"tokenizer_type={kind}", "add_eos=false"])
         tok = tokenizer.build_tokenizer(cfg)
         assert isinstance(tok, tokenizer.ByteTokenizer) and not tok.add_eos
-    for kind in ("huggingface", "sentencepiece", "tiktoken"):
-        with pytest.raises(NotImplementedError, match="port queue: 4"):
-            tokenizer.build_tokenizer(load_config([f"tokenizer_type={kind}"]))
+    # the wrappers are ported (test_torch_tokenizer_wrappers.py): building one
+    # without its package is that package's import error
+    for kind, package in (("huggingface", "transformers"), ("sentencepiece", "sentencepiece"),
+                          ("tiktoken", "tiktoken")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(sys.modules, package, None)
+            with pytest.raises(ImportError):
+                tokenizer.build_tokenizer(load_config([f"tokenizer_type={kind}"]))
     with pytest.raises(ValueError, match="unknown tokenizer_type"):
         tokenizer.build_tokenizer(load_config(["tokenizer_type=nope"]))
 
