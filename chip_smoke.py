@@ -39,6 +39,19 @@ loads them into a pipeline built from another seed (the same prompt ids, codes
 and waveform); ``audio_cli`` runs the audio CLI in subprocesses on those files;
 ``train_resume`` trains with asynchronous checkpoints, runs step 3 before the
 write is waited for, and resumes a fresh state to the same step 3, bitwise.
+Then the training data paths and the S2A trainer: ``train_packed`` trains the
+``tts-1b`` recipe on packed ``emilia_audio`` rows and evaluates on the emilia
+eval stream (K9-K11 on real segment ids, the iterator's host time, documents
+a row), ``train_packed_parity`` holds one packed float32 step through the
+kernels against the plain versions, ``train_c4`` trains on ``c4_mlperf`` over
+a file this script writes, ``s2a_train`` trains the S2A at its published
+widths (K5 through its autograd Function) on the materialised attention and
+on the sequence-flash route (K9-K11 non-causal), ``s2a_train_parity`` holds a
+2-layer float32 step of each route against the plain versions and the two
+routes against each other, and ``s2a_seq_flash_serving`` holds an
+``int8_offline`` denoiser forward on the sequence-flash route against the
+materialised one and reads the device time of each. The kernels line lists,
+for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -200,6 +213,49 @@ TRAIN_MAX_PEAK_BYTES = 40e9
 # 1e-4 relative, every gradient within 1e-3 of its own largest entry. A wrong
 # mask, scale or group sum moves them by their own size.
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD_NORM_REL, TOL_TRAIN_GRAD_REL = 1e-4, 1e-4, 1e-3
+
+# Training on real data paths. train_packed: the train recipe on
+# dataset_type=emilia_audio (synthetic text + audio documents, packed first-fit
+# by PackedBatcher into 2048-token rows with restarted positions and a
+# segment-0 tail), then the emilia eval iterator through run_eval. Launches a
+# step as train's; the eval forwards run K9 once a layer a batch.
+TRAIN_PACKED_ARGS = [a for a in TRAIN_ARGS if a != "dataset_type=synthetic"] + [
+    "dataset_type=emilia_audio", "packing=true", "eval_interval=5", "eval_steps=2"]
+HOST_BATCHES_TIMED = 10
+# train_c4: c4_mlperf over a .jsonl this phase writes, byte tokenizer; the
+# data path, not the kernels, is what it proves: depth cut to 2 layers.
+TRAIN_C4_STEPS, TRAIN_C4_LAYERS = 2, 2
+# s2a_train: the S2A at the published MaskGCT widths (config defaults: hidden
+# 1024, 16 layers, 16 heads of 64, 12 quantizers, codebook 1024, condition
+# codebook 8192), bfloat16 compute with float32 parameters and AdamW moments,
+# clipping at 1.0, synthetic_s2a_batch at 8 x 512 frames, 5 steps; once on the
+# materialised attention, once with MTT_S2A_SEQ_FLASH=1. Launches a forward:
+# K5 33 (two norms a layer and the final one; its backward is plain PyTorch),
+# on the flash route K9, K10 and K11 once a layer.
+S2A_TRAIN_STEPS = 5
+S2A_TRAIN_ARGS = ["dataset_type=synthetic", "dtype=bfloat16", "per_device_batch_size=8",
+                  "max_target_length=512", f"steps={S2A_TRAIN_STEPS}",
+                  "gradient_clipping_threshold=1.0"]
+# the float32 model trained here; served as int8_offline it has 353,652,736
+# (the 212,992 per-channel scales of its int8 products besides)
+S2A_PARAMS = 353_439_744
+S2A_MAX_PEAK_BYTES = 40e9
+# s2a_train_parity: 2 float32 layers at full width, one batch (two rows with
+# padding tails) and one set of draws, kernel route against plain route on
+# both attention routes; the bounds of train_parity (the same float32
+# arithmetic, sums in other orders), and the two routes' losses within the
+# same 1e-4: they read valid rows only.
+S2A_PARITY_PAD = (100, 37)
+# s2a_seq_flash_serving: one int8_offline denoiser forward [8, 768, 1024] of
+# the masked serving pass (prompts padded to 256, targets to 512), the
+# materialised route against MTT_S2A_SEQ_FLASH=1. The routes round at other
+# points: the materialised one stores the logits and probabilities in
+# bfloat16, the flash one keeps the logits in float32; each layer's int8
+# products re-quantize the difference and 16 layers of random weights spread
+# it. On the CPU (plain versions, same weights and inputs) the valid rows
+# differ by max 0.297, mean 0.0386 at mean |y| 0.80; the flash route with the
+# pad mask ignored gives max 0.80, mean 0.109. Bound: max 0.6, mean 0.06.
+TOL_SEQ_FLASH_SERVING_MAX, TOL_SEQ_FLASH_SERVING_MEAN = 0.6, 0.06
 
 # Weights in and out. lm_ckpt: the served tts-1b weights exported with HF names
 # and converted back by the converter CLI, as the qwen3 family (the same
@@ -1155,11 +1211,82 @@ def phase_train_parity():
     """One 2-layer float32 step at full width: the kernel route against the
     plain route (the materialised flash-attention versions) from one set of
     seeded weights and one batch: loss, grad norm, every gradient."""
+    _lm_parity("train_parity", TRAIN_ARGS, time.perf_counter())
+
+
+def _median_step_seconds(hist) -> float:
+    steady = hist[1:] or hist  # the first step pays for the allocator's warm-up
+    return float(np.median([h["step_time_s"] for h in steady]))
+
+
+def _train_launches_want(layers: int, steps: int, eval_forwards: int = 0) -> dict:
+    want = {k: 0 for k in _all_counts()}
+    want.update({k: n * layers * steps for k, n in TRAIN_LAUNCHES_PER_LAYER.items()})
+    want["flash_fwd"] += layers * eval_forwards
+    return want
+
+
+def phase_train_packed(tmp):
+    """The train recipe on packed emilia_audio rows through the training
+    entry point, then the emilia eval iterator; K9-K11 counts against the
+    code's prediction, the iterator's host ms a batch, documents a row."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    metrics_file = os.path.join(tmp, "train_packed.jsonl")
+    args = TRAIN_PACKED_ARGS + [f"metrics_file={metrics_file}"]
+    cfg = load_config(args)
+    # the host side alone: the iterator's ms a batch, documents and real tokens a row
+    host = train.make_host_iterator(cfg)
+    times, docs, real = [], [], []
+    for _ in range(HOST_BATCHES_TIMED):
+        t_b = time.perf_counter()
+        b = next(host)
+        times.append((time.perf_counter() - t_b) * 1e3)
+        docs += [int(r.max()) for r in b["inputs_segmentation"]]
+        real.append(float((b["inputs_segmentation"] > 0).mean()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = train.main(list(args))  # no device given: the GPU, or an error
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    with open(metrics_file) as fh:
+        evals = [r["eval_loss"] for r in map(json.loads, fh) if "eval_loss" in r]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train_packed: losses {losses} over {len(hist)} of {TRAIN_STEPS} steps")
+    check(len(evals) == 1 and np.isfinite(evals[0]), f"train_packed: eval losses {evals}")
+    want = _train_launches_want(cfg.num_decoder_layers, TRAIN_STEPS, cfg.eval_steps)
+    check(launches == want, f"train_packed: launches {launches} != predicted {want}")
+    check(peak < TRAIN_MAX_PEAK_BYTES, f"train_packed: peak memory {peak / 1e9:.1f} GB")
+    step_s = _median_step_seconds(hist)
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    tflops = flops.training_tflops_per_step(cfg)
+    emit("train_packed", t0, steps=TRAIN_STEPS, losses=losses, eval_loss=evals[0],
+         eval_batches=cfg.eval_steps, grad_norms=[h["grad_norm"] for h in hist],
+         step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+         tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+         real_token_share=float(np.mean(real)),
+         real_tokens_per_s=float(np.mean(real)) * tokens / step_s, tflops_per_step=tflops,
+         mfu_at_989_tflops=flops.mfu(tflops, step_s),
+         host_ms_a_batch_median=float(np.median(times)), host_ms_a_batch=times,
+         documents_a_row_mean=float(np.mean(docs)), documents_a_row=sorted(set(docs)),
+         launches=launches, launches_predicted=want, peak_memory_bytes=peak)
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+
+
+def _lm_parity(phase, extra_args, t0):
+    """One 2-layer float32 step at full width, kernel route against plain
+    route, from one set of seeded weights and one batch of the config's data."""
     from maxtext_indextts2_tpu_torch.config import load_config
     from maxtext_indextts2_tpu_torch.train import train
 
-    t0 = time.perf_counter()
-    cfg = load_config(TRAIN_ARGS + ["base_num_decoder_layers=2", "weight_dtype=float32",
+    cfg = load_config(extra_args + ["base_num_decoder_layers=2", "weight_dtype=float32",
                                     "dtype=float32"])
     state = train.setup_train_state(cfg)
     batch = next(train.create_data_iterator(cfg, state.device))
@@ -1176,21 +1303,219 @@ def phase_train_parity():
     want = {"flash_fwd": 2 * cfg.num_decoder_layers, "flash_bwd_dq": cfg.num_decoder_layers,
             "flash_bwd_dkv": cfg.num_decoder_layers}
     check({k: n_k[k] for k in want} == want and not any(n_p[k] for k in want),
-          f"train_parity: kernel route launched {n_k}, plain route {n_p}")
+          f"{phase}: kernel route launched {n_k}, plain route {n_p}")
     rel = {name: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
            for name, a, b in zip(names, g_k, g_p)}
     worst = max(rel, key=rel.get)
-    check(all(np.isfinite([loss_k, norm_k])), "train_parity: loss or grad norm not finite")
+    check(all(np.isfinite([loss_k, norm_k])), f"{phase}: loss or grad norm not finite")
     check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
-          f"train_parity: loss {loss_k} (kernels) vs {loss_p} (plain)")
+          f"{phase}: loss {loss_k} (kernels) vs {loss_p} (plain)")
     check(abs(norm_k - norm_p) <= TOL_TRAIN_GRAD_NORM_REL * norm_p,
-          f"train_parity: grad norm {norm_k} (kernels) vs {norm_p} (plain)")
+          f"{phase}: grad norm {norm_k} (kernels) vs {norm_p} (plain)")
     check(rel[worst] <= TOL_TRAIN_GRAD_REL,
-          f"train_parity: gradient {worst} differs by {rel[worst]:.3g} of its largest entry")
-    emit("train_parity", t0, layers=cfg.num_decoder_layers, loss_kernels=loss_k,
+          f"{phase}: gradient {worst} differs by {rel[worst]:.3g} of its largest entry")
+    seg = batch["inputs_segmentation"]
+    emit(phase, t0, layers=cfg.num_decoder_layers, loss_kernels=loss_k,
          loss_plain=loss_p, grad_norm_kernels=norm_k, grad_norm_plain=norm_p,
          worst_grad=worst, worst_grad_rel_err=rel[worst], tol_grad_rel=TOL_TRAIN_GRAD_REL,
-         grads_compared=len(rel), launches_kernel_route={k: n_k[k] for k in want})
+         grads_compared=len(rel), launches_kernel_route={k: n_k[k] for k in want},
+         documents_a_row=[int(r.max()) for r in seg], padding_tokens=int((seg == 0).sum()))
+
+
+def phase_train_packed_parity():
+    """train_parity on one packed emilia_audio batch: segment ids and
+    restarted positions through K9-K11 against the plain versions."""
+    _lm_parity("train_packed_parity", TRAIN_PACKED_ARGS, time.perf_counter())
+
+
+def phase_train_c4(tmp):
+    """c4_mlperf over a .jsonl written here (byte tokenizer), through the
+    training entry point; depth cut to TRAIN_C4_LAYERS layers."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.ops.smoke import C4_DOCUMENTS, write_c4_documents
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "c4.jsonl")
+    write_c4_documents(path)  # the documents of the flash_bf16_c4_mlperf cases
+    args = [a for a in TRAIN_ARGS if not a.startswith(("dataset_type=", "steps="))] + [
+        "dataset_type=c4_mlperf", f"dataset_path={path}", f"steps={TRAIN_C4_STEPS}",
+        f"base_num_decoder_layers={TRAIN_C4_LAYERS}"]
+    cfg = load_config(args)
+    first = next(train.make_host_iterator(cfg))
+    _reset_all_counts()
+    out = train.main(list(args))
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    losses = [h["loss"] for h in out["history"]]
+    check(len(losses) == TRAIN_C4_STEPS and all(np.isfinite(losses)),
+          f"train_c4: losses {losses}")
+    want = _train_launches_want(TRAIN_C4_LAYERS, TRAIN_C4_STEPS)
+    check(launches == want, f"train_c4: launches {launches} != predicted {want}")
+    check(bool((first["inputs"][:, :-1] > 0).all()), "train_c4: a row is not a full segment")
+    emit("train_c4", t0, steps=TRAIN_C4_STEPS, layers=TRAIN_C4_LAYERS, losses=losses,
+         documents=C4_DOCUMENTS, file_bytes=os.path.getsize(path),
+         loss_weight_share=float((first["targets_segmentation"] > 0).mean()),
+         step_seconds=[h["step_time_s"] for h in out["history"]], launches=launches)
+    return launches
+
+
+def phase_s2a_train(route: str):
+    """The S2A trainer at the published widths through its entry point, on
+    the materialised attention or (``route="seq_flash"``) with
+    MTT_S2A_SEQ_FLASH=1; K5 and K9-K11 counts against the prediction."""
+    from maxtext_indextts2_tpu_torch.audio.s2a import S2AModel
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import s2a_train
+
+    t0 = time.perf_counter()
+    cfg = load_config(S2A_TRAIN_ARGS)
+    scfg = s2a_train.s2a_config_from(cfg)
+    params = sum(p.numel() for p in S2AModel(scfg, device="meta").parameters())
+    check(params == S2A_PARAMS, f"s2a_train: {params} parameters, not {S2A_PARAMS}")
+    flash = route == "seq_flash"
+    if flash:
+        os.environ["MTT_S2A_SEQ_FLASH"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        out = s2a_train.main(list(S2A_TRAIN_ARGS))  # no device given: the GPU, or an error
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("MTT_S2A_SEQ_FLASH", None)
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == S2A_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"s2a_train ({route}): losses {losses}")
+    forward = scfg.num_layers * 2 + 1
+    want = {k: 0 for k in launches}
+    want["ada_rmsnorm"] = forward * S2A_TRAIN_STEPS
+    if flash:
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            want[k] = scfg.num_layers * S2A_TRAIN_STEPS
+    check(launches == want, f"s2a_train ({route}): launches {launches} != predicted {want}")
+    check(peak < S2A_MAX_PEAK_BYTES, f"s2a_train: peak memory {peak / 1e9:.1f} GB")
+    step_s = _median_step_seconds(hist)
+    frames = cfg.global_batch_size_to_train_on * min(cfg.max_target_length, 512)
+    emit("s2a_train", t0, route=route, steps=S2A_TRAIN_STEPS, params=params,
+         batch=[cfg.global_batch_size_to_train_on, min(cfg.max_target_length, 512)],
+         losses=losses, mask_layers=[int(h["mask_layer"]) for h in hist],
+         step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+         frames_per_s=frames / step_s, launches=launches, launches_predicted=want,
+         launches_per_step={k: v / S2A_TRAIN_STEPS for k, v in launches.items() if v},
+         peak_memory_bytes=peak)
+    return {k: launches[k] for k in ("ada_rmsnorm", "flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+
+
+def phase_s2a_train_parity():
+    """2 float32 layers of the S2A at full width, one batch and one set of
+    draws: loss and every gradient through K5 (and on the flash route
+    K9-K11) against the plain versions; the two routes' losses."""
+    from maxtext_indextts2_tpu_torch.audio.s2a import draw_s2a_noise
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import s2a_train
+
+    t0 = time.perf_counter()
+    cfg = load_config(S2A_TRAIN_ARGS + ["dtype=float32", "s2a_num_layers=2"])
+    state = s2a_train.setup_s2a_state(cfg)
+    raw = s2a_train.synthetic_s2a_batch(cfg, 0)
+    for row, pad in enumerate(S2A_PARITY_PAD):  # padding tails: segment 0 on the flash route
+        raw["mask"][row, -pad:] = 0
+    batch = s2a_train.batch_to_device(raw, state.device)
+    b, tlen = raw["semantic"].shape
+    noise = draw_s2a_noise(state.model.cfg, b, tlen, torch.Generator().manual_seed(11))
+    layers = state.model.cfg.num_layers
+    results, routes = {}, {}
+    for flash in (False, True):
+        out = {}
+        for impl in (None, "plain"):
+            _reset_all_counts()
+            loss, _, grads = s2a_train.s2a_loss_and_grads(state, batch, noise, impl,
+                                                          seq_flash=flash)
+            torch.cuda.synchronize()
+            out[impl] = (float(loss), grads, dict(_all_counts()))
+        (loss_k, g_k, n_k), (loss_p, g_p, n_p) = out[None], out["plain"]
+        route = "seq_flash" if flash else "materialised"
+        want = {"ada_rmsnorm": 2 * layers + 1, "flash_fwd": layers * flash,
+                "flash_bwd_dq": layers * flash, "flash_bwd_dkv": layers * flash}
+        check({k: n_k[k] for k in want} == want and not any(n_p.values()),
+              f"s2a_train_parity ({route}): kernel route launched {n_k}, plain route {n_p}")
+        rel = {name: float((g_k[name] - g_p[name]).abs().max()
+                           / g_p[name].abs().max().clamp(min=1e-30)) for name in g_p}
+        worst = max(rel, key=rel.get)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+        check(finite and np.isfinite(loss_k), f"s2a_train_parity ({route}): not finite")
+        check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+              f"s2a_train_parity ({route}): loss {loss_k} (kernels) vs {loss_p} (plain)")
+        check(rel[worst] <= TOL_TRAIN_GRAD_REL,
+              f"s2a_train_parity ({route}): gradient {worst} off by {rel[worst]:.3g}")
+        results[route] = loss_k
+        routes[route] = dict(loss_kernels=loss_k, loss_plain=loss_p, worst_grad=worst,
+                             worst_grad_rel_err=rel[worst], grads_compared=len(rel),
+                             launches_kernel_route={k: n_k[k] for k in want})
+    gap = abs(results["seq_flash"] - results["materialised"])
+    check(gap <= TOL_TRAIN_LOSS, f"s2a_train_parity: routes' losses {results}")
+    emit("s2a_train_parity", t0, layers=layers, mask_layer=noise.mask_layer,
+         padding_tails=list(S2A_PARITY_PAD), routes=routes, routes_loss_gap=gap,
+         tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL)
+
+
+def phase_s2a_seq_flash_serving():
+    """One int8_offline denoiser forward of the masked serving pass at full
+    width, the materialised route against MTT_S2A_SEQ_FLASH=1: valid rows
+    against each other, device time of each (torch.profiler), launches."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_serving_s2a
+    from maxtext_indextts2_tpu_torch.audio.s2a import S2AConfig
+    from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
+    from maxtext_indextts2_tpu_torch.ops.smoke import serving_pad_mask
+    from maxtext_indextts2_tpu_torch.tools.profile_s2a import profiled
+
+    t0 = time.perf_counter()
+    dev = resolve_device(None)  # the GPU, or an error
+    model = build_serving_s2a(S2AConfig(), "int8_offline", device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    c = model.cfg
+    rows, p_pad, t_pad = BACKEND_SHAPE
+    mask = serving_pad_mask(rows, p_pad, t_pad, dev)  # the flash_bf16_s2a_serving cases' mask
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((rows, p_pad + t_pad, c.hidden_size), generator=g, device=dev).to(c.dtype)
+    cond = torch.randn(x.shape, generator=g, device=dev).to(c.dtype)
+    t = torch.full((rows,), 0.5, device=dev)
+    outs, profiles, counts = {}, {}, {}
+    for route in ("materialised", "seq_flash"):
+        if route == "seq_flash":
+            os.environ["MTT_S2A_SEQ_FLASH"] = "1"
+        try:
+            with torch.no_grad():
+                _reset_all_counts()
+                outs[route] = model.denoiser(x, t, cond, mask).float()
+                torch.cuda.synchronize()
+                counts[route] = {k: v for k, v in _all_counts().items() if v}
+                prof = profiled(lambda: model.denoiser(x, t, cond, mask), route, "", repeats=3)
+        finally:
+            os.environ.pop("MTT_S2A_SEQ_FLASH", None)
+        profiles[route] = {k: prof[k] for k in ("ms_host_clock", "device_busy_ms",
+                                                "device_idle_share", "device_launches")}
+    valid = mask > 0
+    diff = (outs["seq_flash"] - outs["materialised"]).abs()[valid]
+    err_max, err_mean = float(diff.max()), float(diff.mean())
+    scale = float(outs["materialised"][valid].abs().mean())
+    check(all(bool(torch.isfinite(o[valid]).all()) for o in outs.values()),
+          "s2a_seq_flash_serving: a valid row is not finite")
+    check(counts["seq_flash"].get("flash_fwd") == c.num_layers
+          and not counts["materialised"].get("flash_fwd"),
+          f"s2a_seq_flash_serving: launches {counts}")
+    check(err_max <= TOL_SEQ_FLASH_SERVING_MAX and err_mean <= TOL_SEQ_FLASH_SERVING_MEAN,
+          f"s2a_seq_flash_serving: valid rows differ by {err_max} (mean {err_mean})")
+    emit("s2a_seq_flash_serving", t0, shape=list(x.shape), valid_share=float(valid.float().mean()),
+         max_abs_err=err_max, mean_abs_err=err_mean, mean_abs_output=scale,
+         tol=[TOL_SEQ_FLASH_SERVING_MAX, TOL_SEQ_FLASH_SERVING_MEAN], routes=profiles,
+         launches=counts)
+    return counts["seq_flash"]
 
 
 def _bytes(path: str) -> int:
@@ -1591,11 +1916,12 @@ def phase_audio_cli(pipe, tmp, files, prompt, semantic):
          tokenize=printed["tokenize"], synthesize=printed["synthesize"])
 
 
-def kernels_line(cases, launches):
+def kernels_line(cases, paths):
     """The summary of every kernel on a main path: error, tolerance and times
-    of the case at the shapes that path's run gives the kernel (the error in
-    the case's ``unit``), and beside them the case of that kernel that came
-    closest to its own tolerance."""
+    of the case at the shapes the first main path's run gives the kernel (the
+    error in the case's ``unit``), the launches of all its main paths, each
+    path's own case beside them, and the kernel's case that came closest to
+    its own tolerance. ``paths``: kernel -> {phase: launches}."""
     from maxtext_indextts2_tpu_torch.ops.smoke import MAIN_PATH_CASES
 
     def err(c):  # the error in the case's unit: ``max_err`` where that is not output values
@@ -1604,27 +1930,34 @@ def kernels_line(cases, launches):
     def closeness(c):
         return err(c) / c["tol"] if c["tol"] else err(c)
 
+    def timing(c):
+        return dict(ms=c["kernel_ms"], device_ms=c["device_ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                    library_ms=c["library_ms"], library_device_ms=c.get("library_device_ms"),
+                    library_call=c.get("library_call"), bytes_moved=c["bytes_moved"])
+
     out = []
     for k in KERNELS:
-        main = cases[MAIN_PATH_CASES[k["name"]]]
+        main_paths = MAIN_PATH_CASES[k["name"]]
+        main = cases[next(iter(main_paths.values()))]
         own = [c for c in cases.values() if c["kernel"] == k["name"]]
         worst = max(own, key=closeness)
         accuracy = {key: main[key] for key in ("mismatch_share", "scale_max_rel_err",
                                                 "tol_scale_rel") if key in main}
+        launched = paths.get(k["name"], {})
         out.append(dict(
-            k, launches=launches[k["name"]],
+            k, launches=sum(launched.values()),
             max_abs_err=main["max_abs_err"], max_err=err(main), tol=main["tol"],
             unit=main.get("unit", "output values"), **accuracy,
             worst_case=dict(name=worst["name"], max_abs_err=worst["max_abs_err"],
                             max_err=err(worst), tol=worst["tol"],
                             unit=worst.get("unit", "output values")),
-            ms=main["kernel_ms"], device_ms=main["device_ms"],
-            plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], library_device_ms=main.get("library_device_ms"),
-            library_call=main.get("library_call"),
-            bytes_moved=main["bytes_moved"],
-            shape=main["shape"], cases=len(own)))
+            **timing(main), shape=main["shape"], cases=len(own),
+            paths=[dict(phase=phase, launches=launched.get(phase, 0), case=name,
+                        max_abs_err=cases[name]["max_abs_err"], max_err=err(cases[name]),
+                        tol=cases[name]["tol"], shape=cases[name]["shape"],
+                        **timing(cases[name]))
+                   for phase, name in main_paths.items()]))
     return {"kernels": out}
 
 
@@ -1632,17 +1965,20 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     import maxtext_indextts2_tpu_torch  # noqa: F401  (fails here, before any output, if absent)
+    from maxtext_indextts2_tpu_torch.ops.smoke import MAIN_PATH_CASES
+
     t_all = time.perf_counter()
     card = phase_device()
     phase_build()
     cases = phase_kernels()
-    # checkpoints and exported weights of the weights-in-and-out phases
+    # checkpoints, exported weights and data files of the later phases
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = _phases(tmp)
-    check(set(launches) == {k["name"] for k in KERNELS} and all(n > 0 for n in launches.values()),
-          f"a kernel of a main path never ran: {launches}")
+        paths = _phases(tmp)
+    missing = {(kernel, phase) for kernel, by_phase in MAIN_PATH_CASES.items()
+               for phase in by_phase if not paths.get(kernel, {}).get(phase)}
+    check(not missing, f"a kernel of a main path never ran there: {sorted(missing)}")
     emit("total", t_all)
-    print(json.dumps(kernels_line(cases, launches)), flush=True)
+    print(json.dumps(kernels_line(cases, paths)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1650,45 +1986,65 @@ def main():
 
 
 def _phases(tmp) -> dict:
-    """Every main path after the kernel checks; returns the main paths'
-    launch counts for the kernels line."""
+    """Every main path after the kernel checks; returns each kernel's launches
+    by the main path (phase) that ran it, for the kernels line."""
+    paths: dict[str, dict[str, int]] = {}
+
+    def record(phase, counts):
+        for kernel, n in counts.items():
+            if n:
+                paths.setdefault(kernel, {})[phase] = paths.get(kernel, {}).get(phase, 0) + n
+
+    def release():
+        # a phase may leave what it built in reference cycles (serve_paged's
+        # counting hook is a closure over its orchestrator): collect them, so
+        # that each phase's peak memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
+
     engine, launches = phase_serve()
+    record("serve", launches)
     phase_serve_parity(engine)
     phase_http(engine)
     phase_lm_ckpt(engine, tmp)
     del engine
-    # serve_paged's counting hook (orch._can_admit, a closure over orch) holds
-    # what that phase built in a reference cycle, and a phase may leave others:
-    # collect them, so that each phase's peak memory is its own
-    gc.collect()
-    torch.cuda.empty_cache()
-    engine, launches["paged_decode_attention"] = phase_serve_paged()
+    release()
+    engine, paged = phase_serve_paged()
+    record("serve_paged", {"paged_decode_attention": paged})
     phase_serve_paged_parity(engine)
     del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     pipe_int8, backend_launches = phase_tts_backend()
-    launches.update(backend_launches)
+    record("tts_backend", backend_launches)
     pipe_bf16 = phase_tts_backend_bf16()
     phase_tts_backend_parity(pipe_int8, pipe_bf16)
     del pipe_int8, pipe_bf16
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     pipe = phase_pipeline_load()
-    launches["s2a_attention"] = phase_tts_synthesize(pipe)["s2a_attention"]
+    record("tts_synthesize", {"s2a_attention": phase_tts_synthesize(pipe)["s2a_attention"]})
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
     files, prompt, semantic = phase_audio_ckpt(pipe, tmp)
     phase_audio_cli(pipe, tmp, files, prompt, semantic)
     del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_train())
+    release()
+    record("train", phase_train())
     phase_train_parity()
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_train_resume(tmp)
-    return launches
+    release()
+    record("train_packed", phase_train_packed(tmp))
+    phase_train_packed_parity()
+    release()
+    record("train_c4", phase_train_c4(tmp))
+    release()
+    for route in ("materialised", "seq_flash"):
+        record("s2a_train", phase_s2a_train(route))
+        release()
+    phase_s2a_train_parity()
+    release()
+    record("s2a_seq_flash_serving", phase_s2a_seq_flash_serving())
+    return paths
 
 
 if __name__ == "__main__":

@@ -201,7 +201,7 @@ class CodecDecoder(nn.Module):
 
     def forward(self, latents, n_quantizers: int | None = None, dropout_rng=None):
         _unsupported("CodecDecoder.__call__ (codec training: quantize + decode)",
-                     "4b, rest of training: codec training")
+                     "4b, rest of training: codec training, item 4b.5")
 
 
 class AcousticCodec(nn.Module):
@@ -237,4 +237,4 @@ class AcousticCodec(nn.Module):
 
     def forward(self, wav, dropout_rng=None):
         _unsupported("AcousticCodec.__call__ (codec autoencoder training)",
-                     "4b, rest of training: codec training")
+                     "4b, rest of training: codec training, item 4b.5")

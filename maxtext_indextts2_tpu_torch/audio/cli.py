@@ -15,8 +15,8 @@ Usage (on the GPU; ``device=cpu`` asks for the CPU explicitly)::
       [w2vbert=<pt|HF dir>] [repcodec=<pt>] [stats=<pt>] [key=value ...]
 
 The reference's torch checkpoints load directly: ``w2vbert`` is a HF
-``Wav2Vec2BertModel`` state dict (or a ``from_pretrained`` directory, which
-needs ``transformers``), ``repcodec`` the RepCodec state dict, ``stats`` the
+``Wav2Vec2BertModel`` state dict (or a ``save_pretrained`` directory, read
+without ``transformers``), ``repcodec`` the RepCodec state dict, ``stats`` the
 ``wav2vec2bert_stats.pt`` mean / var dict, ``s2a`` / ``codec_*`` the
 MaskGCT_S2A / acoustic codec state dicts (``audio/torch_ckpt.py``); each
 stage is sized from its checkpoint. The LM's weights come from the config key
@@ -94,14 +94,15 @@ def _load_torch(path: str) -> dict:
 
 
 def _load_w2vbert_sd(path: str) -> dict:
-    """HF Wav2Vec2BertModel weights from a ``from_pretrained`` directory or a
-    ``.pt`` file."""
+    """HF Wav2Vec2BertModel weights from a ``save_pretrained`` directory (its
+    safetensors or ``pytorch_model*.bin`` files, read without
+    ``transformers``) or a ``.pt`` file."""
     import os
 
     if os.path.isdir(path):
-        import transformers
+        from maxtext_indextts2_tpu_torch.utils.ckpt_conversion import _read_hf_state_dict
 
-        return transformers.Wav2Vec2BertModel.from_pretrained(path).state_dict()
+        return _read_hf_state_dict(path)
     return _load_torch(path)
 
 

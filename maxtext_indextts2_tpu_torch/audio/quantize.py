@@ -17,7 +17,7 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_TRAINING = "4b, rest of training: codec training"
+_TRAINING = "4b, rest of training: codec training, item 4b.5"
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

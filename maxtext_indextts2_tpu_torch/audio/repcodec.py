@@ -48,4 +48,4 @@ class RepCodec(nn.Module):
 
     def forward(self, feats):
         _unsupported("RepCodec.__call__ (the training autoencoder)",
-                     "4b, rest of training: RepCodec training")
+                     "4b, rest of training: RepCodec training, item 4b.5")

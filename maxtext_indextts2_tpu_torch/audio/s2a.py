@@ -1,15 +1,15 @@
 """MaskGCT semantic->acoustic (S2A) masked generative transformer: the
 denoiser and the iterative confidence-unmasking sampler.
 
-Counterpart of the JAX package's ``audio/s2a.py`` for serving: the same
-parameter names and layouts, the same op order and rounding points. Eager
-PyTorch has no scan, so ``reverse_diffusion`` is a Python loop over layers
+Counterpart of the JAX package's ``audio/s2a.py`` for serving and training:
+the same parameter names and layouts, the same op order and rounding points.
+Eager PyTorch has no scan, so ``reverse_diffusion`` is a Python loop over layers
 and steps; ``unroll=`` is accepted and changes nothing. The four row kernels
 of the int8 / bfloat16 serving modes (``ops/ada_rmsnorm.py``,
 ``ops/quant_kernels.py``) run as CUDA kernels for tensors on the GPU and as
 their plain versions for tensors on the CPU: the choice follows the tensor,
-there is no environment switch. The int8 x int8 -> int32 product is
-``torch._int_mm``.
+no environment variable switches a kernel. The int8 x int8 -> int32 product
+is ``torch._int_mm``.
 
 Noise is an input: the sampler draws its uniforms from a ``torch.Generator``
 or takes them from a callable ``noise(layer, step, draw, shape)``, so a test
@@ -17,16 +17,25 @@ can hand it another framework's draws.
 
 The fixed-length sampler (no pad masks: every key valid, ``all_valid``)
 runs its attention through ``ops/s2a_attention.py`` (a CUDA kernel on the
-GPU); the masked path of batched serving keeps the materialised logits.
+GPU); the masked path (batched serving, training) keeps the materialised
+logits by default. The JAX package's opt-in sequence-flash route is ported
+with its own condition: ``MTT_S2A_SEQ_FLASH=1``, S >= 512 and S % 256 == 0,
+on a CUDA tensor (the JAX package: on a TPU); it runs the training flash
+attention (``ops/flash_attention.py``, K9-K11) non-causal with the pad mask
+as segment ids, so a padding query row comes out 0 where the materialised
+route gives a softmax over the valid keys (no loss or valid output reads it).
 
-Not ported here: ``compute_loss`` / training and the opt-in sequence flash
-attention of the JAX package (ROADMAP queue item 4b).
+Training: ``S2AModel.compute_loss`` takes its randomness as an
+:class:`S2ANoise` (the six draws of the JAX package's
+``jax.random.split(rng, 6)``), made by :func:`draw_s2a_noise` from a
+``torch.Generator``, or built by a test from the JAX package's own draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,8 +46,8 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense, lecun_normal_
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
 from maxtext_indextts2_tpu_torch.models.attention import dot_product_attention
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import ada_rmsnorm
+from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention
 from maxtext_indextts2_tpu_torch.ops.quant_kernels import (
     ada_rmsnorm_quantize, row_quantize_int8, silu_mul_quantize,
 )
@@ -239,26 +248,30 @@ class NARBlock(nn.Module):
         self.down = _dense(cfg, 4 * h, h, **kw)
 
     def forward(self, x, t_cond, masks, sin_cos, impl: str | None = None,
-                all_valid: bool = False):
+                all_valid: bool = False, seq_flash: bool | None = None):
         """``masks``: the pad mask as the attention paths want it, from
         :func:`_attention_masks`; ``sin_cos``: RoPE angles of this length;
         ``all_valid``: no position is padding (the fixed-length sampler), so
-        the attention is ``ops.s2a_attention`` and ``masks`` is not read."""
+        the attention is ``ops.s2a_attention`` and ``masks`` is not read;
+        ``seq_flash``: the sequence-flash route (None: by
+        :func:`_seq_flash_route`'s condition)."""
         if self.cfg.int8_matmul:
             # producer-fused quantization: the AdaLN outputs feed the int8
             # products as (int8, scales); the normalized float tensors are
             # never written
             hq, hs = self.input_norm(x, t_cond, quantize_out=True, impl=impl)
-            x = x + self._self_attention(None, masks, sin_cos, hq, hs, x.dtype, impl, all_valid)
+            x = x + self._self_attention(None, masks, sin_cos, hq, hs, x.dtype, impl, all_valid,
+                                         seq_flash)
             hq, hs = self.post_attn_norm(x, t_cond, quantize_out=True, impl=impl)
             return x + self._swiglu_mlp(None, hq, hs, x.dtype, impl)
         h = self.input_norm(x, t_cond, impl=impl)
-        x = x + self._self_attention(h, masks, sin_cos, impl=impl, all_valid=all_valid)
+        x = x + self._self_attention(h, masks, sin_cos, impl=impl, all_valid=all_valid,
+                                     seq_flash=seq_flash)
         h = self.post_attn_norm(x, t_cond, impl=impl)
         return x + self._swiglu_mlp(h, impl=impl)
 
     def _self_attention(self, x, masks, sin_cos, xq=None, xs=None, out_dtype=None, impl=None,
-                        all_valid=False):
+                        all_valid=False, seq_flash=None):
         cfg = self.cfg
         b, s, _ = (x if xq is None else xq).shape
         n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
@@ -280,6 +293,14 @@ class NARBlock(nn.Module):
             ad = torch.bfloat16 if cfg.dtype == torch.bfloat16 else x_dtype
             o = s2a_attention((q * (1.0 / math.sqrt(d))).to(ad), k.to(ad), v.to(ad), impl=impl)
             o = o.to(x_dtype).reshape(b, s, cfg.hidden_size)
+        elif _seq_flash_route(seq_flash, q, s):
+            # flash attention over the sequence, non-causal, the pad mask as
+            # segment ids on both sides; q, k, v in their own dtype
+            pos = torch.arange(s, dtype=torch.int32, device=q.device)[None].expand(b, s)
+            seg = masks["seg"]
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
+                                pos, seg, seg, False, impl=impl)
+            o = o.transpose(1, 2).reshape(b, s, cfg.hidden_size)
         elif cfg.dtype == torch.bfloat16:
             # bfloat16-stored logits, float32 softmax, bfloat16 probabilities,
             # float32-accumulated PV
@@ -310,12 +331,23 @@ class NARBlock(nn.Module):
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
+def _seq_flash_route(seq_flash: bool | None, q: torch.Tensor, s: int) -> bool:
+    """Whether the masked attention takes the sequence-flash route: as asked,
+    or (None) the JAX package's opt-in condition with a CUDA tensor in the
+    place of a TPU backend: ``MTT_S2A_SEQ_FLASH=1``, S >= 512, S % 256 == 0."""
+    if seq_flash is not None:
+        return seq_flash
+    return (q.is_cuda and s >= 512 and s % 256 == 0
+            and os.environ.get("MTT_S2A_SEQ_FLASH", "0") == "1")
+
+
 def _attention_masks(pad_mask: torch.Tensor) -> dict[str, torch.Tensor]:
-    """The [B, S] pad mask in the two forms the attention paths use, made
-    once per denoiser call: ``valid`` [B,1,1,S] True = attend, ``pad`` its
-    negation."""
+    """The [B, S] pad mask in the forms the attention paths use, made once
+    per denoiser call: ``valid`` [B,1,1,S] True = attend, ``pad`` its
+    negation, ``seg`` the mask as int32 segment ids (the sequence-flash
+    route)."""
     valid = (pad_mask > 0)[:, None, None, :]
-    return {"valid": valid, "pad": ~valid}
+    return {"valid": valid, "pad": ~valid, "seg": pad_mask.to(torch.int32)}
 
 
 class _CondMLPs(nn.Module):
@@ -342,14 +374,14 @@ class _CondMLPs(nn.Module):
     def _t_cond(self, t):
         return self.t1(F.silu(self.t0(sinusoidal_time_emb(t, self.cfg.hidden_size))))
 
-    def _blocks(self, x, t_cond, pad_mask, impl, all_valid=False):
+    def _blocks(self, x, t_cond, pad_mask, impl, all_valid=False, seq_flash=None):
         b, s, _ = x.shape
         pos = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
         sin_cos = rope_lib.rope_sin_cos(pos, self.inv_freq)
         masks = None if all_valid else _attention_masks(pad_mask)
         for i in range(self.cfg.num_layers):
             x = getattr(self, f"layers_{i}")(x, t_cond, masks, sin_cos, impl=impl,
-                                             all_valid=all_valid)
+                                             all_valid=all_valid, seq_flash=seq_flash)
         return self.final_norm(x, t_cond, impl=impl)
 
 
@@ -359,11 +391,14 @@ class NARDenoiser(_CondMLPs):
     def __init__(self, cfg: S2AConfig, device=None, generator=None):
         super().__init__(cfg, True, device, generator)
 
-    def forward(self, x, t, cond, pad_mask, impl: str | None = None, all_valid: bool = False):
+    def forward(self, x, t, cond, pad_mask, impl: str | None = None, all_valid: bool = False,
+                seq_flash: bool | None = None):
         """``all_valid=True``: ``pad_mask`` is all ones (the fixed-length
-        sampler) and the attention skips it."""
+        sampler) and the attention skips it. ``seq_flash``: see
+        :func:`_seq_flash_route`."""
         cond_emb = self.c1(F.silu(self.c0(cond)))
-        return self._blocks(x + cond_emb, self._t_cond(t), pad_mask, impl, all_valid)
+        return self._blocks(x + cond_emb, self._t_cond(t), pad_mask, impl, all_valid,
+                            seq_flash)
 
 
 class PrefixNARDenoiser(_CondMLPs):
@@ -407,6 +442,61 @@ def _gumbel(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def _layer_weights(cfg: S2AConfig) -> np.ndarray:
+    """The probability of training each quantizer layer."""
+    q = cfg.num_quantizers
+    lo = 0 if cfg.predict_layer_1 else 1
+    if cfg.mask_layer_schedule == "uniform":
+        w = np.ones(q)
+    elif cfg.mask_layer_schedule == "cosine":
+        w = np.array([np.cos((i - lo) / q * np.pi / 2) for i in range(q)])
+    else:  # linear
+        w = np.array([q - (i - lo) for i in range(q)], dtype=np.float64)
+    if lo == 1:
+        w[0] = 0.0
+    return (w / w.sum()).astype(np.float32)
+
+
+@dataclass
+class S2ANoise:
+    """The randomness of one ``compute_loss`` call (the JAX package splits its
+    rng six ways and uses five of the keys):
+
+    - ``t`` [B] float32: the diffusion time, in [1e-5, 1];
+    - ``mask_layer``: the quantizer layer trained (an int);
+    - ``bernoulli`` [B, T] bool: ``uniform < sin(t * pi / 2)``, the mask
+      before the prompt is cut out of it;
+    - ``use_prompt``: one draw for the batch, False with probability
+      ``cfg_dropout`` (classifier-free guidance's prompt dropout);
+    - ``plen`` [B] int: prompt lengths in [min(T // 4, 5), max(T // 2, 6))."""
+
+    t: torch.Tensor
+    mask_layer: int
+    bernoulli: torch.Tensor
+    use_prompt: bool
+    plen: torch.Tensor
+
+    def to(self, device) -> "S2ANoise":
+        return dataclasses.replace(self, t=self.t.to(device), bernoulli=self.bernoulli.to(device),
+                                   plen=self.plen.to(device))
+
+
+def draw_s2a_noise(cfg: S2AConfig, b: int, tlen: int, generator: torch.Generator,
+                   device=None) -> S2ANoise:
+    """The draws of :class:`S2ANoise` from ``generator`` (on its own device),
+    moved to ``device``: the same distributions as the JAX package's."""
+    gen_dev = generator.device
+    t = torch.clamp(torch.rand((b,), generator=generator, device=gen_dev), 1e-5, 1.0)
+    weights = torch.from_numpy(_layer_weights(cfg)).to(gen_dev)
+    mask_layer = int(torch.multinomial(weights, 1, generator=generator).item())
+    mprob = mask_prob_schedule(t)
+    bern = torch.rand((b, tlen), generator=generator, device=gen_dev) < mprob[:, None]
+    use_prompt = bool(torch.rand((), generator=generator, device=gen_dev).item() > cfg.cfg_dropout)
+    plen = torch.randint(min(tlen // 4, 5), max(tlen // 2, 6), (b,), generator=generator,
+                         device=gen_dev)
+    return S2ANoise(t, mask_layer, bern, use_prompt, plen).to(device or gen_dev)
+
+
 class S2AModel(nn.Module):
     def __init__(self, cfg: S2AConfig, device=None, generator=None):
         super().__init__()
@@ -438,11 +528,61 @@ class S2AModel(nn.Module):
         return self.embed_tokens_upto(codes, self.cfg.num_quantizers)
 
     # ---------------------------------------------------------------- train
-    def compute_loss(self, x0, x_mask, cond_code, rng=None):
-        _unsupported("S2AModel.compute_loss (S2A training)", "4b, rest of training: S2A training")
+    def compute_loss(self, x0, x_mask, cond_code, noise: S2ANoise, impl: str | None = None,
+                     seq_flash: bool | None = None):
+        """x0: [B,T,Q] acoustic codes; x_mask: [B,T]; cond_code: [B,T] semantic;
+        ``noise``: this step's draws. Returns (loss, aux), as the JAX
+        package's, in its order of operations and rounding points."""
+        cfg = self.cfg
+        b, tlen, q = x0.shape
+        dev = x0.device
+        noise = noise.to(dev)
+        layer = int(noise.mask_layer)
+        t = noise.t
+        plen = noise.plen.long() if noise.use_prompt else torch.zeros(
+            (b,), dtype=torch.long, device=dev)
+        ar = torch.arange(tlen, device=dev)[None, :]
+        is_prompt = ar < plen[:, None]  # [B,T]
 
-    def forward(self, x0, x_mask, cond_code, rng=None):
-        return self.compute_loss(x0, x_mask, cond_code, rng)
+        mask = noise.bernoulli & ~is_prompt
+        # at least one masked position a row: the first after the prompt
+        none_masked = torch.sum(mask, dim=1) == 0
+        mask = mask | (none_masked[:, None] & (ar == plen[:, None]))
+
+        # assemble xt: layers < mask_layer revealed; == mask_layer partially
+        # masked; > mask_layer all mask tokens (prompt positions revealed)
+        layer_ids = torch.arange(q, device=dev)
+        below = (layer_ids < layer)[None, None, :, None].float()  # [1,1,Q,1]
+        at_layer = (layer_ids == layer)[None, None, :, None].float()
+        above = (layer_ids > layer)[None, None, :].float()  # [1,1,Q]
+        token_embs = torch.stack([self.token_emb[l][x0[..., l]] for l in range(q)], dim=2)
+        m = mask[:, :, None, None]
+        prompt_reveal = is_prompt[:, :, None, None].float()  # [B,T,1,1]
+        w_at = at_layer * torch.where(m, 0.0, 1.0)
+        w_above = above[..., None] * prompt_reveal
+        xt = torch.sum(token_embs * (below + w_at + w_above), dim=2)
+        # the JAX package counts the masked positions of the trained layer
+        # through `at[..., 0]`, i.e. only when that layer is 0; kept as it is
+        n_masked_embs = float(layer == 0) * mask.float() + torch.sum(
+            above * (1.0 - prompt_reveal[..., 0]), dim=-1)
+        xt = xt + n_masked_embs[..., None] * self.mask_emb
+
+        cond = self.cond_emb[cond_code] + self.layer_emb[layer][None, None, :]
+        embeds = self.denoiser(xt.to(cfg.dtype), t, cond.to(cfg.dtype), x_mask, impl=impl,
+                               seq_flash=seq_flash)
+        logits = embeds.float() @ self.to_logits_w[layer] + self.to_logits_b[layer]
+
+        final_mask = mask & (x_mask > 0)
+        targets = x0[..., layer].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        denom = torch.clamp(torch.sum(final_mask).float(), min=1.0)
+        loss = torch.sum(torch.where(final_mask, nll, 0.0)) / denom
+        return loss, {"mask_layer": torch.tensor(layer, device=dev), "masked_tokens": denom}
+
+    def forward(self, x0, x_mask, cond_code, noise: S2ANoise, impl: str | None = None,
+                seq_flash: bool | None = None):
+        return self.compute_loss(x0, x_mask, cond_code, noise, impl=impl, seq_flash=seq_flash)
 
     # ------------------------------------------------------------- sampling
     def _sample_step(

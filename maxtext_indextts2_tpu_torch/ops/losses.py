@@ -22,7 +22,7 @@ import torch
 
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_FUSED_CE = "4b, rest of training: the vocabulary-fused cross-entropy variants"
+_FUSED_CE = "4b, rest of training: the vocabulary-fused cross-entropy variants, item 4b.6"
 
 
 class _CrossEntropy(torch.autograd.Function):

@@ -242,7 +242,7 @@ def ragged_case(name, device, timing, *, b, s, nq, nkv, d, dtype=torch.bfloat16,
         **_cluster_info(rda._ENTRY[k.dtype], b, nkv, rda._max_rows(s, window), d, nq // nkv,
                         device),
     )
-    main = name in MAIN_PATH_CASES.values()
+    main = name in main_path_case_names()
     if main:
         res["repeat_bitwise_equal"] = _repeat_equal(run)
         res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
@@ -313,7 +313,7 @@ def paged_case(name, device, timing, *, b, tpp, max_pages, nq, nkv, d, dtype=tor
     q, kp, vp, pm, lengths = _paged_inputs(b, tpp, max_pages, nq, nkv, d, dtype, seed, device,
                                            serving_max, lengths)
     run = lambda impl: rda.paged_decode_attention_v2(q, kp, vp, pm, lengths, impl=impl)
-    main = name in MAIN_PATH_CASES.values()
+    main = name in main_path_case_names()
     out = run(None)
     torch.cuda.synchronize()
     ref = run("plain")
@@ -444,7 +444,7 @@ def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=nbytes,
             library_ms=time_ms(lambda: cache.index_put_((rows, offs), kv_cast)),
         )
-        if name in MAIN_PATH_CASES.values():
+        if name in main_path_case_names():
             res.update(device_ms=device_ms(lambda: iu.inplace_row_update(cache, kv, idx)),
                        library_device_ms=device_ms(
                            lambda: cache.index_put_((rows, offs), kv_cast)),
@@ -648,8 +648,82 @@ def row_case_specs(full_size=True) -> list[tuple[str, dict]]:
 
 
 def row_cases(device, timing, full_size=True):
-    """K5-K8, every case of :func:`row_case_specs`."""
-    return [row_case(name, device, timing, **kw) for name, kw in row_case_specs(full_size)]
+    """K5-K8, every case of :func:`row_case_specs`, then K5 in training."""
+    return [row_case(name, device, timing, **kw) for name, kw in row_case_specs(full_size)] \
+        + norm_grad_cases(device, timing, full_size)
+
+
+# The S2A training step's AdaptiveRMSNorm: 8 x 512 frames of hidden 1024; its
+# residual stream is float32 (float32 parameters promote it), the main path.
+S2A_TRAIN_NORM = dict(b=8, s=512, d=1024)
+
+
+def norm_grad_case(name, device, timing, *, b, s, d, dtype, seed):
+    """K5 as training calls it: through its ``torch.autograd.Function`` (x
+    and w need gradients), one launch a forward; the forward against the
+    plain version's, and the backward (plain PyTorch on the saved x and w in
+    both routes) EQUAL to the plain route's."""
+    x, w = _row_inputs("ada_rmsnorm", b, s, d, dtype, seed, device, False)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    cot = torch.randn(x.shape, generator=g, device=device).to(dtype)
+
+    def run(impl):
+        xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        y = arn.ada_rmsnorm(xr, wr, impl=impl)
+        return (y,) + torch.autograd.grad(y, (xr, wr), cot)
+
+    before = arn.launch_count
+    y, dx, dw = run(None)
+    torch.cuda.synchronize()
+    launches = arn.launch_count - before
+    y_ref, dx_ref, dw_ref = run("plain")
+    torch.cuda.synchronize()
+    through_function = type(y.grad_fn).__name__.startswith("_AdaRMSNorm")
+    diff = (y.float() - y_ref.float()).abs()
+    err = float(diff.max().item())
+    tol = TOL_ROW_F32 if dtype == torch.float32 else TOL_ROW_BF16
+    share = float((diff > 0).float().mean().item())
+    backward_equal = bool(torch.equal(dx, dx_ref) and torch.equal(dw, dw_ref))
+    finite = all(bool(torch.isfinite(t).all().item()) for t in (y, dx, dw))
+    ok = finite and err <= tol and launches == 1 and through_function and backward_equal and (
+        dtype == torch.float32 or share <= MAX_MISMATCH_SHARE)
+    res = dict(name=name, kernel="ada_rmsnorm", max_abs_err=err, tol=tol, mismatch_share=share,
+               backward_equal_to_plain=backward_equal, autograd_function=through_function,
+               launches_a_forward=launches, finite=finite, ok=bool(ok),
+               shape=dict(b=b, s=s, d=d, dtype=str(dtype), w_dtype=str(w.dtype),
+                          requires_grad=True),
+               launch=_norm_launch_info("ada_rmsnorm", x, w))
+    if timing:
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        # rotate over copies of the inputs, as row_case does, past the L2
+        copies = max(2, int(math.ceil(2 * L2_BYTES / nbytes)) + 1)
+        xs = [x.detach().clone().requires_grad_(True) for _ in range(copies)]
+        wr = w.detach().requires_grad_(True)
+        turn = [0]
+
+        def fwd(impl=None):
+            i = turn[0] = (turn[0] + 1) % copies
+            return arn.ada_rmsnorm(xs[i], wr, impl=impl)
+
+        res.update(
+            kernel_ms=time_ms(fwd, iters=50),
+            plain_ms=time_ms(lambda: fwd("plain"), warmup=1, iters=5),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=nbytes,
+            library_ms=None,  # no single PyTorch call computes it
+            device_ms=device_ms(fwd),
+            plain_device_ms=device_ms(lambda: fwd("plain"), iters=3),
+        )
+    return res
+
+
+def norm_grad_cases(device, timing, full_size=True):
+    """K5 through its autograd Function: the S2A training step's float32
+    stream (the main path) and the same rows in bfloat16."""
+    main = dict(S2A_TRAIN_NORM) if full_size else dict(S2A_TRAIN_NORM, b=2, s=96)
+    return [norm_grad_case("ada_rmsnorm_grad_f32_s2a_train", device, timing, **main,
+                           dtype=torch.float32, seed=190),
+            norm_grad_case("ada_rmsnorm_grad_bf16", device, timing, **main,
+                           dtype=torch.bfloat16, seed=191)]
 
 
 def _attention_inputs(b, s, n, d, dtype, seed, device, fused):
@@ -703,7 +777,7 @@ def attention_case(name, device, timing, *, b, s, n=16, d=64, dtype=torch.bfloat
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, scale=1.0)
-        if name in MAIN_PATH_CASES.values():
+        if name in main_path_case_names():
             res.update(library_device_ms=device_ms(library, iters=5),
                        library_call="scaled_dot_product_attention")
         res.update(
@@ -778,16 +852,42 @@ def attention_cases(device, timing, full_size=True):
 # the values of these cases: where the exact result is 0 (at S = 1, dq and dk:
 # a softmax over one key has no gradient) both sides return rounding noise of
 # ~1e-7, which has no scale of its own.
+# A padding row (segment id 0) is 0 on both sides (o's are checked to be
+# exactly 0) and carries no scale, yet the mean over all rows counts it: 72 %
+# of the emilia-packed rows are padding, which cuts the mean to 0.28 of the
+# scale of a row that attends. The cases of the training and serving paths
+# with padding rows (emilia-packed, c4_mlperf, the S2A's pad tails and the
+# serving mask) therefore take the mean over the rows that attend
+# (``unit_mean="attending"``); the cases before them keep the mean over all
+# rows. Every bfloat16 case reports both readings, and both sides' errors
+# against the plain version run in float32 on the same inputs (the exact
+# value of the function, no bfloat16 rounding point): that shows which side
+# is further from it. Both round ds to bfloat16 before ds k (the JAX rounding
+# point), so each is further from that float32 dq than from the other.
 # lse is float32 in both dtypes, from exact products of the inputs, summed in
 # another order: 1e-4 absolute.
 TOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -5}
 TOL_FLASH_FLOOR = 2.0 ** -10
 TOL_FLASH_UNIT = {torch.float32: "relative to max(1, max |plain|)",
                   torch.bfloat16: "each element relative to max(|plain|, mean |plain|, 2**-10)"}
+TOL_FLASH_MEAN_OVER = {"all": "the mean over all rows",
+                       "attending": "the mean over the rows that attend (segment id != 0)"}
 TOL_FLASH_LSE = 1e-4
 # The training step's attention: per_device_batch_size 4 x 2048 tokens of
 # tts-1b, 16 query / 8 kv heads of 128.
 FLASH_MAIN = dict(b=4, s=2048, h=16, hkv=8, d=128)
+# The S2A training step on its sequence-flash route: 8 x 512 frames, 16 heads
+# of 64 (no grouping).
+S2A_TRAIN_FLASH = dict(b=8, s=512, h=16, hkv=16, d=64)
+# The masked serving pass on the sequence-flash route: 8 requests, the prompt
+# padded to 256 frames and the target bucketed to 512; the pad mask is the
+# segment ids (prompt, gap, target, tail in each row).
+S2A_SERVING_FLASH = dict(b=8, s=768, h=16, hkv=16, d=64)
+SERVING_PROMPT_PAD = 256
+# train_c4's documents: the .jsonl the phase writes (seeded word lists).
+C4_DOCUMENTS, C4_SEED = 400, 4
+_C4_WORDS = ("the", "speech", "model", "learns", "tokens", "from", "text", "and", "audio",
+             "on", "one", "card", "with", "packed", "rows")
 
 
 def _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments, positions, peak=1.0):
@@ -809,7 +909,93 @@ def _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments, positions, pea
         for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
             seg[:, lo:hi] = i + 1 if hi < s else 0
             pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device=device)
+    elif segments == "emilia":  # the packed rows of the emilia_audio iterator
+        pos, seg = emilia_packed_ids(b, s, device)
+    elif segments == "pad_tails":  # one segment a row, then a padding tail of its own length
+        seg = (torch.arange(s, device=device)[None, :]
+               < pad_tail_lengths(b, s, seed).to(device)[:, None]).to(torch.int32)
+    elif segments == "serving":  # the masked serving pass: prompt, gap, target, tail
+        seg = serving_pad_mask(b, SERVING_PROMPT_PAD, s - SERVING_PROMPT_PAD, device)
+    elif segments == "c4_mlperf":  # train_c4's rows: one segment, 0 where a target is EOS
+        pos, seg = c4_mlperf_ids(b, s, device)
     return q, k, v, do, pos, seg
+
+
+def serving_pad_mask(rows: int, p_pad: int, t_pad: int, device) -> torch.Tensor:
+    """[rows, p_pad + t_pad] int32 pad mask of the S2A back end's batch of
+    ``backend_requests(0, rows)``: each prompt from 0, each target from
+    ``p_pad``, padding after either."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import backend_requests
+
+    _, sems, _, gens = backend_requests(0, rows)
+    mask = torch.zeros((rows, p_pad + t_pad), dtype=torch.int32)
+    for i, (sm, gn) in enumerate(zip(sems, gens)):
+        mask[i, :len(sm)] = 1
+        mask[i, p_pad:p_pad + len(gn)] = 1
+    return mask.to(device)
+
+
+def write_c4_documents(path: str, n: int = C4_DOCUMENTS, seed: int = C4_SEED) -> None:
+    """``n`` seeded documents of 20-80 words as a ``c4_mlperf`` .jsonl."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as fh:
+        for i in range(n):
+            words = rng.choice(_C4_WORDS, size=int(rng.integers(20, 80))).tolist()
+            fh.write(json.dumps({"text": f"document {i}: " + " ".join(words)}) + "\n")
+
+
+def c4_mlperf_ids(b: int, s: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions, segment ids) [B, S] int32 of the first ``c4_mlperf``
+    batch over :func:`write_c4_documents` at the ``tts-1b`` config (byte
+    tokenizer): what the ``train_c4`` path gives the flash kernels."""
+    import os
+    import tempfile
+
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train.data.mlperf_pipeline import make_c4_mlperf_iterator
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory(prefix="c4_ids_") as tmp:
+        path = os.path.join(tmp, "c4.jsonl")
+        write_c4_documents(path)
+        cfg = load_config([os.path.join(pkg, "configs", "models", "tts-1b.yml"),
+                           "dataset_type=c4_mlperf", f"dataset_path={path}",
+                           f"per_device_batch_size={b}", f"max_target_length={s}"])
+        batch = next(make_c4_mlperf_iterator(cfg))
+    return (torch.from_numpy(batch["inputs_position"][:b]).to(device),
+            torch.from_numpy(batch["inputs_segmentation"][:b]).to(device))
+
+
+def emilia_packed_ids(b: int, s: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions, segment ids) [B, S] int32 of the first batch of the
+    ``emilia_audio`` iterator (synthetic text + audio documents of 22-125
+    tokens packed first-fit by ``PackedBatcher``) at the ``tts-1b`` vocabulary:
+    what the ``train_packed`` path gives the flash kernels."""
+    import os
+
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train.data.audio_iterator import (
+        make_emilia_audio_train_iterator,
+    )
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config([os.path.join(pkg, "configs", "models", "tts-1b.yml"),
+                       "dataset_type=emilia_audio", f"per_device_batch_size={b}",
+                       f"max_target_length={s}"])
+    batch = next(make_emilia_audio_train_iterator(cfg))
+    return (torch.from_numpy(batch["inputs_position"][:b]).to(device),
+            torch.from_numpy(batch["inputs_segmentation"][:b]).to(device))
+
+
+def pad_tail_lengths(b: int, s: int, seed: int) -> torch.Tensor:
+    """Valid lengths of ``b`` rows of ``s``: the first row full, the others
+    spread over [s/4, s) (a batch of requests padded to one length)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(s // 4, s, size=b)
+    lengths[0] = s
+    return torch.from_numpy(lengths)
 
 
 def _flash_pairs(pos, seg, causal, window, chunk) -> int:
@@ -817,15 +1003,17 @@ def _flash_pairs(pos, seg, causal, window, chunk) -> int:
     return int(fa._mask(pos, pos, seg, seg, causal, window, chunk).sum().item())
 
 
-def _flash_library(q, k, v, do, on_device=False):
-    """SDPA with is_causal and enable_gqa on the same [B,N,S,D] views, forward,
-    and its autograd backward (dq, dk and dv in one call): a yardstick only.
-    (forward ms, backward ms), and with ``on_device`` their device times too."""
+def _flash_library(q, k, v, do, on_device=False, causal=True, mask=None):
+    """SDPA with enable_gqa on the same [B,N,S,D] views (``is_causal``, or a
+    boolean ``mask`` [B,1,S,S]), forward, and its autograd backward (dq, dk
+    and dv in one call): a yardstick only. (forward ms, backward ms), and with
+    ``on_device`` their device times too."""
     f = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
-    out = f(qt, kt, vt, is_causal=True, enable_gqa=True)
+    kw = dict(is_causal=causal and mask is None, attn_mask=mask, enable_gqa=True)
+    out = f(qt, kt, vt, **kw)
     gt = do.transpose(1, 2)
-    fwd = lambda: f(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    fwd = lambda: f(qt, kt, vt, **kw)  # noqa: E731
     bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
     times = (time_ms(fwd, warmup=2, iters=10), time_ms(bwd, warmup=2, iters=10))
     if on_device:
@@ -835,10 +1023,14 @@ def _flash_library(q, k, v, do, on_device=False):
 
 def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, causal=True,
                window=0, chunk=0, cap=0.0, segments="one", positions="arange", peak=1.0,
-               seed=0):
+               seed=0, unit_mean="all"):
     """K9, K10 and K11 against their plain versions on the same inputs: three
     results, ``{name}_fwd``, ``{name}_dq`` and ``{name}_dkv``. The backward
-    kernels and their plain versions get the same lse and delta (the kernel's)."""
+    kernels and their plain versions get the same lse and delta (the kernel's).
+    ``unit_mean``: the rows whose mean enters the bfloat16 unit, see
+    ``TOL_FLASH``."""
+    if unit_mean not in TOL_FLASH_MEAN_OVER:
+        raise ValueError(f"flash_case: unit_mean {unit_mean!r}")
     q, k, v, do, pos, seg = _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments,
                                           positions, peak)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # [B,N,S,D] views
@@ -855,15 +1047,37 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
     dk_ref, dv_ref = fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta, *ids, *mask, impl="plain")
     torch.cuda.synchronize()
 
-    def rel_err(got, want):
-        """(max |err|, the largest error in the dtype's unit, see ``TOL_FLASH``)."""
+    outs = {"flash_fwd": [o], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dk, dv]}
+    plain = {"flash_fwd": [o_ref], "flash_bwd_dq": [dq_ref], "flash_bwd_dkv": [dk_ref, dv_ref]}
+    exact = None
+    if dtype != torch.float32:  # the same function in float32 on the same inputs
+        q32, k32, v32, do32 = (t.float() for t in (qh, kh, vh, doh))
+        exact = {"flash_fwd": [fa.flash_fwd(q32, k32, v32, *ids, *mask, impl="plain")[0]],
+                 "flash_bwd_dq": [fa.flash_bwd_dq(q32, k32, v32, do32, lse, delta, *ids, *mask,
+                                                  impl="plain")],
+                 "flash_bwd_dkv": list(fa.flash_bwd_dkv(q32, k32, v32, do32, lse, delta, *ids,
+                                                        *mask, impl="plain"))}
+        del q32, k32, v32, do32
+    rows = (seg != 0)[:, None, :, None]  # [B,1,S,1]: rows that attend to something
+
+    def rel_err(got, want, attending=False):
+        """(max |err|, the largest error in the dtype's unit, see ``TOL_FLASH``;
+        ``attending``: its mean over the rows that attend only)."""
         diff = (got.float() - want.float()).abs()
         mag = want.float().abs()
         if dtype == torch.float32:
             scale = torch.clamp(mag.max(), min=1.0)
         else:
-            scale = torch.clamp(mag, min=max(float(mag.mean().item()), TOL_FLASH_FLOOR))
+            live = mag[rows.expand_as(mag)] if attending else mag
+            mean = float((live if live.numel() else mag).mean().item())
+            scale = torch.clamp(mag, min=max(mean, TOL_FLASH_FLOOR))
         return float(diff.max().item()), float((diff / scale).max().item())
+
+    def readings(got, want):  # worst over a kernel's outputs, both means of the unit
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        return dict(max_abs_err=max(e[0] for e in errs), max_err=max(e[1] for e in errs),
+                    max_err_attending_rows=max(rel_err(g, w, True)[1]
+                                               for g, w in zip(got, want)))
 
     shape = dict(b=b, s=s, h=h, hkv=hkv, d=d, dtype=str(dtype), causal=causal, window=window,
                  chunk=chunk, soft_cap=cap, segments=segments, positions=positions, peak=peak)
@@ -872,20 +1086,20 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
     fin = torch.isfinite(lse_ref)
     lse_err = float((lse[fin] - lse_ref[fin]).abs().max().item()) if fin.any() else 0.0
     padding_zero = bool((o.transpose(1, 2)[seg == 0] == 0).all().item())
-    checks = {
-        "flash_fwd": [rel_err(o, o_ref)],
-        "flash_bwd_dq": [rel_err(dq, dq_ref)],
-        "flash_bwd_dkv": [rel_err(dk, dk_ref), rel_err(dv, dv_ref)],
-    }
-    outs = {"flash_fwd": [o], "flash_bwd_dq": [dq], "flash_bwd_dkv": [dk, dv]}
     results = []
-    for kernel, errs in checks.items():
+    for kernel in outs:
         finite = all(bool(torch.isfinite(t).all().item()) for t in outs[kernel])
-        worst = max(e[1] for e in errs)
+        vs = {"plain": readings(outs[kernel], plain[kernel])}
+        if exact is not None:
+            vs["kernel_vs_float32"] = readings(outs[kernel], exact[kernel])
+            vs["plain_vs_float32"] = readings(plain[kernel], exact[kernel])
+        worst = vs["plain"]["max_err" if unit_mean == "all" else "max_err_attending_rows"]
         ok = finite and worst <= tol
+        unit = TOL_FLASH_UNIT[dtype] + (
+            "" if dtype == torch.float32 else f", {TOL_FLASH_MEAN_OVER[unit_mean]}")
         res = dict(name=f"{name}_{kernel[len('flash_'):].replace('bwd_', '')}", kernel=kernel,
-                   max_abs_err=max(e[0] for e in errs), max_err=worst, tol=tol,
-                   unit=TOL_FLASH_UNIT[dtype], finite=finite, shape=shape)
+                   max_abs_err=vs["plain"]["max_abs_err"], max_err=worst, tol=tol, unit=unit,
+                   finite=finite, shape=shape, readings=vs)
         if kernel == "flash_fwd":
             ok = ok and lse_ok and lse_err <= TOL_FLASH_LSE and padding_zero
             res.update(lse_max_abs_err=lse_err, tol_lse=TOL_FLASH_LSE,
@@ -912,11 +1126,16 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
             "flash_bwd_dkv": lambda impl=None: fa.flash_bwd_dkv(qh, kh, vh, doh, lse, delta,
                                                                 *ids, *mask, impl=impl),
         }
-        library = (None, None)
-        if causal and not (window or chunk or cap) and segments == "one" \
-                and positions == "arange":
-            library = _flash_library(q, k, v, do, on_device=name in {
-                c[:-len("_fwd")] for c in MAIN_PATH_CASES.values() if c.endswith("_fwd")})
+        library, library_call = (None, None), None
+        on_device = f"{name}_fwd" in main_path_case_names()
+        if not (window or chunk or cap) and segments == "one" and positions == "arange":
+            library = _flash_library(q, k, v, do, on_device=on_device, causal=causal)
+            library_call = f"scaled_dot_product_attention({'is_causal, ' * causal}enable_gqa)"
+        elif on_device and not (window or chunk or cap):
+            # the same visibility as a boolean mask (made once, not timed)
+            visible = fa._mask(pos, pos, seg, seg, causal, window, chunk)[:, 0]
+            library = _flash_library(q, k, v, do, on_device=True, mask=visible)
+            library_call = "scaled_dot_product_attention(attn_mask of the segments, enable_gqa)"
         for res in results:
             kernel = res["kernel"]
             nbytes, ops = work[kernel]
@@ -929,9 +1148,8 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
                 bound_by="bytes" if t_bytes >= t_ops else "operations", bytes_moved=nbytes,
                 flops=ops, visible_pairs=pairs,
                 library_ms=library[0] if kernel == "flash_fwd" else library[1],
-                library_call=None if library[0] is None else (
-                    "scaled_dot_product_attention(is_causal, enable_gqa)" + (
-                        "" if kernel == "flash_fwd" else ": its autograd backward (dq, dk, dv)")),
+                library_call=None if library_call is None else library_call + (
+                    "" if kernel == "flash_fwd" else ": its autograd backward (dq, dk, dv)"),
             )
             if len(library) == 4:
                 res["library_device_ms"] = library[2] if kernel == "flash_fwd" else library[3]
@@ -945,8 +1163,13 @@ def flash_cases(device, timing, full_size=True):
     logits' spread is 9, so a few keys take most of a row's softmax and the
     running max moves by many units between key tiles), D = 64 at ragged S
     (405; 1000, which the 64- and 32-row tiles do not divide), S = 1 and
-    S = 130."""
+    S = 130; the training paths' shapes: ``tts-1b`` on packed ``emilia_audio``
+    rows (``PackedBatcher``'s segment ids and restarted positions) and on
+    ``c4_mlperf`` rows, the S2A's sequence-flash route in float32 (its main
+    path) and with pad tails, and the masked serving pass on that route."""
     main = dict(FLASH_MAIN) if full_size else dict(FLASH_MAIN, b=1, s=512)
+    s2a_main = dict(S2A_TRAIN_FLASH) if full_size else dict(S2A_TRAIN_FLASH, b=2)
+    serving = dict(S2A_SERVING_FLASH) if full_size else dict(S2A_SERVING_FLASH, b=2)
     small = dict(b=2, s=1024 if full_size else 256, h=16, hkv=8, d=128)
     f32 = torch.float32
     groups = [
@@ -975,28 +1198,68 @@ def flash_cases(device, timing, full_size=True):
         flash_case("flash_bf16_peaked_logits", device, timing, **small, peak=3.0, seed=314),
         flash_case("flash_bf16_d64_s1000_group1", device, timing, b=2, s=1000, h=4, hkv=4,
                    d=64, seed=315),
+        # the training paths: tts-1b on packed emilia_audio rows, and
+        # the S2A's sequence-flash route (non-causal, D = 64, group 1; its
+        # training stream is float32, the pad mask as segment ids)
+        flash_case("flash_bf16_emilia_packed", device, timing, **main, segments="emilia",
+                   positions="emilia", seed=316, unit_mean="attending"),
+        flash_case("flash_f32_s2a_train", device, timing, **s2a_main, dtype=f32, causal=False,
+                   seed=317),
+        flash_case("flash_f32_s2a_pad_tails", device, timing, **s2a_main, dtype=f32,
+                   causal=False, segments="pad_tails", seed=318),
+        flash_case("flash_bf16_s2a_pad_tails", device, timing, **s2a_main, causal=False,
+                   segments="pad_tails", seed=319, unit_mean="attending"),
+        # train_c4 (tts-1b on c4_mlperf rows: positions run on across
+        # documents, segment 0 where a target is EOS) and the masked serving
+        # pass on the sequence-flash route (a gap between prompt and target)
+        flash_case("flash_bf16_c4_mlperf", device, timing, **main, segments="c4_mlperf",
+                   positions="c4_mlperf", seed=320, unit_mean="attending"),
+        flash_case("flash_bf16_s2a_serving", device, timing, **serving, causal=False,
+                   segments="serving", seed=321, unit_mean="attending"),
     ]
     return [r for g in groups for r in g]
 
 
 # The cases at the shapes the main paths of ``chip_smoke.py`` give the
-# kernels. Serving run: 32 slots of the tts-1b cache, each holding a prompt of
-# up to 400 tokens plus up to 128 generated ones. TTS back end: 8 requests, the
-# prompt padded to 256 and the target bucketed to 512 frames, hidden 1024.
-# ``synthesize``: one request, the conditional forward over P + T rows.
+# kernels, by the phase that drives each path (the first path first). Serving
+# run: 32 slots of the tts-1b cache, each holding a prompt of up to 400 tokens
+# plus up to 128 generated ones. TTS back end: 8 requests, the prompt padded to 256 and the target
+# bucketed to 512 frames, hidden 1024. ``synthesize``: one request, the
+# conditional forward over P + T rows. ``train``: the tts-1b step;
+# ``train_packed``: the same on packed emilia_audio rows; ``train_c4``: on
+# c4_mlperf rows; ``s2a_train``: the S2A step (float32 residual stream: K5
+# through its autograd Function, and on the sequence-flash route K9-K11
+# non-causal at D = 64); ``s2a_seq_flash_serving``: K9 in the int8_offline
+# denoiser forward of the masked serving pass (bfloat16, the pad mask).
 MAIN_PATH_CASES = {
-    "s2a_attention": "s2a_attention_bf16_main_path",
-    "ragged_decode_attention": "ragged_bf16_main_path",
-    "paged_decode_attention": "paged_bf16_main_path",
-    "inplace_row_update": "inplace_kv_bf16_k1_main_path",
-    "ada_rmsnorm": "ada_rmsnorm_bf16_main_path",
-    "row_quantize_int8": "row_quantize_int8_bf16_main_path",
-    "ada_rmsnorm_quantize": "ada_rmsnorm_quantize_bf16_main_path",
-    "silu_mul_quantize": "silu_mul_quantize_bf16_main_path",
-    "flash_fwd": "flash_bf16_main_path_fwd",
-    "flash_bwd_dq": "flash_bf16_main_path_dq",
-    "flash_bwd_dkv": "flash_bf16_main_path_dkv",
+    "s2a_attention": {"tts_synthesize": "s2a_attention_bf16_main_path"},
+    "ragged_decode_attention": {"serve": "ragged_bf16_main_path"},
+    "paged_decode_attention": {"serve_paged": "paged_bf16_main_path"},
+    "inplace_row_update": {"serve": "inplace_kv_bf16_k1_main_path"},
+    "ada_rmsnorm": {"tts_backend": "ada_rmsnorm_bf16_main_path",
+                    "s2a_train": "ada_rmsnorm_grad_f32_s2a_train"},
+    "row_quantize_int8": {"tts_backend": "row_quantize_int8_bf16_main_path"},
+    "ada_rmsnorm_quantize": {"tts_backend": "ada_rmsnorm_quantize_bf16_main_path"},
+    "silu_mul_quantize": {"tts_backend": "silu_mul_quantize_bf16_main_path"},
+    "flash_fwd": {"train": "flash_bf16_main_path_fwd",
+                  "train_packed": "flash_bf16_emilia_packed_fwd",
+                  "train_c4": "flash_bf16_c4_mlperf_fwd",
+                  "s2a_train": "flash_f32_s2a_train_fwd",
+                  "s2a_seq_flash_serving": "flash_bf16_s2a_serving_fwd"},
+    "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
+                     "train_packed": "flash_bf16_emilia_packed_dq",
+                     "train_c4": "flash_bf16_c4_mlperf_dq",
+                     "s2a_train": "flash_f32_s2a_train_dq"},
+    "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
+                      "train_packed": "flash_bf16_emilia_packed_dkv",
+                      "train_c4": "flash_bf16_c4_mlperf_dkv",
+                      "s2a_train": "flash_f32_s2a_train_dkv"},
 }
+
+
+def main_path_case_names() -> set[str]:
+    """Every case of :data:`MAIN_PATH_CASES`."""
+    return {c for paths in MAIN_PATH_CASES.values() for c in paths.values()}
 
 
 def ragged_cases(device, timing, full_size=True, serve_slots=32):

@@ -1,20 +1,29 @@
-"""Where one training step of the ``tts-1b`` LM spends its time on the GPU.
+"""Where one training step spends its time on the GPU: the ``tts-1b`` LM or
+the S2A model.
 
-Builds the recipe of ``chip_smoke.py``'s ``train`` phase (full width, seeded
-random bf16 weights, 4 x 2048 synthetic tokens a step, ``attention=flash``,
-remat ``save_attn_and_mlp``) and reports, as one JSON object: the host-clock
+``model=lm`` builds the recipe of ``chip_smoke.py``'s ``train`` phase (full
+width, seeded random bf16 weights, 4 x 2048 tokens a step, ``attention=flash``,
+remat ``save_attn_and_mlp``) on synthetic tokens or (``data=emilia_audio``) on
+one batch of packed emilia_audio rows; ``model=s2a`` the S2A step of
+``s2a_train`` (the published MaskGCT widths, bfloat16 compute with float32
+parameters and AdamW moments, clipping, 8 x 512 synthetic frames, one set of
+draws), on the materialised attention or (``seq_flash=true``) the
+sequence-flash route. It reports, as one JSON object: the host-clock
 step time (median of ``steps`` steps, each ending in a synchronise), and from
 ``torch.profiler`` over one more step the device-busy time, the device's idle
-share, the GPU launches, the device time per launch of the flash-attention
-kernels K9-K11, the device time by group (flash attention, cuBLAS products,
-copies, the rest) and the kernels that take the most device time; beside them
-tokens/s and MFU at the H100's 989 TFLOP/s (``utils/flops.py``), the
-wrappers' launch counts of the traced step and the peak memory.
+share, the GPU launches, the device time per launch of this package's kernels
+(K9-K11, and K5 in the S2A), the device time by group (flash attention, the
+row kernels, cuBLAS products, copies, the rest) and the kernels that take the
+most device time; beside them tokens/s and MFU at the H100's 989 TFLOP/s
+(``utils/flops.py``; the LM), the wrappers' launch counts of the traced step
+and the peak memory.
 
 Run on the machine with the GPU::
 
-    python -m maxtext_indextts2_tpu_torch.tools.profile_train [layers=20] [batch=4] \\
-        [remat=save_attn_and_mlp] [steps=3]
+    python -m maxtext_indextts2_tpu_torch.tools.profile_train [model=lm] [layers=20] \\
+        [batch=4] [remat=save_attn_and_mlp] [data=synthetic] [steps=3]
+    python -m maxtext_indextts2_tpu_torch.tools.profile_train model=s2a [layers=16] \\
+        [batch=8] [seq_flash=false] [steps=3]
 """
 
 from __future__ import annotations
@@ -26,9 +35,9 @@ import sys
 import torch
 
 from maxtext_indextts2_tpu_torch.config import load_config
-from maxtext_indextts2_tpu_torch.ops import flash_attention
+from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, flash_attention
 from maxtext_indextts2_tpu_torch.tools.profile_decode import _card
-from maxtext_indextts2_tpu_torch.tools.profile_s2a import profiled
+from maxtext_indextts2_tpu_torch.tools.profile_s2a import profiled, row_kernel_name
 from maxtext_indextts2_tpu_torch.train import train
 from maxtext_indextts2_tpu_torch.utils import flops
 
@@ -52,12 +61,19 @@ def flash_kernel_name(event_name: str) -> str | None:
     return None
 
 
+def own_kernel_name(event_name: str) -> str | None:
+    """The wrapper of a flash-attention or row-kernel event, else None."""
+    return flash_kernel_name(event_name) or row_kernel_name(event_name)
+
+
 def kernel_category(event_name: str) -> str:
-    """A coarse group for a profiler event: this package's flash kernels, the
-    library's matrix products, copies, and the rest (elementwise passes,
-    reductions, the optimizer)."""
+    """A coarse group for a profiler event: this package's flash kernels and
+    row kernels, the library's matrix products, copies, and the rest
+    (elementwise passes, reductions, the optimizer)."""
     if flash_kernel_name(event_name):
         return "flash_attention (K9-K11)"
+    if row_kernel_name(event_name):
+        return "row kernels (K5-K8)"
     low = event_name.lower()
     if any(key in low for key in ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")):
         return "matrix products (cuBLAS)"
@@ -66,43 +82,91 @@ def kernel_category(event_name: str) -> str:
     return "elementwise and reductions"
 
 
+def _counts() -> dict:
+    return {"ada_rmsnorm": ada_rmsnorm.launch_count, **flash_attention.launch_counts}
+
+
+def _reset_counts():
+    ada_rmsnorm.launch_count = 0
+    for k in flash_attention.launch_counts:
+        flash_attention.launch_counts[k] = 0
+
+
+def lm_step(opts):
+    """(step function, fields): one LM training step on one batch."""
+    cfg = load_config([TTS_1B, f"dataset_type={opts['data']}",
+                       f"per_device_batch_size={opts['batch'] or 4}",
+                       f"remat_policy={opts['remat']}", "attention=flash",
+                       "weight_dtype=bfloat16", "scan_layers=false", "cast_logits_to_fp32=false",
+                       f"base_num_decoder_layers={opts['layers'] or 20}"])
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    seg = batch["inputs_segmentation"][:cfg.global_batch_size_to_train_on]
+    fields = dict(model="lm", data=cfg.dataset_type, layers=cfg.num_decoder_layers,
+                  batch=cfg.global_batch_size_to_train_on, seq=cfg.max_target_length,
+                  remat=cfg.remat_policy, tokens_per_step=tokens,
+                  real_tokens_per_step=int((seg > 0).sum()),
+                  documents_a_row=[int(r.max()) for r in seg],
+                  tflops_per_step=flops.training_tflops_per_step(cfg))
+    return (lambda: train.train_step(cfg, state, batch)), fields
+
+
+def s2a_step(opts):
+    """(step function, fields): one S2A training step on one batch and one
+    set of draws, on the route ``seq_flash`` names."""
+    from maxtext_indextts2_tpu_torch.audio.s2a import draw_s2a_noise
+    from maxtext_indextts2_tpu_torch.train import s2a_train
+
+    cfg = load_config(["dataset_type=synthetic", "dtype=bfloat16",
+                       f"per_device_batch_size={opts['batch'] or 8}", "max_target_length=512",
+                       f"s2a_num_layers={opts['layers'] or 16}",
+                       "gradient_clipping_threshold=1.0"])
+    state = s2a_train.setup_s2a_state(cfg)
+    raw = s2a_train.synthetic_s2a_batch(cfg, 0)
+    batch = s2a_train.batch_to_device(raw, state.device)
+    b, tlen = raw["semantic"].shape
+    noise = draw_s2a_noise(state.model.cfg, b, tlen, torch.Generator().manual_seed(0))
+    fields = dict(model="s2a", seq_flash=opts["seq_flash"] == "true",
+                  layers=state.model.cfg.num_layers, batch=b, frames=tlen,
+                  mask_layer=noise.mask_layer)
+    return (lambda: s2a_train.s2a_train_step(cfg, state, batch, noise)), fields
+
+
 def main(argv=None):
-    opts = dict(layers="20", batch="4", remat="save_attn_and_mlp", steps="3")
+    opts = dict(model="lm", layers="", batch="", remat="save_attn_and_mlp", data="synthetic",
+                seq_flash="false", steps="3")
     for a in (sys.argv[1:] if argv is None else argv):
         k, _, v = a.partition("=")
         if k not in opts:
             raise SystemExit(f"unknown option {k!r}; known: {sorted(opts)}")
         opts[k] = v
+    if opts["model"] not in ("lm", "s2a"):
+        raise SystemExit(f"model must be lm or s2a, got {opts['model']!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     card = _card()
-    cfg = load_config([TTS_1B, "dataset_type=synthetic", f"per_device_batch_size={opts['batch']}",
-                       f"remat_policy={opts['remat']}", "attention=flash",
-                       "weight_dtype=bfloat16", "scan_layers=false", "cast_logits_to_fp32=false",
-                       f"base_num_decoder_layers={opts['layers']}"])
-    state = train.setup_train_state(cfg)
-    batch = next(train.create_data_iterator(cfg, state.device))
+    if opts["seq_flash"] == "true":
+        os.environ["MTT_S2A_SEQ_FLASH"] = "1"  # the S2A's opt-in route
+    step_fn, fields = (lm_step if opts["model"] == "lm" else s2a_step)(opts)
     torch.cuda.reset_peak_memory_stats()
-
     counts = {}
 
     def step():
-        for k in flash_attention.launch_counts:
-            flash_attention.launch_counts[k] = 0
-        train.train_step(cfg, state, batch)
-        counts.update(flash_attention.launch_counts)
+        _reset_counts()
+        step_fn()
+        counts.update(_counts())
 
     out = profiled(step, "train_step", card, repeats=int(opts["steps"]),
-                   own_kernel_name=flash_kernel_name, category=kernel_category,
-                   layers=cfg.num_decoder_layers,
-                   batch=cfg.global_batch_size_to_train_on, seq=cfg.max_target_length,
-                   remat=cfg.remat_policy)
-    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
-    tflops = flops.training_tflops_per_step(cfg)
+                   own_kernel_name=own_kernel_name, category=kernel_category, **fields)
     seconds = out["ms_host_clock"] / 1e3
-    out.update(tokens_per_step=tokens, tokens_per_s=tokens / seconds, tflops_per_step=tflops,
-               mfu_at_989_tflops=flops.mfu(tflops, seconds), wrapper_launches=counts,
-               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if opts["model"] == "lm":
+        out.update(tokens_per_s=fields["tokens_per_step"] / seconds,
+                   real_tokens_per_s=fields["real_tokens_per_step"] / seconds,
+                   mfu_at_989_tflops=flops.mfu(fields["tflops_per_step"], seconds))
+    else:
+        out.update(frames_per_s=fields["batch"] * fields["frames"] / seconds)
+    out.update(wrapper_launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(json.dumps(out), flush=True)
 
 

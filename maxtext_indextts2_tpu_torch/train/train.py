@@ -9,10 +9,14 @@ optimizer of ``train/optimizers.py`` in optax's order. The parameters and
 the optimizer's moments are updated in place.
 
 Run: ``python -m maxtext_indextts2_tpu_torch.train.train <config.yml> key=value ...``
-on the GPU; ``device=cpu`` asks for the CPU explicitly. Only
-``dataset_type=synthetic`` runs here: the other data iterators, MTP and MoE
-auxiliary losses and the Zero-1 all-gather raise, naming their ROADMAP queue
-item. ``enable_checkpointing=true`` restores the newest checkpoint of
+on the GPU; ``device=cpu`` asks for the CPU explicitly. Every
+``dataset_type`` of the JAX package is taken (``synthetic``, ``emilia_audio``,
+``grain``, ``c4_mlperf``, ``tfds``, ``hf``): the iterators yield numpy batches,
+as the JAX package's do, and :class:`DeviceBatches` moves each to the state's
+device as int32 tensors (the synthetic iterator's batch is made there once).
+MTP and MoE auxiliary losses, dropout, colocated-python data input and the
+Zero-1 all-gather raise, naming their ROADMAP queue item.
+``enable_checkpointing=true`` restores the newest checkpoint of
 ``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
 steps and at the end (``train/checkpointing.py``; the emergency two-tier
 manager with ``enable_emergency_checkpoint``). As in the JAX package, the
@@ -25,6 +29,7 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.config import Config, load_config
@@ -75,7 +80,7 @@ def check_training_config(cfg: Config) -> None:
         _unsupported("zero1_fsdp_ag_once (a sharded all-gather)",
                      "6, parallelism on torch.distributed")
     if cfg.enable_dropout and cfg.dropout_rate > 0:
-        _unsupported("dropout in training", _REST)
+        _unsupported("dropout in training", f"{_REST}: item 4b.7")
     _remat_policy(cfg.remat_policy)
 
 
@@ -175,15 +180,64 @@ def eval_step(cfg: Config, state: TrainState, batch: dict) -> dict:
     return {"eval_loss": loss, "eval_total_weights": aux["total_weights"]}
 
 
+class DeviceBatches:
+    """A numpy batch iterator whose batches arrive on ``device`` as int32
+    tensors, the dtype of :class:`SyntheticDataIterator`'s. ``get_state`` /
+    ``set_state`` reach the wrapped iterator where it has them (grain)."""
+
+    def __init__(self, source, device):
+        self.source, self.device = source, torch.device(device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32)).to(self.device)
+                for k, v in next(self.source).items()}
+
+    def get_state(self):
+        return self.source.get_state()
+
+    def set_state(self, state):
+        self.source.set_state(state)
+
+
+def make_host_iterator(cfg: Config):
+    """The numpy batch iterator of ``cfg.dataset_type`` (every type but
+    ``synthetic``), as the JAX package's ``create_data_iterator`` builds it."""
+    if cfg.dataset_type == "emilia_audio":
+        from maxtext_indextts2_tpu_torch.train.data.audio_iterator import (
+            make_emilia_audio_train_iterator,
+        )
+
+        return make_emilia_audio_train_iterator(cfg)
+    if cfg.dataset_type == "hf":
+        from maxtext_indextts2_tpu_torch.train.data.hf_pipeline import make_hf_iterator
+
+        return make_hf_iterator(cfg)
+    if cfg.dataset_type == "grain":
+        from maxtext_indextts2_tpu_torch.train.data.grain_pipeline import make_grain_iterator
+
+        return make_grain_iterator(cfg)
+    if cfg.dataset_type == "tfds":
+        from maxtext_indextts2_tpu_torch.train.data.tfds_pipeline import make_tfds_iterator
+
+        return make_tfds_iterator(cfg)
+    if cfg.dataset_type == "c4_mlperf":
+        from maxtext_indextts2_tpu_torch.train.data.mlperf_pipeline import (
+            make_c4_mlperf_iterator,
+        )
+
+        return make_c4_mlperf_iterator(cfg)
+    raise ValueError(f"unknown dataset_type: {cfg.dataset_type}")
+
+
 def create_data_iterator(cfg: Config, device):
     if cfg.colocated_python_data_input:
         _unsupported("colocated-python data input", "6, parallelism on torch.distributed")
     if cfg.dataset_type == "synthetic":
         return SyntheticDataIterator(cfg, device=device)
-    if cfg.dataset_type in ("emilia_audio", "hf", "grain", "tfds", "c4_mlperf"):
-        _unsupported(f"the dataset_type={cfg.dataset_type} data iterator",
-                     f"{_REST}: data iterators, item 4b.3")
-    raise ValueError(f"unknown dataset_type: {cfg.dataset_type}")
+    return DeviceBatches(make_host_iterator(cfg), device)
 
 
 def _take(batch: dict, n: int) -> dict:
@@ -192,11 +246,19 @@ def _take(batch: dict, n: int) -> dict:
 
 
 def run_eval(cfg: Config, state: TrainState, num_batches: int | None = None) -> dict:
-    """Average eval loss over ``eval_steps`` synthetic batches."""
+    """Average eval loss over ``eval_steps`` batches: the emilia eval stream
+    for ``dataset_type=emilia_audio``, else synthetic batches (as in the JAX
+    package)."""
     n = num_batches or (cfg.eval_steps if cfg.eval_steps > 0 else 4)
     if cfg.dataset_type == "emilia_audio":
-        _unsupported("the emilia_audio eval iterator", f"{_REST}: data iterators, item 4b.3")
-    eval_iter = SyntheticDataIterator(cfg, cfg.global_batch_size_to_eval_on, device=state.device)
+        from maxtext_indextts2_tpu_torch.train.data.audio_iterator import (
+            make_emilia_audio_eval_iterator,
+        )
+
+        eval_iter = DeviceBatches(make_emilia_audio_eval_iterator(cfg), state.device)
+    else:
+        eval_iter = SyntheticDataIterator(cfg, cfg.global_batch_size_to_eval_on,
+                                          device=state.device)
     total, weight = 0.0, 0.0
     for _ in range(n):
         m = eval_step(cfg, state, _take(next(eval_iter), cfg.global_batch_size_to_eval_on))

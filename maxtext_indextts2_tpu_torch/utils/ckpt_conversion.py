@@ -315,10 +315,13 @@ def hf_config_for(cfg: Config, hf_vocab_size: int | None = None):
 
 
 def _read_hf_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """The weights of an HF model directory, without ``transformers``: every
-    ``*.safetensors`` file (``safetensors`` is imported only when there is
-    one) and every ``pytorch_model*.bin`` (``torch.load``, weights only,
-    memory-mapped)."""
+    """The weights of an HF model directory, without ``transformers``, read as
+    ``from_pretrained`` reads them: the ``*.safetensors`` files when there are
+    any (``safetensors`` is imported only then), else the
+    ``pytorch_model*.bin`` files (``torch.load``, weights only; memory-mapped
+    only where the file is in the zip format, since a legacy file cannot be)."""
+    import zipfile
+
     sd: dict[str, torch.Tensor] = {}
     st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if st_files:
@@ -326,8 +329,10 @@ def _read_hf_state_dict(path: str) -> dict[str, torch.Tensor]:
 
         for f in st_files:
             sd.update(load_file(f))
+        return sd
     for f in sorted(glob.glob(os.path.join(path, "pytorch_model*.bin"))):
-        sd.update(torch.load(f, map_location="cpu", weights_only=True, mmap=True))
+        sd.update(torch.load(f, map_location="cpu", weights_only=True,
+                             mmap=zipfile.is_zipfile(f)))
     if not sd:
         raise FileNotFoundError(f"no *.safetensors or pytorch_model*.bin weights under {path}")
     return sd

@@ -24,7 +24,7 @@ _SHOWN = ("loss", "grad_norm", "step_time_s", "tflops_per_s", "tokens_per_s", "m
 class MetricLogger:
     def __init__(self, cfg: Config, quiet: bool = False):
         if cfg.enable_tensorboard:
-            _unsupported("TensorBoard metric logging", "4b, rest of training")
+            _unsupported("TensorBoard metric logging", "4b, rest of training: item 4b.7")
         self.cfg = cfg
         self.quiet = quiet
         self._jsonl = None

@@ -67,14 +67,16 @@ def test_source_imports_nothing_of_jax(path):
     assert "yaml" not in roots, "the config files are read without PyYAML"
 
 
-GATED = ("transformers", "tiktoken", "sentencepiece", "safetensors", "scipy")
+GATED = ("transformers", "tiktoken", "sentencepiece", "safetensors", "scipy", "grain",
+         "pyarrow", "array_record", "datasets", "tensorflow", "tensorflow_datasets")
 
 
 @pytest.mark.parametrize("path", _python_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_optional_packages_are_imported_inside_the_functions_that_use_them(path):
-    """``transformers``, ``tiktoken``, ``sentencepiece``, ``safetensors`` and
-    ``scipy`` are not on every machine the package runs on: no module
-    imports them at its top level."""
+    """``transformers``, ``tiktoken``, ``sentencepiece``, ``safetensors``,
+    ``scipy`` and the data packages (``grain``, ``pyarrow``, ``array_record``,
+    ``datasets``, ``tensorflow``, ``tensorflow_datasets``) are not on every
+    machine the package runs on: no module imports them at its top level."""
     with open(path) as fh:
         tree = ast.parse(fh.read(), path)
     top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
@@ -104,9 +106,15 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.utils.ckpt_conversion\n"
         "import maxtext_indextts2_tpu_torch.train.checkpointing\n"
         "import maxtext_indextts2_tpu_torch.tools.reference_state_dicts\n"
+        "import maxtext_indextts2_tpu_torch.train.s2a_train, maxtext_indextts2_tpu_torch.audio.masking\n"
+        "from maxtext_indextts2_tpu_torch.train.data import packing, audio_iterator, grain_pipeline\n"
+        "from maxtext_indextts2_tpu_torch.train.data import mlperf_pipeline, tfds_pipeline, hf_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'yaml', 'maxtext_indextts2_tpu')]\n"
         "assert not bad, bad\n"
+        "gated = [m for m in sys.modules if m.split('.')[0] in ('grain', 'pyarrow', "
+        "'array_record', 'datasets', 'tensorflow', 'tensorflow_datasets')]\n"
+        "assert not gated, gated\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -287,8 +295,8 @@ def _tiny_backend():
 # is no longer the stub; its behaviour is held against the JAX package in
 # test_torch_frontend.py and test_torch_tts_pipeline.py)
 NOT_PORTED = {
-    "s2a.compute_loss": (lambda p: p.s2a.compute_loss(None, None, None), "4"),
-    "s2a.__call__": (lambda p: p.s2a(None, None, None), "4"),
+    "s2a.compute_loss": (lambda p: p.s2a.compute_loss, None),
+    "s2a.__call__": (lambda p: p.s2a.forward, None),
     "vq.encode_latents": (lambda p: p.codec.decoder.quantizer.vq_0.encode_latents, None),
     "vq.latent2dist": (lambda p: p.codec.decoder.quantizer.vq_0.latent2dist(None), "4"),
     "vq.__call__": (lambda p: p.codec.decoder.quantizer.vq_0(None), "4"),
@@ -323,12 +331,21 @@ def test_unported_back_end_methods_name_their_queue_item(name):
 
 def test_port_reads_no_kernel_switch_from_the_environment():
     """The JAX package picks its S2A kernels by environment variables; the
-    port picks by where the tensor lies and reads none of them."""
+    port picks by where the tensor lies and reads none of them. The one
+    variable it reads is the JAX package's opt-in ROUTE of the masked S2A
+    attention, ``MTT_S2A_SEQ_FLASH`` (the same condition, a CUDA tensor for a
+    TPU), and only in ``audio/s2a.py``; the card's scripts may set it."""
     for path in _python_sources():
         with open(path) as fh:
             text = fh.read()
-        for var in ("MTT_FUSED_QUANT", "MTT_FUSED_ADALN", "MTT_S2A_FLASH", "MTT_S2A_SEQ_FLASH"):
-            assert var not in text, (os.path.relpath(path, REPO), var)
+        rel = os.path.relpath(path, REPO)
+        for var in ("MTT_FUSED_QUANT", "MTT_FUSED_ADALN", "MTT_S2A_FLASH"):
+            assert var not in text, (rel, var)
+        reads = "environ.get(\"MTT_S2A_SEQ_FLASH\"" in text or "getenv(" in text
+        if rel != os.path.join("maxtext_indextts2_tpu_torch", "audio", "s2a.py"):
+            assert not reads, rel
+    with open(os.path.join(PORT_DIR, "audio", "s2a.py")) as fh:
+        assert 'os.environ.get("MTT_S2A_SEQ_FLASH", "0") == "1"' in fh.read()
 
 
 @pytest.mark.parametrize("kernel", ["ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",

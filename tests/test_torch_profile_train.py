@@ -54,3 +54,33 @@ def test_every_flash_instantiation_maps_to_its_wrapper(event, wrapper):
 def test_other_events_are_not_flash_kernels(event, category):
     assert flash_kernel_name(event) is None
     assert kernel_category(event) == category
+
+
+@pytest.mark.parametrize("event,wrapper", [
+    ("void rowk::norm_rows_kernel<float, float, false, 8, false>(void const*)", "ada_rmsnorm"),
+    ("void rowk::norm_rows_kernel<__nv_bfloat16, float, true, 4, false>(void const*)",
+     "ada_rmsnorm_quantize"),
+    ("void flash::fwd_kernel<float, 64>(flash::Problem)", "flash_fwd"),
+])
+def test_the_s2a_step_maps_its_row_and_flash_kernels(event, wrapper):
+    """The S2A step runs K5 (float32 rows) and, on its sequence-flash route,
+    the float32 K9-K11 at D = 64: each event maps to its wrapper and group."""
+    from maxtext_indextts2_tpu_torch.tools.profile_train import own_kernel_name
+
+    assert own_kernel_name(event) == wrapper
+    assert kernel_category(event) == ("flash_attention (K9-K11)" if "flash::" in event
+                                      else "row kernels (K5-K8)")
+
+
+def test_profile_train_refuses_an_unknown_model_and_needs_the_card(monkeypatch):
+    import torch
+
+    from maxtext_indextts2_tpu_torch.tools import profile_train
+
+    with pytest.raises(SystemExit, match="model must be lm or s2a"):
+        profile_train.main(["model=codec"])
+    with pytest.raises(SystemExit, match="unknown option"):
+        profile_train.main(["route=flash"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        profile_train.main(["model=s2a", "seq_flash=true"])

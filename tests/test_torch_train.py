@@ -241,34 +241,62 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["dataset_type=emilia_audio"], "4b"), (["enable_dropout=true", "dropout_rate=0.1"], "4b"),
+    (["colocated_python_data_input=true"], "6"),
+    (["enable_dropout=true", "dropout_rate=0.1"], "4b"),
     (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
     (["fused_vocab_ce_chunk=64"], "4b"), (["fused_vocab_ce_tile=128"], "4b"),
-], ids=["emilia_data", "dropout", "mtp", "zero1", "fused_ce_chunk", "fused_ce_tile"])
+], ids=["colocated_data", "dropout", "mtp", "zero1", "fused_ce_chunk", "fused_ce_tile"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
         ttrain.train_loop(cfg, device="cpu", quiet=True)
 
 
-def _refuse_dataset(kind):
-    ttrain.create_data_iterator(load_config([f"dataset_type={kind}"]), "cpu")
+def _refuse_vision_sft(kind):
+    from maxtext_indextts2_tpu_torch.train.data.hf_pipeline import make_hf_vision_sft_iterator
+
+    make_hf_vision_sft_iterator(load_config([f"dataset_type={kind}"]), dataset=[])
 
 
-def _refuse_eval(kind):
-    ttrain.run_eval(load_config([f"dataset_type={kind}"]), None)
+def _refuse_codec_decoder(kind):
+    from maxtext_indextts2_tpu_torch.audio.acoustic import CodecDecoder
+
+    CodecDecoder.forward(None, None)
+
+
+def _refuse_repcodec(kind):
+    from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
+
+    RepCodec.forward(None, None)
+
+
+def _refuse_fused_ce(kind):
+    from maxtext_indextts2_tpu_torch.ops import losses
+
+    losses.chunked_unembed_cross_entropy()
+
+
+def _refuse_dropout(kind):
+    ttrain.check_training_config(load_config(["enable_dropout=true", "dropout_rate=0.1"]))
+
+
+def _refuse_tensorboard(kind):
+    from maxtext_indextts2_tpu_torch.utils.metrics import MetricLogger
+
+    MetricLogger(load_config(["enable_tensorboard=true"]))
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
-    (_refuse_dataset, "emilia_audio", "4b.3"), (_refuse_dataset, "grain", "4b.3"),
-    (_refuse_dataset, "c4_mlperf", "4b.3"), (_refuse_dataset, "tfds", "4b.3"),
-    (_refuse_dataset, "hf", "4b.3"), (_refuse_eval, "emilia_audio", "4b.3"),
+    (_refuse_vision_sft, "hf", "6"), (_refuse_codec_decoder, "codec", "4b.5"),
+    (_refuse_repcodec, "repcodec", "4b.5"), (_refuse_fused_ce, "chunk", "4b.6"),
+    (_refuse_dropout, "dropout", "4b.7"), (_refuse_tensorboard, "tensorboard", "4b.7"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):
     """The JAX package runs these on data, models and stubs a test makes, so
     the port's refusal says only that the path is not ported yet and names
-    its queue item; it does not claim that a file is missing."""
+    its queue item; it does not claim that a file is missing. (Every data
+    iterator but the vision SFT one is ported: ``tests/test_torch_data.py``.)"""
     with pytest.raises(NotImplementedError) as err:
         refuse(arg)
     text = str(err.value)
