@@ -50,8 +50,19 @@ on the sequence-flash route (K9-K11 non-causal), ``s2a_train_parity`` holds a
 2-layer float32 step of each route against the plain versions and the two
 routes against each other, and ``s2a_seq_flash_serving`` holds an
 ``int8_offline`` denoiser forward on the sequence-flash route against the
-materialised one and reads the device time of each. The kernels line lists,
-for each kernel, the case of every main path that ran it.
+materialised one and reads the device time of each. Last the flagship
+(``tts-flagship``: 48 layers, E 3840, head dim 256, a 264,192-row tied
+vocabulary, 11.77 B parameters in bfloat16): ``flagship_serve`` serves it
+whole (8 slots of a 4096-token cache, 8 greedy requests of up to 1536 prompt
+tokens through the ``Orchestrator``, then one ``synthesize`` with it as the
+pipeline's LM), ``flagship_serve_parity`` holds one of its decode steps
+against the plain route, ``train_flagship_vocab`` trains the repo's
+flagship-vocab recipe (the tts-1b body at the 264,192-row vocabulary, the
+vocabulary-fused chunked CE, then its int8 variant), ``train_flagship_vocab_
+parity`` holds each fused CE variant against the materialised CE (loss,
+gradients, peak memory), and ``train_flagship`` trains the flagship at full
+width and 4 layers (K9-K11 at head dim 256). The kernels line lists, for
+each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -257,6 +268,70 @@ S2A_PARITY_PAD = (100, 37)
 # pad mask ignored gives max 0.80, mean 0.109. Bound: max 0.6, mean 0.06.
 TOL_SEQ_FLASH_SERVING_MAX, TOL_SEQ_FLASH_SERVING_MEAN = 0.6, 0.06
 
+# The flagship (configs/models/tts-flagship.yml): 48 layers, E 3840, 16 q / 8
+# kv heads of 256, MLP 15360, a 264,192-row vocabulary tied to the embedding;
+# 11,773,284,096 parameters, drawn in bfloat16 on the card (a float32 draw
+# would be a 47 GB transient). flagship_serve: 8 slots of a 4096-token cache
+# (12.9 GB of K/V), 8 greedy requests of 16-1536 prompt tokens and 64 new
+# ones, then one synthesize with it as the pipeline's LM.
+FLAGSHIP_YML = os.path.join(REPO, "maxtext_indextts2_tpu_torch", "configs", "models",
+                            "tts-flagship.yml")
+FLAGSHIP_SERVE_ARGS = [
+    FLAGSHIP_YML, "weight_dtype=bfloat16", "serve_params_dtype=bfloat16",
+    "decode_attention=ragged", "decode_sampling_strategy=greedy", "per_device_batch_size=8",
+    "max_target_length=4096", "max_prefill_predict_length=2048", "scan_layers=false",
+]
+FLAGSHIP_PARAMS = 11_773_284_096
+FLAGSHIP_PROMPT_LENGTHS = (16, 1536, 200, 1024, 64, 700, 1280, 333)
+FLAGSHIP_NEW_TOKENS = 64
+FLAGSHIP_SYNTH_FRAMES = 128
+# flagship_serve_parity: one decode step through the kernels against one
+# through their plain versions (bfloat16, 48 layers). The attention outputs
+# differ by a bfloat16 step here and there (other summation order); 48 layers
+# of random weights carry that to the tied logits (|logit| ~ 1/sqrt(E) of the
+# normed state's size) as a share of their own scale: within 2**-4 of the
+# largest logit. A wrong mask or group moves them by their whole size.
+FLAGSHIP_PARITY_PROMPT_LENGTHS = (16, 1100, 300, 64)
+TOL_FLAGSHIP_PARITY_REL = 2.0 ** -4
+# train_flagship_vocab: the repo's flagship-vocab recipe, benchmarks/
+# mfu_flagship.py BEST at full size (the tts-1b body, vocab 264,192 tied,
+# 4 x 2048 tokens, fused CE chunk 512, remat full, flash, bf16 weights;
+# flash_block_sizes binds no tile in the port); 1,799,445,504 parameters.
+# Then the same with the int8 fused CE and bfloat16 logit slices
+# (quantization=int8, the AQT matmuls, is not ported: left out).
+TRAIN_FLAGSHIP_VOCAB_ARGS = [
+    TTS_1B, "vocab_size=264192", "logits_via_embedding=true", "remat_policy=full",
+    "attention=flash", "scan_layers=false", "weight_dtype=bfloat16", "per_device_batch_size=4",
+    "fused_vocab_ce_chunk=512", "dataset_type=synthetic", f"steps={TRAIN_STEPS}",
+]
+FLAGSHIP_VOCAB_PARAMS = 1_799_445_504
+# train_flagship_vocab_parity: one batch of 2 x 2048 at the same weights
+# through each fused route and the materialised CE (whose float32 logits of
+# 4.33 GB and their gradients fit beside the model). float routes (chunked,
+# streaming): loss within 1e-3 relative, grad norm 1e-2, the embedding's and
+# layer 10's gradients within 2**-4 of each leaf's largest entry (bfloat16
+# weights: the chunked dW is summed in bfloat16 chunk by chunk, dy is rounded
+# to bfloat16 from sums in another order). int8: the unembedding's int8 codes
+# (1/254 of each column's largest entry) and the int8 codes of the softmax
+# gradient move the loss by ~1e-2 and the gradients by a share of their own
+# size: 2e-2, 5e-2 and 0.5. Each fused route must peak at least one float32
+# copy of the [B*S, V] logits below the materialised route.
+FLAGSHIP_VOCAB_PARITY_BATCH = 2
+FLAGSHIP_PARITY_LAYER = "decoder.layers_10."
+FLAGSHIP_PARITY_TILE = 8192
+TOL_FLAGSHIP_VOCAB_PARITY = {"float": (1e-3, 1e-2, 2.0 ** -4), "int8": (2e-2, 5e-2, 0.5)}
+# train_flagship: tts-flagship at full width, depth cut to 4 layers (1.91 B
+# parameters: 4 x 224.1 M + the 1.01 B tied embedding), one 4096-token row a
+# step, its own fused CE (chunk 512), remat full; attention autoselected (flash
+# at S >= 1024 on the card): K9-K11 at D = 256.
+TRAIN_FLAGSHIP_STEPS = 3
+TRAIN_FLAGSHIP_ARGS = [
+    FLAGSHIP_YML, "base_num_decoder_layers=4", "per_device_batch_size=1", "remat_policy=full",
+    "weight_dtype=bfloat16", "scan_layers=false", "dataset_type=synthetic",
+    f"steps={TRAIN_FLAGSHIP_STEPS}",
+]
+FLAGSHIP_TRAIN_PARAMS = 1_911_066_368
+
 # Weights in and out. lm_ckpt: the served tts-1b weights exported with HF names
 # and converted back by the converter CLI, as the qwen3 family (the same
 # qk-norm llama layout as the tts block). train_resume: the train recipe with
@@ -308,22 +383,28 @@ def phase_device():
 
 def phase_build():
     from maxtext_indextts2_tpu_torch.ops import _build
+    from maxtext_indextts2_tpu_torch.ops.smoke import FLASH_KERNEL_NAMES
 
     t0 = time.perf_counter()
     _build.load_library(verbose=False)
-    # K1 / K3 / K4's and K5 / K7's instantiations (`-Xptxas -v`): none may spill
+    # K1 / K3 / K4's, K5 / K7's and every K9-K11 instantiation (`-Xptxas -v`):
+    # none may spill
     reports = {kernel: [[r["kernel"].split("(")[0], r.get("registers"), r.get("spill_stores"),
                          r.get("spill_loads")] for r in _build.ptxas_report(kernel)]
-               for kernel in ("ragged_decode_kernel", "norm_rows_kernel")}
+               for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES)}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
+    flash = reports[FLASH_KERNEL_NAMES]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
-        norm_rows_registers_spill_stores_loads=norm)
+        norm_rows_registers_spill_stores_loads=norm,
+        flash_registers_spill_stores_loads=flash)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
     check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
           f"a norm_rows_kernel instantiation spills: {norm}")
+    check(len(flash) == 18 and all(r[2] == 0 and r[3] == 0 for r in flash),
+          f"a flash-attention (K9-K11) instantiation spills, or one is missing: {flash}")
 
 
 def phase_kernels():
@@ -899,11 +980,18 @@ NO_PAGED = {"paged_decode_attention": 0}
 
 def _audio_only_lm(pipe):
     """Zero the LM's output columns of every id that is not an audio token,
-    so that greedy decoding with random weights emits audio tokens only."""
+    so that greedy decoding with random weights emits audio tokens only. A
+    tied unembedding has no columns of its own: its embedding rows are
+    zeroed (their logits are 0 and their lookups too, which a random model
+    does not mind)."""
     e2a = pipe.mapping.embedding_to_audio_array(pipe.cfg.vocab_size)
     not_audio = torch.from_numpy((e2a < 0) | (e2a >= pipe.mapping.codebook_size))
+    model = pipe.engine.model
     with torch.no_grad():
-        pipe.engine.model.logits_dense.kernel[:, not_audio.to(pipe.device)] = 0
+        if model.logits_dense is None:
+            model.token_embedder.embedding[not_audio.to(pipe.device)] = 0
+        else:
+            model.logits_dense.kernel[:, not_audio.to(pipe.device)] = 0
 
 
 def phase_pipeline_load():
@@ -1518,6 +1606,339 @@ def phase_s2a_seq_flash_serving():
     return counts["seq_flash"]
 
 
+def _timed(fn, seconds: dict, key: str):
+    """``fn`` whose calls add their synchronised host seconds to ``seconds[key]``."""
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    return wrapped
+
+
+def phase_flagship_serve(card):
+    """tts-flagship served whole: 48 layers, E 3840, 16 q / 8 kv heads of
+    256, a 264,192-row tied vocabulary, bf16 weights made on the card, 8
+    slots of a 4096-token cache; 8 greedy requests through the Orchestrator,
+    then one ``synthesize`` with it as the pipeline's LM."""
+    from maxtext_indextts2_tpu_torch.audio.conformer import ConformerConfig
+    from maxtext_indextts2_tpu_torch.audio.pipeline import build_tiny_pipeline, prompt_signal
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_config(FLAGSHIP_SERVE_ARGS)
+    engine = Engine(cfg)  # no device given: the GPU, or an error
+    engine.load_params()  # drawn in bfloat16 on the card (weight_dtype)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in engine.model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    check(params == FLAGSHIP_PARAMS and all(
+        p.dtype == torch.bfloat16 for n, p in engine.model.named_parameters() if "scale" not in n),
+        f"flagship_serve: {params} parameters (want {FLAGSHIP_PARAMS}), all bfloat16")
+
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FLAGSHIP_PROMPT_LENGTHS]
+    seconds: dict[str, float] = {}
+    engine.prefill_insert_many = _timed(engine.prefill_insert_many, seconds, "prefill")
+    engine.generate_n = _timed(engine.generate_n, seconds, "decode")
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch.start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()  # every count to 0 just before the main path, read just after
+    t1 = time.perf_counter()
+    reqs = [orch.submit(p, FLAGSHIP_NEW_TOKENS) for p in prompts]
+    finished = all(r.done.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    orch.stop()
+    launches = _all_counts()
+    del engine.prefill_insert_many, engine.generate_n  # the instance's own methods again
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(finished, "flagship_serve: a request did not finish in 600 s")
+    errors = [r.error for r in reqs if r.error]
+    check(not errors, f"flagship_serve: {len(errors)} requests failed, first: {errors[:1]}")
+    check(all(len(r.tokens) == FLAGSHIP_NEW_TOKENS for r in reqs),
+          "flagship_serve: a request did not get exactly its token budget")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          "flagship_serve: a token outside [0, vocab)")
+    steps, layers = orch.stats["decode_steps_total"], cfg.num_decoder_layers
+    want = {k: 0 for k in launches}
+    want.update(ragged_decode_attention=layers * steps, inplace_row_update=2 * layers * steps)
+    check(steps > 0 and launches == want, f"flagship_serve: launches {launches} != {want}")
+    tokens = sum(len(r.tokens) for r in reqs)
+    # K and V of every layer, slot and row in the activation dtype
+    cache_bytes = (2 * layers * cfg.num_kv_heads * cfg.head_dim * engine.num_slots
+                   * cfg.max_target_length * torch.finfo(torch.bfloat16).bits // 8)
+
+    # one synthesize with the flagship as the pipeline's LM (the S2A back end
+    # and the tokenizers at their published widths, int8_offline)
+    t2 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, s2a_serving_dtype="int8_offline")
+    pipe = build_tiny_pipeline(pcfg, seed=0, codec_kwargs={}, device=engine.device,
+                               engine=engine, semantic_encoder_cfg=ConformerConfig(),
+                               semantic_repcodec_kwargs={})
+    _audio_only_lm(pipe)
+    w16 = prompt_signal(42, SYNTH_PROMPT_SECONDS, 16_000)
+    w24 = prompt_signal(42, SYNTH_PROMPT_SECONDS, 24_000)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    wav, info = pipe.synthesize("The flagship model reads this sentence on one card.", w16, w24,
+                                max_new_tokens=FLAGSHIP_SYNTH_FRAMES)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t3
+    hop = int(np.prod(pipe.codec.strides))
+    check(info["semantic_tokens"] == FLAGSHIP_SYNTH_FRAMES
+          and wav.shape == (FLAGSHIP_SYNTH_FRAMES * hop,) and bool(np.isfinite(wav).all())
+          and float(wav.std()) > 0,
+          f"flagship_serve: synthesize gave {info['semantic_tokens']} frames, {wav.shape}")
+    emit("flagship_serve", t0, card=card, params=params, param_bytes=param_bytes,
+         layers=layers, emb_dim=cfg.emb_dim, head_dim=cfg.head_dim,
+         heads=[cfg.num_query_heads, cfg.num_kv_heads], vocab=cfg.vocab_size,
+         slots=engine.num_slots, max_target_length=cfg.max_target_length,
+         kv_cache_bytes=cache_bytes,
+         load_seconds=load_s, load_peak_memory_bytes=load_peak,
+         prompt_lengths=list(FLAGSHIP_PROMPT_LENGTHS), new_tokens=FLAGSHIP_NEW_TOKENS,
+         serve_seconds=serve_s, prefill_seconds=seconds.get("prefill"),
+         decode_seconds=seconds.get("decode"), decode_steps=steps,
+         admission_dispatches=orch.stats["admission_dispatches_total"],
+         prompt_tokens_per_prefill_s=sum(FLAGSHIP_PROMPT_LENGTHS) / seconds["prefill"],
+         tokens=tokens, tokens_per_s=tokens / serve_s,
+         decode_tokens_per_s=tokens / seconds["decode"],
+         decode_ms_a_step=1e3 * seconds["decode"] / steps, launches=launches,
+         serve_peak_memory_bytes=serve_peak,
+         synthesize_seconds=synth_s, synthesize_info=info,
+         pipeline_build_seconds=t3 - t2, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del pipe
+    return engine, {k: launches[k] for k in ("ragged_decode_attention", "inplace_row_update")}
+
+
+def phase_flagship_serve_parity(engine, card):
+    """One decode step of the whole flagship from one populated state (a
+    prompt of 1024 or more among those admitted), the kernel route against
+    the plain route (impl="plain") on the card."""
+    t0 = time.perf_counter()
+    gc.collect()  # the serving run's orchestrator and decode state
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(31)
+    vocab = engine.cfg.vocab_size
+    prompts = [rng.integers(1, vocab, size=n).astype(np.int32)
+               for n in FLAGSHIP_PARITY_PROMPT_LENGTHS]
+    state = engine.init_decode_state()
+    for i in (0, 2):
+        state, _ = engine.prefill_insert_many(state, prompts[i:i + 2], [2 * i, 2 * i + 1])
+    state, _ = engine.generate_n(state, 3)
+    twin = _clone_state(state)
+    _reset_all_counts()
+    _, logits_kernel = engine._generate_step(state)
+    launched = _all_counts()["ragged_decode_attention"]
+    _, logits_plain = engine._generate_step(twin, impl="plain")
+    torch.cuda.synchronize()
+    active = state["active"]
+    err = float((logits_kernel[active] - logits_plain[active]).abs().max().item())
+    scale = float(logits_plain[active].abs().max().item())
+    finite = bool(torch.isfinite(logits_kernel).all().item())
+    same_argmax = bool((logits_kernel[active].argmax(-1) == logits_plain[active].argmax(-1))
+                       .all().item())
+    check(launched == engine.cfg.num_decoder_layers
+          and _all_counts()["ragged_decode_attention"] == launched,
+          f"flagship_serve_parity: K1 launched {launched} in the kernel route")
+    check(finite and err <= TOL_FLAGSHIP_PARITY_REL * scale,
+          f"flagship_serve_parity: logits differ by {err} (max |logit| {scale})")
+    del state, twin
+    emit("flagship_serve_parity", t0, card=card, prompt_lengths=list(FLAGSHIP_PARITY_PROMPT_LENGTHS),
+         logits_max_abs_err=err, logits_max_abs=scale, tol_rel=TOL_FLAGSHIP_PARITY_REL,
+         greedy_tokens_equal=same_argmax, k1_launches_kernel_route=launched)
+
+
+def _flash_and_ce_device_ms(cfg, card) -> dict:
+    """Device time of one training step's K9-K11 (a profiled step of
+    ``cfg``'s recipe) and of its fused CE alone (forward and backward on the
+    step's prelogits shape, profiled), beside the card's name."""
+    from maxtext_indextts2_tpu_torch.tools.profile_s2a import profiled
+    from maxtext_indextts2_tpu_torch.tools.profile_train import kernel_category, own_kernel_name
+    from maxtext_indextts2_tpu_torch.train import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    step = profiled(lambda: train.train_step(cfg, state, batch), "step", card, repeats=1,
+                    own_kernel_name=own_kernel_name, category=kernel_category)
+    flash = step["device_ms_by_category"].get("flash_attention (K9-K11)", {})
+    b, s = cfg.global_batch_size_to_train_on, cfg.max_target_length
+    g = torch.Generator(device=state.device).manual_seed(5)
+    y = torch.randn((b, s, cfg.emb_dim), generator=g, device=state.device).to(
+        getattr(torch, cfg.dtype)).requires_grad_(True)
+    targets = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=state.device)
+    weights = torch.ones((b, s), device=state.device)
+
+    def ce():
+        loss, _ = train.fused_ce(state.model, cfg, y, targets, weights)
+        torch.autograd.grad(loss, [y, state.model.token_embedder.embedding])
+
+    ce_prof = profiled(ce, "fused_ce", card, repeats=1)
+    del state
+    return dict(step_device_busy_ms=step["device_busy_ms"], step_ms_host_clock=step["ms_host_clock"],
+                step_device_idle_share=step["device_idle_share"],
+                k9_k11_device_ms=flash.get("device_ms"), k9_k11_launches=flash.get("launches"),
+                fused_ce_device_ms=ce_prof["device_busy_ms"],
+                fused_ce_ms_host_clock=ce_prof["ms_host_clock"],
+                device_ms_by_category=step["device_ms_by_category"])
+
+
+def _train_recipe(phase, args, card, steps):
+    """``steps`` steps of ``args`` through the training entry point: losses,
+    step seconds, tokens/s, MFU at 989 TFLOP/s (unembedding counted), peak
+    memory and K9-K11 launches against the code's prediction."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    cfg = load_config(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()  # every count to 0 just before the main path, read just after
+    out = train.main(list(args))  # no device given: the GPU, or an error
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist),
+          f"{phase}: losses {losses} over {len(hist)} of {steps} steps")
+    check(losses[-1] < losses[0], f"{phase}: the loss did not fall: {losses}")
+    want = _train_launches_want(cfg.num_decoder_layers, steps)
+    check(launches == want, f"{phase}: launches {launches} != predicted {want}")
+    step_s = _median_step_seconds(hist)
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    tflops = flops.training_tflops_per_step(cfg)
+    fields = dict(card=card, steps=steps, losses=losses, grad_norms=[h["grad_norm"] for h in hist],
+                  step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+                  tokens_per_step=tokens, tokens_per_s=tokens / step_s, tflops_per_step=tflops,
+                  mfu_at_989_tflops=flops.mfu(tflops, step_s), launches=launches,
+                  params=sum(p.numel() for p in Transformer(cfg, device="meta").parameters()),
+                  peak_memory_bytes=peak)
+    return cfg, fields, {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+
+
+def phase_train_flagship_vocab(card):
+    """The flagship-vocab recipe (``benchmarks/mfu_flagship.py`` BEST) at
+    full size: the tts-1b body, a 264,192-row tied vocabulary, 4 x 2048
+    tokens, the chunked fused CE; then the same with the int8 fused CE and
+    bfloat16 logit slices. Device ms of the fused CE against K9-K11."""
+    t0 = time.perf_counter()
+    runs, launches = {}, {}
+    for name, extra in (("chunked_bf16", []),
+                        ("int8_bf16_logits", ["fused_ce_int8=true",
+                                              "fused_ce_logits_dtype=bfloat16"])):
+        cfg, fields, counts = _train_recipe(f"train_flagship_vocab ({name})",
+                                            TRAIN_FLAGSHIP_VOCAB_ARGS + extra, card,
+                                            TRAIN_STEPS)
+        fields["device"] = _flash_and_ce_device_ms(cfg, card)
+        runs[name] = fields
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(r["params"] == FLAGSHIP_VOCAB_PARAMS for r in runs.values()),
+          f"train_flagship_vocab: {[r['params'] for r in runs.values()]} parameters")
+    emit("train_flagship_vocab", t0, card=card, recipe="benchmarks/mfu_flagship.py BEST",
+         runs=runs, launches=launches)
+    return launches
+
+
+def phase_train_flagship(card):
+    """tts-flagship at full width and reduced depth (the reduction: 4 of 48
+    layers): one 4096-token row a step, the chunked fused CE, remat full,
+    bf16 weights; K9-K11 at D = 256 on the training path."""
+    t0 = time.perf_counter()
+    cfg, fields, launches = _train_recipe("train_flagship", TRAIN_FLAGSHIP_ARGS, card,
+                                          TRAIN_FLAGSHIP_STEPS)
+    check(fields["params"] == FLAGSHIP_TRAIN_PARAMS,
+          f"train_flagship: {fields['params']} parameters")
+    fields["device"] = _flash_and_ce_device_ms(cfg, card)
+    emit("train_flagship", t0, reduced=f"base_num_decoder_layers={cfg.num_decoder_layers} "
+         "(of 48)", head_dim=cfg.head_dim, emb_dim=cfg.emb_dim, **fields)
+    return launches
+
+
+def phase_train_flagship_vocab_parity(card):
+    """One batch of the flagship-vocab recipe at the same weights through
+    each fused CE variant and the materialised ``masked_cross_entropy``: the
+    loss, the gradient norm, the embedding's and one layer's gradients, and
+    each route's peak memory (the materialised route holds the [B*S, V]
+    float32 logits; a fused one never does)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    base = load_config(TRAIN_FLAGSHIP_VOCAB_ARGS + [
+        f"per_device_batch_size={FLAGSHIP_VOCAB_PARITY_BATCH}"])
+    state = train.setup_train_state(base)
+    batch = next(train.create_data_iterator(base, state.device))
+    names, leaves = list(state.params), list(state.params.values())
+    layer = [i for i, n in enumerate(names) if n.startswith(FLAGSHIP_PARITY_LAYER)]
+    emb = names.index("token_embedder.embedding")
+    routes = {"materialised": dict(fused_vocab_ce_chunk=0),
+              "chunked": {}, "streaming": dict(fused_vocab_ce_chunk=0,
+                                               fused_vocab_ce_tile=FLAGSHIP_PARITY_TILE),
+              "int8": dict(fused_ce_int8=True)}
+    res = {}
+    for route, over in routes.items():
+        cfg = dataclasses.replace(base, **over)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = train.loss_fn(state.model, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        res[route] = dict(loss=float(loss.detach()), grad_norm=float(train._global_norm(grads)),
+                          emb=grads[emb].float(), layer=[grads[i].float() for i in layer],
+                          peak_over_resident_bytes=torch.cuda.max_memory_allocated() - resident)
+        del loss, grads
+    ref = res["materialised"]
+    logits_bytes = FLAGSHIP_VOCAB_PARITY_BATCH * base.max_target_length * base.vocab_size * 4
+    out = {}
+    for route, r in res.items():
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+        out[route] = dict(loss=r["loss"], grad_norm=r["grad_norm"],
+                          peak_over_resident_bytes=r["peak_over_resident_bytes"])
+        if route != "materialised":
+            out[route].update(
+                loss_rel_diff=abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_norm_rel_diff=abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                embedding_grad_max_rel_diff=rel(r["emb"], ref["emb"]),
+                layer_grad_max_rel_diff=max(rel(a, b) for a, b in zip(r["layer"], ref["layer"])))
+    del res, state
+    tol = TOL_FLAGSHIP_VOCAB_PARITY
+    for route, o in out.items():
+        if route == "materialised":
+            continue
+        t = tol["int8" if route == "int8" else "float"]
+        check(all(np.isfinite([o["loss"], o["grad_norm"]])) and o["loss_rel_diff"] <= t[0]
+              and o["grad_norm_rel_diff"] <= t[1] and o["embedding_grad_max_rel_diff"] <= t[2]
+              and o["layer_grad_max_rel_diff"] <= t[2],
+              f"train_flagship_vocab_parity: {route} against materialised: {o}")
+        saved = out["materialised"]["peak_over_resident_bytes"] - o["peak_over_resident_bytes"]
+        check(saved >= logits_bytes,
+              f"train_flagship_vocab_parity: {route} peaked {o['peak_over_resident_bytes']} bytes"
+              f" over the resident state, only {saved} below the materialised route (the "
+              f"[B*S, V] float32 logits are {logits_bytes})")
+    emit("train_flagship_vocab_parity", t0, card=card, batch=FLAGSHIP_VOCAB_PARITY_BATCH,
+         layer=FLAGSHIP_PARITY_LAYER, logits_float32_bytes=logits_bytes, tol=tol, routes=out)
+
+
 def _bytes(path: str) -> int:
     if os.path.isfile(path):
         return os.path.getsize(path)
@@ -1973,7 +2394,7 @@ def main():
     cases = phase_kernels()
     # checkpoints, exported weights and data files of the later phases
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        paths = _phases(tmp)
+        paths = _phases(tmp, card)
     missing = {(kernel, phase) for kernel, by_phase in MAIN_PATH_CASES.items()
                for phase in by_phase if not paths.get(kernel, {}).get(phase)}
     check(not missing, f"a kernel of a main path never ran there: {sorted(missing)}")
@@ -1985,7 +2406,7 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _phases(tmp) -> dict:
+def _phases(tmp, card) -> dict:
     """Every main path after the kernel checks; returns each kernel's launches
     by the main path (phase) that ran it, for the kernels line."""
     paths: dict[str, dict[str, int]] = {}
@@ -2044,6 +2465,18 @@ def _phases(tmp) -> dict:
     phase_s2a_train_parity()
     release()
     record("s2a_seq_flash_serving", phase_s2a_seq_flash_serving())
+    release()
+    # the flagship: served whole, then trained at its vocabulary and width
+    engine, launches = phase_flagship_serve(card)
+    record("flagship_serve", launches)
+    phase_flagship_serve_parity(engine, card)
+    del engine
+    release()
+    record("train_flagship_vocab", phase_train_flagship_vocab(card))
+    release()
+    phase_train_flagship_vocab_parity(card)
+    release()
+    record("train_flagship", phase_train_flagship(card))
     return paths
 
 

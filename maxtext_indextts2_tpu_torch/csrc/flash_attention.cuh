@@ -101,6 +101,18 @@
 //   Key tiles start at the first (the heaviest under a causal mask).
 // - bf16 rows are copied 16 bytes at a time: the wrapper checks 16-byte-aligned
 //   starts and strides that are multiples of 8 elements and raises otherwise.
+// - D = 256 (the flagship's heads; D is a template parameter, built for 64, 128
+//   and 256): a thread's share of a 16-row float32 output (K9's O, K10's dQ) is
+//   D / 2 = 128 registers, and K11's dK plus dV would be 256. So at D = 256 K9
+//   and K10 take 32-key tiles (`fwd_keys`) and read their Q (K9) and dO (K10)
+//   fragments from shared memory 16 columns at a time (`product_abt_smem`; K10's
+//   S keeps its sum to nearest, 4 of its 16 steps unrolled), K10 walks a tile in
+//   steps of 16 keys, and a K11 block sums dK or dV, not both (`dkv_split`: the
+//   grid's z doubled, the first half dV, whose blocks skip dP^T), over steps of
+//   16 queries (`dkv_queries`). Shared memory: 97 / 129 / 129 KB. None spills
+//   (`-Xptxas -v`; `chip_smoke.py`'s build phase fails on a spill).
+// - The float32 kernels at D = 256 take 32-row tiles (`f32_tile`): 64-row ones
+//   would need 280 / 296 KB of shared memory in K10 / K11.
 // What keeps them from the bound is not measured (`ncu` does not run on that
 // machine); the candidates are the float32 softmax between the products (expf,
 // the mask, the hi/lo split) on the CUDA cores and `mma.sync`'s rate, below
@@ -126,10 +138,11 @@ namespace flash {
 using namespace hopper;
 
 constexpr float kMaskValue = -0.7f * 3.402823466e+38f;  // DEFAULT_MASK_VALUE
-constexpr int kTile = 64;      // rows of every tile (queries and keys)
 constexpr int kLanes = 16;     // threads across a tile's columns
 constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = kTile / kLanes;  // 4 rows (and columns) a thread
+// rows of every tile (queries and keys) of the float32 kernels: 64, and 32 at
+// D = 256, where 64-row tiles would need 280-296 KB of shared memory in K10 / K11
+template <int D> __host__ __device__ constexpr int f32_tile() { return D > 128 ? 32 : 64; }
 
 template <typename T> struct Elem;
 template <> struct Elem<float> {
@@ -214,33 +227,34 @@ __device__ __forceinline__ int classify(const Problem& p, TileStats q, TileStats
   return empty ? 0 : (full ? 1 : 2);
 }
 
-// rows [r0, r0 + kTile) of one (batch, head) slice into shared memory as
+// rows [r0, r0 + TILE) of one (batch, head) slice into shared memory as
 // float32, rows at or past `rows` as zeros; `pitch` floats per shared row
-template <typename T, int D>
+template <typename T, int D, int TILE>
 __device__ __forceinline__ void load_tile(float* dst, int pitch, const T* base, long long s_stride,
                                           int r0, int rows) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < TILE * D; i += kThreads) {
     const int r = i / D, c = i % D, row = r0 + r;
     dst[r * pitch + c] = row < rows ? Elem<T>::to_f(base[(long long)row * s_stride + c]) : 0.f;
   }
 }
 
-// positions and segment ids of rows [r0, r0 + kTile) of batch row b (threads < kTile)
+// positions and segment ids of rows [r0, r0 + TILE) of batch row b (threads < TILE)
+template <int TILE>
 __device__ __forceinline__ void load_ids(int* pos_s, int* seg_s, const int* pos, const int* seg,
                                          int b, int r0, int rows) {
   const int r = threadIdx.x;
-  if (r < kTile) {
+  if (r < TILE) {
     const int row = r0 + r;
     pos_s[r] = row < rows ? pos[(long long)b * rows + row] : 0;
     seg_s[r] = row < rows ? seg[(long long)b * rows + row] : 0;
   }
 }
 
-// acc[i][j] = sum_d A[(ty + 16 i)][d] * B[(tx + 16 j)][d], both [kTile][D + 1]
-template <int D>
+// acc[i][j] = sum_d A[(ty + 16 i)][d] * B[(tx + 16 j)][d], both [TILE][D + 1]
+template <int D, int TILE>
 __device__ __forceinline__ void dots(const float* A, const float* Bm, int ty, int tx,
-                                     float (&acc)[kRows][kRows]) {
-  constexpr int DP = D + 1;
+                                     float (&acc)[TILE / kLanes][TILE / kLanes]) {
+  constexpr int DP = D + 1, kRows = TILE / kLanes;
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -259,14 +273,14 @@ __device__ __forceinline__ void dots(const float* A, const float* Bm, int ty, in
   }
 }
 
-// acc[i][c] += sum_kk P[(ty + 16 i)][kk] * M[kk][tx + 16 c]; P [kTile][kTile + 1],
+// acc[i][c] += sum_kk P[(ty + 16 i)][kk] * M[kk][tx + 16 c]; P [TILE][TILE + 1],
 // M rows `pitch` floats apart
-template <int D>
+template <int D, int TILE>
 __device__ __forceinline__ void accumulate(const float* P, const float* M, int pitch, int ty,
-                                           int tx, float (&acc)[kRows][D / kLanes]) {
-  constexpr int PP = kTile + 1, DC = D / kLanes;
+                                           int tx, float (&acc)[TILE / kLanes][D / kLanes]) {
+  constexpr int PP = TILE + 1, DC = D / kLanes, kRows = TILE / kLanes;
 #pragma unroll 4
-  for (int kk = 0; kk < kTile; ++kk) {
+  for (int kk = 0; kk < TILE; ++kk) {
     float a[kRows], w[DC];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) a[i] = P[(ty + kLanes * i) * PP + kk];
@@ -291,15 +305,16 @@ __device__ __forceinline__ float cap_logit(const Problem& p, float s, float& dca
   return s;
 }
 
-// shared memory of each kernel, in floats (positions, ids and statistics are static)
-template <int D> constexpr int fwd_floats() {
-  return 2 * kTile * (D + 1) + kTile * D + kTile * (kTile + 1);  // Qs, Ks, Vs, Ps
+// shared memory of each kernel, in floats (positions, ids and statistics are
+// static); at D = 256 (32-row tiles) 105 / 133 / 137 KB
+template <int D, int TILE = f32_tile<D>()> constexpr int fwd_floats() {
+  return 2 * TILE * (D + 1) + TILE * D + TILE * (TILE + 1);  // Qs, Ks, Vs, Ps
 }
-template <int D> constexpr int dq_floats() {
-  return 4 * kTile * (D + 1) + kTile * (kTile + 1);  // Qs, dOs, Ks, Vs, DSs
+template <int D, int TILE = f32_tile<D>()> constexpr int dq_floats() {
+  return 4 * TILE * (D + 1) + TILE * (TILE + 1);  // Qs, dOs, Ks, Vs, DSs
 }
-template <int D> constexpr int dkv_floats() {
-  return 4 * kTile * (D + 1) + 2 * kTile * (kTile + 1);  // Ks, Vs, Qs, dOs, Ps, DSs
+template <int D, int TILE = f32_tile<D>()> constexpr int dkv_floats() {
+  return 4 * TILE * (D + 1) + 2 * TILE * (TILE + 1);  // Ks, Vs, Qs, dOs, Ps, DSs
 }
 
 // ---------------------------------------------------------------- K9: forward
@@ -309,24 +324,26 @@ fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
            T* __restrict__ o, float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
            Strides os) {
   extern __shared__ float smem[];
-  __shared__ int qpos_s[kTile], qseg_s[kTile], kpos_s[kTile], kseg_s[kTile];
+  __shared__ int qpos_s[f32_tile<D>()], qseg_s[f32_tile<D>()], kpos_s[f32_tile<D>()],
+      kseg_s[f32_tile<D>()];
   __shared__ int cls_s;
-  constexpr int DP = D + 1, PP = kTile + 1, DC = D / kLanes;
+  constexpr int TILE = f32_tile<D>(), kRows = TILE / kLanes;
+  constexpr int DP = D + 1, PP = TILE + 1, DC = D / kLanes;
   float* Qs = smem;
-  float* Ks = Qs + kTile * DP;
-  float* Vs = Ks + kTile * DP;
-  float* Ps = Vs + kTile * D;
+  float* Ks = Qs + TILE * DP;
+  float* Vs = Ks + TILE * DP;
+  float* Ps = Vs + TILE * D;
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const T* qb = q + b * qs.b + h * qs.n;
   const T* kb = k + b * ks.b + hk * ks.n;
   const T* vb = v + b * vs.b + hk * vs.n;
-  const int q_rows = min(kTile, p.Sq - q0);
+  const int q_rows = min(TILE, p.Sq - q0);
 
-  load_tile<T, D>(Qs, DP, qb, qs.s, q0, p.Sq);
-  load_ids(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
+  load_tile<T, D, TILE>(Qs, DP, qb, qs.s, q0, p.Sq);
+  load_ids<TILE>(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
   __syncthreads();
   const TileStats qst = tile_stats_warp(qpos_s, qseg_s, q_rows);  // valid in warp 0
 
@@ -338,23 +355,23 @@ fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
-  const int tiles = (p.Skv + kTile - 1) / kTile;
+  const int tiles = (p.Skv + TILE - 1) / TILE;
   for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile, k_rows = min(kTile, p.Skv - k0);
+    const int k0 = t * TILE, k_rows = min(TILE, p.Skv - k0);
     __syncthreads();  // every read of the tile before is done
-    load_ids(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
+    load_ids<TILE>(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
     __syncthreads();
     if (threadIdx.x < 32) {
       const TileStats kst = tile_stats_warp(kpos_s, kseg_s, k_rows);
-      if (threadIdx.x == 0) cls_s = classify(p, qst, kst, q_rows == kTile && k_rows == kTile);
+      if (threadIdx.x == 0) cls_s = classify(p, qst, kst, q_rows == TILE && k_rows == TILE);
     }
     __syncthreads();
     const int cls = cls_s;
     if (cls == 0) continue;
-    load_tile<T, D>(Ks, DP, kb, ks.s, k0, p.Skv);
-    load_tile<T, D>(Vs, D, vb, vs.s, k0, p.Skv);
+    load_tile<T, D, TILE>(Ks, DP, kb, ks.s, k0, p.Skv);
+    load_tile<T, D, TILE>(Vs, D, vb, vs.s, k0, p.Skv);
     __syncthreads();
-    dots<D>(Qs, Ks, ty, tx, s);
+    dots<D, TILE>(Qs, Ks, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = ty + kLanes * i;
@@ -391,7 +408,7 @@ fwd_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
       for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    accumulate<D>(Ps, Vs, D, ty, tx, acc);
+    accumulate<D, TILE>(Ps, Vs, D, ty, tx, acc);
   }
 
 #pragma unroll
@@ -416,27 +433,29 @@ dq_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T* 
           const float* __restrict__ delta, T* __restrict__ dq, Strides qs, Strides ks,
           Strides vs, Strides dos, Strides dqs) {
   extern __shared__ float smem[];
-  __shared__ int qpos_s[kTile], qseg_s[kTile], kpos_s[kTile], kseg_s[kTile];
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  __shared__ int qpos_s[f32_tile<D>()], qseg_s[f32_tile<D>()], kpos_s[f32_tile<D>()],
+      kseg_s[f32_tile<D>()];
+  __shared__ float lse_s[f32_tile<D>()], delta_s[f32_tile<D>()];
   __shared__ int cls_s;
-  constexpr int DP = D + 1, PP = kTile + 1, DC = D / kLanes;
+  constexpr int TILE = f32_tile<D>(), kRows = TILE / kLanes;
+  constexpr int DP = D + 1, PP = TILE + 1, DC = D / kLanes;
   float* Qs = smem;
-  float* dOs = Qs + kTile * DP;
-  float* Ks = dOs + kTile * DP;
-  float* Vs = Ks + kTile * DP;
-  float* DSs = Vs + kTile * DP;
+  float* dOs = Qs + TILE * DP;
+  float* Ks = dOs + TILE * DP;
+  float* Vs = Ks + TILE * DP;
+  float* DSs = Vs + TILE * DP;
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
   const T* kb = k + b * ks.b + hk * ks.n;
   const T* vb = v + b * vs.b + hk * vs.n;
-  const int q_rows = min(kTile, p.Sq - q0);
+  const int q_rows = min(TILE, p.Sq - q0);
 
-  load_tile<T, D>(Qs, DP, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
-  load_tile<T, D>(dOs, DP, d_o + b * dos.b + h * dos.n, dos.s, q0, p.Sq);
-  load_ids(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
-  if (threadIdx.x < kTile) {
+  load_tile<T, D, TILE>(Qs, DP, q + b * qs.b + h * qs.n, qs.s, q0, p.Sq);
+  load_tile<T, D, TILE>(dOs, DP, d_o + b * dos.b + h * dos.n, dos.s, q0, p.Sq);
+  load_ids<TILE>(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
+  if (threadIdx.x < TILE) {
     const int row = q0 + threadIdx.x;
     const long long at = ((long long)b * p.H + h) * p.Sq + row;
     lse_s[threadIdx.x] = row < p.Sq ? lse[at] : 0.f;
@@ -450,24 +469,24 @@ dq_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  const int tiles = (p.Skv + kTile - 1) / kTile;
+  const int tiles = (p.Skv + TILE - 1) / TILE;
   for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile, k_rows = min(kTile, p.Skv - k0);
+    const int k0 = t * TILE, k_rows = min(TILE, p.Skv - k0);
     __syncthreads();
-    load_ids(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
+    load_ids<TILE>(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
     __syncthreads();
     if (threadIdx.x < 32) {
       const TileStats kst = tile_stats_warp(kpos_s, kseg_s, k_rows);
-      if (threadIdx.x == 0) cls_s = classify(p, qst, kst, q_rows == kTile && k_rows == kTile);
+      if (threadIdx.x == 0) cls_s = classify(p, qst, kst, q_rows == TILE && k_rows == TILE);
     }
     __syncthreads();
     const int cls = cls_s;
     if (cls == 0) continue;
-    load_tile<T, D>(Ks, DP, kb, ks.s, k0, p.Skv);
-    load_tile<T, D>(Vs, DP, vb, vs.s, k0, p.Skv);
+    load_tile<T, D, TILE>(Ks, DP, kb, ks.s, k0, p.Skv);
+    load_tile<T, D, TILE>(Vs, DP, vb, vs.s, k0, p.Skv);
     __syncthreads();
-    dots<D>(Qs, Ks, ty, tx, s);
-    dots<D>(dOs, Vs, ty, tx, dp);
+    dots<D, TILE>(Qs, Ks, ty, tx, s);
+    dots<D, TILE>(dOs, Vs, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = ty + kLanes * i;
@@ -486,7 +505,7 @@ dq_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
     __syncthreads();
-    accumulate<D>(DSs, Ks, DP, ty, tx, acc);
+    accumulate<D, TILE>(DSs, Ks, DP, ty, tx, acc);
   }
 
 #pragma unroll
@@ -507,26 +526,28 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Strides qs,
            Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs) {
   extern __shared__ float smem[];
-  __shared__ int qpos_s[kTile], qseg_s[kTile], kpos_s[kTile], kseg_s[kTile];
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  __shared__ int qpos_s[f32_tile<D>()], qseg_s[f32_tile<D>()], kpos_s[f32_tile<D>()],
+      kseg_s[f32_tile<D>()];
+  __shared__ float lse_s[f32_tile<D>()], delta_s[f32_tile<D>()];
   __shared__ int cls_s;
   __shared__ TileStats kst_s;
-  constexpr int DP = D + 1, PP = kTile + 1, DC = D / kLanes;
+  constexpr int TILE = f32_tile<D>(), kRows = TILE / kLanes;
+  constexpr int DP = D + 1, PP = TILE + 1, DC = D / kLanes;
   float* Ks = smem;
-  float* Vs = Ks + kTile * DP;
-  float* Qs = Vs + kTile * DP;
-  float* dOs = Qs + kTile * DP;
-  float* Ps = dOs + kTile * DP;
-  float* DSs = Ps + kTile * PP;
+  float* Vs = Ks + TILE * DP;
+  float* Qs = Vs + TILE * DP;
+  float* dOs = Qs + TILE * DP;
+  float* Ps = dOs + TILE * DP;
+  float* DSs = Ps + TILE * PP;
 
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.H / p.Hkv;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const int k_rows = min(kTile, p.Skv - k0);
+  const int k_rows = min(TILE, p.Skv - k0);
 
-  load_tile<T, D>(Ks, DP, k + b * ks.b + hk * ks.n, ks.s, k0, p.Skv);
-  load_tile<T, D>(Vs, DP, v + b * vs.b + hk * vs.n, vs.s, k0, p.Skv);
-  load_ids(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
+  load_tile<T, D, TILE>(Ks, DP, k + b * ks.b + hk * ks.n, ks.s, k0, p.Skv);
+  load_tile<T, D, TILE>(Vs, DP, v + b * vs.b + hk * vs.n, vs.s, k0, p.Skv);
+  load_ids<TILE>(kpos_s, kseg_s, p.kv_pos, p.kv_seg, b, k0, p.Skv);
   __syncthreads();
   if (threadIdx.x < 32) {
     const TileStats kst = tile_stats_warp(kpos_s, kseg_s, k_rows);
@@ -538,16 +559,16 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int q_tiles = (p.Sq + kTile - 1) / kTile;
+  const int q_tiles = (p.Sq + TILE - 1) / TILE;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const T* qb = q + b * qs.b + h * qs.n;
     const T* dob = d_o + b * dos.b + h * dos.n;
     for (int t = 0; t < q_tiles; ++t) {
-      const int q0 = t * kTile, q_rows = min(kTile, p.Sq - q0);
+      const int q0 = t * TILE, q_rows = min(TILE, p.Sq - q0);
       __syncthreads();  // every read of the tile before is done
-      load_ids(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
-      if (threadIdx.x < kTile) {
+      load_ids<TILE>(qpos_s, qseg_s, p.q_pos, p.q_seg, b, q0, p.Sq);
+      if (threadIdx.x < TILE) {
         const int row = q0 + threadIdx.x;
         const long long at = ((long long)b * p.H + h) * p.Sq + row;
         lse_s[threadIdx.x] = row < p.Sq ? lse[at] : 0.f;
@@ -557,16 +578,16 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
       if (threadIdx.x < 32) {
         const TileStats qst = tile_stats_warp(qpos_s, qseg_s, q_rows);
         if (threadIdx.x == 0)
-          cls_s = classify(p, qst, kst_s, q_rows == kTile && k_rows == kTile);
+          cls_s = classify(p, qst, kst_s, q_rows == TILE && k_rows == TILE);
       }
       __syncthreads();
       const int cls = cls_s;
       if (cls == 0) continue;
-      load_tile<T, D>(Qs, DP, qb, qs.s, q0, p.Sq);
-      load_tile<T, D>(dOs, DP, dob, dos.s, q0, p.Sq);
+      load_tile<T, D, TILE>(Qs, DP, qb, qs.s, q0, p.Sq);
+      load_tile<T, D, TILE>(dOs, DP, dob, dos.s, q0, p.Sq);
       __syncthreads();
-      dots<D>(Ks, Qs, ty, tx, s);   // s[i][j]: key ty + 16 i, query tx + 16 j
-      dots<D>(Vs, dOs, ty, tx, dp);
+      dots<D, TILE>(Ks, Qs, ty, tx, s);   // s[i][j]: key ty + 16 i, query tx + 16 j
+      dots<D, TILE>(Vs, dOs, ty, tx, dp);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int kr = ty + kLanes * i;
@@ -586,8 +607,8 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
         }
       }
       __syncthreads();
-      accumulate<D>(Ps, dOs, DP, ty, tx, dv_acc);
-      accumulate<D>(DSs, Qs, DP, ty, tx, dk_acc);
+      accumulate<D, TILE>(Ps, dOs, DP, ty, tx, dv_acc);
+      accumulate<D, TILE>(DSs, Qs, DP, ty, tx, dk_acc);
     }
   }
 
@@ -609,9 +630,16 @@ dkv_kernel(Problem p, const T* __restrict__ q, const T* __restrict__ k, const T*
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows each
 constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kFwdQ = 64;  // K9 and K10: query rows of a block
-constexpr int kFwdK = 64;  // K9 and K10: keys of a tile
 constexpr int kDkvK = 64;  // K11: keys of a block
-constexpr int kDkvQ = 32;  // K11: query rows of a step
+// K9 and K10: keys of a tile; 32 at D = 256, where a thread's float32 output
+// row share (O, dQ) alone takes 128 registers
+template <int D> __host__ __device__ constexpr int fwd_keys() { return D > 128 ? 32 : 64; }
+// K11 at D = 256: dK and dV of a warp's 16 keys would be 256 registers a
+// thread, so a block sums one of them (grid z doubled: the first half dV)
+template <int D> __host__ __device__ constexpr bool dkv_split() { return D > 128; }
+// K11: query rows of a step; 16 at D = 256, where a step's S^T and dP^T of 32
+// queries leave the summed dK (or dV) too few registers
+template <int D> __host__ __device__ constexpr int dkv_queries() { return D > 128 ? 16 : 32; }
 
 // x = hi + lo to within 2^-17 |x|: hi = bf16(x), lo = bf16(x - hi), x - hi exact
 __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
@@ -630,14 +658,13 @@ __device__ __forceinline__ void load_rows_async(U* dst, const U* src, int r0, in
   }
 }
 
-// acc[16 rows x D] += X[16 rows x kDkvQ] M[kDkvQ x D]: X float32 C fragments,
-// each split into bf16 hi + lo A fragments; M a swizzled [kDkvQ][D] tile
-template <int D>
-__device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4],
-                                                 const float (&x)[kDkvQ / 8][4], unsigned m,
-                                                 int lane) {
+// acc[16 rows x D] += X[16 rows x Q] M[Q x D]: X float32 C fragments, each
+// split into bf16 hi + lo A fragments; M a swizzled [Q][D] tile
+template <int D, int Q>
+__device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4], const float (&x)[Q / 8][4],
+                                                 unsigned m, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < kDkvQ / 16; ++kk) {
+  for (int kk = 0; kk < Q / 16; ++kk) {
     unsigned hi[4], lo[4];
     split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
     split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
@@ -655,14 +682,15 @@ __device__ __forceinline__ void accumulate_split(float (&acc)[D / 8][4],
   }
 }
 
+// at D = 256: 97, 129 and 129 KB
 template <int D> constexpr int fwd_mma_bytes() {  // Qs, Ks[2], Vs[2], key ids [2][2]
-  return (kFwdQ + 4 * kFwdK) * D * 2 + 2 * 2 * kFwdK * 4;
+  return (kFwdQ + 4 * fwd_keys<D>()) * D * 2 + 2 * 2 * fwd_keys<D>() * 4;
 }
 template <int D> constexpr int dq_mma_bytes() {  // Qs, dOs, Ks[2], Vs[2], key ids [2][2]
-  return (2 * kFwdQ + 4 * kFwdK) * D * 2 + 2 * 2 * kFwdK * 4;
+  return (2 * kFwdQ + 4 * fwd_keys<D>()) * D * 2 + 2 * 2 * fwd_keys<D>() * 4;
 }
 template <int D> constexpr int dkv_mma_bytes() {  // Ks, Vs, Qs[2], dOs[2], query rows [2][4]
-  return (2 * kDkvK + 4 * kDkvQ) * D * 2 + 2 * 4 * kDkvQ * 4;
+  return (2 * kDkvK + 4 * dkv_queries<D>()) * D * 2 + 2 * 4 * dkv_queries<D>() * 4;
 }
 
 // ------------------------------------------------------- K9, bf16: forward
@@ -673,6 +701,8 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                Strides qs, Strides ks, Strides vs, Strides os) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int kFwdK = fwd_keys<D>();
+  constexpr bool kHoldQ = D <= 128;  // Q's fragments in registers, else read each tile
   constexpr int TILE = kFwdK * D * 2;
   const unsigned Qs = smem_addr(smem_u8);
   const unsigned Ks = Qs + kFwdQ * D * 2, Vs = Ks + 2 * TILE;
@@ -732,7 +762,7 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  unsigned qf[D / 16][4];
+  unsigned qf[kHoldQ ? D / 16 : 1][4];
   int t = next_tile(0);
   if (t < nkt) load_kv(t, 0);
   cp_async_commit();
@@ -742,7 +772,9 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_commit();
     cp_async_wait<1>();  // Q and this tile have landed
     __syncthreads();
-    if (first) load_a<D>(qf, Qs, warp * 16, lane);
+    if constexpr (kHoldQ) {
+      if (first) load_a<D>(qf, Qs, warp * 16, lane);
+    }
     const unsigned Kt = Ks + st * TILE, Vt = Vs + st * TILE;
     const int* kp = kpos_s + st * kFwdK;
     const int* kg = kseg_s + st * kFwdK;
@@ -750,7 +782,10 @@ fwd_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // S = Q K^T: 8-key column blocks j; this thread's (row, key) = (r_i, 8 j + 2 t4 + e % 2)
     float s[kFwdK / 8][4];
-    product_abt<D, kFwdK / 8>(s, qf, Kt, lane);
+    if constexpr (kHoldQ)
+      product_abt<D, kFwdK / 8>(s, qf, Kt, lane);
+    else
+      product_abt_smem<D, kFwdK / 8>(s, Qs, warp * 16, Kt, lane);
 
     // scale, cap, mask (a full tile pair has none: one branch for the tile,
     // so the unmasked loop stays compact); keys past Skv take no part in the max
@@ -848,8 +883,10 @@ dq_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
               bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs, Strides dos,
               Strides dqs) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int kFwdK = fwd_keys<D>();
   constexpr int QT = kFwdQ * D * 2, TILE = kFwdK * D * 2;
-  constexpr int SK = D > 64 ? 32 : kFwdK;  // keys of a step: S, dP and dQ's 64 floats fit
+  // keys of a step: S, dP and dQ's D / 2 floats fit (dQ's 128 at D = 256 leave 16)
+  constexpr int SK = D > 128 ? 16 : (D > 64 ? 32 : kFwdK);
   const unsigned Qs = smem_addr(smem_u8), dOs = Qs + QT, Ks = dOs + QT, Vs = Ks + 2 * TILE;
   int* kpos_s = reinterpret_cast<int*>(smem_u8 + 2 * QT + 4 * TILE);  // [2][kFwdK]
   int* kseg_s = kpos_s + 2 * kFwdK;
@@ -935,7 +972,9 @@ dq_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
       // the Q and dO fragments are read again for every step
       float s[SK / 8][4], dp[SK / 8][4];
       product_abt_rn<D, SK / 8>(s, Qs, warp * 16, Kt + koff, lane);
-      {
+      if constexpr (D > 128) {
+        product_abt_smem<D, SK / 8>(dp, dOs, warp * 16, Vt + koff, lane);
+      } else {
         unsigned a[D / 16][4];
         load_a<D>(a, dOs, warp * 16, lane);
         product_abt<D, SK / 8>(dp, a, Vt + koff, lane);
@@ -991,7 +1030,9 @@ dq_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------ K11, bf16: dk, dv
-// grid (Hkv, B, key tiles); the thread's keys are warp * 16 + lane / 4 (+ 8)
+// grid (Hkv, B, key tiles), at D = 256 (Hkv, B, 2 x key tiles): the blocks of
+// the first half sum dV, the second dK; the thread's keys are
+// warp * 16 + lane / 4 (+ 8)
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -1000,6 +1041,7 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides qs, Strides ks, Strides vs,
                Strides dos, Strides dks, Strides dvs) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
+  constexpr int kDkvQ = dkv_queries<D>();
   constexpr int KT = kDkvK * D * 2, QT = kDkvQ * D * 2;
   const unsigned Ks = smem_addr(smem_u8), Vs = Ks + KT, Qs = Ks + 2 * KT, dOs = Qs + 2 * QT;
   float* lse_s = reinterpret_cast<float*>(smem_u8 + 2 * KT + 4 * QT);  // [2][kDkvQ] each
@@ -1008,7 +1050,11 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
   int* qseg_s = qpos_s + 2 * kDkvQ;
   unsigned char* cls_s = reinterpret_cast<unsigned char*>(qseg_s + 2 * kDkvQ);  // [q tiles]
 
-  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kDkvK;
+  constexpr bool kSplit = dkv_split<D>();
+  const int k_tiles = (p.Skv + kDkvK - 1) / kDkvK;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = (kSplit ? blockIdx.z % k_tiles : blockIdx.z) * kDkvK;
+  const bool want_dk = !kSplit || blockIdx.z >= k_tiles, want_dv = !kSplit || !want_dk;
   const int group = p.H / p.Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
   const int k_rows = min(kDkvK, p.Skv - k0);
@@ -1059,11 +1105,18 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     load_rows_async<kDkvQ>(qseg_s + st * kDkvQ, qseg, q0, p.Sq);
   };
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  // split: dk_acc alone, summing dK or dV (want_dk); dv_acc is not used
+  float dk_acc[D / 8][4], dv_acc[kSplit ? 1 : D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = 0.f;
+  if constexpr (!kSplit) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[n][e] = 0.f;
+  }
   int it = next_step(0);
   if (it < steps) load_q(it, 0);
   cp_async_commit();
@@ -1080,7 +1133,8 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     const int* qg = qseg_s + st * kDkvQ;
     const int q_rows = min(kDkvQ, p.Sq - (it % nqt) * kDkvQ), cls = cls_s[it % nqt];
 
-    // S^T = K Q^T and dP^T = V dO^T: (key, query) = (r_i, 8 j + 2 t4 + e % 2)
+    // S^T = K Q^T and dP^T = V dO^T: (key, query) = (r_i, 8 j + 2 t4 + e % 2);
+    // a split block summing dV needs no dP^T
     float s[kDkvQ / 8][4], dp[kDkvQ / 8][4];
 #pragma unroll
     for (int j = 0; j < kDkvQ / 8; ++j)
@@ -1090,17 +1144,19 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int kk = 0; kk < D / 16; ++kk) {
       unsigned ka[4], va[4];
       ldsm_x4(Ks + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), ka);
-      ldsm_x4(Vs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), va);
+      if (want_dk) ldsm_x4(Vs + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), va);
 #pragma unroll
       for (int np = 0; np < kDkvQ / 16; ++np) {
         unsigned bq[4], bd[4];
         const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3), c = 2 * kk + ((lane >> 3) & 1);
         ldsm_x4(Qt + swz<D>(r, c), bq);
-        ldsm_x4(dOt + swz<D>(r, c), bd);
         mma_bf16(s[2 * np], ka, bq[0], bq[1]);
         mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[2 * np], va, bd[0], bd[1]);
-        mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+        if (want_dk) {
+          ldsm_x4(dOt + swz<D>(r, c), bd);
+          mma_bf16(dp[2 * np], va, bd[0], bd[1]);
+          mma_bf16(dp[2 * np + 1], va, bd[2], bd[3]);
+        }
       }
     }
     // p = exp(s - lse) where visible (else 0, never exp(mask - lse)) and
@@ -1135,8 +1191,15 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     // dV += P^T dO, then dK += dS^T Q (one at a time: fewer live registers),
     // p and ds each as bf16 hi + lo (neither is rounded to bf16); dO's and Q's
     // B fragments by ldmatrix.trans
-    accumulate_split<D>(dv_acc, s, dOt, lane);
-    accumulate_split<D>(dk_acc, dp, Qt, lane);
+    if constexpr (kSplit) {
+      if (want_dk)
+        accumulate_split<D, kDkvQ>(dk_acc, dp, Qt, lane);
+      else
+        accumulate_split<D, kDkvQ>(dk_acc, s, dOt, lane);
+    } else {
+      accumulate_split<D, kDkvQ>(dv_acc, s, dOt, lane);
+      accumulate_split<D, kDkvQ>(dk_acc, dp, Qt, lane);
+    }
     __syncthreads();  // every read of this stage is done before it is loaded again
     it = nit;
   }
@@ -1148,12 +1211,20 @@ dkv_mma_kernel(Problem p, const bf16* __restrict__ q, const bf16* __restrict__ k
     if (row >= p.Skv) continue;
     bf16* dkd = dk + b * dks.b + (long long)row * dks.s + hk * dks.n + 2 * t4;
     bf16* dvd = dv + b * dvs.b + (long long)row * dvs.s + hk * dvs.n + 2 * t4;
+    if constexpr (kSplit) {
+      bf16* dst = want_dk ? dkd : dvd;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkd + 8 * n) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvd + 8 * n) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dkd + 8 * n) =
+            __floats2bfloat162_rn(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvd + 8 * n) =
+            __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      }
     }
   }
 }
@@ -1175,7 +1246,8 @@ inline int prepare(K kernel, int bytes) {
 template <int D>
 int launch_fwd_mma(const Problem& p, const void* q, const void* k, const void* v, void* o,
                    float* lse, Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t st) {
-  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ, k_tiles = (p.Skv + kFwdK - 1) / kFwdK;
+  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ;
+  const int k_tiles = (p.Skv + fwd_keys<D>() - 1) / fwd_keys<D>();
   if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = fwd_mma_kernel<D>;
   const int bytes = fwd_mma_bytes<D>() + k_tiles;  // + one class byte a key tile
@@ -1190,7 +1262,8 @@ template <int D>
 int launch_dq_mma(const Problem& p, const void* q, const void* k, const void* v, const void* d_o,
                   const float* lse, const float* delta, void* dq, Strides qs, Strides ks,
                   Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
-  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ, k_tiles = (p.Skv + kFwdK - 1) / kFwdK;
+  const int q_tiles = (p.Sq + kFwdQ - 1) / kFwdQ;
+  const int k_tiles = (p.Skv + fwd_keys<D>() - 1) / fwd_keys<D>();
   if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = dq_mma_kernel<D>;
   const int bytes = dq_mma_bytes<D>() + k_tiles;  // + one class byte a key tile
@@ -1206,12 +1279,14 @@ int launch_dkv_mma(const Problem& p, const void* q, const void* k, const void* v
                    const float* lse, const float* delta, void* dk, void* dv, Strides qs,
                    Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
                    cudaStream_t st) {
-  const int k_tiles = (p.Skv + kDkvK - 1) / kDkvK, q_tiles = (p.Sq + kDkvQ - 1) / kDkvQ;
-  if (k_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int k_tiles = (p.Skv + kDkvK - 1) / kDkvK;
+  const int q_tiles = (p.Sq + dkv_queries<D>() - 1) / dkv_queries<D>();
+  const int z = dkv_split<D>() ? 2 * k_tiles : k_tiles;
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = dkv_mma_kernel<D>;
   const int bytes = dkv_mma_bytes<D>() + q_tiles;  // + one class byte a query tile
   if (int err = prepare(kernel, bytes)) return err;
-  kernel<<<dim3(p.Hkv, p.B, k_tiles), kMmaThreads, bytes, st>>>(
+  kernel<<<dim3(p.Hkv, p.B, z), kMmaThreads, bytes, st>>>(
       p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(d_o), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       qs, ks, vs, dos, dks, dvs);
@@ -1226,7 +1301,8 @@ int launch_fwd(const Problem& p, const void* q, const void* k, const void* v, vo
   } else {
     auto kernel = fwd_kernel<T, D>;
     if (int err = prepare(kernel, fwd_floats<D>() * 4)) return err;
-    const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+    constexpr int TILE = f32_tile<D>();
+    const dim3 grid((p.Sq + TILE - 1) / TILE, p.H, p.B);
     kernel<<<grid, kThreads, fwd_floats<D>() * 4, st>>>(
         p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, qs, ks, vs, os);
@@ -1243,7 +1319,8 @@ int launch_dq(const Problem& p, const void* q, const void* k, const void* v, con
   } else {
     auto kernel = dq_kernel<T, D>;
     if (int err = prepare(kernel, dq_floats<D>() * 4)) return err;
-    const dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+    constexpr int TILE = f32_tile<D>();
+    const dim3 grid((p.Sq + TILE - 1) / TILE, p.H, p.B);
     kernel<<<grid, kThreads, dq_floats<D>() * 4, st>>>(
         p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dq), qs, ks, vs, dos, dqs);
@@ -1260,7 +1337,8 @@ int launch_dkv(const Problem& p, const void* q, const void* k, const void* v, co
   } else {
     auto kernel = dkv_kernel<T, D>;
     if (int err = prepare(kernel, dkv_floats<D>() * 4)) return err;
-    const dim3 grid((p.Skv + kTile - 1) / kTile, p.Hkv, p.B);
+    constexpr int TILE = f32_tile<D>();
+    const dim3 grid((p.Skv + TILE - 1) / TILE, p.Hkv, p.B);
     kernel<<<grid, kThreads, dkv_floats<D>() * 4, st>>>(
         p, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(d_o), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), qs,
@@ -1297,6 +1375,7 @@ int launch_dkv(const Problem& p, const void* q, const void* k, const void* v, co
     cudaStream_t st = static_cast<cudaStream_t>(stream);                                       \
     if (D == 64) return flash::launch_fwd<T, 64>(p, q, k, v, o, lse, qs, ks, vs, os, st);      \
     if (D == 128) return flash::launch_fwd<T, 128>(p, q, k, v, o, lse, qs, ks, vs, os, st);    \
+    if (D == 256) return flash::launch_fwd<T, 256>(p, q, k, v, o, lse, qs, ks, vs, os, st);    \
     return static_cast<int>(cudaErrorInvalidValue);                                            \
   }                                                                                            \
   extern "C" int flash_bwd_dq_##SUFFIX(                                                        \
@@ -1319,6 +1398,9 @@ int launch_dkv(const Problem& p, const void* q, const void* k, const void* v, co
                                      st);                                                      \
     if (D == 128)                                                                              \
       return flash::launch_dq<T, 128>(p, q, k, v, d_o, lse, delta, dq, qs, ks, vs, dos, dqs,   \
+                                      st);                                                     \
+    if (D == 256)                                                                              \
+      return flash::launch_dq<T, 256>(p, q, k, v, d_o, lse, delta, dq, qs, ks, vs, dos, dqs,   \
                                       st);                                                     \
     return static_cast<int>(cudaErrorInvalidValue);                                            \
   }                                                                                            \
@@ -1343,6 +1425,9 @@ int launch_dkv(const Problem& p, const void* q, const void* k, const void* v, co
                                       dks, dvs, st);                                           \
     if (D == 128)                                                                              \
       return flash::launch_dkv<T, 128>(p, q, k, v, d_o, lse, delta, dk, dv, qs, ks, vs, dos,   \
+                                       dks, dvs, st);                                          \
+    if (D == 256)                                                                              \
+      return flash::launch_dkv<T, 256>(p, q, k, v, d_o, lse, delta, dk, dv, qs, ks, vs, dos,   \
                                        dks, dvs, st);                                          \
     return static_cast<int>(cudaErrorInvalidValue);                                            \
   }

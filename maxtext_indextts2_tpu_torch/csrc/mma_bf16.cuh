@@ -141,6 +141,31 @@ __device__ __forceinline__ void product_abt(float (&s)[NT][4], const unsigned (&
     }
 }
 
+// product_abt for rows [r0, r0 + 16) of a swizzled [rows][D] tile A whose
+// fragments are read one 16-column step at a time (one live, not D / 16): the
+// same chain of products, for a head too wide to hold A in registers (D = 256)
+template <int D, int NT>
+__device__ __forceinline__ void product_abt_smem(float (&s)[NT][4], unsigned at, int r0,
+                                                 unsigned bt, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned a[4];
+    ldsm_x4(at + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)), a);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned b[4];
+      ldsm_x4(bt + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)),
+              b);
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // product_abt for rows [r0, r0 + 16) of a swizzled [rows][D] tile A, with a
 // float32 sum rounded to nearest over D: each 16-product partial is summed on the
 // tensor cores from zero and the partials are added on the CUDA cores. The tensor
@@ -148,12 +173,17 @@ __device__ __forceinline__ void product_abt(float (&s)[NT][4], const unsigned (&
 // accumulator) and truncate, so a chain of D / 16 products loses low bits against
 // a large accumulator; where a result is rounded to bf16 next (K10's ds from s),
 // those bits decide which way it rounds. A's fragments are read one 16-column
-// step at a time, so only one is live
+// step at a time, so only one is live; past D = 128 the steps are unrolled 4 at
+// a time (fully, K10's dQ of 128 floats a thread spills)
 template <int D, int NT>
 __device__ __forceinline__ void product_abt_rn(float (&s)[NT][4], unsigned at, int r0,
                                                unsigned bt, int lane) {
+  constexpr int U = D > 128 ? 4 : D / 16;
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 16; k0 += U)
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int ku = 0; ku < U; ++ku) {
+    const int kk = k0 + ku;
     unsigned a[4];
     ldsm_x4(at + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)), a);
 #pragma unroll

@@ -185,9 +185,14 @@ class Embed(nn.Module):
 
     def attend(self, query: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         """Project hidden states onto the embedding table (tied logits).
-        Float32 result, as the JAX package's float32-accumulated product."""
+        The product's result is float32 (the JAX package's
+        ``preferred_element_type``): bfloat16 operands, float32 logits."""
+        from maxtext_indextts2_tpu_torch.ops.losses import matmul
+
         table = self.embedding.to(self.dtype)
-        logits = (query.to(self.dtype) @ table.T).float()
+        q = query.to(self.dtype)
+        logits = matmul(q.reshape(-1, q.shape[-1]), table.T, torch.float32).reshape(
+            *q.shape[:-1], table.shape[0])
         if normalize:
             logits = logits / math.sqrt(self.features)
         return logits

@@ -3,9 +3,13 @@
 Counterpart of the JAX package's ``models/transformer.py``. Logits come
 from a separate unembedding ``logits_dense`` or are tied to the embedding
 table (``logits_via_embedding``); optional soft cap; float32 cast.
+``return_prelogits`` stops at the final-normed hidden states, which the
+vocabulary-fused cross-entropy (``ops/losses.py``) projects itself.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -64,9 +68,24 @@ class Transformer(nn.Module):
         """Page pools for paged decode, nested as :meth:`init_cache`."""
         return self.decoder.init_paged_cache(num_pages, tokens_per_page, device)
 
+    def prelogits(self, y: torch.Tensor) -> torch.Tensor:
+        """Final-normed hidden states: what the fused-vocabulary CE takes
+        instead of logits."""
+        return self.decoder_norm(y)
+
+    def unembedding_kernel(self) -> tuple[torch.Tensor, float]:
+        """(the [E, V] unembedding, its logits' scale): the tied embedding
+        transposed with 1/sqrt(E) when ``normalize_embedding_logits``, else
+        ``logits_dense``'s kernel and 1."""
+        cfg = self.cfg
+        if cfg.logits_via_embedding:
+            scale = 1.0 / math.sqrt(cfg.emb_dim) if cfg.normalize_embedding_logits else 1.0
+            return self.token_embedder.embedding.t(), scale
+        return self.logits_dense.kernel, 1.0
+
     def _unembed(self, y: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        y = self.decoder_norm(y)
+        y = self.prelogits(y)
         if cfg.logits_via_embedding:
             logits = self.token_embedder.attend(y, normalize=cfg.normalize_embedding_logits)
         else:
@@ -86,6 +105,7 @@ class Transformer(nn.Module):
         cache: list | None = None,  # from init_cache(); updated in place
         impl: str | None = None,  # "plain": kernels' plain versions (comparisons only)
         paged_step=None,  # paged decode: infer.paged_attention.PagedDecodeStep
+        return_prelogits: bool = False,  # fused-vocabulary CE: skip the unembedding
     ) -> torch.Tensor:
         emb = self.token_embedder(tokens)
         if self.block.scale_embedding:
@@ -93,4 +113,6 @@ class Transformer(nn.Module):
                                      device=emb.device)
         y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
                          paged_step=paged_step)
+        if return_prelogits:
+            return self.prelogits(y)
         return self._unembed(y)

@@ -22,7 +22,9 @@ and the plain version against the row's max, bfloat16 outputs may differ by
 one step.
 
 On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cuh``
-run (or the call raises). They read q, k and v through their strides, so the
+run (or the call raises); they are built for the head dims of ``HEAD_DIMS``
+(64, 128 and 256, the flagship's), and any other width raises with that list
+(the JAX kernels take any: ROADMAP queues the others). They read q, k and v through their strides, so the
 [B, S, N, D] projections of the model need no transposed copy, and they
 choose their own tiles (the TPU kernel's VMEM block sizes have no
 counterpart here). In bfloat16, K9, K10 and K11 run on the tensor cores and
@@ -50,7 +52,7 @@ from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import FLOAT_DTYPES, route, row
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
-HEAD_DIMS = (64, 128)  # head widths the kernels are built for
+HEAD_DIMS = (64, 128, 256)  # head widths the kernels are built for
 GROUPS = (1, 2, 4)  # q heads per kv head the kernels are checked at
 
 # launches of each CUDA kernel by this process

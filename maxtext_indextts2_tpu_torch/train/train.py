@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``train/train.py`` on one device: the
 model's forward in ``MODE_TRAIN`` (flash attention K9-K11 and the remat
-policy of ``models/decoder.py``), masked cross-entropy with z-loss, the
-gradients by autograd, in-step gradient accumulation over microbatches,
+policy of ``models/decoder.py``), masked cross-entropy with z-loss (or, with
+``fused_vocab_ce_chunk`` / ``fused_vocab_ce_tile``, the vocabulary-fused
+variants of ``ops/losses.py``), the gradients by autograd, in-step gradient accumulation over microbatches,
 global-norm clipping with the scale cast to each leaf's dtype, and the
 optimizer of ``train/optimizers.py`` in optax's order. The parameters and
 the optimizer's moments are updated in place.
@@ -37,6 +38,7 @@ from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
 from maxtext_indextts2_tpu_torch.models import Transformer
 from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN
 from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
+from maxtext_indextts2_tpu_torch.models.layers import to_dtype
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops import losses
 from maxtext_indextts2_tpu_torch.train import checkpointing
@@ -104,20 +106,45 @@ def setup_train_state(cfg: Config, device=None, params: dict | None = None) -> T
     return TrainState(step=0, model=model, params=named, opt_state=opt_state, tx=tx)
 
 
+def fused_ce(model: Transformer, cfg: Config, y: torch.Tensor, targets: torch.Tensor,
+             weights: torch.Tensor):
+    """The vocabulary-fused CE of the JAX package's ``loss_fn`` over the
+    final-normed hidden states ``y``: int8 when ``fused_ce_int8`` and
+    ``fused_vocab_ce_chunk``, else streaming when ``fused_vocab_ce_tile``,
+    else chunked. (mean_loss, total_weight)."""
+    kernel, scale = model.unembedding_kernel()
+    ldt = cfg.fused_ce_logits_dtype or None
+    if cfg.fused_ce_int8 and cfg.fused_vocab_ce_chunk > 0:
+        return losses.chunked_unembed_cross_entropy_int8(
+            y, kernel, targets, weights, z_loss=cfg.z_loss_weight,
+            chunk=cfg.fused_vocab_ce_chunk, soft_cap=cfg.final_logits_soft_cap, scale=scale,
+            logits_dtype=ldt or "bfloat16")
+    dt = torch.float32 if cfg.logits_dot_in_fp32 else to_dtype(cfg.dtype)
+    if cfg.fused_vocab_ce_tile > 0:
+        return losses.streaming_unembed_cross_entropy(
+            y, kernel, targets, weights, z_loss=cfg.z_loss_weight,
+            max_tile=cfg.fused_vocab_ce_tile, soft_cap=cfg.final_logits_soft_cap, scale=scale,
+            compute_dtype=dt)
+    return losses.chunked_unembed_cross_entropy(
+        y, kernel, targets, weights, z_loss=cfg.z_loss_weight, chunk=cfg.fused_vocab_ce_chunk,
+        soft_cap=cfg.final_logits_soft_cap, scale=scale, compute_dtype=dt, logits_dtype=ldt)
+
+
 def loss_fn(model: Transformer, cfg: Config, batch: dict, is_train: bool = True,
             impl: str | None = None):
-    """(mean loss over valid tokens, aux) for one batch."""
-    if is_train and cfg.fused_vocab_ce_chunk > 0:
-        if cfg.fused_ce_int8:
-            losses.chunked_unembed_cross_entropy_int8()
-        losses.chunked_unembed_cross_entropy()
-    if is_train and cfg.fused_vocab_ce_tile > 0:
-        losses.streaming_unembed_cross_entropy()
-    logits = model(batch["inputs"], batch["inputs_position"], batch["inputs_segmentation"],
-                   mode=MODE_TRAIN, impl=impl)
+    """(mean loss over valid tokens, aux) for one batch. In training with
+    ``fused_vocab_ce_chunk`` or ``fused_vocab_ce_tile`` the logits are never
+    materialised (:func:`fused_ce`); evaluation keeps the materialised CE,
+    as in the JAX package."""
+    fused = is_train and (cfg.fused_vocab_ce_chunk > 0 or cfg.fused_vocab_ce_tile > 0)
+    out = model(batch["inputs"], batch["inputs_position"], batch["inputs_segmentation"],
+                mode=MODE_TRAIN, impl=impl, return_prelogits=fused)
     weights = (batch["targets_segmentation"] != 0).to(torch.float32)
-    loss, total_weights = losses.masked_cross_entropy(logits, batch["targets"], weights,
-                                                      cfg.z_loss_weight)
+    if fused:
+        loss, total_weights = fused_ce(model, cfg, out, batch["targets"], weights)
+    else:
+        loss, total_weights = losses.masked_cross_entropy(out, batch["targets"], weights,
+                                                          cfg.z_loss_weight)
     return loss, {"ce_loss": loss, "total_weights": total_weights}
 
 

@@ -87,11 +87,3 @@ def test_bfloat16_logits_give_a_bfloat16_gradient():
     want = np.asarray(jgrad.astype(jnp.bfloat16).astype(jnp.float32))
     step = 2.0 ** -8 * np.abs(want).max()
     np.testing.assert_allclose(x.grad.float().numpy(), want, atol=step, rtol=0)
-
-
-@pytest.mark.parametrize("name", ["chunked_unembed_cross_entropy",
-                                  "chunked_unembed_cross_entropy_int8",
-                                  "streaming_unembed_cross_entropy"])
-def test_fused_vocab_variants_name_their_queue_item(name):
-    with pytest.raises(NotImplementedError, match="port queue: 4b"):
-        getattr(tlosses, name)()

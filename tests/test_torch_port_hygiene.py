@@ -34,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "maxtext_indextts2_tpu_torch")
 JAX_DIR = os.path.join(REPO, "maxtext_indextts2_tpu")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maxtext_indextts2_tpu")
-YAMLS = ["tiny.yml", "tiny_tts.yml", os.path.join("models", "tts-1b.yml")]
+YAMLS = ["tiny.yml", "tiny_tts.yml", os.path.join("models", "tts-1b.yml"),
+         os.path.join("models", "tts-flagship.yml")]
 
 
 def _python_sources():

@@ -244,8 +244,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     (["colocated_python_data_input=true"], "6"),
     (["enable_dropout=true", "dropout_rate=0.1"], "4b"),
     (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
-    (["fused_vocab_ce_chunk=64"], "4b"), (["fused_vocab_ce_tile=128"], "4b"),
-], ids=["colocated_data", "dropout", "mtp", "zero1", "fused_ce_chunk", "fused_ce_tile"])
+], ids=["colocated_data", "dropout", "mtp", "zero1"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
@@ -270,12 +269,6 @@ def _refuse_repcodec(kind):
     RepCodec.forward(None, None)
 
 
-def _refuse_fused_ce(kind):
-    from maxtext_indextts2_tpu_torch.ops import losses
-
-    losses.chunked_unembed_cross_entropy()
-
-
 def _refuse_dropout(kind):
     ttrain.check_training_config(load_config(["enable_dropout=true", "dropout_rate=0.1"]))
 
@@ -288,7 +281,7 @@ def _refuse_tensorboard(kind):
 
 @pytest.mark.parametrize("refuse,arg,item", [
     (_refuse_vision_sft, "hf", "6"), (_refuse_codec_decoder, "codec", "4b.5"),
-    (_refuse_repcodec, "repcodec", "4b.5"), (_refuse_fused_ce, "chunk", "4b.6"),
+    (_refuse_repcodec, "repcodec", "4b.5"),
     (_refuse_dropout, "dropout", "4b.7"), (_refuse_tensorboard, "tensorboard", "4b.7"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
