@@ -61,8 +61,17 @@ flagship-vocab recipe (the tts-1b body at the 264,192-row vocabulary, the
 vocabulary-fused chunked CE, then its int8 variant), ``train_flagship_vocab_
 parity`` holds each fused CE variant against the materialised CE (loss,
 gradients, peak memory), and ``train_flagship`` trains the flagship at full
-width and 4 layers (K9-K11 at head dim 256). The kernels line lists, for
-each kernel, the case of every main path that ran it.
+width and 4 layers (K9-K11 at head dim 256). Training with MLP dropout:
+``train_dropout`` trains the ``tts-1b`` recipe with ``dropout_rate=0.1``
+(K9-K11 launches as predicted, step seconds against ``train``'s) and
+``train_dropout_parity`` holds one 2-layer float32 step with one set of masks
+on the kernel route against the plain route and under remat against none.
+The codec trainers: ``codec_train`` trains the acoustic codec at its
+published widths with quantizer dropout and one re-seed of dead codes,
+``codec_train_repcodec`` the RepCodec, and ``codec_train_parity`` holds one
+codec step and an EMA codebook's training calls on the card against the CPU.
+The kernels line lists, for each kernel, the case of every main path that
+ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -267,6 +276,48 @@ S2A_PARITY_PAD = (100, 37)
 # differ by max 0.297, mean 0.0386 at mean |y| 0.80; the flash route with the
 # pad mask ignored gives max 0.80, mean 0.109. Bound: max 0.6, mean 0.06.
 TOL_SEQ_FLASH_SERVING_MAX, TOL_SEQ_FLASH_SERVING_MEAN = 0.6, 0.06
+
+# Codec training. codec_train: codec_train.main with codec_target=acoustic and
+# no device: AcousticCodec() at its published widths, float32, quantizer
+# dropout 0.5 (the first 8 of 16 rows keep a drawn number of stages), 16 rows of
+# 0.5 s at 24 kHz (12,000 samples, 25 frames) a step, 25 steps, dead codes
+# re-seeded once, after step 20. Convolutions, FFTs and products run through
+# cuDNN, cuFFT and cuBLAS: no kernel of the repository is on this path, every
+# launch count 0. codec_train_repcodec: RepCodec(hidden 1024, codebook 8192, 4
+# Vocos layers a side) as the JAX trainer builds it, 16 x 64 frames, 10 steps.
+CODEC_TRAIN_STEPS = 25
+CODEC_TRAIN_ARGS = ["per_device_batch_size=16", "codec_quantizer_dropout=0.5", "dtype=float32"]
+CODEC_PARAMS = 107_745_346
+REPCODEC_TRAIN_STEPS = 10
+REPCODEC_TRAIN_PARAMS = 19_016_456
+CODEC_MAX_PEAK_BYTES = 40e9
+# codec_train_parity: one step of the codec at full width cut to 2 Vocos
+# layers, 4 rows, float32, one set of weights, batch and quantizer-dropout
+# draw, on the card and on the CPU (TF32 off: the same float32 arithmetic,
+# cuDNN's and oneDNN's convolution algorithms and the FFTs summing in other
+# orders, ~1e-6 relative a layer). The whole step from the waveform flipped 1
+# of 1,200 RVQ indices (a near tie after the encoder's ~40 layers, measured on
+# one H100), so the step is compared in stages, each stage fed the card's
+# input: the encoder's latents within 1e-4 of their largest entry; the
+# quantizer, decoder and loss on the card's latents (indices equal); the
+# encoder's backward of the card's latent gradient. The loss (staged, and of the
+# whole step) within 1e-4 relative, every gradient within 1e-3 of its own
+# largest entry (train_parity's bound). Then an EMA VectorQuantize (K = 1024,
+# D = 8, k-means init, then 3 training calls with expiry) on the card's encoder
+# latents of 192 rows a call (4,800 latents, ~4.7 a code), the same draws on
+# both sides: indices equal, every state leaf within 1e-4 of its largest entry
+# (ten Lloyd steps and three EMA updates of one-hot sums).
+CODEC_PARITY_ROWS, CODEC_PARITY_VOCOS_LAYERS = 4, 2
+TOL_CODEC_LATENT_REL, TOL_CODEC_LOSS_REL, TOL_CODEC_GRAD_REL = 1e-4, 1e-4, 1e-3
+EMA_VQ_ROWS, EMA_VQ_CALLS, EMA_VQ_SIZE, EMA_VQ_DIM = 192, 3, 1024, 8
+TOL_EMA_VQ_REL = 1e-4
+# train_dropout: the train recipe with MLP dropout (enable_dropout=true,
+# dropout_rate=0.1), 3 steps through the training entry point; the masks are
+# drawn outside the remat regions, so K9-K11 launch as in train (K9 twice a
+# layer, K10 and K11 once).
+TRAIN_DROPOUT_STEPS = 3
+TRAIN_DROPOUT_ARGS = [a for a in TRAIN_ARGS if not a.startswith("steps=")] + [
+    "enable_dropout=true", "dropout_rate=0.1", f"steps={TRAIN_DROPOUT_STEPS}"]
 
 # The flagship (configs/models/tts-flagship.yml): 48 layers, E 3840, 16 q / 8
 # kv heads of 256, MLP 15360, a 264,192-row vocabulary tied to the embedding;
@@ -1292,14 +1343,15 @@ def phase_train():
          launches=launches, launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          params=sum(p.numel() for p in Transformer(cfg, device="meta").parameters()),
          peak_memory_bytes=peak)
-    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}, step_s
 
 
 def phase_train_parity():
     """One 2-layer float32 step at full width: the kernel route against the
     plain route (the materialised flash-attention versions) from one set of
-    seeded weights and one batch: loss, grad norm, every gradient."""
-    _lm_parity("train_parity", TRAIN_ARGS, time.perf_counter())
+    seeded weights and one batch: loss, grad norm, every gradient. Returns
+    the kernel route's loss."""
+    return _lm_parity("train_parity", TRAIN_ARGS, time.perf_counter())
 
 
 def _median_step_seconds(hist) -> float:
@@ -1408,6 +1460,7 @@ def _lm_parity(phase, extra_args, t0):
          worst_grad=worst, worst_grad_rel_err=rel[worst], tol_grad_rel=TOL_TRAIN_GRAD_REL,
          grads_compared=len(rel), launches_kernel_route={k: n_k[k] for k in want},
          documents_a_row=[int(r.max()) for r in seg], padding_tokens=int((seg == 0).sum()))
+    return loss_k
 
 
 def phase_train_packed_parity():
@@ -1604,6 +1657,301 @@ def phase_s2a_seq_flash_serving():
          tol=[TOL_SEQ_FLASH_SERVING_MAX, TOL_SEQ_FLASH_SERVING_MEAN], routes=profiles,
          launches=counts)
     return counts["seq_flash"]
+
+
+def _codec_run(target: str, args: list[str]):
+    """codec_train.main on the card (no device given: the GPU, or an error):
+    (its output, the kernels' launches, the peak memory)."""
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = codec_train.main([f"codec_target={target}", *args])
+    torch.cuda.synchronize()
+    return out, _all_counts(), torch.cuda.max_memory_allocated()
+
+
+def _check_codec_run(phase, out, launches, peak, steps):
+    losses = [h["loss"] for h in out["history"]]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    check(not any(launches.values()), f"{phase}: a kernel of the repository ran: {launches}")
+    check(peak < CODEC_MAX_PEAK_BYTES, f"{phase}: peak memory {peak / 1e9:.1f} GB")
+    return losses, _median_step_seconds(out["history"])
+
+
+def phase_codec_train():
+    """The acoustic codec trainer at its published widths through its entry
+    point: finite losses, one re-seed of dead codes, distinct codes a layer
+    before and after it, audio seconds trained a second, no repo kernel."""
+    from maxtext_indextts2_tpu_torch.audio.acoustic import AcousticCodec
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    t0 = time.perf_counter()
+    args = CODEC_TRAIN_ARGS + [f"steps={CODEC_TRAIN_STEPS}"]
+    cfg = load_config(args)
+    params = sum(p.numel() for p in AcousticCodec(device="meta").parameters())
+    check(params == CODEC_PARAMS, f"codec_train: {params} parameters, not {CODEC_PARAMS}")
+    out, launches, peak = _codec_run("acoustic", args)
+    losses, step_s = _check_codec_run("codec_train", out, launches, peak, CODEC_TRAIN_STEPS)
+    reseeds, distinct, period = out["reseeds"], out["distinct_codes"], codec_train.RESEED_PERIOD
+    check([r["step"] for r in reseeds] == [period - 1],
+          f"codec_train: re-seeds {reseeds}, one after step {period} expected")
+    rows = cfg.global_batch_size_to_train_on
+    samples = int(24000 * codec_train.SECONDS) // 480 * 480
+    emit("codec_train", t0, steps=CODEC_TRAIN_STEPS, params=params, batch=[rows, samples],
+         quantizer_dropout=cfg.codec_quantizer_dropout, losses=losses,
+         mel_l1=[h["mel_l1"] for h in out["history"]],
+         step_seconds=[h["step_time_s"] for h in out["history"]], median_step_seconds=step_s,
+         audio_seconds_per_step=rows * samples / 24000,
+         audio_seconds_per_s=rows * samples / 24000 / step_s, reseeds=reseeds,
+         distinct_codes_before_reseed=distinct[period - 1],
+         distinct_codes_after_reseed=distinct[period],
+         distinct_codes_last=distinct[-1], launches=launches, peak_memory_bytes=peak)
+
+
+def phase_codec_train_repcodec():
+    """The RepCodec trainer through its entry point, as the JAX trainer builds
+    the model: finite losses, frames trained a second, no repo kernel."""
+    from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    t0 = time.perf_counter()
+    args = ["per_device_batch_size=16", f"steps={REPCODEC_TRAIN_STEPS}"]
+    cfg = load_config(args)
+    params = sum(p.numel() for p in RepCodec(
+        hidden_size=cfg.s2a_hidden_size, codebook_size=cfg.semantic_codebook_size,
+        vocos_num_layers=4, device="meta").parameters())
+    check(params == REPCODEC_TRAIN_PARAMS,
+          f"codec_train_repcodec: {params} parameters, not {REPCODEC_TRAIN_PARAMS}")
+    out, launches, peak = _codec_run("repcodec", args)
+    losses, step_s = _check_codec_run("codec_train_repcodec", out, launches, peak,
+                                      REPCODEC_TRAIN_STEPS)
+    frames = cfg.global_batch_size_to_train_on * codec_train.REPCODEC_FRAMES
+    emit("codec_train_repcodec", t0, steps=REPCODEC_TRAIN_STEPS, params=params,
+         batch=[cfg.global_batch_size_to_train_on, codec_train.REPCODEC_FRAMES,
+                cfg.s2a_hidden_size], losses=losses,
+         rec_mse=[h["rec_mse"] for h in out["history"]],
+         step_seconds=[h["step_time_s"] for h in out["history"]], median_step_seconds=step_s,
+         frames_per_s=frames / step_s, launches=launches, peak_memory_bytes=peak)
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.cpu(), want.cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_codec_train_parity():
+    """One codec step at full width (2 Vocos layers), the card against the
+    CPU through the port: loss, every gradient, the RVQ indices; then an EMA
+    VectorQuantize's k-means init and training calls on the card's latents."""
+    from maxtext_indextts2_tpu_torch.audio.quantize_extended import (
+        VectorQuantize, draw_sample_indices,
+    )
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    t0 = time.perf_counter()
+    card = resolve_device(None)
+    cfg = load_config(CODEC_TRAIN_ARGS + [f"per_device_batch_size={CODEC_PARITY_ROWS}"])
+    kw = {"vocos_num_layers": CODEC_PARITY_VOCOS_LAYERS}
+    codecs = {dev: codec_train.build_acoustic_codec(cfg, kw, device=d)
+              for dev, d in (("cuda", card), ("cpu", "cpu"))}
+    codecs["cpu"].load_state_dict(codecs["cuda"].state_dict())
+    wav = torch.from_numpy(codec_train.acoustic_batch(cfg, 0, 480)["wav"])
+    draw = codecs["cpu"].decoder.quantizer.draw_dropout(CODEC_PARITY_ROWS,
+                                                        torch.Generator().manual_seed(5))
+    # the step in stages, each fed the card's input, so that an argmax near a
+    # tie cannot take another code on one side: the encoder; the quantizer,
+    # decoder and loss on the card's latents; the encoder's backward of the
+    # card's latent gradient. By the chain rule the stages are the step.
+    res, lat_card, g_lat_card = {}, None, None
+    for dev, codec in codecs.items():
+        _reset_all_counts()
+        device = next(codec.parameters()).device
+        x, d = wav.to(device), draw.to(device)
+        enc, dec = list(codec.encoder.parameters()), list(codec.decoder.parameters())
+        lat = codec.encoder(x)
+        lat_card = lat.detach() if lat_card is None else lat_card
+        leaf = lat_card.to(device).requires_grad_(True)
+        loss, aux = codec_train.acoustic_loss(codec, x, d, latents=leaf)
+        *g_dec, g_lat = torch.autograd.grad(loss, dec + [leaf])
+        g_lat_card = g_lat if g_lat_card is None else g_lat_card
+        g_enc = torch.autograd.grad(lat, enc, grad_outputs=g_lat_card.to(device))
+        with torch.no_grad():  # the whole step from the waveform, for its loss and codes
+            whole, whole_aux = codec_train.acoustic_loss(codec, x, d)
+        res[dev] = dict(loss=float(loss.detach()), lat=lat.detach(), grads=[*g_enc, *g_dec, g_lat],
+                        idx=aux["_indices"].cpu(), whole=float(whole),
+                        whole_idx=whole_aux["_indices"].cpu(), launches=dict(_all_counts()))
+    c, p = res["cuda"], res["cpu"]
+    names = ([f"encoder.{n}" for n, _ in codecs["cpu"].encoder.named_parameters()]
+             + [f"decoder.{n}" for n, _ in codecs["cpu"].decoder.named_parameters()]
+             + ["latents"])
+    rel = {n: _max_rel(a, b) for n, a, b in zip(names, c["grads"], p["grads"])}
+    worst = max(rel, key=rel.get)
+    lat_rel = _max_rel(c["lat"], p["lat"])
+    flipped = int((c["idx"] != p["idx"]).sum())
+    whole_flipped = int((c["whole_idx"] != p["whole_idx"]).sum())
+    loss_rel = abs(c["loss"] - p["loss"]) / abs(p["loss"])
+    whole_rel = abs(c["whole"] - p["whole"]) / abs(p["whole"])
+    check(np.isfinite(c["loss"]) and not any(c["launches"].values()),
+          f"codec_train_parity: loss {c['loss']}, launches {c['launches']}")
+    check(lat_rel <= TOL_CODEC_LATENT_REL,
+          f"codec_train_parity: encoder latents off by {lat_rel:.3g} of their largest entry")
+    check(loss_rel <= TOL_CODEC_LOSS_REL and whole_rel <= TOL_CODEC_LOSS_REL,
+          f"codec_train_parity: loss {c['loss']} / {c['whole']} (card) vs "
+          f"{p['loss']} / {p['whole']} (CPU)")
+    check(rel[worst] <= TOL_CODEC_GRAD_REL,
+          f"codec_train_parity: gradient {worst} off by {rel[worst]:.3g} of its largest entry")
+    check(flipped == 0, f"codec_train_parity: {flipped} of {p['idx'].numel()} RVQ indices differ")
+
+    # EMA VectorQuantize on the card's encoder latents, the same draws both sides
+    vq = {"cuda": VectorQuantize(codecs["cuda"].latent_dim, EMA_VQ_SIZE, EMA_VQ_DIM,
+                                 kmeans_init=True, device=card,
+                                 generator=torch.Generator(card).manual_seed(3))}
+    vq["cpu"] = VectorQuantize(codecs["cuda"].latent_dim, EMA_VQ_SIZE, EMA_VQ_DIM,
+                               kmeans_init=True, device="cpu")
+    vq["cpu"].load_state_dict(vq["cuda"].state_dict())
+    big = load_config(CODEC_TRAIN_ARGS + [f"per_device_batch_size={EMA_VQ_ROWS}"])
+    vq_flips, vq_rel, expired = [], [], []
+    for call in range(EMA_VQ_CALLS):
+        with torch.no_grad():
+            lat = codecs["cuda"].encoder(torch.from_numpy(
+                codec_train.acoustic_batch(big, call, 480)["wav"]).to(card))
+        n = lat.shape[0] * lat.shape[1]
+        gen = torch.Generator().manual_seed(100 + call)
+        draws = dict(init_idx=draw_sample_indices(n, EMA_VQ_SIZE, gen),
+                     expire_idx=draw_sample_indices(n, EMA_VQ_SIZE, gen))
+        out = {dev: m(lat.to(m.codebook.embed.device), train=True, **draws)
+               for dev, m in vq.items()}
+        vq_flips.append(int((out["cuda"].indices.cpu() != out["cpu"].indices).sum()))
+        state = {dev: dict(m.codebook.named_buffers()) for dev, m in vq.items()}
+        vq_rel.append({k: _max_rel(state["cuda"][k].float(), state["cpu"][k].float())
+                       for k in ("cluster_size", "embed", "embed_avg")})
+        expired.append(int((state["cpu"]["cluster_size"] < 2.0).sum()))
+        check(int(state["cuda"]["step"]) == call + 1 and bool(state["cuda"]["initted"]),
+              f"codec_train_parity: EMA codebook step {int(state['cuda']['step'])}")
+    worst_vq = max(max(r.values()) for r in vq_rel)
+    check(not any(vq_flips), f"codec_train_parity: EMA VQ indices differ: {vq_flips}")
+    check(worst_vq <= TOL_EMA_VQ_REL, f"codec_train_parity: EMA VQ state off by {vq_rel}")
+    emit("codec_train_parity", t0, rows=CODEC_PARITY_ROWS, vocos_layers=CODEC_PARITY_VOCOS_LAYERS,
+         dropout_draw=draw.tolist(), latents_rel_err=lat_rel, tol_latents_rel=TOL_CODEC_LATENT_REL,
+         loss_card=c["loss"], loss_cpu=p["loss"], loss_rel_err=loss_rel,
+         whole_step_loss_card=c["whole"], whole_step_loss_cpu=p["whole"],
+         whole_step_loss_rel_err=whole_rel, tol_loss_rel=TOL_CODEC_LOSS_REL,
+         whole_step_rvq_indices_differing=whole_flipped,
+         worst_grad=worst, worst_grad_rel_err=rel[worst], tol_grad_rel=TOL_CODEC_GRAD_REL,
+         grads_compared=len(rel), rvq_indices_compared=p["idx"].numel(),
+         rvq_indices_differing=flipped,
+         ema_vq=dict(codebook=[EMA_VQ_SIZE, EMA_VQ_DIM], rows_a_call=EMA_VQ_ROWS * 25,
+                     calls=EMA_VQ_CALLS, indices_differing=vq_flips, state_rel_err=vq_rel,
+                     expired_codes=expired, tol_rel=TOL_EMA_VQ_REL))
+
+
+def phase_train_dropout(train_step_s: float):
+    """The train recipe with MLP dropout through the training entry point:
+    K9-K11 launches against the prediction, step seconds against train's."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_DROPOUT_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = train.main(list(TRAIN_DROPOUT_ARGS))  # no device given: the GPU, or an error
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_DROPOUT_STEPS and all(np.isfinite(losses)),
+          f"train_dropout: losses {losses}")
+    want = _train_launches_want(cfg.num_decoder_layers, TRAIN_DROPOUT_STEPS)
+    check(launches == want, f"train_dropout: launches {launches} != predicted {want}")
+    check(peak < TRAIN_MAX_PEAK_BYTES, f"train_dropout: peak memory {peak / 1e9:.1f} GB")
+    step_s = _median_step_seconds(hist)
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    tflops = flops.training_tflops_per_step(cfg)
+    emit("train_dropout", t0, steps=TRAIN_DROPOUT_STEPS, dropout_rate=cfg.dropout_rate,
+         losses=losses, step_seconds=[h["step_time_s"] for h in hist],
+         median_step_seconds=step_s, train_median_step_seconds=train_step_s,
+         step_seconds_over_train=step_s / train_step_s, tokens_per_s=tokens / step_s,
+         mfu_at_989_tflops=flops.mfu(tflops, step_s), launches=launches,
+         launches_predicted=want, peak_memory_bytes=peak)
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+
+
+def phase_train_dropout_parity(train_parity_loss: float):
+    """2 float32 layers with one set of dropout masks: the kernel route
+    against the plain route, remat save_attn_and_mlp against no remat (the
+    masks are not drawn again on recomputation), and dropout_rate=0 against
+    train_parity's loss, bitwise."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.models.layers import MlpDropout
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    small = ["base_num_decoder_layers=2", "weight_dtype=float32", "dtype=float32"]
+    cfg = load_config(TRAIN_DROPOUT_ARGS + small)
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    shape = (*batch["inputs"].shape, cfg.mlp_dim)
+    drawn = train.step_dropout(cfg, 0, state.device)
+    masks = MlpDropout(cfg.dropout_rate,
+                       masks=[drawn.keep_mask(i, shape, state.device)
+                              for i in range(cfg.num_decoder_layers)])
+    names, leaves = list(state.params), list(state.params.values())
+    runs = {}
+    for name, impl, remat in (("kernels", None, cfg.remat_policy),
+                              ("plain", "plain", cfg.remat_policy),
+                              ("kernels_no_remat", None, "none")):
+        state.model.decoder.remat_policy = remat
+        _reset_all_counts()
+        loss, _ = train.loss_fn(state.model, cfg, batch, impl=impl, dropout=masks)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss.detach()), grads, dict(_all_counts()))
+    state.model.decoder.remat_policy = cfg.remat_policy
+    (loss_k, g_k, n_k), (loss_p, g_p, n_p), (loss_n, g_n, n_n) = (
+        runs["kernels"], runs["plain"], runs["kernels_no_remat"])
+    layers = cfg.num_decoder_layers
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    check({k: n_k[k] for k in want} == want and not any(n_p[k] for k in want)
+          and n_n["flash_fwd"] == layers,
+          f"train_dropout_parity: launches {n_k} (kernels), {n_p} (plain), {n_n} (no remat)")
+    rel = {n: _max_rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+    rel_remat = {n: _max_rel(a, b) for n, a, b in zip(names, g_k, g_n)}
+    worst, worst_remat = max(rel, key=rel.get), max(rel_remat, key=rel_remat.get)
+    check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+          f"train_dropout_parity: loss {loss_k} (kernels) vs {loss_p} (plain)")
+    check(rel[worst] <= TOL_TRAIN_GRAD_REL,
+          f"train_dropout_parity: gradient {worst} off by {rel[worst]:.3g} (plain)")
+    check(loss_k == loss_n and rel_remat[worst_remat] <= TOL_TRAIN_GRAD_REL,
+          f"train_dropout_parity: remat against none: loss {loss_k} vs {loss_n}, "
+          f"gradient {worst_remat} off by {rel_remat[worst_remat]:.3g}")
+    del state, runs, g_k, g_p, g_n
+    # dropout_rate=0 is no dropout: train_parity's loss, bitwise
+    cfg0 = load_config(TRAIN_ARGS + ["enable_dropout=true", "dropout_rate=0"] + small)
+    state0 = train.setup_train_state(cfg0)
+    batch0 = next(train.create_data_iterator(cfg0, state0.device))
+    # with gradients recorded, as train_parity's forward (the same remat regions)
+    loss0, _ = train.loss_fn(state0.model, cfg0, batch0,
+                             dropout=train.step_dropout(cfg0, 0, state0.device))
+    loss0 = float(loss0.detach())
+    check(loss0 == train_parity_loss,
+          f"train_dropout_parity: rate 0 loss {loss0!r} != train_parity's {train_parity_loss!r}")
+    emit("train_dropout_parity", t0, layers=layers, dropout_rate=cfg.dropout_rate,
+         keep_share=[float(m.float().mean()) for m in masks.masks], loss_kernels=loss_k,
+         loss_plain=loss_p, loss_no_remat=loss_n, worst_grad=worst, worst_grad_rel_err=rel[worst],
+         worst_grad_remat=worst_remat, worst_grad_remat_rel_err=rel_remat[worst_remat],
+         tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL, loss_rate_0=loss0,
+         train_parity_loss=train_parity_loss,
+         launches_kernel_route={k: n_k[k] for k in want})
 
 
 def _timed(fn, seconds: dict, key: str):
@@ -2449,8 +2797,13 @@ def _phases(tmp, card) -> dict:
     phase_audio_cli(pipe, tmp, files, prompt, semantic)
     del pipe
     release()
-    record("train", phase_train())
-    phase_train_parity()
+    launches, train_step_s = phase_train()
+    record("train", launches)
+    train_loss = phase_train_parity()
+    release()
+    record("train_dropout", phase_train_dropout(train_step_s))
+    release()
+    phase_train_dropout_parity(train_loss)
     release()
     phase_train_resume(tmp)
     release()
@@ -2465,6 +2818,13 @@ def _phases(tmp, card) -> dict:
     phase_s2a_train_parity()
     release()
     record("s2a_seq_flash_serving", phase_s2a_seq_flash_serving())
+    release()
+    # the codec trainers: no kernel of the repository on their paths
+    phase_codec_train()
+    release()
+    phase_codec_train_repcodec()
+    release()
+    phase_codec_train_parity()
     release()
     # the flagship: served whole, then trained at its vocabulary and width
     engine, launches = phase_flagship_serve(card)

@@ -4,8 +4,9 @@ DAC-style conv) decoder, 24 kHz audio, total encoder stride 480 -> 50 Hz.
 Counterpart of the JAX package's ``audio/acoustic.py`` for serving:
 ``tokenize`` (waveform ``[B, T]`` -> encoder latents -> residual VQ ids
 ``[Q, B, T / 480]``) and ``detokenize`` (ids -> embeddings -> waveform
-``[B, T * 480]``). The training calls wait with training. Layout ``[B, T, C]``
-channels-last (``[B, T]`` waveforms).
+``[B, T * 480]``), and the training autoencoder (``forward``: encoder ->
+residual VQ with its losses and quantizer dropout -> decoder). Layout
+``[B, T, C]`` channels-last (``[B, T]`` waveforms).
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Conv1d, lecun_normal_
 from maxtext_indextts2_tpu_torch.audio.quantize import ResidualVQ
 from maxtext_indextts2_tpu_torch.audio.vocos import ISTFTHead, VocosBackbone
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -199,9 +199,12 @@ class CodecDecoder(nn.Module):
     def latent2dist(self, latents, n_quantizers: int | None = None):
         return self.quantizer.latent2dist(latents, n_quantizers)
 
-    def forward(self, latents, n_quantizers: int | None = None, dropout_rng=None):
-        _unsupported("CodecDecoder.__call__ (codec training: quantize + decode)",
-                     "4b, rest of training: codec training, item 4b.5")
+    def forward(self, latents: torch.Tensor, n_quantizers: int | None = None, dropout=None):
+        """Training: quantize + decode. Returns (wav, indices [Q,B,T], the sum
+        of the layers' commitment losses, the sum of their codebook losses);
+        ``dropout``: the quantizer-dropout draw (``ResidualVQ.forward``)."""
+        quantized, idx, commit, cb, _ = self.quantizer(latents, n_quantizers, dropout=dropout)
+        return self.decode(quantized), idx, torch.sum(commit), torch.sum(cb)
 
 
 class AcousticCodec(nn.Module):
@@ -235,6 +238,6 @@ class AcousticCodec(nn.Module):
         _, idx = self.decoder.quantize(self.encoder(wav))
         return idx
 
-    def forward(self, wav, dropout_rng=None):
-        _unsupported("AcousticCodec.__call__ (codec autoencoder training)",
-                     "4b, rest of training: codec training, item 4b.5")
+    def forward(self, wav: torch.Tensor, dropout=None):
+        """Training autoencoder: (recon [B, T'], indices, commit, codebook)."""
+        return self.decoder(self.encoder(wav), dropout=dropout)

@@ -1,23 +1,38 @@
-"""Vector quantizers: factorized VQ and residual VQ, for inference.
+"""Vector quantizers: factorized VQ and residual VQ.
 
-Counterpart of the JAX package's ``audio/quantize.py`` for what serving
-needs: the encode side of ``tokenize`` (project to the 8-d codebook space,
-l2-normalise, nearest codebook row as the argmax of one similarity product,
-the residual chain of ``ResidualVQ.quantize``) and the decode side (token ids
--> codebook rows -> input-space embeddings). The losses, quantizer dropout,
-``__call__`` and ``latent2dist`` belong to training and are not ported yet.
-Layout: ``[B, T, D]`` channels-last.
+Counterpart of the JAX package's ``audio/quantize.py``: the encode side of
+``tokenize`` (project to the 8-d codebook space, l2-normalise, nearest
+codebook row as the argmax of one similarity product, the residual chain of
+``ResidualVQ.quantize``), the decode side (token ids -> codebook rows ->
+input-space embeddings) and training: ``forward`` gives the commitment and
+codebook losses (per sample and their means) with the straight-through
+estimator ``z_e + (z_q - z_e).detach()``, ``ResidualVQ`` its quantizer
+dropout, and ``latent2dist`` the similarity logits. Layout: ``[B, T, D]``
+channels-last.
+
+Quantizer dropout's draw is an input: the ``[B]`` quantizer counts in
+``[1, Q]`` that the JAX package draws with ``jax.random.randint(rng, (B,),
+1, Q + 1)``, given as a tensor, or drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
-_TRAINING = "4b, rest of training: codec training, item 4b.5"
+
+class QuantizeResult(NamedTuple):
+    quantized: torch.Tensor  # [B,T,D] (input space, after project_out)
+    indices: torch.Tensor  # [B,T] int64
+    commit_loss: torch.Tensor  # scalar
+    codebook_loss: torch.Tensor  # scalar
+    # per-sample [B] losses (for quantizer-dropout masking); the scalars are their means
+    commit_per_sample: torch.Tensor | None = None
+    codebook_per_sample: torch.Tensor | None = None
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -32,6 +47,7 @@ class FactorizedVectorQuantize(nn.Module):
         self.input_dim, self.codebook_size, self.codebook_dim = (
             input_dim, codebook_size, codebook_dim)
         self.use_l2_normalize = use_l2_normalize
+        self.commitment, self.codebook_loss_weight = commitment, codebook_loss_weight
         if input_dim != codebook_dim:
             self.in_proj = Dense(input_dim, codebook_dim, device=device, generator=generator)
             self.out_proj = Dense(codebook_dim, input_dim, device=device, generator=generator)
@@ -76,11 +92,25 @@ class FactorizedVectorQuantize(nn.Module):
         z_q = self.decode_code(indices)
         return self._project_out(z_e + (z_q - z_e)), indices
 
-    def latent2dist(self, x):
-        _unsupported("FactorizedVectorQuantize.latent2dist (training)", _TRAINING)
+    def latent2dist(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,T,input_dim] -> similarity logits [B,T,K]."""
+        z_e, cb = self._project_in(x), self.codebook
+        if self.use_l2_normalize:
+            z_e, cb = _l2norm(z_e), _l2norm(cb)
+        return torch.einsum("btd,kd->btk", z_e, cb)
 
-    def forward(self, x):
-        _unsupported("FactorizedVectorQuantize.__call__ (losses, training)", _TRAINING)
+    def forward(self, x: torch.Tensor) -> QuantizeResult:
+        """Training: the quantized output through the straight-through
+        estimator, the indices, and the commitment / codebook losses (per
+        sample over T and D, and their means over the batch)."""
+        z_e, indices = self.encode_latents(x)
+        z_q = self.decode_code(indices)
+        commit_ps = torch.mean(torch.square(z_e - z_q.detach()), dim=(1, 2)) * self.commitment
+        codebook_ps = (torch.mean(torch.square(z_e.detach() - z_q), dim=(1, 2))
+                       * self.codebook_loss_weight)
+        z_q = z_e + (z_q - z_e).detach()
+        return QuantizeResult(self._project_out(z_q), indices, torch.mean(commit_ps),
+                              torch.mean(codebook_ps), commit_ps, codebook_ps)
 
 
 class ResidualVQ(nn.Module):
@@ -92,6 +122,7 @@ class ResidualVQ(nn.Module):
                  quantizer_dropout: float = 0.0, device=None, generator=None):
         super().__init__()
         self.num_quantizers = num_quantizers
+        self.quantizer_dropout = quantizer_dropout
         for i in range(num_quantizers):
             setattr(self, f"vq_{i}", FactorizedVectorQuantize(
                 input_dim, codebook_size, codebook_dim, commitment, codebook_loss_weight,
@@ -118,8 +149,57 @@ class ResidualVQ(nn.Module):
             idx.append(indices)
         return out, torch.stack(idx)
 
-    def latent2dist(self, x, n_quantizers: int | None = None):
-        _unsupported("ResidualVQ.latent2dist (training)", _TRAINING)
+    def latent2dist(self, x: torch.Tensor, n_quantizers: int | None = None) -> torch.Tensor:
+        """Per-layer similarity logits [Q,B,T,K] following the residual chain."""
+        n = n_quantizers or self.num_quantizers
+        residual, dists = x, []
+        for i in range(n):
+            q = getattr(self, f"vq_{i}")
+            d = q.latent2dist(residual)
+            residual = residual - q.vq2emb(torch.argmax(d, dim=-1))
+            dists.append(d)
+        return torch.stack(dists)
 
-    def forward(self, x, n_quantizers: int | None = None, dropout_rng=None):
-        _unsupported("ResidualVQ.__call__ (losses, quantizer dropout, training)", _TRAINING)
+    def draw_dropout(self, batch: int, generator: torch.Generator) -> torch.Tensor:
+        """A [B] draw of quantizer counts in [1, Q] (on the generator's device)."""
+        return torch.randint(1, self.num_quantizers + 1, (batch,), generator=generator,
+                             device=generator.device)
+
+    def forward(self, x: torch.Tensor, n_quantizers: int | None = None,
+                dropout: torch.Tensor | torch.Generator | None = None):
+        """Training: (quantized_out [B,T,D], indices [Q,B,T], commit_losses
+        [Q], codebook_losses [Q], per_layer_quantized [Q,B,T,D]).
+
+        ``dropout``: the quantizer-dropout draw, a [B] tensor of counts in
+        [1, Q] or a generator to draw it from; with ``quantizer_dropout > 0``
+        the first ``int(B * quantizer_dropout)`` samples keep only their
+        drawn number of stages: later stages' contributions and losses are
+        masked per sample, while the residuals still advance unmasked. None
+        (as the JAX package's ``dropout_rng=None``): no dropout."""
+        n = n_quantizers or self.num_quantizers
+        b = x.shape[0]
+        n_per_sample = None
+        if dropout is not None and self.quantizer_dropout > 0:
+            draw = (self.draw_dropout(b, dropout) if isinstance(dropout, torch.Generator)
+                    else dropout).to(x.device)
+            n_drop = int(b * self.quantizer_dropout)
+            keep_all = torch.full_like(draw, self.num_quantizers + 1)
+            n_per_sample = torch.where(torch.arange(b, device=x.device) < n_drop, draw, keep_all)
+        residual, out = x, torch.zeros_like(x)
+        all_idx, all_commit, all_cb, all_q = [], [], [], []
+        for i in range(n):
+            res = getattr(self, f"vq_{i}")(residual)
+            residual = residual - res.quantized
+            if n_per_sample is None:
+                out = out + res.quantized
+                all_commit.append(res.commit_loss)
+                all_cb.append(res.codebook_loss)
+            else:
+                mask = (i < n_per_sample).to(x.dtype)  # [B]
+                out = out + res.quantized * mask[:, None, None]
+                all_commit.append(torch.mean(res.commit_per_sample * mask))
+                all_cb.append(torch.mean(res.codebook_per_sample * mask))
+            all_idx.append(res.indices)
+            all_q.append(res.quantized)
+        return (out, torch.stack(all_idx), torch.stack(all_commit), torch.stack(all_cb),
+                torch.stack(all_q))

@@ -1,11 +1,10 @@
 """RepCodec: the semantic codec that quantizes w2v-BERT features to 8192 tokens.
 
-Counterpart of the JAX package's ``audio/repcodec.py`` for inference: a
-VocosBackbone encoder over the 1024-d semantic features -> a 1-stage
-ResidualVQ (factorized, codebook 8192 x 8, l2-normalised) -> ids
-(``quantize``), and ids -> embeddings (``vq2emb``). The decoder half is
-held (same parameter tree) but only the training autoencoder runs it, and
-that call waits with training. Layout ``[B, T, C]``.
+Counterpart of the JAX package's ``audio/repcodec.py``: a VocosBackbone
+encoder over the 1024-d semantic features -> a 1-stage ResidualVQ
+(factorized, codebook 8192 x 8, l2-normalised) -> ids (``quantize``), ids ->
+embeddings (``vq2emb``), and the training autoencoder (``forward``), whose
+VocosBackbone decoder reconstructs the features. Layout ``[B, T, C]``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from torch import nn
 from maxtext_indextts2_tpu_torch.audio.layers import Dense
 from maxtext_indextts2_tpu_torch.audio.quantize import ResidualVQ
 from maxtext_indextts2_tpu_torch.audio.vocos import VocosBackbone
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 class RepCodec(nn.Module):
@@ -46,6 +44,8 @@ class RepCodec(nn.Module):
     def vq2emb(self, indices: torch.Tensor) -> torch.Tensor:
         return self.quantizer.vq2emb(indices[None])
 
-    def forward(self, feats):
-        _unsupported("RepCodec.__call__ (the training autoencoder)",
-                     "4b, rest of training: RepCodec training, item 4b.5")
+    def forward(self, feats: torch.Tensor):
+        """Training autoencoder: (recon [B,T,hidden], indices [1,B,T], commit, codebook)."""
+        quantized, idx, commit, cb, _ = self.quantizer(self.encode(feats))
+        recon = self.dec_proj(self.decoder(quantized))
+        return recon, idx, torch.sum(commit), torch.sum(cb)

@@ -261,7 +261,7 @@ class Attention(nn.Module):
         if attention_kernel not in ("autoselected", "dot_product", "flash"):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
         if decode_attention == "bucketed":
-            _unsupported("decode_attention=bucketed", "5, decode extras")
+            _unsupported("decode_attention=bucketed", "5, decode extras: item 5.5")
         if decode_attention not in ("dot_product", "ragged"):
             raise ValueError(f"unknown decode_attention {decode_attention!r}")
         if use_qk_norm and qk_norm_type != "rms":

@@ -30,6 +30,16 @@ non-reentrant ``torch.utils.checkpoint``:
   ``mlp_pre_wo``, a post-FFW norm's input.
 - ``save_dot_except_mlp`` and ``save_qkv_proj`` are legacy names for
   ``save_attn_out``; an unknown name raises.
+
+Dropout in training (``models/layers.MlpDropout``): each MLP's keep mask is
+taken (or drawn) before the layer's regions run and handed to them as an
+argument, so a recomputed region applies the same mask: a mask drawn inside
+a region would be drawn again in the backward (``torch.utils.checkpoint``
+restores the global RNG, not an explicit generator). Under
+``save_attn_and_mlp`` the dropout and ``wo`` form one more region whose
+inputs are the saved ``mlp_pre_wo`` and the mask, so, as in the JAX package,
+the tensor kept is the one before dropout and the mask is applied again on
+recomputation.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from maxtext_indextts2_tpu_torch.config import Config
 from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN, Attention
-from maxtext_indextts2_tpu_torch.models.layers import MlpBlock, RMSNorm, to_dtype
+from maxtext_indextts2_tpu_torch.models.layers import MlpBlock, MlpDropout, RMSNorm, to_dtype
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
@@ -147,7 +157,7 @@ class DecoderLayer(nn.Module):
             setattr(self, f"mlp_{i}", MlpBlock(
                 cfg.emb_dim, cfg.mlp_dim, cfg.mlp_activations, dtype=dtype,
                 weight_dtype=wdtype, use_bias=block.use_mlp_bias,
-                quantization=cfg.quantization, device=device))
+                quantization=cfg.quantization, dropout_rate=cfg.dropout_rate, device=device))
             if block.use_post_ffw_norm:
                 setattr(self, f"post_ffw_norm_{i}", norm())
 
@@ -160,35 +170,43 @@ class DecoderLayer(nn.Module):
             num_pages, tokens_per_page, device) for i in range(len(self.block.attention_pattern))]
 
     def forward(self, x, positions, segment_ids, mode: str = MODE_TRAIN, cache=None,
-                impl: str | None = None, remat: str | None = None, paged_step=None):
+                impl: str | None = None, remat: str | None = None, paged_step=None,
+                keep_masks=None):
         """``remat``: a policy of :func:`_remat_policy`, applied in
         ``MODE_TRAIN`` while gradients are recorded. ``paged_step``: the
-        engine's ``PagedDecodeStep`` when ``cache`` holds page pools."""
+        engine's ``PagedDecodeStep`` when ``cache`` holds page pools.
+        ``keep_masks``: one MLP dropout keep mask per sub-layer (training)."""
+        masks = keep_masks or [None] * len(self.block.attention_pattern)
         if mode != MODE_TRAIN or remat is None or not torch.is_grad_enabled():
-            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step)
+            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step, masks)
         if remat == "full":
-            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl,
-                              use_reentrant=False)
+            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
+                              masks, use_reentrant=False)
         if remat == "minimal":
-            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl,
-                              use_reentrant=False, context_fn=_save_matmuls_context)
+            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
+                              masks, use_reentrant=False, context_fn=_save_matmuls_context)
         for i in range(len(self.block.attention_pattern)):
             attn_out = checkpoint(self._attn_anchor, i, x, positions, segment_ids, impl,
                                   use_reentrant=False)
             if remat == "save_attn_out":
-                x = checkpoint(self._after_attn, i, x, attn_out, use_reentrant=False)
-            else:  # save_attn_and_mlp
-                x1, pre = checkpoint(self._mlp_anchor, i, x, attn_out, use_reentrant=False)
+                x = checkpoint(self._after_attn, i, x, attn_out, masks[i], use_reentrant=False)
+                continue
+            # save_attn_and_mlp
+            x1, pre = checkpoint(self._mlp_anchor, i, x, attn_out, use_reentrant=False)
+            if masks[i] is None:
                 x = self._after_mlp(i, x1, pre)
+            else:  # the dropped-out product is recomputed from the anchor and the mask
+                x = checkpoint(self._after_mlp, i, x1, pre, masks[i], use_reentrant=False)
         return x
 
-    def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None):
+    def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None, masks=None):
         for i in range(len(self.block.attention_pattern)):
             h = self._pre_attn(i, x)
             attn_out = getattr(self, f"self_attention_{i}")(
                 h, h, positions, segment_ids, mode=mode,
                 cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step)
-            x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out))
+            x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out),
+                                   None if masks is None else masks[i])
         return x
 
     def _pre_attn(self, i, x):
@@ -203,14 +221,15 @@ class DecoderLayer(nn.Module):
     def _pre_mlp(self, i, x):
         return getattr(self, f"pre_mlp_norm_{i}")(x) if self.block.use_pre_norm else x
 
-    def _after_mlp(self, i, x, pre_wo):
-        mlp_out = getattr(self, f"mlp_{i}").wo(pre_wo)
+    def _after_mlp(self, i, x, pre_wo, keep_mask=None):
+        mlp_out = getattr(self, f"mlp_{i}").out(pre_wo, keep_mask)
         if self.block.use_post_ffw_norm:
             mlp_out = getattr(self, f"post_ffw_norm_{i}")(mlp_out)
         return x + mlp_out
 
-    def _mlp_sublayer(self, i, x):
-        return self._after_mlp(i, x, getattr(self, f"mlp_{i}").pre_wo(self._pre_mlp(i, x)))
+    def _mlp_sublayer(self, i, x, keep_mask=None):
+        pre = getattr(self, f"mlp_{i}").pre_wo(self._pre_mlp(i, x))
+        return self._after_mlp(i, x, pre, keep_mask)
 
     def _out(self, i, attn_out):
         return getattr(self, f"self_attention_{i}").out(attn_out)
@@ -220,8 +239,8 @@ class DecoderLayer(nn.Module):
         h = self._pre_attn(i, x)
         return getattr(self, f"self_attention_{i}").attend(h, h, positions, segment_ids, impl)
 
-    def _after_attn(self, i, x, attn_out):
-        return self._mlp_sublayer(i, self._add_attn(i, x, self._out(i, attn_out)))
+    def _after_attn(self, i, x, attn_out, keep_mask=None):
+        return self._mlp_sublayer(i, self._add_attn(i, x, self._out(i, attn_out)), keep_mask)
 
     def _mlp_anchor(self, i, x, attn_out):
         x1 = self._add_attn(i, x, self._out(i, attn_out))
@@ -238,6 +257,7 @@ class Decoder(nn.Module):
         group = len(block.attention_pattern)
         self.num_units = cfg.num_decoder_layers // group
         self.remat_policy = cfg.remat_policy
+        self.group, self.mlp_dim = group, cfg.mlp_dim
         for i in range(self.num_units):
             setattr(self, f"layers_{i}", DecoderLayer(cfg, block, device=device))
 
@@ -252,10 +272,18 @@ class Decoder(nn.Module):
                 for i in range(self.num_units)]
 
     def forward(self, y: torch.Tensor, positions, segment_ids, mode: str = MODE_TRAIN,
-                cache=None, impl: str | None = None, paged_step=None) -> torch.Tensor:
+                cache=None, impl: str | None = None, paged_step=None,
+                dropout: MlpDropout | None = None) -> torch.Tensor:
+        """``dropout``: the MLP dropout of a training forward; each unit's
+        masks are taken before the unit runs."""
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
+        shape = (*y.shape[:-1], self.mlp_dim)
         for i in range(self.num_units):
+            masks = None
+            if dropout is not None and mode == MODE_TRAIN:
+                masks = [dropout.keep_mask(i * self.group + j, shape, y.device)
+                         for j in range(self.group)]
             y = getattr(self, f"layers_{i}")(
                 y, positions, segment_ids, mode,
-                None if cache is None else cache[i], impl, remat, paged_step)
+                None if cache is None else cache[i], impl, remat, paged_step, masks)
         return y

@@ -1,4 +1,5 @@
-"""Core NN building blocks: Embed, RMSNorm, DenseGeneral, MlpBlock.
+"""Core NN building blocks: Embed, RMSNorm, DenseGeneral, MlpBlock, and the
+MLP dropout of training (:class:`MlpDropout`).
 
 Counterparts of the JAX package's ``models/layers.py``. Kernels keep the
 JAX layout ``[in..., out...]`` so a weight crosses between the packages as a
@@ -9,6 +10,7 @@ bfloat16 operands), and the result is cast back to ``dtype``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections.abc import Callable, Iterable, Sequence
 
@@ -76,7 +78,7 @@ class DenseGeneral(nn.Module):
                 "5, decode extras",
             )
         if lora_rank > 0:
-            _unsupported("LoRA adapters", "5, decode extras")
+            _unsupported("LoRA adapters", "5, decode extras: LoRA, item 5.6")
         self.in_shape = _canon_tuple(in_shape)
         self.features = _canon_tuple(features)
         self.axis = _canon_tuple(axis)
@@ -210,9 +212,41 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """``flax.linen.Dropout`` with its mask given: kept entries divided by the
+    keep probability cast to ``x``'s dtype (a division by a tensor, not the
+    rounded reciprocal a Python number gives on the GPU), the others 0."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep_mask, x / keep, zero)
+
+
+@dataclasses.dataclass
+class MlpDropout:
+    """The dropout of every MLP's activation product in one training forward:
+    ``rate`` and one boolean keep mask per MLP in layer order (``[B, S,
+    mlp_dim]``, the JAX package's ``bernoulli(1 - rate)``), given as
+    ``masks`` or drawn from ``generator`` (``uniform < 1 - rate``) as the
+    decoder reaches each layer, outside any remat region, so a recomputed
+    region applies the same mask again."""
+
+    rate: float
+    masks: Sequence[torch.Tensor] | None = None
+    generator: torch.Generator | None = None
+
+    def keep_mask(self, index: int, shape, device) -> torch.Tensor:
+        if self.masks is not None:
+            return self.masks[index]
+        return torch.rand(tuple(shape), generator=self.generator, device=device) < 1.0 - self.rate
+
+
 class MlpBlock(nn.Module):
     """Gated MLP: one projection per activation, their product, ``wo``.
-    For ("silu", "linear") this is the llama SwiGLU block."""
+    For ("silu", "linear") this is the llama SwiGLU block. In training the
+    product may be dropped out (:func:`dropout`, rate ``dropout_rate``)
+    after the ``mlp_pre_wo`` anchor, as in the JAX package."""
 
     def __init__(
         self,
@@ -223,10 +257,12 @@ class MlpBlock(nn.Module):
         weight_dtype: torch.dtype = torch.float32,
         use_bias: bool = False,
         quantization: str = "",
+        dropout_rate: float = 0.0,
         device=None,
     ):
         super().__init__()
         self.activations = tuple(activations)
+        self.intermediate_dim, self.dropout_rate = intermediate_dim, dropout_rate
         kw = dict(dtype=dtype, weight_dtype=weight_dtype, use_bias=use_bias,
                   quantization=quantization, device=device)
         self.wi_names = [
@@ -246,5 +282,12 @@ class MlpBlock(nn.Module):
             x = a if x is None else x * a
         return x
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.pre_wo(inputs))
+    def out(self, pre_wo: torch.Tensor, keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``wo`` of the activation product, dropped out first where a keep
+        mask is given."""
+        if keep_mask is not None and self.dropout_rate > 0.0:
+            pre_wo = dropout(pre_wo, keep_mask, self.dropout_rate)
+        return self.wo(pre_wo)
+
+    def forward(self, inputs: torch.Tensor, keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return self.out(self.pre_wo(inputs), keep_mask)

@@ -106,13 +106,14 @@ class Transformer(nn.Module):
         impl: str | None = None,  # "plain": kernels' plain versions (comparisons only)
         paged_step=None,  # paged decode: infer.paged_attention.PagedDecodeStep
         return_prelogits: bool = False,  # fused-vocabulary CE: skip the unembedding
+        dropout=None,  # training: models.layers.MlpDropout (None: deterministic)
     ) -> torch.Tensor:
         emb = self.token_embedder(tokens)
         if self.block.scale_embedding:
             emb = emb * torch.tensor(self.cfg.emb_dim ** 0.5, dtype=emb.dtype,
                                      device=emb.device)
         y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
-                         paged_step=paged_step)
+                         paged_step=paged_step, dropout=dropout)
         if return_prelogits:
             return self.prelogits(y)
         return self._unembed(y)

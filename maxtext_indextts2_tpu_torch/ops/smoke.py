@@ -1289,6 +1289,7 @@ MAIN_PATH_CASES = {
     "ada_rmsnorm_quantize": {"tts_backend": "ada_rmsnorm_quantize_bf16_main_path"},
     "silu_mul_quantize": {"tts_backend": "silu_mul_quantize_bf16_main_path"},
     "flash_fwd": {"train": "flash_bf16_main_path_fwd",
+                  "train_dropout": "flash_bf16_main_path_fwd",
                   "train_packed": "flash_bf16_emilia_packed_fwd",
                   "train_c4": "flash_bf16_c4_mlperf_fwd",
                   "s2a_train": "flash_f32_s2a_train_fwd",
@@ -1296,12 +1297,14 @@ MAIN_PATH_CASES = {
                   "train_flagship_vocab": "flash_bf16_main_path_fwd",
                   "train_flagship": "flash_bf16_flagship_fwd"},
     "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
+                     "train_dropout": "flash_bf16_main_path_dq",
                      "train_packed": "flash_bf16_emilia_packed_dq",
                      "train_c4": "flash_bf16_c4_mlperf_dq",
                      "s2a_train": "flash_f32_s2a_train_dq",
                      "train_flagship_vocab": "flash_bf16_main_path_dq",
                      "train_flagship": "flash_bf16_flagship_dq"},
     "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
+                      "train_dropout": "flash_bf16_main_path_dkv",
                       "train_packed": "flash_bf16_emilia_packed_dkv",
                       "train_c4": "flash_bf16_c4_mlperf_dkv",
                       "s2a_train": "flash_f32_s2a_train_dkv",

@@ -1,5 +1,5 @@
-"""Where one training step spends its time on the GPU: the ``tts-1b`` LM or
-the S2A model.
+"""Where one training step spends its time on the GPU: the ``tts-1b`` LM, the
+S2A model or the acoustic codec.
 
 ``model=lm`` builds the recipe of ``chip_smoke.py``'s ``train`` phase (full
 width, seeded random bf16 weights, 4 x 2048 tokens a step, ``attention=flash``,
@@ -8,7 +8,12 @@ one batch of packed emilia_audio rows; ``model=s2a`` the S2A step of
 ``s2a_train`` (the published MaskGCT widths, bfloat16 compute with float32
 parameters and AdamW moments, clipping, 8 x 512 synthetic frames, one set of
 draws), on the materialised attention or (``seq_flash=true``) the
-sequence-flash route. It reports, as one JSON object: the host-clock
+sequence-flash route; ``model=codec`` the acoustic codec's step of
+``chip_smoke.py``'s ``codec_train`` phase (``AcousticCodec()`` at its published
+widths, float32, quantizer dropout 0.5, 16 rows of 0.5 s at 24 kHz; convolutions,
+FFTs and products through cuDNN, cuFFT and cuBLAS, no kernel of this package),
+grouped as convolutions, FFT, products, copies and the rest. It reports, as one
+JSON object: the host-clock
 step time (median of ``steps`` steps, each ending in a synchronise), and from
 ``torch.profiler`` over one more step the device-busy time, the device's idle
 share, the GPU launches, the device time per launch of this package's kernels
@@ -24,6 +29,7 @@ Run on the machine with the GPU::
         [batch=4] [remat=save_attn_and_mlp] [data=synthetic] [steps=3]
     python -m maxtext_indextts2_tpu_torch.tools.profile_train model=s2a [layers=16] \\
         [batch=8] [seq_flash=false] [steps=3]
+    python -m maxtext_indextts2_tpu_torch.tools.profile_train model=codec [batch=16] [steps=3]
 """
 
 from __future__ import annotations
@@ -82,6 +88,17 @@ def kernel_category(event_name: str) -> str:
     return "elementwise and reductions"
 
 
+def codec_category(event_name: str) -> str:
+    """A coarse group for a profiler event of the codec's step: cuDNN's
+    convolutions, cuFFT, cuBLAS's products, copies, and the rest."""
+    low = event_name.lower()
+    if "fft" in low:
+        return "FFT (cuFFT)"
+    if any(key in low for key in ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn")):
+        return "convolutions (cuDNN)"
+    return kernel_category(event_name)
+
+
 def _counts() -> dict:
     return {"ada_rmsnorm": ada_rmsnorm.launch_count, **flash_attention.launch_counts}
 
@@ -133,6 +150,31 @@ def s2a_step(opts):
     return (lambda: s2a_train.s2a_train_step(cfg, state, batch, noise)), fields
 
 
+def codec_step(opts):
+    """(step function, fields): one acoustic-codec training step on one batch
+    and one quantizer-dropout draw."""
+    import math
+
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    cfg = load_config([f"per_device_batch_size={opts['batch'] or 16}", "dtype=float32",
+                       "codec_quantizer_dropout=0.5"])
+    codec = codec_train.build_acoustic_codec(cfg)
+    state = codec_train.setup_codec_state(cfg, codec)
+    wav = torch.from_numpy(codec_train.acoustic_batch(
+        cfg, 0, math.prod(codec.strides))["wav"]).to(state.device)
+    draw = codec.decoder.quantizer.draw_dropout(
+        wav.shape[0], torch.Generator(device=state.device).manual_seed(1))
+    fields = dict(model="codec", batch=wav.shape[0], samples=wav.shape[1],
+                  audio_seconds_per_step=wav.numel() / 24000,
+                  params=sum(p.numel() for p in codec.parameters()))
+    return (lambda: codec_train.codec_train_step(
+        cfg, state, lambda: codec_train.acoustic_loss(codec, wav, draw))), fields
+
+
+STEPS = {"lm": lm_step, "s2a": s2a_step, "codec": codec_step}
+
+
 def main(argv=None):
     opts = dict(model="lm", layers="", batch="", remat="save_attn_and_mlp", data="synthetic",
                 seq_flash="false", steps="3")
@@ -141,14 +183,14 @@ def main(argv=None):
         if k not in opts:
             raise SystemExit(f"unknown option {k!r}; known: {sorted(opts)}")
         opts[k] = v
-    if opts["model"] not in ("lm", "s2a"):
-        raise SystemExit(f"model must be lm or s2a, got {opts['model']!r}")
+    if opts["model"] not in STEPS:
+        raise SystemExit(f"model must be one of {sorted(STEPS)}, got {opts['model']!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     card = _card()
     if opts["seq_flash"] == "true":
         os.environ["MTT_S2A_SEQ_FLASH"] = "1"  # the S2A's opt-in route
-    step_fn, fields = (lm_step if opts["model"] == "lm" else s2a_step)(opts)
+    step_fn, fields = STEPS[opts["model"]](opts)
     torch.cuda.reset_peak_memory_stats()
     counts = {}
 
@@ -157,15 +199,18 @@ def main(argv=None):
         step_fn()
         counts.update(_counts())
 
+    category = codec_category if opts["model"] == "codec" else kernel_category
     out = profiled(step, "train_step", card, repeats=int(opts["steps"]),
-                   own_kernel_name=own_kernel_name, category=kernel_category, **fields)
+                   own_kernel_name=own_kernel_name, category=category, **fields)
     seconds = out["ms_host_clock"] / 1e3
     if opts["model"] == "lm":
         out.update(tokens_per_s=fields["tokens_per_step"] / seconds,
                    real_tokens_per_s=fields["real_tokens_per_step"] / seconds,
                    mfu_at_989_tflops=flops.mfu(fields["tflops_per_step"], seconds))
-    else:
+    elif opts["model"] == "s2a":
         out.update(frames_per_s=fields["batch"] * fields["frames"] / seconds)
+    else:
+        out.update(audio_seconds_per_s=fields["audio_seconds_per_step"] / seconds)
     out.update(wrapper_launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(json.dumps(out), flush=True)
 

@@ -171,7 +171,7 @@ def sgd(schedule: Schedule) -> GradientTransformation:
 
 def get_optimizer(cfg: Config, schedule: Schedule) -> GradientTransformation:
     if cfg.lora_rank > 0 and cfg.lora_only_training:
-        _unsupported("LoRA-only training (lora_rank > 0)", "5, decode extras (LoRA)")
+        _unsupported("LoRA-only training (lora_rank > 0)", "5, decode extras: LoRA, item 5.6")
     if cfg.opt_type == "adamw":
         return adamw(schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.adam_weight_decay)
     if cfg.opt_type == "adam_pax":

@@ -15,8 +15,12 @@ on the GPU; ``device=cpu`` asks for the CPU explicitly. Every
 ``grain``, ``c4_mlperf``, ``tfds``, ``hf``): the iterators yield numpy batches,
 as the JAX package's do, and :class:`DeviceBatches` moves each to the state's
 device as int32 tensors (the synthetic iterator's batch is made there once).
-MTP and MoE auxiliary losses, dropout, colocated-python data input and the
-Zero-1 all-gather raise, naming their ROADMAP queue item.
+With ``enable_dropout`` and ``dropout_rate > 0`` each MLP's activation product
+is dropped out in training (``models/layers.MlpDropout``): the step's masks
+are an input of :func:`loss_fn` / :func:`train_step`, drawn by default from a
+generator on the device seeded with ``seed`` and the step (:func:`step_dropout`).
+MTP and MoE auxiliary losses, colocated-python data input and the Zero-1
+all-gather raise, naming their ROADMAP queue item.
 ``enable_checkpointing=true`` restores the newest checkpoint of
 ``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
 steps and at the end (``train/checkpointing.py``; the emergency two-tier
@@ -38,7 +42,7 @@ from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
 from maxtext_indextts2_tpu_torch.models import Transformer
 from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN
 from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
-from maxtext_indextts2_tpu_torch.models.layers import to_dtype
+from maxtext_indextts2_tpu_torch.models.layers import MlpDropout, to_dtype
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops import losses
 from maxtext_indextts2_tpu_torch.train import checkpointing
@@ -51,8 +55,6 @@ from maxtext_indextts2_tpu_torch.train.optimizers import (
 )
 from maxtext_indextts2_tpu_torch.utils import flops as flops_lib
 from maxtext_indextts2_tpu_torch.utils.metrics import MetricLogger
-
-_REST = "4b, rest of training"
 
 
 @dataclasses.dataclass
@@ -81,8 +83,6 @@ def check_training_config(cfg: Config) -> None:
     if cfg.zero1_fsdp_ag_once:
         _unsupported("zero1_fsdp_ag_once (a sharded all-gather)",
                      "6, parallelism on torch.distributed")
-    if cfg.enable_dropout and cfg.dropout_rate > 0:
-        _unsupported("dropout in training", f"{_REST}: item 4b.7")
     _remat_policy(cfg.remat_policy)
 
 
@@ -130,15 +130,27 @@ def fused_ce(model: Transformer, cfg: Config, y: torch.Tensor, targets: torch.Te
         soft_cap=cfg.final_logits_soft_cap, scale=scale, compute_dtype=dt, logits_dtype=ldt)
 
 
+def step_dropout(cfg: Config, step: int, device) -> MlpDropout | None:
+    """The MLP dropout of training step ``step`` (None when dropout is off):
+    masks drawn from a generator on ``device`` seeded with ``seed`` and the
+    step, as the JAX package's step draws from its key split off ``seed``."""
+    if not (cfg.enable_dropout and cfg.dropout_rate > 0):
+        return None
+    seed = int(np.random.SeedSequence([cfg.seed, step]).generate_state(1)[0])
+    return MlpDropout(cfg.dropout_rate,
+                      generator=torch.Generator(device=device).manual_seed(seed))
+
+
 def loss_fn(model: Transformer, cfg: Config, batch: dict, is_train: bool = True,
-            impl: str | None = None):
+            impl: str | None = None, dropout: MlpDropout | None = None):
     """(mean loss over valid tokens, aux) for one batch. In training with
     ``fused_vocab_ce_chunk`` or ``fused_vocab_ce_tile`` the logits are never
     materialised (:func:`fused_ce`); evaluation keeps the materialised CE,
-    as in the JAX package."""
+    as in the JAX package. ``dropout``: the MLP dropout (training only)."""
     fused = is_train and (cfg.fused_vocab_ce_chunk > 0 or cfg.fused_vocab_ce_tile > 0)
     out = model(batch["inputs"], batch["inputs_position"], batch["inputs_segmentation"],
-                mode=MODE_TRAIN, impl=impl, return_prelogits=fused)
+                mode=MODE_TRAIN, impl=impl, return_prelogits=fused,
+                dropout=dropout if is_train else None)
     weights = (batch["targets_segmentation"] != 0).to(torch.float32)
     if fused:
         loss, total_weights = fused_ce(model, cfg, out, batch["targets"], weights)
@@ -159,20 +171,27 @@ def _clip_by_global_norm(grads: dict, max_norm: float):
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
 
 
-def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = None) -> dict:
+def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = None,
+               dropout=None) -> dict:
     """One optimizer step (with in-step gradient accumulation over
     ``gradient_accumulation_steps`` microbatches); updates ``state`` in place
-    and returns the step's metrics as 0-d tensors."""
+    and returns the step's metrics as 0-d tensors. ``dropout``: the step's
+    MLP dropout, one ``MlpDropout`` or one a microbatch (default, when the
+    config turns dropout on: :func:`step_dropout`)."""
     names = list(state.params)
     leaves = [state.params[n] for n in names]
     micro = cfg.gradient_accumulation_steps
+    if dropout is None:
+        dropout = step_dropout(cfg, state.step, state.device)
+    if not isinstance(dropout, (list, tuple)):
+        dropout = [dropout] * micro
     if micro > 1:
         grads = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=state.device)
         for i in range(micro):
             mb = {k: v.reshape(micro, v.shape[0] // micro, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, _ = loss_fn(state.model, cfg, mb, impl=impl)
+            loss, _ = loss_fn(state.model, cfg, mb, impl=impl, dropout=dropout[i])
             g = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
@@ -182,7 +201,7 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
             loss = loss_sum / micro
         aux = {"ce_loss": loss}
     else:
-        loss, aux = loss_fn(state.model, cfg, batch, impl=impl)
+        loss, aux = loss_fn(state.model, cfg, batch, impl=impl, dropout=dropout[0])
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
         loss = loss.detach()
         aux = {k: v.detach() for k, v in aux.items() if k != "total_weights"}

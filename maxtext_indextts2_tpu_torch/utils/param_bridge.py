@@ -27,6 +27,14 @@ dynamic-int8 (float kernels) and offline-int8 trees (``kernel`` int8
 groups, out]`` on both sides (``audio.layers.Conv1d`` permutes at the call),
 so a depthwise kernel (``feature_group_count = C``) crosses as ``[k, 1, C]``.
 
+A module with state besides its parameters crosses with all its flax
+variable collections (:func:`variables_from_jax`, :func:`variables_to_jax`):
+``audio.quantize_extended.VectorQuantize``'s EMA codebook keeps the JAX
+package's ``"codebook"`` collection (``initted``, ``cluster_size``, ``embed``,
+``embed_avg``, ``step``) as buffers of the same names, so
+``{"params": {"in_proj": ...}, "codebook": {"codebook": {"embed": ...}}}``
+becomes ``in_proj.kernel``, ..., ``codebook.embed``.
+
 A paged decode state crosses with :func:`paged_decode_state_from_jax`: the
 JAX engine's page pools (its ``cache`` tree, ``.../kv_cache/key_pages``) and
 its ``PageState`` (numpy leaves) become this engine's per-layer
@@ -201,6 +209,32 @@ def tree_to_state_dict(tree) -> dict[str, torch.Tensor]:
     flat: dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def variables_from_jax(variables) -> dict[str, torch.Tensor]:
+    """A flax module's variables (every collection, numpy leaves) -> one
+    state dict: parameters and buffers share their module paths, so the
+    collections merge; a name in two collections raises."""
+    out: dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        flat: dict[str, np.ndarray] = {}
+        _flatten(tree, "", flat)
+        clash = out.keys() & flat.keys()
+        if clash:
+            raise ValueError(f"collection {collection!r} repeats {sorted(clash)}")
+        out.update({k: _to_tensor(v) for k, v in flat.items()})
+    return out
+
+
+def variables_to_jax(module: torch.nn.Module) -> dict:
+    """The inverse for a module: its parameters under ``"params"`` and its
+    buffers (when it has any) under ``"codebook"`` (the one collection of
+    state the JAX package's modules keep), numpy leaves."""
+    out = {"params": params_to_jax(dict(module.named_parameters()))}
+    buffers = dict(module.named_buffers())
+    if buffers:
+        out["codebook"] = params_to_jax(buffers)
+    return out
 
 
 def s2a_params_from_jax(tree) -> dict[str, torch.Tensor]:

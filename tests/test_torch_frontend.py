@@ -168,8 +168,14 @@ def test_repcodec_ids_match_jax():
     emb = codec.vq2emb(got)
     jemb = jcodec.apply(params, jnp.asarray(want), method=jcodec.vq2emb)
     np.testing.assert_allclose(emb.detach().numpy(), np.asarray(jemb), atol=ATOL_HIDDEN, rtol=0)
-    with pytest.raises(NotImplementedError, match="port queue: 4"):
-        codec(torch.from_numpy(feats))
+    # the training autoencoder (ported with codec training) gives JAX's call
+    recon, idx, commit, cb = codec(torch.from_numpy(feats))
+    jrecon, jidx, jcommit, jcb = jcodec.apply(params, jnp.asarray(feats))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(recon.detach().numpy(), np.asarray(jrecon), atol=ATOL_HIDDEN,
+                               rtol=0)
+    np.testing.assert_allclose([float(commit), float(cb)], [float(jcommit), float(jcb)],
+                               rtol=1e-5)
 
 
 def _tokenizer_pair(seed=9):

@@ -108,6 +108,8 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.train.checkpointing\n"
         "import maxtext_indextts2_tpu_torch.tools.reference_state_dicts\n"
         "import maxtext_indextts2_tpu_torch.train.s2a_train, maxtext_indextts2_tpu_torch.audio.masking\n"
+        "import maxtext_indextts2_tpu_torch.train.codec_train\n"
+        "import maxtext_indextts2_tpu_torch.audio.quantize_extended\n"
         "from maxtext_indextts2_tpu_torch.train.data import packing, audio_iterator, grain_pipeline\n"
         "from maxtext_indextts2_tpu_torch.train.data import mlperf_pipeline, tfds_pipeline, hf_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -195,6 +197,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"), "dataset_type=synthetic",
                     "steps=1"])
+    from maxtext_indextts2_tpu_torch.train import codec_train
+
+    for target in ("acoustic", "repcodec"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            codec_train.main([f"codec_target={target}", "steps=1"])
     assert Engine(cfg, device="cpu").device.type == "cpu"  # only when asked
 
 
@@ -292,23 +299,23 @@ def _tiny_backend():
 
 
 # the TTS back end's methods: what waits for a later item of the port queue
-# (the call raises naming it), and what queue item 3 ported (None: the method
-# is no longer the stub; its behaviour is held against the JAX package in
-# test_torch_frontend.py and test_torch_tts_pipeline.py)
+# (the call raises naming it), and what queue items 3 and 4b.5 ported (None: the
+# method is no longer the stub; its behaviour is held against the JAX package in
+# test_torch_frontend.py, test_torch_tts_pipeline.py and test_torch_codec_train.py)
 NOT_PORTED = {
     "s2a.compute_loss": (lambda p: p.s2a.compute_loss, None),
     "s2a.__call__": (lambda p: p.s2a.forward, None),
     "vq.encode_latents": (lambda p: p.codec.decoder.quantizer.vq_0.encode_latents, None),
-    "vq.latent2dist": (lambda p: p.codec.decoder.quantizer.vq_0.latent2dist(None), "4"),
-    "vq.__call__": (lambda p: p.codec.decoder.quantizer.vq_0(None), "4"),
+    "vq.latent2dist": (lambda p: p.codec.decoder.quantizer.vq_0.latent2dist, None),
+    "vq.__call__": (lambda p: p.codec.decoder.quantizer.vq_0.forward, None),
     "rvq.quantize": (lambda p: p.codec.decoder.quantizer.quantize, None),
-    "rvq.latent2dist": (lambda p: p.codec.decoder.quantizer.latent2dist(None), "4"),
-    "rvq.__call__": (lambda p: p.codec.decoder.quantizer(None), "4"),
+    "rvq.latent2dist": (lambda p: p.codec.decoder.quantizer.latent2dist, None),
+    "rvq.__call__": (lambda p: p.codec.decoder.quantizer.forward, None),
     "decoder.quantize": (lambda p: p.codec.decoder.quantize, None),
-    "decoder.latent2dist": (lambda p: p.codec.decoder.latent2dist(None), "4"),
-    "decoder.__call__": (lambda p: p.codec.decoder(None), "4"),
+    "decoder.latent2dist": (lambda p: p.codec.decoder.latent2dist, None),
+    "decoder.__call__": (lambda p: p.codec.decoder.forward, None),
     "codec.tokenize": (lambda p: p.codec.tokenize, None),
-    "codec.__call__": (lambda p: p.codec(None), "4"),
+    "codec.__call__": (lambda p: p.codec.forward, None),
     "pipeline.synthesize": (lambda p: p.synthesize, None),
     "pipeline.synthesize_batch": (lambda p: p.synthesize_batch, None),
     "pipeline.frontend_batch": (lambda p: p.frontend_batch, None),

@@ -77,10 +77,34 @@ def test_profile_train_refuses_an_unknown_model_and_needs_the_card(monkeypatch):
 
     from maxtext_indextts2_tpu_torch.tools import profile_train
 
-    with pytest.raises(SystemExit, match="model must be lm or s2a"):
-        profile_train.main(["model=codec"])
+    with pytest.raises(SystemExit, match="model must be one of"):
+        profile_train.main(["model=vocoder"])
     with pytest.raises(SystemExit, match="unknown option"):
         profile_train.main(["route=flash"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         profile_train.main(["model=s2a", "seq_flash=true"])
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        profile_train.main(["model=codec"])
+
+
+@pytest.mark.parametrize("event,group", [
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc_tilesize128x128x32",
+     "convolutions (cuDNN)"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_f32f32_f32f32_f32_nhwckrsc_nhwc",
+     "convolutions (cuDNN)"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<float, float, float>",
+     "convolutions (cuDNN)"),
+    ("void conv2d_grouped_direct_kernel<false, true, false, false, 0, 1, 1, float>",
+     "convolutions (cuDNN)"),
+    ("regular_fft_factor=1920::fft_fwd_kernel", "FFT (cuFFT)"),
+    ("void vector_fft_r2c<unsigned int, float, 960>", "FFT (cuFFT)"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x16", "matrix products (cuBLAS)"),
+    ("Memcpy DtoD (Device -> Device)", "copies"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::sin_kernel_cuda>",
+     "elementwise and reductions"),
+])
+def test_the_codec_step_groups_convolutions_ffts_and_products(event, group):
+    from maxtext_indextts2_tpu_torch.tools.profile_train import codec_category
+
+    assert codec_category(event) == group

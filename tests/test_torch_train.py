@@ -21,6 +21,7 @@ carries the float32 differences of sums over much larger terms).
 import dataclasses
 import functools
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -242,9 +243,9 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("extra,item", [
     (["colocated_python_data_input=true"], "6"),
-    (["enable_dropout=true", "dropout_rate=0.1"], "4b"),
+    (["lora_rank=4"], "5"),
     (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
-], ids=["colocated_data", "dropout", "mtp", "zero1"])
+], ids=["colocated_data", "lora", "mtp", "zero1"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
@@ -257,32 +258,34 @@ def _refuse_vision_sft(kind):
     make_hf_vision_sft_iterator(load_config([f"dataset_type={kind}"]), dataset=[])
 
 
-def _refuse_codec_decoder(kind):
-    from maxtext_indextts2_tpu_torch.audio.acoustic import CodecDecoder
+def _refuse_speculative_draft(kind):
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
 
-    CodecDecoder.forward(None, None)
-
-
-def _refuse_repcodec(kind):
-    from maxtext_indextts2_tpu_torch.audio.repcodec import RepCodec
-
-    RepCodec.forward(None, None)
+    Engine.load_params(types.SimpleNamespace(cfg=load_config([f"{kind}_parameters_path=d"])))
 
 
-def _refuse_dropout(kind):
-    ttrain.check_training_config(load_config(["enable_dropout=true", "dropout_rate=0.1"]))
+def _refuse_bucketed_decode(kind):
+    from maxtext_indextts2_tpu_torch.models import Transformer
+
+    Transformer(load_config([f"decode_attention={kind}"]), device="meta")
 
 
-def _refuse_tensorboard(kind):
-    from maxtext_indextts2_tpu_torch.utils.metrics import MetricLogger
+def _refuse_lora_training(kind):
+    from maxtext_indextts2_tpu_torch.train.optimizers import get_optimizer
 
-    MetricLogger(load_config(["enable_tensorboard=true"]))
+    get_optimizer(load_config([f"{kind}_rank=4", f"{kind}_only_training=true"]), None)
+
+
+def _refuse_int8w_serve(kind):
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    Engine(load_config(TINY_TTS + [f"quantization={kind}"]), device="cpu")
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
-    (_refuse_vision_sft, "hf", "6"), (_refuse_codec_decoder, "codec", "4b.5"),
-    (_refuse_repcodec, "repcodec", "4b.5"),
-    (_refuse_dropout, "dropout", "4b.7"), (_refuse_tensorboard, "tensorboard", "4b.7"),
+    (_refuse_vision_sft, "hf", "6"), (_refuse_speculative_draft, "spec_draft", "5.2"),
+    (_refuse_bucketed_decode, "bucketed", "5.5"),
+    (_refuse_lora_training, "lora", "5.6"), (_refuse_int8w_serve, "int8w_serve", "5.6"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):
