@@ -70,8 +70,19 @@ The codec trainers: ``codec_train`` trains the acoustic codec at its
 published widths with quantizer dropout and one re-seed of dead codes,
 ``codec_train_repcodec`` the RepCodec, and ``codec_train_parity`` holds one
 codec step and an EMA codebook's training calls on the card against the CPU.
-The kernels line lists, for each kernel, the case of every main path that
-ran it.
+The decode extras: ``serve`` and ``serve_paged`` decode through captured CUDA
+graphs (one replay a dispatch, the wrappers' launch counts added once a
+replay); ``serve_captured_parity`` holds captured against eager streams
+(greedy, dense and paged; weighted sampling from one seed) and reads each
+route's step with ``tools/profile_decode``; ``generate_stream_http`` holds
+ndjson ``/generate_stream`` tokens against ``/generate``'s;
+``serve_paged_short_pool`` makes admission control hold requests back on a
+small pool; ``chunked_prefill`` holds a chunked prefill, the prefix cache and
+decode recovery to the uninterrupted streams; ``spec_decode`` holds
+speculative streams (K2 at span K+1 on the verify pass) to the target's
+greedy streams; ``bucketed_decode`` holds bucketed decode attention to the
+``dot_product`` route. The kernels line lists, for each kernel, the case of
+every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -770,6 +781,458 @@ def phase_serve_paged_parity(engine):
          f32_distinct_tokens=int(len(np.unique(streams["paged_k4"]))), launches=counts)
 
 
+# The decode extras at full width (tts-1b: E 2048, 20 layers, 16q / 8kv, d 128,
+# a 2048-token context). Where token streams of two routes are compared they
+# run in float32 (TF32 off): bfloat16 rounds the routes' different summation
+# orders apart and a random model's near-ties then flip a greedy token.
+F32_ARGS = [TTS_1B, "decode_attention=ragged", "dtype=float32", "scan_layers=false",
+            "decode_sampling_strategy=greedy"]
+CAPTURED_STEPS = 64  # tokens each stream decodes after its first in serve_captured_parity
+CHUNKED_PROMPT = 1900
+PREFILL_CHUNK = 512
+SHARED_PREFIX = 1024
+SPEC_K = 4
+SPEC_STREAMS = 8
+SPEC_TOKENS = 64
+SHORT_POOL_ARGS = ["dtype=float32", "base_num_decoder_layers=4", "per_device_batch_size=8",
+                   "max_prefill_predict_length=512", "scan_layers=false",
+                   "decode_sampling_strategy=greedy"]
+SHORT_POOL_PAGES = 61  # 60 usable 16-row pages: 2-4 of the 16 requests at a time
+HTTP_STREAMS = 8
+
+
+def _populate(engine, prompts):
+    """A fresh decode state with ``prompts`` in slots 0.. (packed admissions of
+    at most 8, under the prefill limit). Returns (state, first tokens [k])."""
+    state, firsts, i = engine.init_decode_state(), [], 0
+    limit = engine.cfg.max_prefill_predict_length
+    while i < len(prompts):
+        group, total = [], 0
+        while i < len(prompts) and len(group) < 8 and total + len(prompts[i]) <= limit:
+            group.append(prompts[i])
+            total += len(prompts[i])
+            i += 1
+        state, first = engine.prefill_insert_many(state, group, list(range(i - len(group), i)))
+        firsts.append(first)
+    return state, torch.cat(firsts)
+
+
+def _decode_streams(engine, prompts, steps, eager=False, n=STEPS_PER_DISPATCH):
+    """[len(prompts), 1 + steps] greedy (or sampled) streams: admissions, then
+    ``steps`` tokens in dispatches of ``n``, captured or ``eager``."""
+    state, first = _populate(engine, prompts)
+    toks = [first[None]]
+    for _ in range(steps // n):
+        state, t = engine.generate_n(state, n, _eager=eager)
+        toks.append(t[:, :len(prompts)])
+    return torch.cat(toks).t().cpu().numpy()
+
+
+def phase_serve_captured_parity(engine, route, prompts, card):
+    """The captured decode dispatch against the eager one (the same kernels
+    launched one by one): equal greedy streams, equal weighted-sampling
+    streams from one seed (each replay draws fresh noise from the engine's
+    generator), and the step's host ms, device-busy ms, idle share and
+    launches a step on each route (``tools/profile_decode.measure``)."""
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.tools import profile_decode
+
+    t0 = time.perf_counter()
+    captures0, replays0 = engine.graphs.captures, engine.graphs.replays
+    greedy = [_decode_streams(engine, prompts, CAPTURED_STEPS, eager=e) for e in (False, True)]
+    same = bool(np.array_equal(greedy[0], greedy[1]))
+    check(same, f"serve_captured_parity ({route}): captured and eager greedy streams differ")
+    replays = engine.graphs.replays - replays0
+    check(engine.graphs.captures > captures0 and replays >= CAPTURED_STEPS // STEPS_PER_DISPATCH - 1,
+          f"serve_captured_parity ({route}): {replays} replays")
+    sampled = None
+    if route == "dense":
+        weighted = Engine(dataclasses.replace(engine.cfg, decode_sampling_strategy="weighted",
+                                              decode_sampling_temperature=1.0),
+                          model=engine.model)
+        weighted.params = engine.params
+        runs = []
+        for eager in (False, True):
+            weighted.generator.manual_seed(5)
+            runs.append(_decode_streams(weighted, prompts, CAPTURED_STEPS, eager=eager))
+        sampled = bool(np.array_equal(runs[0], runs[1]))
+        distinct = int(len(np.unique(runs[0])))
+        check(sampled and distinct > len(prompts),
+              "serve_captured_parity: weighted sampling gives other streams captured and "
+              f"eager from one seed ({distinct} distinct tokens)")
+        del weighted
+    profiles = {}
+    for eager in (False, True):
+        state, _ = _populate(engine, prompts[:engine.num_slots])
+        step, prof = profile_decode.measure(engine, state, steps=8, eager=eager)
+        profiles[step["route"]] = {**step, **{k: prof[k] for k in (
+            "graph_replays", "device_busy_ms_per_step", "device_idle_share",
+            "device_kernels_per_step", "host_launch_calls_per_step",
+            "own_kernel_launches_per_step")}}
+        del state
+    emit("serve_captured_parity", t0, card=card, route=route, slots=engine.num_slots,
+         streams=len(prompts), tokens_compared=int(greedy[0].size), greedy_streams_equal=same,
+         weighted_streams_equal=sampled, graph_captures=engine.graphs.captures,
+         graph_replays=engine.graphs.replays, profile=profiles)
+
+
+def phase_generate_stream_http(engine):
+    """8 concurrent ``POST /generate_stream`` requests: ndjson lines, one a
+    token, equal to ``POST /generate``'s tokens for the same prompts
+    (per-request admission, so that no packing couples two prompts)."""
+    from maxtext_indextts2_tpu_torch.infer.server import make_server
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(engine.cfg, serving_admission_fusion_max=1)
+    server, orch, _ = make_server(cfg, port=0, engine=engine, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(8, 300, size=HTTP_STREAMS)]
+    out = {"stream": {}, "generate": {}}
+
+    def post(kind, i):
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": 24}).encode()
+        path = "generate_stream" if kind == "stream" else "generate"
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/{path}", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            raw = resp.read().decode()
+        out[kind][i] = ([json.loads(line)["token"] for line in raw.splitlines()]
+                        if kind == "stream" else json.loads(raw)["tokens"])
+
+    try:
+        for kind in ("stream", "generate"):
+            threads = [threading.Thread(target=post, args=(kind, i)) for i in range(HTTP_STREAMS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        orch.stop()
+        thread.join(timeout=30)
+    same = all(out["stream"].get(i) == out["generate"].get(i) and len(out["stream"][i]) == 24
+               for i in range(HTTP_STREAMS))
+    check(same, "generate_stream_http: /generate_stream's ndjson tokens differ from /generate's")
+    emit("generate_stream_http", t0, requests=HTTP_STREAMS, tokens_each=24, streams_equal=same)
+
+
+def _serve_one_by_one(engine, prompts, budgets, hook=None):
+    """The requests queued before the loop starts, admitted one at a time
+    (prefill + insert). Returns (orchestrator, requests)."""
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH, admission_fusion_max=1)
+    if hook is not None:
+        hook(orch)
+    reqs = [orch.submit(p, n) for p, n in zip(prompts, budgets)]
+    orch.start()
+    finished = all(r.done.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    orch.stop()
+    check(finished and not any(r.error for r in reqs),
+          f"a one-by-one serve did not finish cleanly: {[r.error for r in reqs if r.error][:1]}")
+    return orch, reqs
+
+
+def phase_serve_paged_short_pool():
+    """Admission control on the card: 16 requests whose page reservations far
+    exceed a 60-page pool (16-row pages), 8 slots, full width at 4 layers in
+    float32. The head of the line waits for pages, every page comes back, and
+    the paged streams (K4) equal the dense ones (K1) of the same weights."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    t0 = time.perf_counter()
+    paged = Engine(load_config([TTS_1B] + SHORT_POOL_ARGS + [
+        "paged_attention=true", "pagedattn_tokens_per_page=16",
+        f"pagedattn_num_pages={SHORT_POOL_PAGES}"]))
+    paged.load_params()
+    dense = Engine(load_config([TTS_1B, "decode_attention=ragged"] + SHORT_POOL_ARGS))
+    dense.set_params(paged.params)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, paged.cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(100, 301, size=16)]
+    budgets = [int(n) for n in rng.integers(32, 65, size=16)]
+    held_back, most_active = set(), [0]
+
+    def count(orch):
+        can_admit = orch._can_admit
+
+        def counted(req):
+            ok = can_admit(req)
+            if not ok:
+                held_back.add(id(req))
+            most_active[0] = max(most_active[0], orch.active_slots())
+            return ok
+
+        orch._can_admit = counted
+
+    _reset_all_counts()
+    orch, reqs = _serve_one_by_one(paged, prompts, budgets, hook=count)
+    launches = _all_counts()
+    steps = orch.stats["decode_steps_total"]
+    want = {k: 0 for k in launches}
+    want["paged_decode_attention"] = paged.cfg.num_decoder_layers * steps
+    check(launches == want, f"serve_paged_short_pool: launches {launches} != {want}")
+    ps = orch.decode_state["page_state"]
+    free = int((ps.page_status == 0).sum().item())
+    check(held_back and int(orch._pages_reserved.sum()) == 0
+          and free == SHORT_POOL_PAGES - 1 and int(ps.seq_lens.abs().sum().item()) == 0,
+          f"serve_paged_short_pool: {len(held_back)} held back, {free} of "
+          f"{SHORT_POOL_PAGES - 1} pages free at the end")
+    worst = max(orch._pages_needed(r) for r in reqs)
+    _, dreqs = _serve_one_by_one(dense, prompts, budgets)
+    same = [r.tokens for r in reqs] == [r.tokens for r in dreqs]
+    check(same and all(len(r.tokens) == n for r, n in zip(reqs, budgets)),
+          "serve_paged_short_pool: the paged streams differ from the dense ones")
+    emit("serve_paged_short_pool", t0, requests=len(reqs), slots=paged.num_slots,
+         usable_pages=SHORT_POOL_PAGES - 1, worst_request_pages=worst,
+         sum_request_pages=sum(orch._pages_needed(r) for r in reqs),
+         requests_held_back_for_pages=len(held_back), most_active_slots_seen=most_active[0],
+         decode_steps=steps, launches=launches, streams_equal_dense=same,
+         tokens_compared=sum(len(r.tokens) for r in reqs))
+    return launches["paged_decode_attention"]
+
+
+class _FailOnce:
+    """An engine whose ``generate_n`` raises a recoverable (non-sticky) error
+    on its ``fail_at``-th call; counts the chunked prefills of the resume."""
+
+    def __init__(self, inner, fail_at=3):
+        self._inner, self.fail_at, self.calls, self.chunked = inner, fail_at, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def generate_n(self, state, n):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise RuntimeError("injected: CUDA out of memory (a recoverable failure)")
+        return self._inner.generate_n(state, n)
+
+    def prefill_chunked(self, *args):
+        self.chunked += 1
+        return self._inner.prefill_chunked(*args)
+
+
+def phase_chunked_prefill():
+    """Chunked prefill, the prefix cache and decode recovery at full width
+    (float32, 8 slots): a 1,900-token prompt in 512-token chunks gives the
+    full prefill's first token and 64 greedy tokens; 8 prompts that share a
+    1,024-token prefix hit the prefix cache 7 times and decode as uncached;
+    one injected decode failure, and every stream resumes (through chunked
+    prefills past the 512-token prefill limit) to the uninterrupted tokens."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.infer.prefix_cache import PrefixCache
+
+    t0 = time.perf_counter()
+    # the prefill limit at the long prompt (a limit at the context is halved)
+    engine = Engine(load_config(F32_ARGS + ["per_device_batch_size=8",
+                                            f"max_prefill_predict_length={CHUNKED_PROMPT}"]))
+    engine.load_params()
+    vocab = engine.cfg.vocab_size
+    rng = np.random.default_rng(7)
+
+    def stream(prefix, first, steps=SPEC_TOKENS):
+        state = engine.insert(prefix, engine.init_decode_state(), 0)
+        toks = [first[:1]]
+        for _ in range(steps // STEPS_PER_DISPATCH):
+            state, t = engine.generate_n(state, STEPS_PER_DISPATCH)
+            toks.append(t[:, 0])
+        return torch.cat(toks).cpu().tolist()
+
+    _reset_all_counts()
+    long_prompt = rng.integers(1, vocab, size=CHUNKED_PROMPT).astype(np.int32)
+    t1 = time.perf_counter()
+    chunked, cfirst = engine.prefill_chunked(long_prompt, CHUNKED_PROMPT, PREFILL_CHUNK)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    full, ffirst = engine.prefill(long_prompt, CHUNKED_PROMPT)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    logits_err = float((chunked["logits"] - full["logits"]).abs().max().item())
+    got, want = stream(chunked, cfirst), stream(full, ffirst)
+    del chunked, full
+    check(got == want, "chunked_prefill: the chunked prefill's stream differs from the full one")
+
+    shared = rng.integers(1, vocab, size=SHARED_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(1, vocab, size=int(n)).astype(np.int32)])
+               for n in rng.integers(50, 200, size=8)]
+    cache = PrefixCache(PREFILL_CHUNK)
+    streams = {"cached": [], "uncached": []}
+    t1 = time.perf_counter()
+    for p in prompts:
+        streams["cached"].append(stream(*engine.prefill_cached(p, len(p), cache), steps=32))
+    cached_s = time.perf_counter() - t1
+    for p in prompts:
+        streams["uncached"].append(stream(*engine.prefill(p, len(p)), steps=32))
+    stats = cache.stats()
+    check(stats["hits"] == 7 and stats["misses"] == 1 and streams["cached"] == streams["uncached"],
+          f"chunked_prefill: prefix cache {stats}, streams equal "
+          f"{streams['cached'] == streams['uncached']}")
+    snapshot_bytes = sum(t.nbytes for unit in cache.lookup(prompts[0], len(prompts[0]))[1]
+                         for c in unit for t in c.leaves().values())
+
+    # decode recovery at the serving prefill limit (512): resumes are chunked
+    engine.cfg = dataclasses.replace(engine.cfg, max_prefill_predict_length=PREFILL_CHUNK)
+    # the 10th dispatch fails: 37 tokens a stream so far, so every resume
+    # (prompt + tokens) is past the 512-token limit
+    reqs_prompts = [rng.integers(1, vocab, size=int(n)).astype(np.int32)
+                    for n in rng.integers(480, 505, size=8)]
+    budgets = [48] * 8
+    _, plain = _serve_one_by_one(engine, reqs_prompts, budgets)
+    failing = _FailOnce(engine, fail_at=10)
+    orch, resumed = _serve_one_by_one(failing, reqs_prompts, budgets)
+    same = [r.tokens for r in resumed] == [r.tokens for r in plain]
+    check(same and orch.stats.get("decode_recoveries") == 1 and failing.chunked == 8,
+          f"chunked_prefill: recovery {orch.stats.get('decode_recoveries')}, chunked resumes "
+          f"{failing.chunked}, streams equal {same}")
+    launches = _all_counts()
+    emit("chunked_prefill", t0, prompt=CHUNKED_PROMPT, chunk=PREFILL_CHUNK,
+         last_logits_max_abs_err_f32=logits_err, first_and_64_tokens_equal=True,
+         chunked_prefill_seconds=chunked_s, full_prefill_seconds=full_s,
+         prefix_cache=stats, shared_prefix=SHARED_PREFIX, cached_prefills_seconds=cached_s,
+         prefix_streams_equal=True, snapshot_bytes_1024_rows=snapshot_bytes,
+         recovered_streams_equal=same, chunked_resumes=failing.chunked,
+         decode_recoveries=orch.stats["decode_recoveries"],
+         launches={k: v for k, v in launches.items() if v})
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_spec_decode():
+    """Speculative decoding at full width (float32, 32 slots): the target is
+    tts-1b, the draft the same widths at 2 layers (another seed), K = 4.
+    8 greedy streams equal the target's plain greedy streams; a round is one
+    graph replay; the verify span's rows go through K2 at span 5; a target
+    used as its own draft commits K+1 tokens in every round."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.speculative import SpeculativeEngine
+    from maxtext_indextts2_tpu_torch.ops import inplace_update, ragged_decode_attention
+
+    t0 = time.perf_counter()
+    tcfg = load_config(F32_ARGS + ["per_device_batch_size=32", "max_prefill_predict_length=512"])
+    dcfg = load_config(F32_ARGS + ["per_device_batch_size=32", "max_prefill_predict_length=512",
+                                   "base_num_decoder_layers=2", "init_weights_seed=7"])
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, tcfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(50, 401, size=SPEC_STREAMS)]
+
+    def spec_streams(spec):
+        state = spec.init_decode_state()
+        out = []
+        for slot, p in enumerate(prompts):
+            prefix, first = spec.prefill(p, len(p))
+            state = spec.insert(prefix, state, slot)
+            out.append([int(first.cpu()[0])])
+        rounds, commits = 0, []
+        while min(len(o) for o in out) < SPEC_TOKENS + 1:
+            state, toks, n_new = spec.generate(state)
+            toks, n_new = toks.cpu().numpy(), n_new.cpu().numpy()
+            rounds += 1
+            commits.append(n_new[:SPEC_STREAMS].tolist())
+            for s in range(SPEC_STREAMS):
+                out[s].extend(int(t) for t in toks[s, :n_new[s]])
+        torch.cuda.synchronize()
+        return [o[:SPEC_TOKENS + 1] for o in out], rounds, commits
+
+    spec = SpeculativeEngine(tcfg, dcfg, num_draft_tokens=SPEC_K)
+    spec.load_params()
+    target = spec.target
+    state, firsts = target.init_decode_state(), []
+    for slot, p in enumerate(prompts):  # the target alone, captured decode
+        prefix, first = target.prefill(p, len(p))
+        state = target.insert(prefix, state, slot)
+        firsts.append(first)
+    toks = [torch.cat(firsts)[None]]
+    for _ in range(SPEC_TOKENS // STEPS_PER_DISPATCH):
+        state, t = target.generate_n(state, STEPS_PER_DISPATCH)
+        toks.append(t[:, :SPEC_STREAMS])
+    plain = torch.cat(toks).t().cpu().tolist()
+    del state
+    _reset_all_counts()
+    inplace_update.span_launch_counts.clear()
+    t1 = time.perf_counter()
+    got, rounds, commits = spec_streams(spec)
+    spec_s = time.perf_counter() - t1
+    k1, spans = ragged_decode_attention.launch_count, dict(inplace_update.span_launch_counts)
+    same = got == plain
+    check(same, "spec_decode: the speculative streams differ from the target's greedy streams")
+    dl, tl = dcfg.num_decoder_layers, tcfg.num_decoder_layers
+    want = {"k1": rounds * (SPEC_K + 1) * dl, "span1": rounds * (SPEC_K + 1) * dl * 2,
+            "span5": rounds * tl * 2}
+    check(k1 == want["k1"] and spans == {1: want["span1"], SPEC_K + 1: want["span5"]},
+          f"spec_decode: K1 {k1}, K2 by span {spans} != {want} ({rounds} rounds)")
+    check(spec.graphs.captures == 1 and spec.graphs.replays == rounds - 1,
+          f"spec_decode: {spec.graphs.captures} captures, {spec.graphs.replays} replays "
+          f"for {rounds} rounds")
+    committed = sum(sum(c) for c in commits)
+    del spec, target
+
+    # the target as its own draft: every round commits K+1 tokens a stream
+    same_cfg = dataclasses.replace(tcfg)
+    perfect = SpeculativeEngine(tcfg, same_cfg, num_draft_tokens=SPEC_K)
+    perfect.target.load_params()
+    perfect.draft.set_params(perfect.target.params)
+    pgot, prounds, pcommits = spec_streams(perfect)
+    all_k1 = all(c == SPEC_K + 1 for cs in pcommits for c in cs)
+    check(pgot == plain and all_k1,
+          f"spec_decode: target as draft commits {pcommits[:4]}..., streams equal "
+          f"{pgot == plain}")
+    del perfect
+    emit("spec_decode", t0, streams=SPEC_STREAMS, tokens_each=SPEC_TOKENS, k=SPEC_K,
+         draft_layers=dl, target_layers=tl, rounds=rounds, spec_seconds=spec_s,
+         tokens_per_round_per_stream=committed / (rounds * SPEC_STREAMS),
+         streams_equal_plain_greedy=same, target_as_draft_rounds=prounds,
+         target_as_draft_tokens_per_round_per_stream=SPEC_K + 1 if all_k1 else None,
+         k1_launches=k1, k2_launches_by_span={str(k): v for k, v in spans.items()},
+         graph_replays=rounds - 1)
+    return {"spec_decode": {"ragged_decode_attention": k1,
+                            "inplace_row_update": spans.get(SPEC_K + 1, 0)},
+            "spec_decode_draft": {"inplace_row_update": spans.get(1, 0)}}
+
+
+def phase_bucketed_decode():
+    """``decode_attention=bucketed`` at full width (float32, 8 slots): greedy
+    streams equal the ``dot_product`` route's; the dispatches' widths grow
+    with the streams (one captured graph each)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    t0 = time.perf_counter()
+    args = [a for a in F32_ARGS if a != "decode_attention=ragged"] + [
+        "per_device_batch_size=8", "max_prefill_predict_length=512"]
+    cfgs = {route: load_config(args + [f"decode_attention={route}"])
+            for route in ("bucketed", "dot_product")}
+    rng = np.random.default_rng(9)
+    # prompts of at most 250 rows: the first dispatches read 256 rows, the later 512
+    prompts = [rng.integers(1, cfgs["bucketed"].vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(200, 251, size=8)]
+    streams, widths = {}, None
+    _reset_all_counts()
+    for route, cfg in cfgs.items():
+        engine = Engine(cfg)
+        engine.load_params()
+        streams[route] = _decode_streams(engine, prompts, SPEC_TOKENS)
+        if route == "bucketed":
+            widths = sorted({k[0][2] for k in engine.graphs._entries})
+            launches = _all_counts()
+        del engine
+    same = bool(np.array_equal(streams["bucketed"], streams["dot_product"]))
+    check(same and widths == [256, 512],
+          f"bucketed_decode: streams equal {same}, widths {widths}")
+    emit("bucketed_decode", t0, streams=len(prompts), tokens_compared=int(streams["bucketed"].size),
+         streams_equal_dot_product=same, widths=widths,
+         launches={k: v for k, v in launches.items() if v})
+    return {k: v for k, v in launches.items() if v}
+
+
 def _reset_row_kernel_counts():
     from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, quant_kernels
 
@@ -1008,6 +1471,7 @@ def _reset_all_counts():
 
     _reset_row_kernel_counts()
     ragged_decode_attention.launch_count = inplace_update.launch_count = 0
+    inplace_update.span_launch_counts.clear()
     ragged_decode_attention.paged_launch_count = 0
     s2a_attention.launch_count = 0
     for name in flash_attention.launch_counts:
@@ -2774,14 +3238,29 @@ def _phases(tmp, card) -> dict:
     engine, launches = phase_serve()
     record("serve", launches)
     phase_serve_parity(engine)
+    prompts, _ = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    phase_serve_captured_parity(engine, "dense", prompts[:engine.num_slots], card)
     phase_http(engine)
+    phase_generate_stream_http(engine)
     phase_lm_ckpt(engine, tmp)
     del engine
     release()
     engine, paged = phase_serve_paged()
     record("serve_paged", {"paged_decode_attention": paged})
     phase_serve_paged_parity(engine)
+    # 2 pages of 128 rows a stream: prompt, 64 tokens and the profile's steps
+    short = [p[:180] for p in prompts[:engine.num_slots]]
+    phase_serve_captured_parity(engine, "paged", short, card)
     del engine
+    release()
+    record("serve_paged_short_pool", {"paged_decode_attention": phase_serve_paged_short_pool()})
+    release()
+    record("chunked_prefill", phase_chunked_prefill())
+    release()
+    for phase, counts in phase_spec_decode().items():
+        record(phase, counts)
+    release()
+    record("bucketed_decode", phase_bucketed_decode())
     release()
     pipe_int8, backend_launches = phase_tts_backend()
     record("tts_backend", backend_launches)

@@ -75,6 +75,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma_bf16.cuh"
@@ -482,18 +483,39 @@ ragged_decode_kernel(const void* __restrict__ q,            // [B, nq, D] f32|bf
   cluster.sync();  // no block leaves (and frees its shared memory) while a peer reads it
 }
 
+// An instantiation whose ring needs more than 48 KB of shared memory may take
+// it once the function's attribute allows it. The attribute belongs to the
+// function on a device, not to a launch, so it is set once a device: a launch
+// captured into a CUDA graph then makes no call but the launch itself.
+constexpr int kMaxDevices = 64;
+
+template <int D, typename KV, int GP, typename Rows>
+inline cudaError_t allow_shared_memory() {
+  using S = Shape<D, KV, GP>;
+  if (S::BYTES <= 48 * 1024) return cudaSuccess;
+  static std::atomic<bool> allowed[kMaxDevices];  // static storage: all false
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && allowed[device].load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(ragged_decode_kernel<D, KV, GP, Rows>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err == cudaSuccess && device < kMaxDevices) {
+    allowed[device].store(true, std::memory_order_release);
+  }
+  return err;
+}
+
 // The launch configuration of one instantiation: grid (nkv, B, cluster), the
 // cluster along z (none for a cluster of 1), the ring's dynamic shared memory.
 template <int D, typename KV, int GP, typename Rows>
 inline cudaError_t configure(int b_sz, int nkv, int cluster, cudaStream_t stream,
                              cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   using S = Shape<D, KV, GP>;
-  if (S::BYTES > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(ragged_decode_kernel<D, KV, GP, Rows>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 S::BYTES);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_shared_memory<D, KV, GP, Rows>();
+  if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(nkv, b_sz, cluster);
   cfg->blockDim = dim3(kThreads);

@@ -4,7 +4,11 @@ Run: ``python -m maxtext_indextts2_tpu_torch.infer.decode <cfg.yml> key=value ..
 Decodes ``prompt`` (comma-separated token ids) for ``max_new_tokens`` tokens
 and prints the result; the weights come from ``load_parameters_path`` (a
 checkpoint of ``train/checkpointing.py``), or are seeded random weights when
-it is empty. Runs on the GPU; ``device=cpu`` asks for the CPU explicitly.
+it is empty. With ``spec_num_draft_tokens=K`` and ``spec_draft=<draft.yml>``
+it decodes speculatively (``infer/speculative.py``; the draft's weights from
+``spec_draft_parameters_path``, its vocabulary, lengths and slots forced to
+the target's, greedy). Runs on the GPU; ``device=cpu`` asks for the CPU
+explicitly.
 """
 
 from __future__ import annotations
@@ -30,17 +34,33 @@ def main(argv=None, prompt_ids=None, max_new_tokens: int = 16, device=None):
             prompt_ids = np.array([int(t) for t in v.split(",")], np.int32)
         else:
             max_new_tokens = int(v)
-    if any(a.startswith("spec_draft=") for a in argv):
-        raise NotImplementedError(
-            "speculative decoding is not ported to the PyTorch/CUDA package yet "
-            "(ROADMAP.md, port queue: 5, decode extras)")
+    spec_args = [a for a in argv if a.startswith("spec_draft=")]
+    argv = [a for a in argv if a not in spec_args]
     cfg = load_config(argv)
     if prompt_ids is None:
         prompt_ids = np.arange(1, 9, dtype=np.int32)
 
-    engine = Engine(cfg, device=device)
-    engine.load_params(cfg.load_parameters_path or None)
-    out = engine.generate_stream(prompt_ids, max_new_tokens)
+    if spec_args and cfg.spec_num_draft_tokens > 0:
+        from maxtext_indextts2_tpu_torch.infer.speculative import SpeculativeEngine
+
+        draft_cfg = load_config([spec_args[-1].partition("=")[2]] + [
+            f"vocab_size={cfg.vocab_size}",
+            f"max_target_length={cfg.max_target_length}",
+            f"max_prefill_predict_length={cfg.max_prefill_predict_length}",
+            f"per_device_batch_size={cfg.per_device_batch_size}",
+            "decode_sampling_strategy=greedy",
+        ])
+        engine = SpeculativeEngine(cfg, draft_cfg, device=device,
+                                   num_draft_tokens=cfg.spec_num_draft_tokens)
+        engine.load_params(cfg.load_parameters_path or None,
+                           cfg.spec_draft_parameters_path or None)
+        out, rounds = engine.generate_stream(prompt_ids, max_new_tokens)
+        print(f"speculative: {len(out)} tokens in {rounds} rounds "
+              f"({len(out) / max(rounds, 1):.2f} tokens/dispatch)")
+    else:
+        engine = Engine(cfg, device=device)
+        engine.load_params(cfg.load_parameters_path or None)
+        out = engine.generate_stream(prompt_ids, max_new_tokens)
     print("prompt:", prompt_ids.tolist())
     print("completion:", out)
     if cfg.autoregressive_decode_assert:

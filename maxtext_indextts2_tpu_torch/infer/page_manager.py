@@ -115,7 +115,9 @@ def allocate_decode_step(state: PageState, tokens_per_page: int,
     pages = torch.where(needs, _nth_free_pages(state.page_status, rank),
                         torch.zeros((), dtype=torch.int32, device=seq.device))
     status = state.page_status.clone()
-    status[pages.long()] = 1  # slots that need none write the null page, in use already
+    # slots that need none write the null page, in use already; the value is a
+    # device tensor (a host number would be a copy a captured step cannot make)
+    status.index_put_((pages.long(),), torch.ones_like(pages))
     rows = torch.arange(seq.shape[0], device=seq.device)
     cols = torch.clamp(seq // tokens_per_page, max=state.page_map.shape[1] - 1).long()
     page_map = state.page_map.clone()

@@ -40,6 +40,9 @@ class PagedKVCache:
     def tokens_per_page(self) -> int:
         return self.key_pages.shape[1]
 
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {"key_pages": self.key_pages, "value_pages": self.value_pages}
+
     def clone(self) -> "PagedKVCache":
         return PagedKVCache(self.key_pages.clone(), self.value_pages.clone())
 

@@ -14,10 +14,15 @@ import torch
 NEG_INF = -1.0e9
 
 
-def _gumbel(shape, generator, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise from uniform [0, 1) draws."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
+def _gumbel(shape, generator, device) -> torch.Tensor:
+    return gumbel_from_uniform(
+        torch.rand(shape, generator=generator, device=device, dtype=torch.float32))
 
 
 def _categorical(logits, generator, noise):

@@ -6,14 +6,24 @@ takes ``attention`` ``flash`` (K9-K11, the hand-written CUDA kernels of
 einsum/softmax); ``autoselected`` picks flash on a CUDA device at S >= 1024
 (the JAX package: on a TPU). ``MODE_PREFILL`` computes attention with plain
 einsum/softmax (as the JAX serving path does outside any kernel), and
-``MODE_AUTOREGRESSIVE`` takes ``decode_attention`` ``dot_product`` or
-``ragged`` (the hand-written CUDA kernel of ``ops/ragged_decode_attention``);
+``MODE_AUTOREGRESSIVE`` takes ``decode_attention`` ``dot_product``,
+``bucketed`` (the same masked product over the smallest power-of-two prefix of
+the cache that covers every slot: the engine gives the width, the JAX
+package's ``lax.switch`` picks it from the device's lengths) or ``ragged``
+(the hand-written CUDA kernel of ``ops/ragged_decode_attention``);
 with a paged cache (``paged_attention``: an ``infer/paged_attention.PagedKVCache``
 from :meth:`Attention.init_paged_cache`, handed in with the engine's
 ``PagedDecodeStep``) it takes K4, the paged kernel of the same module, on a
 CUDA tensor without a logit soft cap, and otherwise
 the gather route of ``infer/paged_attention.py`` (the JAX package's route
-off the TPU), chosen by where the tensor lies.
+off the TPU), chosen by where the tensor lies. ``MODE_PREFILL`` with a
+``cache_offset`` is one chunk of a chunked prefill: its rows land at
+``[offset, offset + len)`` and it attends over everything cached so far.
+``MODE_VERIFY`` is the speculative verify pass: K+1 rows a slot, written at
+the slot's ``cache_index`` through the row-update kernel K2 (which leaves the
+index where it is) and scored against the whole cache. The chunk's and the
+verify span's attention are masked products in plain PyTorch, as in the JAX
+package.
 :meth:`Attention.attend` is the training forward up to the output
 projection: its result is the ``attn_out`` remat anchor of
 ``models/decoder.py``.
@@ -54,7 +64,11 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 MODE_TRAIN = "train"
 MODE_PREFILL = "prefill"
 MODE_AUTOREGRESSIVE = "autoregressive"
-MODE_VERIFY = "verify"  # speculative verify pass: not ported
+# Speculative verify pass: score K+1 tokens a slot in one forward. KV is
+# written at [pos, pos+K+1) per slot but cache_index is NOT advanced: the
+# engine sets it after acceptance (rows past it are dead until overwritten,
+# since every decode read is bounded by cache_index or the positions).
+MODE_VERIFY = "verify"
 
 
 def make_attention_mask(
@@ -153,6 +167,30 @@ class KVCache:
     def leaves(self) -> dict[str, torch.Tensor]:
         return {n: getattr(self, n) for n in self.LEAVES if getattr(self, n) is not None}
 
+    def copy_rows(self, start: int, n: int) -> "KVCache":
+        """A new batch-1 cache of ``n`` rows holding rows [start, start+n) of
+        batch row 0, all valid: a prefix of its own (no storage shared)."""
+        _, _, nkv, d = self.cached_key.shape
+        out = KVCache(1, n, nkv, d, self.dtype, self.quantize, self.cached_key.device)
+        for name in ("cached_key", "cached_value", "key_scale", "value_scale"):
+            src = getattr(self, name)
+            if src is not None:
+                getattr(out, name)[0] = src[0, start:start + n]
+        out.cached_segment_ids.fill_(1)
+        out.cache_index.fill_(n)
+        return out
+
+    def load_rows(self, src: "KVCache", n: int) -> None:
+        """Take rows [0, n) of ``src`` (a cache of as many rows, or more) as
+        this cache's first ``n`` valid rows; the write index goes to ``n``."""
+        for name in ("cached_key", "cached_value", "key_scale", "value_scale"):
+            dst = getattr(self, name)
+            if dst is not None:
+                dst[:, :n] = getattr(src, name)[:, :n]
+        self.cached_segment_ids[:, :n] = 1
+        self.cached_segment_ids[:, n:] = 0
+        self.cache_index.fill_(n)
+
     def clone(self) -> "KVCache":
         out = object.__new__(KVCache)
         out.max_length, out.quantize, out.dtype = self.max_length, self.quantize, self.dtype
@@ -162,9 +200,12 @@ class KVCache:
         return out
 
     def update(self, k: torch.Tensor, v: torch.Tensor, mode: str,
-               true_lengths: torch.Tensor | None = None, impl: str | None = None):
-        """k, v: [B, S, nkv, d] new rows. Returns (cached_key, cached_value,
-        cached_segment_ids, cache_index, scales-or-None)."""
+               true_lengths: torch.Tensor | None = None, impl: str | None = None,
+               cache_offset: int | None = None):
+        """k, v: [B, S, nkv, d] new rows. ``cache_offset`` (prefill): this
+        chunk's first row (chunked prefill on top of the rows cached so far).
+        Returns (cached_key, cached_value, cached_segment_ids, cache_index,
+        scales-or-None)."""
         b = k.shape[0]
         k_scale = v_scale = None
         if self.quantize:
@@ -174,17 +215,37 @@ class KVCache:
 
         if mode == MODE_PREFILL:
             n = k.shape[1]
+            off = int(cache_offset or 0)
+            if off + n > self.max_length:
+                raise ValueError(f"prefill rows [{off}, {off + n}) past a {self.max_length}-row "
+                                 "cache")
             if true_lengths is None:
                 true_lengths = torch.full((b,), n, dtype=torch.int32, device=k.device)
-            self.cached_key[:, :n] = k.to(store)
-            self.cached_value[:, :n] = v.to(store)
+            self.cached_key[:, off:off + n] = k.to(store)
+            self.cached_value[:, off:off + n] = v.to(store)
             if self.quantize:
-                self.key_scale[:, :n] = k_scale
-                self.value_scale[:, :n] = v_scale
+                self.key_scale[:, off:off + n] = k_scale
+                self.value_scale[:, off:off + n] = v_scale
+            # [0, off) was made valid by the earlier chunks; arange < end covers it
+            end = off + true_lengths.to(torch.int32)
             pos = torch.arange(self.max_length, dtype=torch.int32, device=k.device)
-            self.cached_segment_ids.copy_(
-                (pos[None, :] < true_lengths[:, None]).to(torch.int32))
-            self.cache_index.copy_(true_lengths.to(torch.int32))
+            self.cached_segment_ids.copy_((pos[None, :] < end[:, None]).to(torch.int32))
+            self.cache_index.copy_(end)
+        elif mode == MODE_VERIFY:
+            # k, v are [B, K+1, nkv, d]: the span at each slot's cache_index
+            # through K2; cache_index stays (the engine sets it after acceptance)
+            pos = self.cache_index
+            _row_update(self.cached_key, k, pos, impl)
+            _row_update(self.cached_value, v, pos, impl)
+            if self.quantize:
+                _row_update(self.key_scale, k_scale, pos, impl)
+                _row_update(self.value_scale, v_scale, pos, impl)
+            span = torch.arange(k.shape[1], device=k.device)
+            offs = torch.clamp(pos.long()[:, None] + span[None, :], max=self.max_length - 1)
+            # the value a device tensor: a host number is a copy a CUDA graph cannot take
+            self.cached_segment_ids.index_put_(
+                (torch.arange(b, device=k.device)[:, None], offs),
+                torch.ones_like(offs, dtype=torch.int32))
         elif mode == MODE_AUTOREGRESSIVE:
             # k, v are [B, 1, nkv, d]; one row per slot at its own position
             pos = self.cache_index
@@ -196,12 +257,11 @@ class KVCache:
             # a slot nobody released keeps stepping: clamp the marker too (an
             # index past the cache is an illegal address on CUDA)
             rows = torch.arange(b, device=k.device)
-            self.cached_segment_ids[
-                rows, torch.clamp(pos.long(), max=self.max_length - 1)] = 1
+            self.cached_segment_ids.index_put_(
+                (rows, torch.clamp(pos.long(), max=self.max_length - 1)), torch.ones_like(pos))
             self.cache_index += 1
         else:
-            _unsupported(f"KVCache mode {mode!r} (speculative verify span)",
-                         "5, decode extras")
+            raise ValueError(f"unknown KVCache mode {mode!r}")
 
         scales = (self.key_scale, self.value_scale) if self.quantize else None
         return (self.cached_key, self.cached_value, self.cached_segment_ids,
@@ -231,7 +291,7 @@ class Attention(nn.Module):
         head_dim: int,
         max_target_length: int = 2048,
         attention_kernel: str = "autoselected",  # autoselected | dot_product | flash
-        decode_attention: str = "dot_product",  # dot_product | ragged
+        decode_attention: str = "dot_product",  # dot_product | bucketed | ragged
         dtype: torch.dtype = torch.bfloat16,
         weight_dtype: torch.dtype = torch.float32,
         float32_qk_product: bool = False,
@@ -260,9 +320,7 @@ class Attention(nn.Module):
         super().__init__()
         if attention_kernel not in ("autoselected", "dot_product", "flash"):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
-        if decode_attention == "bucketed":
-            _unsupported("decode_attention=bucketed", "5, decode extras: item 5.5")
-        if decode_attention not in ("dot_product", "ragged"):
+        if decode_attention not in ("dot_product", "bucketed", "ragged"):
             raise ValueError(f"unknown decode_attention {decode_attention!r}")
         if use_qk_norm and qk_norm_type != "rms":
             _unsupported(f"qk_norm_type={qk_norm_type!r} (llama4)", "6, other model families")
@@ -331,11 +389,13 @@ class Attention(nn.Module):
         cache: KVCache | PagedKVCache | None = None,
         impl: str | None = None,  # "plain": the kernels' plain versions (comparisons only)
         paged_step=None,  # infer.paged_attention.PagedDecodeStep, with a PagedKVCache
+        cache_offset: int | None = None,  # chunked prefill: this chunk's first position
+        decode_width: int | None = None,  # bucketed decode: the cache prefix read
     ) -> torch.Tensor:
         if mode == MODE_TRAIN:
             return self.out(self.attend(inputs_q, inputs_kv, positions, segment_ids, impl))
-        if mode not in (MODE_PREFILL, MODE_AUTOREGRESSIVE):
-            _unsupported(f"attention mode {mode!r} (speculative verify)", "5, decode extras")
+        if mode not in (MODE_PREFILL, MODE_AUTOREGRESSIVE, MODE_VERIFY):
+            raise ValueError(f"unknown attention mode {mode!r}")
         if cache is None:
             raise ValueError(f"mode {mode!r} needs a KVCache")
         q, k, v = self._project(inputs_q, inputs_kv, positions)
@@ -344,11 +404,28 @@ class Attention(nn.Module):
         true_lengths = None
         if mode == MODE_PREFILL and segment_ids is not None:
             true_lengths = torch.sum((segment_ids != 0).to(torch.int32), dim=1)
-        ck, cv, cseg, cidx, kv_scales = cache.update(k, v, mode, true_lengths, impl)
+        ck, cv, cseg, cidx, kv_scales = cache.update(k, v, mode, true_lengths, impl,
+                                                      cache_offset)
 
-        if mode == MODE_PREFILL:
+        if mode == MODE_PREFILL and cache_offset is None:
             # attend only within the prefill segment(s)
             out = self._masked_attention(q, k, v, positions, segment_ids)
+        elif mode != MODE_AUTOREGRESSIVE:
+            # a prefill chunk (over everything cached so far, causal against
+            # its global positions) or the verify span (over the whole cache)
+            kv_positions = torch.arange(cache.max_length, dtype=torch.int32, device=q.device)
+            kp, qp = kv_positions[None, None, :], positions[:, :, None]
+            mask = kp <= qp
+            if mode == MODE_PREFILL:
+                mask = mask & (cseg[:, None, :] > 0)
+            if self.sliding_window_size > 0:
+                mask = mask & (kp > qp - self.sliding_window_size)
+            if self.chunk_attn_window_size > 0:
+                mask = mask & (kp // self.chunk_attn_window_size
+                               == qp // self.chunk_attn_window_size)
+            dk, dv = self._dequantized(ck, cv, kv_scales)
+            out = dot_product_attention(q, dk, dv, mask[:, None], self.attn_logits_soft_cap,
+                                        self.float32_qk_product)
         elif (
             self.decode_attention == "ragged"
             and self.chunk_attn_window_size == 0
@@ -362,27 +439,40 @@ class Attention(nn.Module):
                 k_scale=scales[0], v_scale=scales[1], impl=impl,
             ).to(q.dtype)[:, None]
         else:
-            s_len = cache.max_length
-            kv_positions = torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
-            nxt = cidx[:, None]  # next write position; the query sits at nxt-1
-            valid = kv_positions < nxt
-            if self.sliding_window_size > 0:
-                valid &= kv_positions > (nxt - 1) - self.sliding_window_size
-            if self.chunk_attn_window_size > 0:
-                valid &= (kv_positions // self.chunk_attn_window_size) == (
-                    (nxt - 1) // self.chunk_attn_window_size
-                )
-            valid &= cseg > 0
-            if kv_scales is not None:
-                dk = dequantize_kv(ck, kv_scales[0], self.dtype)
-                dv = dequantize_kv(cv, kv_scales[1], self.dtype)
-            else:
-                dk, dv = ck, cv
-            out = dot_product_attention(
-                q, dk, dv, valid[:, None, None, :], self.attn_logits_soft_cap,
-                self.float32_qk_product,
-            )
+            # dot_product reads the whole cache, bucketed its first
+            # ``decode_width`` rows (masked rows add nothing: the same function)
+            width = cache.max_length
+            if self.decode_attention == "bucketed" and decode_width is not None:
+                width = min(int(decode_width), width)
+            out = self._masked_decode(q, ck[:, :width], cv[:, :width], cseg[:, :width], cidx,
+                                      None if kv_scales is None
+                                      else tuple(t[:, :width] for t in kv_scales))
         return self.out(out)
+
+    def _dequantized(self, ck, cv, kv_scales):
+        if kv_scales is None:
+            return ck, cv
+        return (dequantize_kv(ck, kv_scales[0], self.dtype),
+                dequantize_kv(cv, kv_scales[1], self.dtype))
+
+    def _masked_decode(self, q, ck, cv, cseg, cidx, kv_scales):
+        """One query a slot against the cache rows it holds (``< cidx``), the
+        window and the chunk: a masked product over ``ck``'s rows."""
+        kv_positions = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)[None, :]
+        nxt = cidx[:, None]  # next write position; the query sits at nxt-1
+        valid = kv_positions < nxt
+        if self.sliding_window_size > 0:
+            valid &= kv_positions > (nxt - 1) - self.sliding_window_size
+        if self.chunk_attn_window_size > 0:
+            valid &= (kv_positions // self.chunk_attn_window_size) == (
+                (nxt - 1) // self.chunk_attn_window_size
+            )
+        valid &= cseg > 0
+        dk, dv = self._dequantized(ck, cv, kv_scales)
+        return dot_product_attention(
+            q, dk, dv, valid[:, None, None, :], self.attn_logits_soft_cap,
+            self.float32_qk_product,
+        )
 
     def _paged_decode(self, q, k, v, mode, cache, step, impl):
         """One token per slot against the page pools: write it at row

@@ -171,14 +171,18 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions, segment_ids, mode: str = MODE_TRAIN, cache=None,
                 impl: str | None = None, remat: str | None = None, paged_step=None,
-                keep_masks=None):
+                keep_masks=None, cache_offset: int | None = None,
+                decode_width: int | None = None):
         """``remat``: a policy of :func:`_remat_policy`, applied in
         ``MODE_TRAIN`` while gradients are recorded. ``paged_step``: the
         engine's ``PagedDecodeStep`` when ``cache`` holds page pools.
-        ``keep_masks``: one MLP dropout keep mask per sub-layer (training)."""
+        ``keep_masks``: one MLP dropout keep mask per sub-layer (training).
+        ``cache_offset`` / ``decode_width``: chunked prefill's first position
+        and bucketed decode's cache prefix (``models/attention.py``)."""
         masks = keep_masks or [None] * len(self.block.attention_pattern)
         if mode != MODE_TRAIN or remat is None or not torch.is_grad_enabled():
-            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step, masks)
+            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step, masks,
+                              cache_offset, decode_width)
         if remat == "full":
             return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
                               masks, use_reentrant=False)
@@ -199,12 +203,14 @@ class DecoderLayer(nn.Module):
                 x = checkpoint(self._after_mlp, i, x1, pre, masks[i], use_reentrant=False)
         return x
 
-    def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None, masks=None):
+    def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None, masks=None,
+              cache_offset=None, decode_width=None):
         for i in range(len(self.block.attention_pattern)):
             h = self._pre_attn(i, x)
             attn_out = getattr(self, f"self_attention_{i}")(
                 h, h, positions, segment_ids, mode=mode,
-                cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step)
+                cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step,
+                cache_offset=cache_offset, decode_width=decode_width)
             x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out),
                                    None if masks is None else masks[i])
         return x
@@ -273,7 +279,8 @@ class Decoder(nn.Module):
 
     def forward(self, y: torch.Tensor, positions, segment_ids, mode: str = MODE_TRAIN,
                 cache=None, impl: str | None = None, paged_step=None,
-                dropout: MlpDropout | None = None) -> torch.Tensor:
+                dropout: MlpDropout | None = None, cache_offset: int | None = None,
+                decode_width: int | None = None) -> torch.Tensor:
         """``dropout``: the MLP dropout of a training forward; each unit's
         masks are taken before the unit runs."""
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
@@ -285,5 +292,6 @@ class Decoder(nn.Module):
                          for j in range(self.group)]
             y = getattr(self, f"layers_{i}")(
                 y, positions, segment_ids, mode,
-                None if cache is None else cache[i], impl, remat, paged_step, masks)
+                None if cache is None else cache[i], impl, remat, paged_step, masks,
+                cache_offset, decode_width)
         return y

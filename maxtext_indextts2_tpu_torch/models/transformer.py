@@ -105,6 +105,8 @@ class Transformer(nn.Module):
         cache: list | None = None,  # from init_cache(); updated in place
         impl: str | None = None,  # "plain": kernels' plain versions (comparisons only)
         paged_step=None,  # paged decode: infer.paged_attention.PagedDecodeStep
+        cache_offset: int | None = None,  # chunked prefill: this chunk's first position
+        decode_width: int | None = None,  # bucketed decode: the cache prefix read
         return_prelogits: bool = False,  # fused-vocabulary CE: skip the unembedding
         dropout=None,  # training: models.layers.MlpDropout (None: deterministic)
     ) -> torch.Tensor:
@@ -113,7 +115,8 @@ class Transformer(nn.Module):
             emb = emb * torch.tensor(self.cfg.emb_dim ** 0.5, dtype=emb.dtype,
                                      device=emb.device)
         y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
-                         paged_step=paged_step, dropout=dropout)
+                         paged_step=paged_step, dropout=dropout, cache_offset=cache_offset,
+                         decode_width=decode_width)
         if return_prelogits:
             return self.prelogits(y)
         return self._unembed(y)

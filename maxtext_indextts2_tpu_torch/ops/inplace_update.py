@@ -20,8 +20,10 @@ import math
 import torch
 
 # launches of the CUDA kernel by this process (a plain integer; a run can
-# show with it that its path went through the kernel)
+# show with it that its path went through the kernel), and the same launches
+# by span K (1 on a decode step, K+1 on a speculative verify pass)
 launch_count = 0
+span_launch_counts: dict[int, int] = {}
 
 _CONVERT_DIRECTION = {
     (torch.bfloat16, torch.float32): 0,  # (cache dtype, kv dtype)
@@ -95,5 +97,6 @@ def inplace_row_update(cache: torch.Tensor, kv: torch.Tensor, idx: torch.Tensor,
             f"inplace_row_update kernel: no conversion from {kv.dtype} rows to a "
             f"{cache.dtype} cache (equal types, or float32 <-> bfloat16)")
     launch_count += 1
+    span_launch_counts[span] = span_launch_counts.get(span, 0) + 1
     _build.check_launch(code, "inplace_row_update")
     return cache

@@ -63,6 +63,9 @@ TTS_1B = dict(b=128, s=2048, nq=16, nkv=8, d=128)
 # generated ones.
 FLAGSHIP_DECODE = dict(b=8, s=4096, nq=16, nkv=8, d=256)
 FLAGSHIP_SERVING_MAX = 1600
+# chip_smoke.py's spec_decode phase: prompts of up to 400 tokens, 64 generated,
+# and a verify span past them
+SPEC_SERVING_MAX = 480
 
 # Row kernels of the S2A denoiser against their plain versions ON THE CARD.
 # Both sides do the same arithmetic; only the order of the float32 sum of
@@ -449,7 +452,7 @@ def inplace_case(name, device, timing, *, cache_shape, span, cache_dtype,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=nbytes,
             library_ms=time_ms(lambda: cache.index_put_((rows, offs), kv_cast)),
         )
-        if name in main_path_case_names():
+        if name in main_path_case_names() or name.endswith("_verify"):
             res.update(device_ms=device_ms(lambda: iu.inplace_row_update(cache, kv, idx)),
                        library_device_ms=device_ms(
                            lambda: cache.index_put_((rows, offs), kv_cast)),
@@ -1279,10 +1282,12 @@ def flash_cases(device, timing, full_size=True):
 MAIN_PATH_CASES = {
     "s2a_attention": {"tts_synthesize": "s2a_attention_bf16_main_path"},
     "ragged_decode_attention": {"serve": "ragged_bf16_main_path",
-                                "flagship_serve": "ragged_bf16_flagship"},
+                                "flagship_serve": "ragged_bf16_flagship",
+                                "spec_decode": "ragged_f32_spec_draft"},
     "paged_decode_attention": {"serve_paged": "paged_bf16_main_path"},
     "inplace_row_update": {"serve": "inplace_kv_bf16_k1_main_path",
-                           "flagship_serve": "inplace_kv_bf16_k1_flagship"},
+                           "flagship_serve": "inplace_kv_bf16_k1_flagship",
+                           "spec_decode": "inplace_kv_f32_k5_verify"},
     "ada_rmsnorm": {"tts_backend": "ada_rmsnorm_bf16_main_path",
                     "s2a_train": "ada_rmsnorm_grad_f32_s2a_train"},
     "row_quantize_int8": {"tts_backend": "row_quantize_int8_bf16_main_path"},
@@ -1345,6 +1350,9 @@ def ragged_cases(device, timing, full_size=True, serve_slots=32):
                     serving_max=min(528, big["s"]), seed=20),
         ragged_case("ragged_bf16_flagship", device, timing, **flagship,
                     serving_max=min(FLAGSHIP_SERVING_MAX, flagship["s"]), seed=22),
+        # the speculative round's draft steps: float32, the spec_decode phase's prompts
+        ragged_case("ragged_f32_spec_draft", device, timing, **serve, dtype=f32,
+                    serving_max=min(SPEC_SERVING_MAX, big["s"]), seed=24),
         ragged_case("ragged_bf16", device, timing, **big, seed=1),
         ragged_case("ragged_f32", device, timing, **big, dtype=f32, seed=2),
         ragged_case("ragged_int8_q_bf16", device, timing, **big, int8=True, seed=3),
@@ -1377,6 +1385,16 @@ def ragged_cases(device, timing, full_size=True, serve_slots=32):
                      span=1, cache_dtype=bf16, seed=23),
         inplace_case("inplace_kv_bf16_k1", device, timing, cache_shape=kv4, span=1,
                      cache_dtype=bf16, seed=11),
+        # the speculative verify span (K = 4 drafts + 1) on the serving cache:
+        # bfloat16, float32 (the spec_decode phase's), int8 codes and their scales
+        inplace_case("inplace_kv_bf16_k5_verify", device, timing,
+                     cache_shape=(serve_slots,) + kv4[1:], span=5, cache_dtype=bf16, seed=25),
+        inplace_case("inplace_kv_f32_k5_verify", device, timing,
+                     cache_shape=(serve_slots,) + kv4[1:], span=5, cache_dtype=f32, seed=26),
+        inplace_case("inplace_kv_int8_k5_verify", device, timing,
+                     cache_shape=(serve_slots,) + kv4[1:], span=5, cache_dtype=i8, seed=27),
+        inplace_case("inplace_scale_f32_k5_verify", device, timing,
+                     cache_shape=(serve_slots,) + sc3[1:], span=5, cache_dtype=f32, seed=28),
         inplace_case("inplace_kv_bf16_k4_clamped", device, timing, cache_shape=kv4, span=4,
                      cache_dtype=bf16, clamp=True, seed=12),
         inplace_case("inplace_scale_f32_k1_clamped", device, timing, cache_shape=sc3, span=1,

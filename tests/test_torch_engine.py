@@ -157,12 +157,17 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    for extra in (["spec_num_draft_tokens=2"],
-                  ["decode_attention=bucketed"], ["quantization=int8"],
-                  ["quantization=int8w_serve"], ["spec_draft_parameters_path=/draft"]):
+    for extra in (["quantization=int8"], ["quantization=int8w_serve"]):
         cfg = load_config(TINY_TTS + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu").load_params()
+    # ported since: speculative decoding's keys (infer/speculative.py reads them,
+    # as the JAX package's Engine ignores them) and bucketed decode attention
+    for extra in (["spec_num_draft_tokens=2"], ["decode_attention=bucketed"],
+                  ["spec_draft_parameters_path=/draft"]):
+        eng = Engine(load_config(TINY_TTS + extra), device="cpu")
+        eng.load_params()
+        assert len(eng.generate_stream(prompt(10, 5), 3)) == 3
     # checkpoints load now (test_torch_checkpointing.py); a missing one is an error
     with pytest.raises(FileNotFoundError):
         Engine(load_config(TINY_TTS + ["load_parameters_path=/nonexistent"]),

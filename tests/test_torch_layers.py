@@ -254,9 +254,14 @@ def test_kvcache_write_past_the_end_lands_on_the_last_row():
 
 def test_unported_attention_options_raise():
     base = dict(emb_dim=32, num_query_heads=2, num_kv_heads=2, head_dim=16)
-    for kw in (dict(decode_attention="bucketed"),):
+    for kw in (dict(qk_norm_type="l2", use_qk_norm=True), dict(use_temperature_tuning=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attn.Attention(**base, **kw)
+    # bucketed decode and the verify span are ported (tests/test_torch_bucketed_decode.py,
+    # tests/test_torch_speculative.py); an unknown decode route or mode is an error
+    assert attn.Attention(**base, decode_attention="bucketed").decode_attention == "bucketed"
+    with pytest.raises(ValueError, match="unknown decode_attention"):
+        attn.Attention(**base, decode_attention="paged")
     # attention=flash is ported (K9-K11, the training step); an unknown kernel is an error
     assert attn.Attention(**base, attention_kernel="flash").attention_kernel == "flash"
     with pytest.raises(ValueError, match="unknown attention kernel"):
@@ -264,5 +269,5 @@ def test_unported_attention_options_raise():
     mod = attn.Attention(**base)
     x = torch.zeros((1, 2, 32))
     pos = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mod(x, x, pos, None, mode=attn.MODE_VERIFY, cache=mod.init_cache(1, 8, "cpu"))
+    with pytest.raises(ValueError, match="unknown attention mode"):
+        mod(x, x, pos, None, mode="draft", cache=mod.init_cache(1, 8, "cpu"))

@@ -103,6 +103,10 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.tools.profile_train\n"
         "import maxtext_indextts2_tpu_torch.infer.page_manager\n"
         "import maxtext_indextts2_tpu_torch.infer.paged_attention\n"
+        "import maxtext_indextts2_tpu_torch.infer.speculative\n"
+        "import maxtext_indextts2_tpu_torch.infer.prefix_cache\n"
+        "import maxtext_indextts2_tpu_torch.infer.cuda_graphs\n"
+        "import maxtext_indextts2_tpu_torch.ops.launch_counts\n"
         "import maxtext_indextts2_tpu_torch.audio.cli, maxtext_indextts2_tpu_torch.audio.torch_ckpt\n"
         "import maxtext_indextts2_tpu_torch.utils.ckpt_conversion\n"
         "import maxtext_indextts2_tpu_torch.train.checkpointing\n"
@@ -441,6 +445,8 @@ COPIES = [
      "maxtext_indextts2_tpu.train.data.tokenizer", ["ByteTokenizer"]),
     ("maxtext_indextts2_tpu_torch.train.data.synthetic",
      "maxtext_indextts2_tpu.train.data.synthetic", ["make_batch"]),
+    ("maxtext_indextts2_tpu_torch.infer.prefix_cache",
+     "maxtext_indextts2_tpu.infer.prefix_cache", ["PrefixCache"]),
 ]
 
 

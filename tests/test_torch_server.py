@@ -165,8 +165,10 @@ def test_decode_cli_on_the_cpu(capsys):
     assert len(out) == 5
     assert "completion:" in capsys.readouterr().out
     assert split_device_arg(["a=1", "device=cpu"]) == (["a=1"], "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_cli.main(ARGS + ["device=cpu", "spec_draft=x.yml"])
+    # a draft without spec_num_draft_tokens decodes plainly, as the JAX CLI does
+    # (speculative decoding: tests/test_torch_speculative.py)
+    assert decode_cli.main(ARGS + ["device=cpu", "prompt=3,5,7,11", "max_new_tokens=5",
+                                   "spec_draft=x.yml"]) == out
 
 
 def test_a_dropped_server_frees_its_engine_without_a_collector_pass():

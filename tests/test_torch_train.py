@@ -21,7 +21,6 @@ carries the float32 differences of sums over much larger terms).
 import dataclasses
 import functools
 import os
-import types
 
 import jax
 import jax.numpy as jnp
@@ -258,16 +257,16 @@ def _refuse_vision_sft(kind):
     make_hf_vision_sft_iterator(load_config([f"dataset_type={kind}"]), dataset=[])
 
 
-def _refuse_speculative_draft(kind):
+def _refuse_scan_stacked_serving(kind):
     from maxtext_indextts2_tpu_torch.infer.engine import Engine
 
-    Engine.load_params(types.SimpleNamespace(cfg=load_config([f"{kind}_parameters_path=d"])))
+    Engine(load_config(TINY_TTS + [f"{kind}=false", "scan_layers=true"]), device="cpu")
 
 
-def _refuse_bucketed_decode(kind):
-    from maxtext_indextts2_tpu_torch.models import Transformer
+def _refuse_disaggregated_serving(kind):
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
 
-    Transformer(load_config([f"decode_attention={kind}"]), device="meta")
+    Orchestrator(None, mode=kind)
 
 
 def _refuse_lora_training(kind):
@@ -283,8 +282,9 @@ def _refuse_int8w_serve(kind):
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
-    (_refuse_vision_sft, "hf", "6"), (_refuse_speculative_draft, "spec_draft", "5.2"),
-    (_refuse_bucketed_decode, "bucketed", "5.5"),
+    (_refuse_vision_sft, "hf", "6"),
+    (_refuse_scan_stacked_serving, "serve_unroll_layers", "5.7"),
+    (_refuse_disaggregated_serving, "disaggregated", "5.9"),
     (_refuse_lora_training, "lora", "5.6"), (_refuse_int8w_serve, "int8w_serve", "5.6"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
