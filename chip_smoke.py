@@ -81,8 +81,19 @@ small pool; ``chunked_prefill`` holds a chunked prefill, the prefix cache and
 decode recovery to the uninterrupted streams; ``spec_decode`` holds
 speculative streams (K2 at span K+1 on the verify pass) to the target's
 greedy streams; ``bucketed_decode`` holds bucketed decode attention to the
-``dot_product`` route. The kernels line lists, for each kernel, the case of
-every main path that ran it.
+``dot_product`` route. ROADMAP item 5.6: ``serve_int8w`` serves ``tts-1b``
+with ``int8w_serve`` weights (int8w_matmul on every captured decode step,
+dense and paged; parameter bytes against the reckoning; the int8 streams
+against the int8 forward, the bfloat16 streams and a quantized checkpoint
+written by ``tools/quantize_checkpoint.py`` and read back),
+``flagship_serve_int8w`` quantizes the served flagship's weights on the card
+and times a captured dispatch, ``train_int8`` trains the flagship-vocab
+recipe with its ``quantization=int8`` and the ``tts-1b`` recipe at int8 and
+fp8 (the AQT matmuls), ``train_int8_parity`` holds an int8 step on the card
+against the CPU, ``train_lora`` trains rank-16 adapters alone (every other
+weight bitwise unchanged) and ``lora_merge`` holds a merged adapter's streams
+against the unmerged adapter's. The kernels line lists, for each kernel, the
+case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -96,6 +107,7 @@ import base64
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -158,6 +170,10 @@ KERNELS = [
     dict(name="flash_bwd_dkv", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/flash_attention.cuh",
          replaces="maxtext_indextts2_tpu/ops/flash_attention.py:426"),
+    # no Pallas site: the dequantise-and-dot XLA fuses in DenseGeneral._serve_quantized
+    dict(name="int8w_matmul", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/int8w_matmul.cu",
+         replaces="maxtext_indextts2_tpu/models/layers.py:168"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -359,8 +375,9 @@ TOL_FLAGSHIP_PARITY_REL = 2.0 ** -4
 # mfu_flagship.py BEST at full size (the tts-1b body, vocab 264,192 tied,
 # 4 x 2048 tokens, fused CE chunk 512, remat full, flash, bf16 weights;
 # flash_block_sizes binds no tile in the port); 1,799,445,504 parameters.
-# Then the same with the int8 fused CE and bfloat16 logit slices
-# (quantization=int8, the AQT matmuls, is not ported: left out).
+# Then the same with the int8 fused CE and bfloat16 logit slices. The
+# recipe's own quantization=int8 (configs/perf/v5e/tts_flagship.sh) is
+# train_int8's first run.
 TRAIN_FLAGSHIP_VOCAB_ARGS = [
     TTS_1B, "vocab_size=264192", "logits_via_embedding=true", "remat_policy=full",
     "attention=flash", "scan_layers=false", "weight_dtype=bfloat16", "per_device_batch_size=4",
@@ -393,6 +410,54 @@ TRAIN_FLAGSHIP_ARGS = [
     f"steps={TRAIN_FLAGSHIP_STEPS}",
 ]
 FLAGSHIP_TRAIN_PARAMS = 1_911_066_368
+
+# ROADMAP item 5.6. serve_int8w: the serve recipe with int8w_serve weights
+# (int8 kernels of the decoder's linears, float32 scales a column, quantized on
+# the card from the seeded float weights), 32 slots, greedy, captured, dense
+# and paged; 64 tokens a stream. Parameter bytes within 2 % of the reckoned
+# int8 linears plus the bfloat16 embedding and unembedding. Self-consistency:
+# each int8 stream's tokens against the argmax of one int8 prefill forward over
+# the stream, a token counted as agreeing where it is the argmax or within a
+# near tie of it (TOL_NEAR_TIE of the largest |logit|: the prefill and decode
+# attention kernels sum in other orders).
+SERVE_INT8W_ARGS = SERVE_ARGS + ["quantization=int8w_serve"]
+PAGED_INT8W_ARGS = PAGED_ARGS + ["quantization=int8w_serve"]
+INT8W_STEPS = 64
+INT8W_SELF_STREAMS = 4
+TOL_NEAR_TIE = 2.0 ** -6
+TOL_INT8W_BYTES_REL = 0.02
+# train_int8: the flagship-vocab recipe exactly as configs/perf/v5e/
+# tts_flagship.sh has it, with quantization=int8; then the tts-1b recipe at
+# int8 and at fp8. train_int8_parity: (a) AQT's int8 and fp8 products alone at
+# the layer's full width ([512, 2048] x [2048, 2048] float32, one noise
+# tensor): output and input gradient BITWISE equal on the card and the CPU
+# (integer sums, the same elementwise roundings), the kernel gradient (a
+# float32 product) within 1e-5 of its largest entry. (b) One step of 2 float32
+# layers (one row of 512 tokens: the CPU side's time), card against CPU, one
+# noise tensor a layer. Unquantized, the two agree to ~5e-6 of a gradient's
+# largest entry (the same step's float route, reported beside); quantized, a
+# last-bit difference moves a code at a rounding boundary by one step (1/127
+# of its row's scale, a few per cent of that element), which moves the next
+# layer's inputs and flips more codes there: on an H100 the loss moved 1.5e-3,
+# a gradient by 2-4 % of its largest entry (median 2 %). Bounds: loss 5e-3,
+# grad norm 2e-3 relative, every gradient 0.1 of its largest entry, median 0.05.
+TRAIN_INT8_FLAGSHIP_VOCAB_ARGS = TRAIN_FLAGSHIP_VOCAB_ARGS + ["quantization=int8"]
+TRAIN_INT8_ARGS = TRAIN_ARGS + ["quantization=int8"]
+TRAIN_FP8_ARGS = TRAIN_ARGS + ["quantization=fp8"]
+INT8_PARITY_ARGS = TRAIN_INT8_ARGS + ["base_num_decoder_layers=2", "weight_dtype=float32",
+                                      "dtype=float32", "per_device_batch_size=1",
+                                      "max_target_length=512"]
+TOL_INT8_PARITY = dict(loss=5e-3, grad_norm_rel=2e-3, grad_rel=0.1, grad_rel_median=0.05,
+                       aqt_dw_rel=1e-5)
+AQT_PARITY_SHAPE = (512, 2048, 2048)
+# train_lora: the tts-1b recipe with rank-16 adapters on query and value and
+# LoRA-only training; lora_merge: a nonzero adapter merged into the base
+# weights against the same adapter served unmerged, float32 weights (a merge
+# rounds W + a b once; the unmerged forward adds x a b): greedy streams equal up
+# to the first near tie (TOL_NEAR_TIE of the largest |logit|).
+TRAIN_LORA_ARGS = TRAIN_ARGS + ["lora_rank=16", "lora_only_training=true"]
+LORA_SERVE_ARGS = SERVE_ARGS + ["dtype=float32", "serve_params_dtype=float32"]
+LORA_STREAMS, LORA_TOKENS = 8, 32
 
 # Weights in and out. lm_ckpt: the served tts-1b weights exported with HF names
 # and converted back by the converter CLI, as the qwen3 family (the same
@@ -451,22 +516,28 @@ def phase_build():
     _build.load_library(verbose=False)
     # K1 / K3 / K4's, K5 / K7's and every K9-K11 instantiation (`-Xptxas -v`):
     # none may spill
-    reports = {kernel: [[r["kernel"].split("(")[0], r.get("registers"), r.get("spill_stores"),
-                         r.get("spill_loads")] for r in _build.ptxas_report(kernel)]
-               for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES)}
+    reports = {kernel: [[r["kernel"].replace("(anonymous namespace)::", "").split("(")[0],
+                         r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
+                        for r in _build.ptxas_report(kernel)]
+               for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES,
+                              "int8w_matmul")}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
-    flash = reports[FLASH_KERNEL_NAMES]
+    flash, int8w = reports[FLASH_KERNEL_NAMES], reports["int8w_matmul"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
         norm_rows_registers_spill_stores_loads=norm,
-        flash_registers_spill_stores_loads=flash)
+        flash_registers_spill_stores_loads=flash,
+        int8w_matmul_registers_spill_stores_loads=int8w)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
     check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
           f"a norm_rows_kernel instantiation spills: {norm}")
     check(len(flash) == 18 and all(r[2] == 0 and r[3] == 0 for r in flash),
           f"a flash-attention (K9-K11) instantiation spills, or one is missing: {flash}")
+    # (the file's anonymous namespace carries its name: its 2 reduce kernels match too)
+    check(len(int8w) == 6 and all(r[2] == 0 and r[3] == 0 for r in int8w),
+          f"an int8w_matmul instantiation spills, or one is missing: {int8w}")
 
 
 def phase_kernels():
@@ -1466,10 +1537,11 @@ def _k12_count() -> int:
 
 def _reset_all_counts():
     from maxtext_indextts2_tpu_torch.ops import (
-        flash_attention, inplace_update, ragged_decode_attention, s2a_attention,
+        flash_attention, inplace_update, int8w_matmul, ragged_decode_attention, s2a_attention,
     )
 
     _reset_row_kernel_counts()
+    int8w_matmul.launch_count = 0
     ragged_decode_attention.launch_count = inplace_update.launch_count = 0
     inplace_update.span_launch_counts.clear()
     ragged_decode_attention.paged_launch_count = 0
@@ -1480,17 +1552,19 @@ def _reset_all_counts():
 
 def _all_counts() -> dict:
     from maxtext_indextts2_tpu_torch.ops import (
-        flash_attention, inplace_update, ragged_decode_attention,
+        flash_attention, inplace_update, int8w_matmul, ragged_decode_attention,
     )
 
     return {"ragged_decode_attention": ragged_decode_attention.launch_count,
             "paged_decode_attention": ragged_decode_attention.paged_launch_count,
             "inplace_row_update": inplace_update.launch_count, **_row_kernel_counts(),
-            "s2a_attention": _k12_count(), **flash_attention.launch_counts}
+            "s2a_attention": _k12_count(), **flash_attention.launch_counts,
+            "int8w_matmul": int8w_matmul.launch_count}
 
 
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 NO_PAGED = {"paged_decode_attention": 0}
+NO_INT8W = {"int8w_matmul": 0}
 
 
 def _audio_only_lm(pipe):
@@ -1564,7 +1638,7 @@ def phase_tts_synthesize(pipe):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12,
-            **NO_FLASH, **NO_PAGED}
+            **NO_FLASH, **NO_PAGED, **NO_INT8W}
     check(launches == want, f"tts_synthesize: launches {launches} != predicted {want}")
     emit("tts_synthesize", t0, call_seconds=seconds, info=info, denoiser_forwards=forwards,
          prompt_seconds=SYNTH_PROMPT_SECONDS, launches=launches,
@@ -1754,7 +1828,7 @@ def phase_tts_http(pipe):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0, **NO_FLASH,
-            **NO_PAGED}
+            **NO_PAGED, **NO_INT8W}
     check(launches == want, f"tts_http: launches {launches} != predicted {want} "
                             f"({steps} decode steps, {batcher.batches} batches)")
     audio = sum(n * hop for n in frames) / 24_000.0
@@ -1807,7 +1881,9 @@ def phase_train():
          launches=launches, launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          params=sum(p.numel() for p in Transformer(cfg, device="meta").parameters()),
          peak_memory_bytes=peak)
-    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}, step_s
+    fields = dict(median_step_seconds=step_s, mfu_at_989_tflops=flops.mfu(tflops, step_s),
+                  peak_memory_bytes=peak)
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}, fields
 
 
 def phase_train_parity():
@@ -2666,7 +2742,7 @@ def phase_train_flagship_vocab(card):
           f"train_flagship_vocab: {[r['params'] for r in runs.values()]} parameters")
     emit("train_flagship_vocab", t0, card=card, recipe="benchmarks/mfu_flagship.py BEST",
          runs=runs, launches=launches)
-    return launches
+    return launches, runs["chunked_bf16"]
 
 
 def phase_train_flagship(card):
@@ -2749,6 +2825,449 @@ def phase_train_flagship_vocab_parity(card):
               f"[B*S, V] float32 logits are {logits_bytes})")
     emit("train_flagship_vocab_parity", t0, card=card, batch=FLAGSHIP_VOCAB_PARITY_BATCH,
          layer=FLAGSHIP_PARITY_LAYER, logits_float32_bytes=logits_bytes, tol=tol, routes=out)
+
+
+def _param_bytes(engine) -> int:
+    return sum(t.numel() * t.element_size() for t in engine.params.values())
+
+
+def _reckoned_int8w_bytes(engine) -> int:
+    """The decoder's linears at one byte a weight, plus the embedding and the
+    unembedding in bfloat16 (the scales and norms left out)."""
+    total = 0
+    for name, t in engine.params.items():
+        if name.startswith("decoder") and name.endswith(".kernel"):
+            total += t.numel()
+        elif name.startswith(("token_embedder", "logits_dense")):
+            total += 2 * t.numel()
+    return total
+
+
+def _near_tie_agreement(engine, prompts, streams):
+    """For each stream, the tokens that its own engine's prefill forward over
+    prompt + stream gives as argmax, or within a near tie of it
+    (``TOL_NEAR_TIE`` of the largest |logit|): (agreeing, compared, exact)."""
+    from maxtext_indextts2_tpu_torch.models import MODE_PREFILL
+
+    agree = compared = exact = 0
+    dev = engine.device
+    for prompt, stream in zip(prompts, streams):
+        full = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
+        toks = torch.as_tensor(full, device=dev)[None, :]
+        pos = torch.arange(len(full), dtype=torch.int32, device=dev)[None, :]
+        with torch.no_grad():
+            logits = engine.model(toks, pos, torch.ones_like(toks), mode=MODE_PREFILL,
+                                  cache=engine.model.init_cache(1, len(full), dev))[0].float()
+        rows = logits[len(prompt) - 1:]
+        want = torch.as_tensor(np.asarray(stream), device=dev).long()
+        top = rows.max(-1).values
+        got = rows.gather(-1, want[:, None])[:, 0]
+        tie = TOL_NEAR_TIE * rows.abs().max(-1).values
+        agree += int(((top - got) <= tie).sum())
+        exact += int((rows.argmax(-1) == want).sum())
+        compared += len(stream)
+    return agree, compared, exact
+
+
+def _leading_agreement(a, b) -> list[int]:
+    """For each pair of streams, how many leading tokens are equal."""
+    out = []
+    for x, y in zip(a, b):
+        diff = np.nonzero(np.asarray(x) != np.asarray(y))[0]
+        out.append(int(diff[0]) if len(diff) else len(x))
+    return out
+
+
+def phase_serve_int8w(bf16_engine, tmp, card):
+    """ROADMAP item 5.6, serving: tts-1b with ``quantization=int8w_serve``
+    (weights quantized on the card from the seeded float ones), 32 slots,
+    greedy, decode captured, dense and paged; parameter bytes and peak memory
+    against the bfloat16 engine, the step's host and device ms and
+    int8w_matmul launches a step (``tools/profile_decode.measure``), the
+    streams' self-consistency with the int8 forward, their leading agreement
+    with the bfloat16 streams, and a ``tools/quantize_checkpoint.py`` round
+    trip (``checkpoint_is_quantized=true``: the same streams)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.tools import profile_decode, quantize_checkpoint
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(load_config(SERVE_INT8W_ARGS))  # no device given: the GPU, or an error
+    engine.load_params()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = engine.cfg
+    q_bytes, bf16_bytes = _param_bytes(engine), _param_bytes(bf16_engine)
+    reckoned = _reckoned_int8w_bytes(engine)
+    int8_kernels = [n for n, t in engine.params.items() if t.dtype == torch.int8]
+    check(len(int8_kernels) == 7 * cfg.num_decoder_layers
+          and abs(q_bytes - reckoned) <= TOL_INT8W_BYTES_REL * reckoned,
+          f"serve_int8w: {len(int8_kernels)} int8 kernels, {q_bytes} parameter bytes against "
+          f"{reckoned} reckoned")
+    prompts, _ = make_requests(np.random.default_rng(0), cfg.vocab_size)
+    prompts = prompts[:engine.num_slots]
+
+    # the main path: captured decode of every slot, counts from 0 around it
+    state, first = _populate(engine, prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    toks, t1 = [first[None]], time.perf_counter()
+    for _ in range(INT8W_STEPS // STEPS_PER_DISPATCH):
+        state, t = engine.generate_n(state, STEPS_PER_DISPATCH)
+        toks.append(t)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = _all_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    streams = torch.cat(toks).t().cpu().numpy()
+    want = {k: 0 for k in launches}
+    want.update(int8w_matmul=7 * cfg.num_decoder_layers * INT8W_STEPS,
+                ragged_decode_attention=cfg.num_decoder_layers * INT8W_STEPS,
+                inplace_row_update=2 * cfg.num_decoder_layers * INT8W_STEPS)
+    check(launches == want, f"serve_int8w: launches {launches} != {want}")
+    check(bool(((streams >= 0) & (streams < cfg.vocab_size)).all()),
+          "serve_int8w: a token outside [0, vocab)")
+    del state
+    bf16_streams = _decode_streams(bf16_engine, prompts, INT8W_STEPS)
+    leading = _leading_agreement(streams, bf16_streams)
+    agree, compared, exact = _near_tie_agreement(engine, prompts[:INT8W_SELF_STREAMS],
+                                                 streams[:INT8W_SELF_STREAMS])
+    check(agree == compared, f"serve_int8w: {compared - agree} of {compared} tokens are not the "
+                             "int8 forward's argmax nor within a near tie of it")
+    profiles = {}
+    for eng, label in ((engine, "int8w_serve"), (bf16_engine, "bfloat16")):
+        state, _ = _populate(eng, prompts)
+        step, prof = profile_decode.measure(eng, state, steps=8)
+        profiles[label] = {**step, **{k: prof[k] for k in (
+            "device_busy_ms_per_step", "device_idle_share", "device_kernels_per_step",
+            "own_kernel_launches_per_step", "own_kernels", "top_kernels")}}
+        del state
+    check(profiles["int8w_serve"]["own_kernel_launches_per_step"].get(
+        "int8w_matmul.launch_count") == 7 * cfg.num_decoder_layers,
+          f"serve_int8w: int8w_matmul launches a profiled step: "
+          f"{profiles['int8w_serve']['own_kernel_launches_per_step']}")
+
+    # paged: the same int8 weights (no second quantization) behind page pools
+    paged = Engine(load_config(PAGED_INT8W_ARGS))
+    paged.set_params(engine.params)
+    state, first = _populate(paged, [p[:180] for p in prompts])
+    _reset_all_counts()
+    ptoks = [first[None]]
+    for _ in range(INT8W_STEPS // STEPS_PER_DISPATCH):
+        state, t = paged.generate_n(state, STEPS_PER_DISPATCH)
+        ptoks.append(t)
+    torch.cuda.synchronize()
+    paged_launches = _all_counts()
+    paged_streams = torch.cat(ptoks).t().cpu().numpy()
+    want = {k: 0 for k in paged_launches}
+    want.update(int8w_matmul=7 * cfg.num_decoder_layers * INT8W_STEPS,
+                paged_decode_attention=cfg.num_decoder_layers * INT8W_STEPS)
+    check(paged_launches == want, f"serve_int8w (paged): launches {paged_launches} != {want}")
+    dense_short = _decode_streams(engine, [p[:180] for p in prompts], INT8W_STEPS)
+    paged_leading = _leading_agreement(paged_streams, dense_short)
+    del state, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the offline quantizer's checkpoint, read as it is
+    path = os.path.join(tmp, "int8w_ckpt")
+    qinfo = quantize_checkpoint.run(SERVE_ARGS + [f"save_path={path}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    read = Engine(load_config(SERVE_INT8W_ARGS + ["checkpoint_is_quantized=true",
+                                                  f"load_parameters_path={path}"]))
+    read.load_params()
+    same_weights = _same_tensors(read.params, engine.params)
+    check(not same_weights, f"serve_int8w: the checkpoint's weights differ: {same_weights[:3]}")
+    read_streams = _decode_streams(read, prompts, INT8W_STEPS)
+    check(bool(np.array_equal(read_streams, streams)),
+          "serve_int8w: the quantized checkpoint's streams differ from the converted ones")
+    ckpt_bytes = _bytes(path)
+    del read
+    shutil.rmtree(path, ignore_errors=True)
+    emit("serve_int8w", t0, card=card, slots=engine.num_slots, steps=INT8W_STEPS,
+         load_seconds=load_s, param_bytes=q_bytes, param_bytes_bfloat16=bf16_bytes,
+         param_bytes_reckoned=reckoned, param_bytes_over_bfloat16=q_bytes / bf16_bytes,
+         int8_kernels=len(int8_kernels), decode_seconds=decode_s,
+         tokens_per_s=engine.num_slots * INT8W_STEPS / decode_s,
+         serve_peak_memory_bytes=serve_peak, launches=launches, profile=profiles,
+         leading_tokens_equal_bfloat16=leading,
+         self_consistent_tokens=agree, self_consistent_exact=exact,
+         self_consistent_compared=compared, tol_near_tie=TOL_NEAR_TIE,
+         paged_launches=paged_launches, paged_leading_tokens_equal_dense=paged_leading,
+         quantized_checkpoint=qinfo, quantized_checkpoint_bytes=ckpt_bytes,
+         quantized_checkpoint_streams_equal=True)
+    del engine
+    return {"int8w_matmul": launches["int8w_matmul"] + paged_launches["int8w_matmul"]}
+
+
+def phase_flagship_serve_int8w(bf16_engine, card):
+    """The flagship's bfloat16 weights quantized into an ``int8w_serve``
+    engine on the card: weight bytes and serving peak memory against
+    bfloat16, and one captured dispatch of 4 steps over 8 slots."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.tools import profile_decode
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_bytes = _param_bytes(bf16_engine)
+    engine = Engine(load_config(FLAGSHIP_SERVE_ARGS + ["quantization=int8w_serve"]))
+    engine.set_params(bf16_engine.params)  # quantized here
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    q_bytes, reckoned = _param_bytes(engine), _reckoned_int8w_bytes(engine)
+    check(abs(q_bytes - reckoned) <= TOL_INT8W_BYTES_REL * reckoned,
+          f"flagship_serve_int8w: {q_bytes} parameter bytes against {reckoned} reckoned")
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, size=n).astype(np.int32)
+               for n in FLAGSHIP_PARITY_PROMPT_LENGTHS * 2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = _populate(engine, prompts[:engine.num_slots])
+    _reset_all_counts()
+    step, prof = profile_decode.measure(engine, state, steps=STEPS_PER_DISPATCH)
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers = engine.cfg.num_decoder_layers
+    # measure runs 9 dispatches: 8 through the captured graph and one capture
+    check(prof["own_kernel_launches_per_step"].get("int8w_matmul.launch_count") == 7 * layers
+          and launches["int8w_matmul"] > 0,
+          f"flagship_serve_int8w: int8w_matmul launches {launches['int8w_matmul']}, a step "
+          f"{prof['own_kernel_launches_per_step']}")
+    del state
+    emit("flagship_serve_int8w", t0, card=card, quantize_seconds=quantize_s,
+         param_bytes=q_bytes, param_bytes_bfloat16=bf16_bytes, param_bytes_reckoned=reckoned,
+         param_bytes_over_bfloat16=q_bytes / bf16_bytes, serve_peak_memory_bytes=peak,
+         dispatch_steps=STEPS_PER_DISPATCH,
+         captured_dispatch_ms_host_clock=step["step_ms_host_clock"] * STEPS_PER_DISPATCH,
+         step=step, device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+         device_idle_share=prof["device_idle_share"],
+         own_kernel_launches_per_step=prof["own_kernel_launches_per_step"],
+         own_kernels=prof["own_kernels"], top_kernels=prof["top_kernels"], launches=launches)
+    del engine
+    return {"int8w_matmul": launches["int8w_matmul"]}
+
+
+def phase_train_int8(card, flagship_vocab_bf16, train_fields):
+    """ROADMAP item 5.6, training: the flagship-vocab recipe exactly as
+    ``configs/perf/v5e/tts_flagship.sh`` has it (quantization=int8), then the
+    tts-1b recipe at int8 and at fp8; step seconds, tokens/s and MFU beside
+    the same recipes in bfloat16 from this run."""
+    t0 = time.perf_counter()
+    runs, launches = {}, {}
+    for name, args, base in (("flagship_vocab_int8", TRAIN_INT8_FLAGSHIP_VOCAB_ARGS,
+                              flagship_vocab_bf16),
+                             ("tts_1b_int8", TRAIN_INT8_ARGS, train_fields),
+                             ("tts_1b_fp8", TRAIN_FP8_ARGS, train_fields)):
+        cfg, fields, counts = _train_recipe(f"train_int8 ({name})", args, card, TRAIN_STEPS)
+        fields.update(bfloat16_median_step_seconds=base["median_step_seconds"],
+                      bfloat16_mfu_at_989_tflops=base["mfu_at_989_tflops"],
+                      step_seconds_over_bfloat16=fields["median_step_seconds"]
+                      / base["median_step_seconds"])
+        runs[name] = fields
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs["flagship_vocab_int8"]["params"] == FLAGSHIP_VOCAB_PARAMS,
+          f"train_int8: {runs['flagship_vocab_int8']['params']} parameters")
+    emit("train_int8", t0, card=card, recipe="configs/perf/v5e/tts_flagship.sh (quantization=int8)",
+         runs=runs, launches=launches)
+    return launches
+
+
+def phase_train_int8_parity(card):
+    """One step of 2 float32 layers of the tts-1b recipe at quantization=int8
+    on the card against the same step on the CPU: one set of weights, one
+    batch, one noise tensor a layer; loss, grad norm, every gradient (and the
+    same step unquantized beside). Then AQT's int8 and fp8 products alone at
+    the layer's width, card against CPU, bitwise."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.ops.quantization import AqtNoise, aqt_dot, draw_noise
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    cfg = load_config(INT8_PARITY_ARGS)
+    card_state = train.setup_train_state(cfg)
+    cpu_state = train.setup_train_state(
+        cfg, device="cpu", params={k: v.detach().cpu() for k, v in card_state.params.items()})
+    batch = next(train.create_data_iterator(cfg, card_state.device))
+    g = torch.Generator().manual_seed(7)
+    rows = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    noise = {name: draw_noise("int8", (rows, math.prod(m.features)), torch.float32, "cpu", g)
+             for name, m in cpu_state.model.named_modules()
+             if getattr(m, "quantization", "") == "int8"}
+    runs = {}
+    # the same step unquantized: how far the card and the CPU drift apart without AQT
+    for quant in ("", "int8"):
+        qcfg = dataclasses.replace(cfg, quantization=quant)
+        out = {}
+        for label, state, dev in (("card", card_state, card_state.device),
+                                  ("cpu", cpu_state, "cpu")):
+            for name, m in state.model.named_modules():
+                if name in noise:  # the config's quantized layers
+                    m.quantization = quant
+            b = {k: v.to(dev) for k, v in batch.items()}
+            aqt = AqtNoise(tensors={k: v.to(dev) for k, v in noise.items()})
+            loss, _ = train.loss_fn(state.model, qcfg, b, aqt_noise=aqt)
+            names = list(state.params)
+            grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+            out[label] = (float(loss.detach()), {n: gr.detach().float().cpu()
+                                                 for n, gr in zip(names, grads)})
+        torch.cuda.synchronize()
+        (loss_c, g_c), (loss_h, g_h) = out["card"], out["cpu"]
+        rel = {n: float((g_c[n] - g_h[n]).abs().max() / g_h[n].abs().max().clamp(min=1e-30))
+               for n in g_h}
+        runs[quant or "float"] = dict(
+            loss_card=loss_c, loss_cpu=loss_h,
+            grad_norm_card=float(torch.sqrt(sum((t * t).sum() for t in g_c.values()))),
+            grad_norm_cpu=float(torch.sqrt(sum((t * t).sum() for t in g_h.values()))),
+            worst_grad=max(rel, key=rel.get), worst_grad_rel_err=max(rel.values()),
+            median_grad_rel_err=float(np.median(list(rel.values()))))
+    r = runs["int8"]
+    loss_c, loss_h, norm_c, norm_h = r["loss_card"], r["loss_cpu"], r["grad_norm_card"], \
+        r["grad_norm_cpu"]
+    tol = TOL_INT8_PARITY
+    check(np.isfinite(loss_c) and abs(loss_c - loss_h) <= tol["loss"],
+          f"train_int8_parity: loss {loss_c} (card) vs {loss_h} (CPU)")
+    check(abs(norm_c - norm_h) <= tol["grad_norm_rel"] * norm_h,
+          f"train_int8_parity: grad norm {norm_c} (card) vs {norm_h} (CPU)")
+    check(r["worst_grad_rel_err"] <= tol["grad_rel"]
+          and r["median_grad_rel_err"] <= tol["grad_rel_median"],
+          f"train_int8_parity: gradient {r['worst_grad']} differs by "
+          f"{r['worst_grad_rel_err']:.3g} of its largest entry (median "
+          f"{r['median_grad_rel_err']:.3g})")
+    # (a) the quantized products alone, card against CPU
+    aqt = {}
+    m, k, n = AQT_PARITY_SHAPE
+    for mode, codes in (("int8", "int8"), ("fp8", "e5m2")):
+        x = torch.randn((m, k), generator=g)
+        w = torch.randn((k, n), generator=g) / math.sqrt(k)
+        ct = torch.randn((m, n), generator=g)
+        nz = draw_noise(codes, (m, n), torch.float32, "cpu", g)
+        got = {}
+        for dev in (card_state.device, "cpu"):
+            xx, ww = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+            y = aqt_dot(xx, ww, mode, nz.to(dev))
+            (y * ct.to(dev)).sum().backward()
+            got[str(dev)] = [t.detach().cpu() for t in (y, xx.grad, ww.grad)]
+        (yc, dxc, dwc), (yh, dxh, dwh) = got[str(card_state.device)], got["cpu"]
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+        aqt[mode] = dict(y_equal=bool(torch.equal(yc, yh)), dx_equal=bool(torch.equal(dxc, dxh)),
+                         y_rel_err=rel(yc, yh), dx_rel_err=rel(dxc, dxh), dw_rel_err=rel(dwc, dwh))
+    # int8: integer sums, bitwise; fp8: exact products of decoded codes summed in float32
+    check(aqt["int8"]["y_equal"] and aqt["int8"]["dx_equal"]
+          and all(a["y_rel_err"] <= tol["aqt_dw_rel"] and a["dx_rel_err"] <= tol["aqt_dw_rel"]
+                  and a["dw_rel_err"] <= tol["aqt_dw_rel"] for a in aqt.values()),
+          f"train_int8_parity: AQT's products on the card against the CPU: {aqt}")
+    emit("train_int8_parity", t0, card=card, layers=cfg.num_decoder_layers,
+         tokens=rows, quantized_layers=len(noise), runs=runs, aqt_products=aqt,
+         aqt_product_shape=list(AQT_PARITY_SHAPE), tol=tol)
+    del card_state, cpu_state
+
+
+def phase_train_lora(card, train_fields):
+    """The tts-1b recipe with rank-16 adapters on query and value, LoRA-only
+    training, through ``train_step``: only ``lora_*`` tensors change
+    (every other weight bitwise as it was), step seconds and peak memory
+    against ``train``'s."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_LORA_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.setup_train_state(cfg)
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    data = train.create_data_iterator(cfg, state.device)
+    _reset_all_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = train._take(next(data), cfg.global_batch_size_to_train_on)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = train.train_step(cfg, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    changed = sorted(n for n, p in state.params.items() if not torch.equal(p, before[n]))
+    adapters = sorted(n for n in state.params if "lora_" in n)
+    check(changed and all("lora_" in n for n in changed),
+          f"train_lora: non-adapter weights changed: {[n for n in changed if 'lora_' not in n][:4]}")
+    check(set(changed) == set(adapters), f"train_lora: {len(adapters) - len(changed)} adapters "
+                                         "did not train")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"train_lora: losses {losses}")
+    want = _train_launches_want(cfg.num_decoder_layers, TRAIN_STEPS)
+    check(launches == want, f"train_lora: launches {launches} != predicted {want}")
+    step_s = float(np.median(times[1:]))
+    emit("train_lora", t0, card=card, lora_rank=cfg.lora_rank, steps=TRAIN_STEPS, losses=losses,
+         step_seconds=times, median_step_seconds=step_s,
+         train_median_step_seconds=train_fields["median_step_seconds"],
+         step_seconds_over_train=step_s / train_fields["median_step_seconds"],
+         peak_memory_bytes=peak, train_peak_memory_bytes=train_fields["peak_memory_bytes"],
+         adapter_tensors=len(adapters),
+         adapter_params=sum(state.params[n].numel() for n in adapters),
+         optimizer_moments=len(state.opt_state["mu"]), launches=launches)
+    del state, before
+    return {k: launches[k] for k in TRAIN_LAUNCHES_PER_LAYER}
+
+
+def phase_lora_merge(card):
+    """A nonzero rank-16 adapter on every query and value: served unmerged by
+    a ``lora_rank=16`` engine, and merged into the base weights by
+    ``Engine.load_lora_adapter``; greedy streams equal up to the first near
+    tie (float32 weights)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    t0 = time.perf_counter()
+    lora_cfg = load_config(LORA_SERVE_ARGS + ["lora_rank=16"])
+    unmerged = Engine(lora_cfg)
+    unmerged.load_params()
+    g = torch.Generator(device=unmerged.device).manual_seed(9)
+    adapter = {}
+    with torch.no_grad():
+        for name, p in unmerged.model.named_parameters():
+            if name.endswith("lora_b"):  # zero at init: an adapter that changes nothing
+                p.normal_(0.0, 0.02, generator=g)
+            if "lora_" in name:
+                adapter[name] = p.detach().clone()
+    unmerged.params = unmerged.model.state_dict()
+    merged = Engine(load_config(LORA_SERVE_ARGS))
+    merged.set_params({k: v for k, v in unmerged.params.items() if "lora_" not in k})
+    base_streams = None
+    prompts, _ = make_requests(np.random.default_rng(3), lora_cfg.vocab_size)
+    prompts = prompts[:LORA_STREAMS]
+    base_streams = _decode_streams(merged, prompts, LORA_TOKENS)
+    merged.load_lora_adapter(adapter, alpha=lora_cfg.lora_alpha)
+    a = _decode_streams(unmerged, prompts, LORA_TOKENS)
+    b = _decode_streams(merged, prompts, LORA_TOKENS)
+    leading = _leading_agreement(a, b)
+    # each first difference must be a near tie of the unmerged engine's logits
+    ties = [(p, sb[:n + 1]) for p, sb, n in zip(prompts, b, leading) if n < len(sb)]
+    agree, compared, _ = _near_tie_agreement(unmerged, [p for p, _ in ties],
+                                             [s for _, s in ties]) if ties else (0, 0, 0)
+    check(agree == compared, f"lora_merge: a stream left the unmerged one at a token that is "
+                             f"not a near tie ({compared - agree} of {len(ties)})")
+    changed_by_adapter = int(sum(n < len(s) for s, n in zip(
+        a, _leading_agreement(a, base_streams))))
+    check(changed_by_adapter > 0, "lora_merge: the adapter changed no stream")
+    emit("lora_merge", t0, card=card, lora_rank=lora_cfg.lora_rank, streams=LORA_STREAMS,
+         tokens=LORA_TOKENS + 1, leading_tokens_equal=leading,
+         streams_equal=int(sum(n == LORA_TOKENS + 1 for n in leading)),
+         first_differences_near_ties=len(ties), tol_near_tie=TOL_NEAR_TIE,
+         streams_the_adapter_changed=changed_by_adapter)
+    del unmerged, merged
 
 
 def _bytes(path: str) -> int:
@@ -3049,7 +3568,7 @@ def phase_audio_ckpt(pipe, tmp):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards,
-            "s2a_attention": c.num_layers * forwards, **NO_FLASH, **NO_PAGED}
+            "s2a_attention": c.num_layers * forwards, **NO_FLASH, **NO_PAGED, **NO_INT8W}
     check(launches == want, f"audio_ckpt: launches {launches} != predicted {want}")
     check(info_b["semantic_tokens"] == info_a["semantic_tokens"] == SYNTH_FRAMES,
           f"audio_ckpt: {info_b['semantic_tokens']} frames")
@@ -3243,6 +3762,7 @@ def _phases(tmp, card) -> dict:
     phase_http(engine)
     phase_generate_stream_http(engine)
     phase_lm_ckpt(engine, tmp)
+    record("serve_int8w", phase_serve_int8w(engine, tmp, card))
     del engine
     release()
     engine, paged = phase_serve_paged()
@@ -3276,7 +3796,8 @@ def _phases(tmp, card) -> dict:
     phase_audio_cli(pipe, tmp, files, prompt, semantic)
     del pipe
     release()
-    launches, train_step_s = phase_train()
+    launches, train_fields = phase_train()
+    train_step_s = train_fields["median_step_seconds"]
     record("train", launches)
     train_loss = phase_train_parity()
     release()
@@ -3309,13 +3830,24 @@ def _phases(tmp, card) -> dict:
     engine, launches = phase_flagship_serve(card)
     record("flagship_serve", launches)
     phase_flagship_serve_parity(engine, card)
+    record("flagship_serve_int8w", phase_flagship_serve_int8w(engine, card))
     del engine
     release()
-    record("train_flagship_vocab", phase_train_flagship_vocab(card))
+    launches, flagship_vocab_bf16 = phase_train_flagship_vocab(card)
+    record("train_flagship_vocab", launches)
     release()
     phase_train_flagship_vocab_parity(card)
     release()
     record("train_flagship", phase_train_flagship(card))
+    release()
+    # ROADMAP item 5.6 in training: the AQT matmuls and LoRA
+    record("train_int8", phase_train_int8(card, flagship_vocab_bf16, train_fields))
+    release()
+    phase_train_int8_parity(card)
+    release()
+    record("train_lora", phase_train_lora(card, train_fields))
+    release()
+    phase_lora_merge(card)
     return paths
 
 

@@ -52,7 +52,7 @@ from maxtext_indextts2_tpu_torch.ops.quant_kernels import (
     ada_rmsnorm_quantize, row_quantize_int8, silu_mul_quantize,
 )
 from maxtext_indextts2_tpu_torch.ops.quantization import (
-    absmax_scale, quantize_weight_for_serving,
+    absmax_scale, int8_matmul, quantize_weight_for_serving,
 )
 from maxtext_indextts2_tpu_torch.ops.s2a_attention import s2a_attention
 
@@ -74,20 +74,6 @@ class S2AConfig:
     # "dynamic": float kernels quantized on every call; "offline": int8
     # kernels plus ``kernel_scale`` made once by ``quantize_s2a_params``.
     int8_matmul: str | bool = False  # False | "dynamic" (True) | "offline"
-
-
-def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """xq [M, K] int8 @ wq [K, N] int8 -> int32 [M, N] (``torch._int_mm``).
-    On the GPU the library wants more than 16 rows (padded here) and K, N
-    multiples of 8 (anything else is refused)."""
-    m, k = xq.shape
-    n = wq.shape[1]
-    if xq.device.type == "cuda":
-        if k % 8 or n % 8:
-            raise ValueError(f"int8 matmul on the GPU needs K and N multiples of 8, got {k}, {n}")
-        if m <= 16:
-            return torch._int_mm(F.pad(xq, (0, 0, 0, 32 - m)), wq)[:m]
-    return torch._int_mm(xq, wq)
 
 
 class Int8Dense(nn.Module):

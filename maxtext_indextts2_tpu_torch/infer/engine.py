@@ -75,6 +75,7 @@ from maxtext_indextts2_tpu_torch.models import (
     Transformer,
 )
 from maxtext_indextts2_tpu_torch.models.layers import to_dtype
+from maxtext_indextts2_tpu_torch.ops.quantization import quantize_params_for_serving
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
@@ -149,9 +150,6 @@ class Engine:
             # the model is always built unrolled; scan-stacked weights are
             # unstacked by utils/param_bridge.py
             cfg = dataclasses.replace(cfg, scan_layers=False)
-        if cfg.quantization == "int8w_serve":
-            _unsupported("int8w_serve (int8 serving weights, quantized from a float checkpoint"
-                         " or read from a quantized one)", "5, decode extras: item 5.6")
         self.cfg = cfg
         self.model = model if model is not None else Transformer(cfg, device=self.device)
         self.model.eval()
@@ -177,13 +175,27 @@ class Engine:
             if p.dtype == torch.float32 and "scale" not in name:
                 p.data = p.data.to(cast_dtype)
 
+    @property
+    def _serve_int8(self) -> bool:
+        return self.cfg.quantization == "int8w_serve"
+
     def load_params(self, path: str | None = None, cast_dtype=None):
         """Weights from ``path or cfg.load_parameters_path`` (a params-only
         checkpoint or a training checkpoint's params, ``train/checkpointing.py``;
         scan-stacked or unrolled, served unrolled), or seeded random weights
         (``init_weights_seed``) when there is no path; then the serving cast
-        (``cast_dtype``, else ``serve_params_dtype``)."""
+        (``cast_dtype``, else ``serve_params_dtype``).
+
+        ``quantization=int8w_serve``: float weights (a float checkpoint, or
+        the seeded weights of the unquantized model) are quantized into the
+        int8 kernels and float32 scales (:meth:`set_params`); with
+        ``checkpoint_is_quantized`` the checkpoint already holds them
+        (``tools/quantize_checkpoint.py``) and is read as it is."""
         path = path or self.cfg.load_parameters_path
+        if not path and self._serve_int8:
+            twin = Transformer(dataclasses.replace(self.cfg, quantization=""),
+                               device=self.device).init_params(self.cfg.init_weights_seed)
+            return self.set_params(twin.state_dict(), cast_dtype)
         if not path:
             self.model.init_params(self.cfg.init_weights_seed)
             self._cast_for_serving(cast_dtype)
@@ -193,14 +205,24 @@ class Engine:
         from maxtext_indextts2_tpu_torch.train import checkpointing
 
         params = checkpointing.load_params_only(path)
+        quantized = any(k.endswith("kernel_scale") for k in params)
+        if self._serve_int8 and quantized != self.cfg.checkpoint_is_quantized:
+            raise ValueError(
+                f"{path}: an {'int8' if quantized else 'float'} checkpoint, but "
+                f"checkpoint_is_quantized={self.cfg.checkpoint_is_quantized}")
         if checkpointing.names_are_scanned(params):
             params = checkpointing.unroll_scanned_params(params)
         return self.set_params(params, cast_dtype)
 
     def set_params(self, state_dict, cast_dtype=None):
         """Take weights from a state dict (e.g. ``utils.param_bridge
-        .params_from_jax``), then the serving cast."""
+        .params_from_jax``), then the serving cast. An ``int8w_serve`` engine
+        given float weights (no ``kernel_scale``) quantizes them first
+        (``ops/quantization.quantize_params_for_serving``)."""
         want = self.model.state_dict()
+        if self._serve_int8 and not any(k.endswith("kernel_scale") for k in state_dict):
+            state_dict = quantize_params_for_serving(
+                {k: torch.as_tensor(v, device=self.device) for k, v in state_dict.items()}, want)
         missing = sorted(set(want) - set(state_dict))
         extra = sorted(set(state_dict) - set(want))
         if missing or extra:
@@ -214,6 +236,32 @@ class Engine:
         self._cast_for_serving(cast_dtype)
         self.params = self.model.state_dict()
         self.graphs.clear()  # the graphs read the old weights' addresses
+        return self.params
+
+    @torch.no_grad()
+    def load_lora_adapter(self, lora_params: dict, alpha: float = 16.0):
+        """Merge a LoRA adapter into the loaded weights, in place: for every
+        module with ``<module>.lora_a`` [in, r] and ``<module>.lora_b`` [r,
+        out] in the state dict ``lora_params`` (a JAX adapter tree converts
+        with ``utils.param_bridge.tree_to_state_dict``), ``kernel += (a @ b) *
+        alpha / r`` reshaped to the kernel and cast to its dtype (the JAX
+        engine's ``load_lora_adapter``). The merged engine serves with the
+        base model's structure; the captured decode graphs read the same
+        weights. Returns the state dict."""
+        self._check_params()
+        params = dict(self.model.named_parameters())
+        for name in sorted(n for n in lora_params if n.endswith(".lora_a")):
+            module = name[: -len(".lora_a")]
+            kernel = params.get(f"{module}.kernel")
+            if kernel is None or f"{module}.lora_b" not in lora_params:
+                raise KeyError(f"{module}: an adapter needs lora_a, lora_b and a kernel")
+            if kernel.dtype == torch.int8:
+                raise ValueError(f"{module}: an adapter merges into float kernels, not int8")
+            a = torch.as_tensor(lora_params[name], device=self.device)
+            b = torch.as_tensor(lora_params[f"{module}.lora_b"], device=self.device)
+            delta = (a @ b) * torch.tensor(alpha / a.shape[-1], dtype=a.dtype, device=a.device)
+            kernel.copy_(kernel + delta.reshape(kernel.shape).to(kernel.dtype))
+        self.params = self.model.state_dict()
         return self.params
 
     def refresh_decode(self):

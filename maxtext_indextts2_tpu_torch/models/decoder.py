@@ -137,7 +137,8 @@ class DecoderLayer(nn.Module):
         if block.use_layer_norm:
             _unsupported("mean-centred LayerNorm blocks (gpt3)", "6, other model families")
         if cfg.num_experts > 1:
-            _unsupported("mixture-of-experts layers", "6, other model families")
+            _unsupported("mixture-of-experts layers",
+                         "6, other model families: models/moe.py, item 6")
         self.block = block
         dtype, wdtype = to_dtype(cfg.dtype), to_dtype(cfg.weight_dtype)
 

@@ -1,5 +1,6 @@
-"""Core NN building blocks: Embed, RMSNorm, DenseGeneral, MlpBlock, and the
-MLP dropout of training (:class:`MlpDropout`).
+"""Core NN building blocks: Embed, RMSNorm, DenseGeneral (with the AQT
+matmuls of training, the int8 weights of ``int8w_serve`` and LoRA adapters),
+MlpBlock, and the MLP dropout of training (:class:`MlpDropout`).
 
 Counterparts of the JAX package's ``models/layers.py``. Kernels keep the
 JAX layout ``[in..., out...]`` so a weight crosses between the packages as a
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maxtext_indextts2_tpu_torch.unported import _unsupported
+from maxtext_indextts2_tpu_torch.ops.int8w_matmul import int8w_matmul
+from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, aqt_dot
 
 DTYPES = {
     "float32": torch.float32,
@@ -57,6 +59,25 @@ class DenseGeneral(nn.Module):
     axis: which input axes are contracted (they must be the trailing
     ``len(in_shape)`` axes, in order, as everywhere in this model).
     ``kernel`` has shape ``in_shape + features``.
+
+    ``quantization``:
+
+    - ``int8`` / ``int8w`` / ``fp8``: the product goes through AQT's
+      numerics (``ops/quantization.aqt_dot``); the parameters are the float
+      ones. ``aqt_noise`` (set for a training step by
+      ``Transformer.set_aqt_noise``) is the input gradient's
+      stochastic-rounding noise.
+    - ``int8w_serve``: ``kernel`` is int8 (the JAX layout) with a float32
+      ``kernel_scale`` ``(1,) * len(in_shape) + features``, one scale an
+      output channel; the product is ``ops/int8w_matmul`` (the dequantised
+      weight ``bf16(q) * bf16(scale)``, float32 sums, the result in
+      ``dtype``, then the bias). Serving only: int8 takes no gradient.
+
+    ``lora_rank > 0`` adds ``lora_a [flat_in, r]`` (normal, std 1/r) and
+    ``lora_b [r, flat_out]`` (zeros, so the adapted layer starts as the
+    base one): ``(x @ a) @ b * lora_alpha / r`` is added after the base
+    product, before the bias. Under ``int8w_serve`` there is no adapter, as
+    in the JAX package (a merged one: ``Engine.load_lora_adapter``).
     """
 
     def __init__(
@@ -69,25 +90,30 @@ class DenseGeneral(nn.Module):
         use_bias: bool = False,
         quantization: str = "",
         lora_rank: int = 0,
+        lora_alpha: float = 16.0,
         device=None,
     ):
         super().__init__()
-        if quantization:
-            _unsupported(
-                f"quantization={quantization!r} (AQT / int8w_serve matmuls)",
-                "5, decode extras",
-            )
-        if lora_rank > 0:
-            _unsupported("LoRA adapters", "5, decode extras: LoRA, item 5.6")
+        if quantization not in ("", "int8w_serve", *AQT_MODES):
+            raise ValueError(f"unknown quantization {quantization!r}; known: "
+                             f"{('int8w_serve', *AQT_MODES)}")
         self.in_shape = _canon_tuple(in_shape)
         self.features = _canon_tuple(features)
         self.axis = _canon_tuple(axis)
         if len(self.axis) != len(self.in_shape):
             raise ValueError((self.axis, self.in_shape))
         self.dtype = dtype
+        self.quantization = quantization
+        serve = quantization == "int8w_serve"
         self.kernel = nn.Parameter(
-            torch.empty(self.in_shape + self.features, dtype=weight_dtype, device=device),
+            torch.empty(self.in_shape + self.features,
+                        dtype=torch.int8 if serve else weight_dtype, device=device),
             requires_grad=False,
+        )
+        self.kernel_scale = (
+            nn.Parameter(torch.ones((1,) * len(self.in_shape) + self.features,
+                                    dtype=torch.float32, device=device), requires_grad=False)
+            if serve else None
         )
         self.bias = (
             nn.Parameter(
@@ -97,12 +123,39 @@ class DenseGeneral(nn.Module):
             if use_bias
             else None
         )
+        self.lora_rank = 0 if serve else int(lora_rank)
+        self.lora_a = self.lora_b = None
+        if self.lora_rank > 0:
+            flat_in, flat_out = math.prod(self.in_shape), math.prod(self.features)
+            self.lora_a = nn.Parameter(
+                torch.empty((flat_in, self.lora_rank), dtype=weight_dtype, device=device),
+                requires_grad=False)
+            self.lora_b = nn.Parameter(
+                torch.zeros((self.lora_rank, flat_out), dtype=weight_dtype, device=device),
+                requires_grad=False)
+            # alpha / r in the product's dtype (the JAX package's weak-typed
+            # scalar), a buffer on the module's device: a captured decode step
+            # copies nothing from the host
+            self.register_buffer("lora_scale", torch.tensor(
+                lora_alpha / self.lora_rank, dtype=dtype, device=device), persistent=False)
+        self.aqt_noise = None
 
     def reset_parameters(self, generator=None):
-        fan_in = math.prod(self.in_shape)
-        _truncated_normal_(self.kernel, math.sqrt(1.0 / fan_in), generator)
+        if self.kernel_scale is not None:  # int8w_serve: filled from a float checkpoint
+            self.kernel.zero_()
+            self.kernel_scale.fill_(1.0)
+        else:
+            fan_in = math.prod(self.in_shape)
+            _truncated_normal_(self.kernel, math.sqrt(1.0 / fan_in), generator)
         if self.bias is not None:
             self.bias.zero_()
+
+    def reset_lora(self, generator=None):
+        """The adapter's initial values (``Transformer.init_params`` draws
+        them after every base weight)."""
+        if self.lora_a is not None:
+            self.lora_a.normal_(0.0, 1.0 / self.lora_rank, generator=generator)
+            self.lora_b.zero_()
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
@@ -114,8 +167,15 @@ class DenseGeneral(nn.Module):
         batch_shape = inputs.shape[:-n_in]
         k_in = math.prod(self.in_shape)
         x = inputs.to(self.dtype).reshape(-1, k_in)
+        if self.kernel_scale is not None:
+            out = int8w_matmul(x, self.kernel.reshape(k_in, -1), self.kernel_scale, self.bias)
+            return out.reshape(*batch_shape, *self.features)
         w = self.kernel.to(self.dtype).reshape(k_in, -1)
-        out = (x @ w).reshape(*batch_shape, *self.features)
+        out = aqt_dot(x, w, self.quantization, self.aqt_noise) if self.quantization else x @ w
+        if self.lora_a is not None:
+            delta = (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
+            out = out + self.lora_scale * delta
+        out = out.reshape(*batch_shape, *self.features)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)
         return out

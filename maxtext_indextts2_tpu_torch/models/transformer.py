@@ -24,6 +24,7 @@ from maxtext_indextts2_tpu_torch.models.layers import (
     to_dtype,
 )
 from maxtext_indextts2_tpu_torch.models.registry import get_block_style
+from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, AqtNoise
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
@@ -52,14 +53,27 @@ class Transformer(nn.Module):
                 weight_dtype=wdtype, device=device)
 
     def init_params(self, seed: int = 0):
-        """Seeded random weights, drawn on the parameters' own device."""
+        """Seeded random weights, drawn on the parameters' own device. LoRA
+        adapters are drawn after every base weight, so that a model with
+        adapters has the base weights of one without from the same seed."""
         device = self.token_embedder.embedding.device
         gen = torch.Generator(device=device).manual_seed(int(seed))
         with torch.no_grad():
             for module in self.modules():
                 if module is not self and hasattr(module, "reset_parameters"):
                     module.reset_parameters(gen)
+            for module in self.modules():
+                if isinstance(module, DenseGeneral):
+                    module.reset_lora(gen)
         return self
+
+    def set_aqt_noise(self, noise: AqtNoise | None) -> None:
+        """The stochastic-rounding noise of the AQT products (``quantization=
+        int8 | fp8``) of the next training forward and its backward, one
+        draw a layer by module name; None: PyTorch's default generator."""
+        for name, module in self.named_modules():
+            if isinstance(module, DenseGeneral) and module.quantization in AQT_MODES:
+                module.aqt_noise = None if noise is None else noise.for_layer(name)
 
     def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
         return self.decoder.init_cache(batch, max_length, device)

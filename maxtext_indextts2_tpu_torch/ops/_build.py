@@ -72,6 +72,8 @@ SIGNATURES = {
     # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype,
     #  query rows of a block, stream)
     "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _I, _P],
+    # (x, q, scale, bias, out, partial, M, K, N, splits, K a split, is_bf16, stream)
+    "int8w_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

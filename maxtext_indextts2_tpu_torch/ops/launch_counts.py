@@ -13,6 +13,7 @@ from maxtext_indextts2_tpu_torch.ops import (
     ada_rmsnorm,
     flash_attention,
     inplace_update,
+    int8w_matmul,
     quant_kernels,
     ragged_decode_attention,
     s2a_attention,
@@ -25,6 +26,7 @@ _SCALARS = (
     (inplace_update, "launch_count"),
     (ada_rmsnorm, "launch_count"),
     (s2a_attention, "launch_count"),
+    (int8w_matmul, "launch_count"),
 )
 # (module, attribute holding a dict of integers)
 _DICTS = (

@@ -22,11 +22,12 @@ with device time, and check that two launches of the kernel give bitwise
 equal outputs (``repeat_bitwise_equal``; K1, K4, K5 and K7).
 
 Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small]
-[ragged | flash | paged | s2a | rows]`` (needs the GPU; ``small`` shrinks the
+[ragged | flash | paged | s2a | rows | int8w]`` (needs the GPU; ``small`` shrinks the
 serving and training shapes for a quick first check of a changed kernel,
 ``ragged`` runs the K1-K3 cases only, ``flash`` the K9-K11 cases only,
 ``paged`` the K4 cases only, ``s2a`` the K12 cases only, ``rows`` the K5-K8
-cases only; the repo's ``chip_smoke.py`` calls :func:`run_all`).
+cases only, ``int8w`` the int8w_matmul cases only; the repo's
+``chip_smoke.py`` calls :func:`run_all`).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm as arn
 from maxtext_indextts2_tpu_torch.ops import flash_attention as fa
 from maxtext_indextts2_tpu_torch.ops import inplace_update as iu
+from maxtext_indextts2_tpu_torch.ops import int8w_matmul as iw
 from maxtext_indextts2_tpu_torch.ops import quant_kernels as qk
 from maxtext_indextts2_tpu_torch.ops import ragged_decode_attention as rda
 from maxtext_indextts2_tpu_torch.ops import s2a_attention as s2a
@@ -1300,22 +1302,161 @@ MAIN_PATH_CASES = {
                   "s2a_train": "flash_f32_s2a_train_fwd",
                   "s2a_seq_flash_serving": "flash_bf16_s2a_serving_fwd",
                   "train_flagship_vocab": "flash_bf16_main_path_fwd",
-                  "train_flagship": "flash_bf16_flagship_fwd"},
+                  "train_flagship": "flash_bf16_flagship_fwd",
+                  "train_int8": "flash_bf16_main_path_fwd",
+                  "train_lora": "flash_bf16_main_path_fwd"},
     "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
                      "train_dropout": "flash_bf16_main_path_dq",
                      "train_packed": "flash_bf16_emilia_packed_dq",
                      "train_c4": "flash_bf16_c4_mlperf_dq",
                      "s2a_train": "flash_f32_s2a_train_dq",
                      "train_flagship_vocab": "flash_bf16_main_path_dq",
-                     "train_flagship": "flash_bf16_flagship_dq"},
+                     "train_flagship": "flash_bf16_flagship_dq",
+                     "train_int8": "flash_bf16_main_path_dq",
+                     "train_lora": "flash_bf16_main_path_dq"},
+    "int8w_matmul": {"serve_int8w": "int8w_bf16_main_path",
+                     "flagship_serve_int8w": "int8w_bf16_flagship"},
     "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
                       "train_dropout": "flash_bf16_main_path_dkv",
                       "train_packed": "flash_bf16_emilia_packed_dkv",
                       "train_c4": "flash_bf16_c4_mlperf_dkv",
                       "s2a_train": "flash_f32_s2a_train_dkv",
                       "train_flagship_vocab": "flash_bf16_main_path_dkv",
-                      "train_flagship": "flash_bf16_flagship_dkv"},
+                      "train_flagship": "flash_bf16_flagship_dkv",
+                      "train_int8": "flash_bf16_main_path_dkv",
+                      "train_lora": "flash_bf16_main_path_dkv"},
 }
+
+
+# int8w_matmul (int8w_serve's decode product) against its plain version (the
+# dequantised weight, then the product), |y| of a few units: both sides round
+# one float32 sum, summed in another order, to the output type, so a bfloat16
+# output differs by at most one bfloat16 step, at most 2**-7 of the largest
+# |y|; a float32 one by summation order. Measured relative to max(1, max |y|).
+TOL_INT8W = {torch.bfloat16: 2.0 ** -7, torch.float32: TOL_F32}
+# (name, M, K, N): the tts-1b decode step's products at 32 slots (q / out,
+# k / v, wi_0 / wi_1, wo) and the flagship's (E 3840, 16 / 8 heads of 256,
+# MLP 15360) at its 8 slots; M = 1, the speculative verify span (32 x 5), an
+# odd N and a bias
+INT8W_CASES = [
+    ("int8w_bf16_tts1b_2048x2048", 32, 2048, 2048, {}),
+    ("int8w_bf16_tts1b_2048x1024", 32, 2048, 1024, {}),
+    ("int8w_bf16_main_path", 32, 2048, 8192, {}),
+    ("int8w_bf16_tts1b_8192x2048", 32, 8192, 2048, {}),
+    ("int8w_bf16_flagship_3840x4096", 8, 3840, 4096, {}),
+    ("int8w_bf16_flagship_3840x2048", 8, 3840, 2048, {}),
+    ("int8w_bf16_flagship", 8, 3840, 15360, {}),
+    ("int8w_bf16_flagship_15360x3840", 8, 15360, 3840, {}),
+    ("int8w_bf16_flagship_4096x3840", 8, 4096, 3840, {}),
+    ("int8w_bf16_m1", 1, 2048, 2048, {}),
+    ("int8w_bf16_m160_verify", 160, 2048, 8192, {}),
+    ("int8w_bf16_odd_n", 32, 2048, 1001, {}),
+    ("int8w_bf16_bias", 32, 2048, 2048, dict(bias=True)),
+    ("int8w_f32_odd_k_n_bias", 7, 200, 77, dict(bias=True, dtype=torch.float32)),
+]
+
+
+def _int8w_library():
+    """``torch._weight_int8pack_mm`` (an int8-weight product with its own
+    rounding: [N, K] weight, scales applied to the sums) where this PyTorch
+    build runs it on the GPU, else None."""
+    x = torch.ones((2, 64), dtype=torch.bfloat16, device="cuda")
+    w = torch.ones((8, 64), dtype=torch.int8, device="cuda")
+    try:
+        torch._weight_int8pack_mm(x, w, torch.ones(8, dtype=torch.bfloat16, device="cuda"))
+        torch.cuda.synchronize()
+        return torch._weight_int8pack_mm
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+def int8w_case(name, device, timing, *, m, k, n, bias=False, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=device, dtype=torch.float32).to(dtype)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    scale = (torch.rand((n,), generator=g, device=device) + 0.5) / (127 * math.sqrt(k / 3))
+    b = torch.randn((n,), generator=g, device=device).to(dtype) if bias else None
+    before = iw.launch_count
+    out = iw.int8w_matmul(x, q, scale, b)
+    torch.cuda.synchronize()
+    launched = iw.launch_count - before
+    ref = iw.int8w_matmul(x, q, scale, b, impl="plain")
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all().item())
+    err = float((out.float() - ref.float()).abs().max().item())
+    largest = float(ref.float().abs().max().item())
+    rel = err / max(1.0, largest)
+    tol = TOL_INT8W[dtype]
+    splits, per_split = iw._splits(m, k, n, x.device, dtype)
+    res = dict(name=name, kernel="int8w_matmul", max_abs_err=err, max_err=rel, tol=tol,
+               unit="relative to max(1, max |plain|)",
+               ok=bool(rel <= tol and finite and launched == 1 and out.dtype == dtype),
+               finite=finite, launched=launched, max_abs_out=largest,
+               shape=dict(m=m, k=k, n=n, x=str(dtype), bias=bias, k_splits=splits,
+                          k_a_split=per_split))
+    if name in main_path_case_names():
+        res["repeat_bitwise_equal"] = bool(torch.equal(iw.int8w_matmul(x, q, scale, b), out))
+        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
+    if timing:
+        # the weights of one decode step are far more than the L2 holds, so each
+        # timed launch reads its int8 weight from device memory (a rotation of copies)
+        copies = max(2, int(math.ceil(2 * L2_BYTES / (k * n))) + 1)
+        qs = [q] + [q.clone() for _ in range(copies - 1)]
+        turn = [0]
+
+        def nxt():
+            turn[0] = (turn[0] + 1) % copies
+            return qs[turn[0]]
+
+        esize = torch.tensor([], dtype=dtype).element_size()
+        nbytes = k * n + 4 * n + esize * (m * k + m * n + (n if bias else 0))
+        ops = 2 * m * k * n
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype] * 1e3
+        w_bf16 = iw.dequantize(q, scale, dtype)
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(max(1, copies // 2) - 1)]
+        turn_w = [0]
+
+        def nxt_w():
+            turn_w[0] = (turn_w[0] + 1) % len(ws)
+            return ws[turn_w[0]]
+
+        library = _int8w_library() if dtype == torch.bfloat16 else None
+        qt = [t.t().contiguous() for t in qs] if library is not None else None
+        s_lib = scale.to(dtype)
+        res.update(
+            kernel_ms=time_ms(lambda: iw.int8w_matmul(x, nxt(), scale, b)),
+            device_ms=device_ms(lambda: iw.int8w_matmul(x, nxt(), scale, b)),
+            plain_ms=time_ms(lambda: iw.int8w_matmul(x, nxt(), scale, b, impl="plain")),
+            plain_device_ms=device_ms(lambda: iw.int8w_matmul(x, nxt(), scale, b,
+                                                              impl="plain")),
+            bf16_weight_ms=time_ms(lambda: x @ nxt_w()),
+            bf16_weight_device_ms=device_ms(lambda: x @ nxt_w()),
+            bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else
+            "operations", bytes_moved=nbytes, ops=ops,
+            library_ms=None, library_device_ms=None,
+            library_call=None if library is None else "torch._weight_int8pack_mm",
+        )
+        if library is not None:
+            turn_lib = [0]
+
+            def library_call():
+                turn_lib[0] = (turn_lib[0] + 1) % copies
+                return library(x, qt[turn_lib[0]], s_lib)
+
+            res.update(library_ms=time_ms(library_call), library_device_ms=device_ms(library_call))
+    return res
+
+
+def int8w_cases(device, timing, full_size=True):
+    """int8w_matmul at every shape of :data:`INT8W_CASES` (``full_size=False``:
+    the flagship's K and N cut by 4)."""
+    out = []
+    for i, (name, m, k, n, kw) in enumerate(INT8W_CASES):
+        if not full_size and "flagship" in name:
+            k, n = k // 4, n // 4
+        out.append(int8w_case(name, device, timing, m=m, k=k, n=n, seed=60 + i, **kw))
+    return out
 
 
 # the part of every K9-K11 instantiation's mangled name (namespace ``flash``)
@@ -1419,16 +1560,16 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
     return ragged_cases(device, timing, full_size, serve_slots) \
         + paged_cases(device, timing, full_size, serve_slots) \
         + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
-        + flash_cases(device, timing, full_size)
+        + flash_cases(device, timing, full_size) + int8w_cases(device, timing, full_size)
 
 
 def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows"}:
+    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows", "int8w"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[ragged | flash | paged | s2a | rows]")
+                         "[ragged | flash | paged | s2a | rows | int8w]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
@@ -1442,6 +1583,8 @@ def main(argv=None):
         results = attention_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "rows" in argv:  # K5-K8 only
         results = row_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "int8w" in argv:  # int8w_matmul only
+        results = int8w_cases(torch.device("cuda"), timing=True, full_size=full)
     else:
         results = run_all(full_size=full)
     for r in results:
@@ -1450,8 +1593,10 @@ def main(argv=None):
 
     selected = set(argv) - {"small"}
     reports = []  # registers and spills of the instantiations these cases ran
-    if not selected & {"flash", "s2a", "rows"}:
+    if not selected & {"flash", "s2a", "rows", "int8w"}:
         reports.append("ragged_decode_kernel")  # K1 / K3 / K4
+    if not selected or "int8w" in selected:
+        reports.append("int8w_matmul")
     if not selected or "rows" in selected:
         reports.append("norm_rows_kernel")  # K5 / K7
     if not selected or "flash" in selected:

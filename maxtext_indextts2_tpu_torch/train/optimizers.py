@@ -21,8 +21,10 @@ plain tensor code over a state dict of parameters ``{name: tensor}``:
   float32 0.1.
 
 The moments are updated in place (the JAX package returns new arrays): one
-copy of each moment lives on the device. LoRA-only training (a masked
-transformation) is not ported.
+copy of each moment lives on the device. LoRA-only training
+(``lora_rank > 0`` with ``lora_only_training``) is :func:`lora_only`: the JAX
+package's ``optax.multi_transform`` of the optimizer over the ``lora_*``
+weights and ``optax.set_to_zero`` over every other one.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.config import Config
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 Schedule = Callable[[int], float]
 
@@ -169,17 +170,41 @@ def sgd(schedule: Schedule) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def is_lora(name: str) -> bool:
+    """A LoRA adapter's weight (``...lora_a`` / ``...lora_b``)."""
+    return "lora_" in name
+
+
+def lora_only(tx: GradientTransformation) -> GradientTransformation:
+    """``tx`` over the LoRA weights only; every other weight is hard-frozen
+    (no update, no moments), as ``optax.multi_transform({"train": tx,
+    "freeze": optax.set_to_zero()}, labels)``."""
+
+    def trainable(tree: dict) -> dict:
+        return {n: v for n, v in tree.items() if is_lora(n)}
+
+    def init(params):
+        return tx.init(trainable(params))
+
+    def update(grads, state, params):
+        return tx.update(trainable(grads), state, trainable(params))
+
+    return GradientTransformation(init, update)
+
+
 def get_optimizer(cfg: Config, schedule: Schedule) -> GradientTransformation:
-    if cfg.lora_rank > 0 and cfg.lora_only_training:
-        _unsupported("LoRA-only training (lora_rank > 0)", "5, decode extras: LoRA, item 5.6")
     if cfg.opt_type == "adamw":
-        return adamw(schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.adam_weight_decay)
-    if cfg.opt_type == "adam_pax":
-        return adam_pax(schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.adam_eps_root,
-                        cfg.adam_weight_decay)
-    if cfg.opt_type == "sgd":
-        return sgd(schedule)
-    raise ValueError(f"unknown opt_type: {cfg.opt_type}")
+        tx = adamw(schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.adam_weight_decay)
+    elif cfg.opt_type == "adam_pax":
+        tx = adam_pax(schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.adam_eps_root,
+                      cfg.adam_weight_decay)
+    elif cfg.opt_type == "sgd":
+        tx = sgd(schedule)
+    else:
+        raise ValueError(f"unknown opt_type: {cfg.opt_type}")
+    if cfg.lora_rank > 0 and cfg.lora_only_training:
+        tx = lora_only(tx)
+    return tx
 
 
 @torch.no_grad()

@@ -19,8 +19,14 @@ With ``enable_dropout`` and ``dropout_rate > 0`` each MLP's activation product
 is dropped out in training (``models/layers.MlpDropout``): the step's masks
 are an input of :func:`loss_fn` / :func:`train_step`, drawn by default from a
 generator on the device seeded with ``seed`` and the step (:func:`step_dropout`).
-MTP and MoE auxiliary losses, colocated-python data input and the Zero-1
-all-gather raise, naming their ROADMAP queue item.
+``quantization=int8 | int8w | fp8`` trains through AQT's quantized products
+(``ops/quantization.aqt_dot``); the stochastic-rounding noise of a step's
+input gradients is an input too (:func:`step_aqt_noise`), and the MFU counts
+the same FLOPs whatever the quantization, as the JAX package's does.
+``lora_rank > 0`` with ``lora_only_training`` updates the ``lora_*`` weights
+only (``train/optimizers.lora_only``). MTP and MoE auxiliary losses,
+colocated-python data input and the Zero-1 all-gather raise, naming their
+ROADMAP queue item.
 ``enable_checkpointing=true`` restores the newest checkpoint of
 ``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
 steps and at the end (``train/checkpointing.py``; the emergency two-tier
@@ -45,6 +51,7 @@ from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
 from maxtext_indextts2_tpu_torch.models.layers import MlpDropout, to_dtype
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops import losses
+from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, AqtNoise
 from maxtext_indextts2_tpu_torch.train import checkpointing
 from maxtext_indextts2_tpu_torch.train.data.synthetic import SyntheticDataIterator
 from maxtext_indextts2_tpu_torch.train.optimizers import (
@@ -80,6 +87,9 @@ def check_training_config(cfg: Config) -> None:
         _unsupported("the multi-token-prediction auxiliary loss", "6, other model families")
     if cfg.num_experts > 1:
         _unsupported("the MoE load-balance auxiliary loss", "6, other model families")
+    if cfg.quantization == "int8w_serve":
+        raise ValueError("quantization=int8w_serve is a serving structure: its int8 kernels "
+                         "take no gradient (train with int8, int8w or fp8)")
     if cfg.zero1_fsdp_ag_once:
         _unsupported("zero1_fsdp_ag_once (a sharded all-gather)",
                      "6, parallelism on torch.distributed")
@@ -141,13 +151,29 @@ def step_dropout(cfg: Config, step: int, device) -> MlpDropout | None:
                       generator=torch.Generator(device=device).manual_seed(seed))
 
 
+def step_aqt_noise(cfg: Config, step: int, device) -> AqtNoise | None:
+    """The stochastic-rounding noise of training step ``step``'s AQT input
+    gradients (None when the config quantizes none): drawn from a generator
+    on ``device`` seeded with ``seed`` and the step, as the JAX package's step
+    folds its AQT key off its step key."""
+    if cfg.quantization not in ("int8", "fp8"):
+        return None
+    seed = int(np.random.SeedSequence([cfg.seed, step, 1]).generate_state(1)[0])
+    return AqtNoise(generator=torch.Generator(device=device).manual_seed(seed))
+
+
 def loss_fn(model: Transformer, cfg: Config, batch: dict, is_train: bool = True,
-            impl: str | None = None, dropout: MlpDropout | None = None):
+            impl: str | None = None, dropout: MlpDropout | None = None,
+            aqt_noise: AqtNoise | None = None):
     """(mean loss over valid tokens, aux) for one batch. In training with
     ``fused_vocab_ce_chunk`` or ``fused_vocab_ce_tile`` the logits are never
     materialised (:func:`fused_ce`); evaluation keeps the materialised CE,
-    as in the JAX package. ``dropout``: the MLP dropout (training only)."""
+    as in the JAX package. ``dropout``: the MLP dropout (training only).
+    ``aqt_noise``: the AQT input gradients' noise, fixed before the forward
+    and its remat regions run (None: PyTorch's default generator)."""
     fused = is_train and (cfg.fused_vocab_ce_chunk > 0 or cfg.fused_vocab_ce_tile > 0)
+    if cfg.quantization in AQT_MODES:
+        model.set_aqt_noise(aqt_noise)
     out = model(batch["inputs"], batch["inputs_position"], batch["inputs_segmentation"],
                 mode=MODE_TRAIN, impl=impl, return_prelogits=fused,
                 dropout=dropout if is_train else None)
@@ -172,15 +198,19 @@ def _clip_by_global_norm(grads: dict, max_norm: float):
 
 
 def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = None,
-               dropout=None) -> dict:
+               dropout=None, aqt_noise: AqtNoise | None = None) -> dict:
     """One optimizer step (with in-step gradient accumulation over
     ``gradient_accumulation_steps`` microbatches); updates ``state`` in place
     and returns the step's metrics as 0-d tensors. ``dropout``: the step's
     MLP dropout, one ``MlpDropout`` or one a microbatch (default, when the
-    config turns dropout on: :func:`step_dropout`)."""
+    config turns dropout on: :func:`step_dropout`). ``aqt_noise``: the
+    step's AQT noise (default :func:`step_aqt_noise`); microbatches draw on
+    from its generator."""
     names = list(state.params)
     leaves = [state.params[n] for n in names]
     micro = cfg.gradient_accumulation_steps
+    if aqt_noise is None:
+        aqt_noise = step_aqt_noise(cfg, state.step, state.device)
     if dropout is None:
         dropout = step_dropout(cfg, state.step, state.device)
     if not isinstance(dropout, (list, tuple)):
@@ -191,7 +221,8 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
         for i in range(micro):
             mb = {k: v.reshape(micro, v.shape[0] // micro, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, _ = loss_fn(state.model, cfg, mb, impl=impl, dropout=dropout[i])
+            loss, _ = loss_fn(state.model, cfg, mb, impl=impl, dropout=dropout[i],
+                              aqt_noise=aqt_noise)
             g = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
@@ -201,7 +232,8 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
             loss = loss_sum / micro
         aux = {"ce_loss": loss}
     else:
-        loss, aux = loss_fn(state.model, cfg, batch, impl=impl, dropout=dropout[0])
+        loss, aux = loss_fn(state.model, cfg, batch, impl=impl, dropout=dropout[0],
+                            aqt_noise=aqt_noise)
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
         loss = loss.detach()
         aux = {k: v.detach() for k, v in aux.items() if k != "total_weights"}

@@ -44,6 +44,11 @@ ROUTES = {
     "paged": ["paged_attention=true", "pagedattn_tokens_per_page=4", "pagedattn_num_pages=40"],
     "weighted_sampling": ["decode_sampling_strategy=weighted"],
     "topk_sampling": ["decode_sampling_strategy=topk", "decode_sampling_top_k=5"],
+    "int8w_serve": ["decode_attention=ragged", "quantization=int8w_serve"],
+    "int8w_serve_paged": ["quantization=int8w_serve", "paged_attention=true",
+                          "pagedattn_tokens_per_page=4", "pagedattn_num_pages=40"],
+    "aqt_int8": ["decode_attention=ragged", "quantization=int8"],
+    "lora": ["decode_attention=ragged", "lora_rank=4"],
 }
 
 
@@ -76,7 +81,7 @@ def _populated(eng):
     return eng.insert(prefix, state, 3)
 
 
-@pytest.mark.parametrize("route", ["dense_ragged", "dense_int8_kv", "paged"])
+@pytest.mark.parametrize("route", ["dense_ragged", "dense_int8_kv", "paged", "int8w_serve"])
 def test_state_tensors_keep_their_storage(route):
     eng = _engine(ROUTES[route])
     state = eng.init_decode_state()

@@ -157,10 +157,17 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    for extra in (["quantization=int8"], ["quantization=int8w_serve"]):
+    # MoE layers (item 6, int8w_serve or not) and scan-stacked serving (item 5.7)
+    for extra in (["num_experts=4", "quantization=int8w_serve"],
+                  ["scan_layers=true", "serve_unroll_layers=false"]):
         cfg = load_config(TINY_TTS + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu").load_params()
+    # ported since: the AQT matmuls in serving, int8w_serve and LoRA adapters (item 5.6)
+    for extra in (["quantization=int8"], ["quantization=int8w_serve"], ["lora_rank=4"]):
+        eng = Engine(load_config(TINY_TTS + extra), device="cpu")
+        eng.load_params()
+        assert len(eng.generate_stream(prompt(10, 5), 3)) == 3
     # ported since: speculative decoding's keys (infer/speculative.py reads them,
     # as the JAX package's Engine ignores them) and bucketed decode attention
     for extra in (["spec_num_draft_tokens=2"], ["decode_attention=bucketed"],

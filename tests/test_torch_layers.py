@@ -144,9 +144,18 @@ def test_activations(name):
 
 
 def test_unported_layer_options_name_the_roadmap():
-    for kw in (dict(quantization="int8"), dict(quantization="int8w_serve"), dict(lora_rank=4)):
+    from maxtext_indextts2_tpu_torch.models.attention import Attention
+
+    # llama4's qk-norm and temperature tuning (item 6)
+    for kw in (dict(use_qk_norm=True, qk_norm_type="l2"), dict(use_temperature_tuning=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.DenseGeneral(8, 8, **kw)
+            Attention(16, 2, 2, 8, **kw)
+    # ported since (item 5.6): every quantization and LoRA; an unknown mode is an error
+    for kw in (dict(quantization="int8"), dict(quantization="int8w"), dict(quantization="fp8"),
+               dict(quantization="int8w_serve"), dict(lora_rank=4)):
+        layers.DenseGeneral(8, 8, **kw)
+    with pytest.raises(ValueError, match="unknown quantization"):
+        layers.DenseGeneral(8, 8, quantization="int4")
 
 
 @pytest.mark.parametrize("rope_type", ["default", "llama3.1", "yarn"])

@@ -130,6 +130,14 @@ def test_unknown_optimizer_and_lora_training_raise():
     cfg, _ = _configs(["opt_type=lion"])
     with pytest.raises(ValueError, match="unknown opt_type"):
         toptim.get_optimizer(cfg, toptim.create_learning_rate_schedule(cfg))
+    # LoRA-only training is ported (item 5.6): moments for the adapters only;
+    # int8w_serve's int8 kernels take no gradient, so training it is refused
     cfg, _ = _configs(["lora_rank=4"])
-    with pytest.raises(NotImplementedError, match="port queue: 5"):
-        toptim.get_optimizer(cfg, toptim.create_learning_rate_schedule(cfg))
+    tx = toptim.get_optimizer(cfg, toptim.create_learning_rate_schedule(cfg))
+    state = tx.init({"q.kernel": torch.ones(2), "q.lora_a": torch.ones(2)})
+    assert list(state["mu"]) == ["q.lora_a"]
+    from maxtext_indextts2_tpu_torch.train.train import check_training_config
+
+    cfg, _ = _configs(["quantization=int8w_serve"])
+    with pytest.raises(ValueError, match="int8w_serve"):
+        check_training_config(cfg)

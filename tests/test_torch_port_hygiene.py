@@ -114,10 +114,12 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.train.s2a_train, maxtext_indextts2_tpu_torch.audio.masking\n"
         "import maxtext_indextts2_tpu_torch.train.codec_train\n"
         "import maxtext_indextts2_tpu_torch.audio.quantize_extended\n"
+        "import maxtext_indextts2_tpu_torch.ops.int8w_matmul, maxtext_indextts2_tpu_torch.ops.quantization\n"
+        "import maxtext_indextts2_tpu_torch.tools.quantize_checkpoint\n"
         "from maxtext_indextts2_tpu_torch.train.data import packing, audio_iterator, grain_pipeline\n"
         "from maxtext_indextts2_tpu_torch.train.data import mlperf_pipeline, tfds_pipeline, hf_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'yaml', 'maxtext_indextts2_tpu')]\n"
+        "('jax', 'flax', 'yaml', 'aqt', 'maxtext_indextts2_tpu')]\n"
         "assert not bad, bad\n"
         "gated = [m for m in sys.modules if m.split('.')[0] in ('grain', 'pyarrow', "
         "'array_record', 'datasets', 'tensorflow', 'tensorflow_datasets')]\n"
@@ -206,6 +208,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
     for target in ("acoustic", "repcodec"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             codec_train.main([f"codec_target={target}", "steps=1"])
+    from maxtext_indextts2_tpu_torch.tools import quantize_checkpoint
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_checkpoint.run([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"),
+                                 "save_path=/nonexistent"])
     assert Engine(cfg, device="cpu").device.type == "cpu"  # only when asked
 
 
@@ -239,7 +246,18 @@ def test_kernel_sources_carry_their_note(source, replaced):
     assert "torch/extension.h" not in text
 
 
+def test_int8w_kernel_source_carries_its_note():
+    """The int8-weight product replaces no Pallas kernel: its note says what
+    it is the counterpart of instead."""
+    with open(os.path.join(PORT_DIR, "csrc", "int8w_matmul.cu")) as fh:
+        text = fh.read()
+    assert "Replaces no Pallas kernel" in text and "_serve_quantized" in text
+    assert "What bounds it on this card" in text and "What the design does about it" in text
+    assert "torch/extension.h" not in text
+
+
 @pytest.mark.parametrize("module,plain", [
+    ("int8w_matmul", "int8w_matmul_plain"),
     ("ragged_decode_attention", "ragged_decode_attention_plain"),
     ("ragged_decode_attention", "paged_decode_attention_v2_plain"),
     ("inplace_update", "inplace_row_update_plain"),

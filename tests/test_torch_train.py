@@ -242,9 +242,9 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("extra,item", [
     (["colocated_python_data_input=true"], "6"),
-    (["lora_rank=4"], "5"),
+    (["num_experts=4"], "6"),
     (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
-], ids=["colocated_data", "lora", "mtp", "zero1"])
+], ids=["colocated_data", "moe", "mtp", "zero1"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
@@ -269,23 +269,23 @@ def _refuse_disaggregated_serving(kind):
     Orchestrator(None, mode=kind)
 
 
-def _refuse_lora_training(kind):
-    from maxtext_indextts2_tpu_torch.train.optimizers import get_optimizer
+def _refuse_moe_training(kind):
+    from maxtext_indextts2_tpu_torch.models import Transformer
 
-    get_optimizer(load_config([f"{kind}_rank=4", f"{kind}_only_training=true"]), None)
+    Transformer(load_config(TINY_TTS + [f"{kind}=4", "quantization=int8"]), device="cpu")
 
 
-def _refuse_int8w_serve(kind):
+def _refuse_moe_int8w_serve(kind):
     from maxtext_indextts2_tpu_torch.infer.engine import Engine
 
-    Engine(load_config(TINY_TTS + [f"quantization={kind}"]), device="cpu")
+    Engine(load_config(TINY_TTS + ["num_experts=4", f"quantization={kind}"]), device="cpu")
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
     (_refuse_vision_sft, "hf", "6"),
     (_refuse_scan_stacked_serving, "serve_unroll_layers", "5.7"),
     (_refuse_disaggregated_serving, "disaggregated", "5.9"),
-    (_refuse_lora_training, "lora", "5.6"), (_refuse_int8w_serve, "int8w_serve", "5.6"),
+    (_refuse_moe_training, "num_experts", "6"), (_refuse_moe_int8w_serve, "int8w_serve", "6"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):
