@@ -92,8 +92,20 @@ recipe with its ``quantization=int8`` and the ``tts-1b`` recipe at int8 and
 fp8 (the AQT matmuls), ``train_int8_parity`` holds an int8 step on the card
 against the CPU, ``train_lora`` trains rank-16 adapters alone (every other
 weight bitwise unchanged) and ``lora_merge`` holds a merged adapter's streams
-against the unmerged adapter's. The kernels line lists, for each kernel, the
-case of every main path that ran it.
+against the unmerged adapter's. ROADMAP items 5.7, 5.9, 5.11 and 5.12 on the
+serve engine: ``serve_scanned`` serves its weights written stacked and loaded
+by a ``serve_unroll_layers=false`` engine, ``serve_disaggregated`` serves its
+requests with a prefill thread beside interleaved mode (tokens/s, time to
+first token), ``offline_engine``, ``loadgen_offline`` and ``loadgen_server``
+drive the offline engine and the load generator's two scenarios,
+``microbenchmark`` prints ``run_microbenchmark``'s document; after
+``tts_http``, ``uniserver`` serves /tts, /generate and /generate_stream from
+the single-threaded UniServer over the full-width pipeline; each stream
+comparison is exact, against the serve engine's streams of the same
+admission. ``train_int8_parity`` also counts the int8 codes that differ card
+against CPU, layer by layer, and feeds the card's layer-0 output to the CPU
+step. ``device`` reports whether ``grpc`` and ``google.protobuf`` import. The
+kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
@@ -439,8 +451,13 @@ TOL_INT8W_BYTES_REL = 0.02
 # last-bit difference moves a code at a rounding boundary by one step (1/127
 # of its row's scale, a few per cent of that element), which moves the next
 # layer's inputs and flips more codes there: on an H100 the loss moved 1.5e-3,
-# a gradient by 2-4 % of its largest entry (median 2 %). Bounds: loss 5e-3,
-# grad norm 2e-3 relative, every gradient 0.1 of its largest entry, median 0.05.
+# a gradient by 2-4 % of its largest entry (median 2 %). The phase counts the
+# codes that differ layer by layer and feeds the card's layer-0 output to the
+# CPU step; on an H100 (700 W) layer 0's x codes differed in 6,107 of 10.5 M,
+# layer 1's in 530,819, every kernel code in none, and the injection cut the
+# loss gap from 1.5e-3 to 4.2e-5 and layer 1's gradients' from 2.5 % to 0.6 %:
+# boundary flips explain the gap. Bounds: loss 5e-3, grad norm 2e-3 relative,
+# every gradient 0.1 of its largest entry, median 0.05.
 TRAIN_INT8_FLAGSHIP_VOCAB_ARGS = TRAIN_FLAGSHIP_VOCAB_ARGS + ["quantization=int8"]
 TRAIN_INT8_ARGS = TRAIN_ARGS + ["quantization=int8"]
 TRAIN_FP8_ARGS = TRAIN_ARGS + ["quantization=fp8"]
@@ -458,6 +475,21 @@ AQT_PARITY_SHAPE = (512, 2048, 2048)
 TRAIN_LORA_ARGS = TRAIN_ARGS + ["lora_rank=16", "lora_only_training=true"]
 LORA_SERVE_ARGS = SERVE_ARGS + ["dtype=float32", "serve_params_dtype=float32"]
 LORA_STREAMS, LORA_TOKENS = 8, 32
+# ROADMAP item 5 (5.7, 5.9, 5.11, 5.12), on the serve phase's engine, weights
+# and 80 requests. Every stream comparison is exact (greedy, bfloat16): each
+# side admits the same way, because a packed prefill couples the prompts it
+# packs (their rows' sums run in other orders). serve_scanned admits fused, as
+# serve does; serve_disaggregated, offline_engine and the UniServer's /generate
+# admit one request at a time, held to the serve engine's per-request streams.
+OFFLINE_NEW_TOKENS = 128  # every serve budget fits: a serve stream is a prefix
+LOADGEN_NEW_TOKENS = 64
+LOADGEN_SERVER_RATE = 0.5  # of the Offline scenario's completed samples a second
+LOADGEN_MIN_SECONDS = 5.0
+LOADGEN_LATENCY_BOUND_S = 60.0
+# the UniServer: tts_http's 8 bodies, 4 /generate and 1 /generate_stream of
+# UNI_GENERATE_TOKENS on prompts of the serve phase's distribution
+UNI_GENERATE = 5
+UNI_GENERATE_TOKENS = 32
 
 # Weights in and out. lm_ckpt: the served tts-1b weights exported with HF names
 # and converted back by the converter CLI, as the qwen3 family (the same
@@ -504,8 +536,22 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0]
     emit("device", t0, name=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)), torch=torch.__version__,
-         cuda=torch.version.cuda, name_and_power_limit=card)
+         cuda=torch.version.cuda, name_and_power_limit=card, imports=_optional_imports())
     return card
+
+
+def _optional_imports() -> dict:
+    """Whether the packages a gRPC front end needs import here (ROADMAP 5.10)."""
+    import importlib
+
+    out = {}
+    for name in ("grpc", "google.protobuf"):
+        try:
+            mod = importlib.import_module(name)
+            out[name] = getattr(mod, "__version__", "imported")
+        except Exception as e:  # noqa: BLE001 - the answer is the finding
+            out[name] = f"not importable: {type(e).__name__}"
+    return out
 
 
 def phase_build():
@@ -3090,7 +3136,7 @@ def phase_train_int8_parity(card):
     same step unquantized beside). Then AQT's int8 and fp8 products alone at
     the layer's width, card against CPU, bitwise."""
     from maxtext_indextts2_tpu_torch.config import load_config
-    from maxtext_indextts2_tpu_torch.ops.quantization import AqtNoise, aqt_dot, draw_noise
+    from maxtext_indextts2_tpu_torch.ops.quantization import aqt_dot, draw_noise
     from maxtext_indextts2_tpu_torch.train import train
 
     t0 = time.perf_counter()
@@ -3104,7 +3150,7 @@ def phase_train_int8_parity(card):
     noise = {name: draw_noise("int8", (rows, math.prod(m.features)), torch.float32, "cpu", g)
              for name, m in cpu_state.model.named_modules()
              if getattr(m, "quantization", "") == "int8"}
-    runs = {}
+    runs, logs = {}, {}
     # the same step unquantized: how far the card and the CPU drift apart without AQT
     for quant in ("", "int8"):
         qcfg = dataclasses.replace(cfg, quantization=quant)
@@ -3114,23 +3160,29 @@ def phase_train_int8_parity(card):
             for name, m in state.model.named_modules():
                 if name in noise:  # the config's quantized layers
                     m.quantization = quant
-            b = {k: v.to(dev) for k, v in batch.items()}
-            aqt = AqtNoise(tensors={k: v.to(dev) for k, v in noise.items()})
-            loss, _ = train.loss_fn(state.model, qcfg, b, aqt_noise=aqt)
-            names = list(state.params)
-            grads = torch.autograd.grad(loss, [state.params[n] for n in names])
-            out[label] = (float(loss.detach()), {n: gr.detach().float().cpu()
-                                                 for n, gr in zip(names, grads)})
+            capture = {} if quant and label == "card" else None
+            out[label] = _int8_step(state, qcfg, batch, noise, dev, capture=capture)
+            if capture is not None:
+                layer0_out = capture["out"]
         torch.cuda.synchronize()
-        (loss_c, g_c), (loss_h, g_h) = out["card"], out["cpu"]
-        rel = {n: float((g_c[n] - g_h[n]).abs().max() / g_h[n].abs().max().clamp(min=1e-30))
-               for n in g_h}
-        runs[quant or "float"] = dict(
-            loss_card=loss_c, loss_cpu=loss_h,
-            grad_norm_card=float(torch.sqrt(sum((t * t).sum() for t in g_c.values()))),
-            grad_norm_cpu=float(torch.sqrt(sum((t * t).sum() for t in g_h.values()))),
-            worst_grad=max(rel, key=rel.get), worst_grad_rel_err=max(rel.values()),
-            median_grad_rel_err=float(np.median(list(rel.values()))))
+        runs[quant or "float"] = _step_gap(out["card"], out["cpu"])
+        if quant:
+            logs = {label: out[label][2] for label in out}
+            # the CPU step again with the card's layer-0 output in place of its own
+            injected = _int8_step(cpu_state, qcfg, batch, noise, "cpu", inject=layer0_out)
+            card_out = out["card"]
+    flips = _code_flips(logs["card"], logs["cpu"])
+    gap, closed = runs["int8"], _step_gap(card_out, injected)
+    localisation = dict(
+        code_flips_by_layer=flips, injected_layer0_output=dict(
+            loss_gap=closed["loss_card"] - closed["loss_cpu"],
+            loss_gap_before=gap["loss_card"] - gap["loss_cpu"],
+            worst_grad_rel_err=closed["worst_grad_rel_err"], worst_grad=closed["worst_grad"],
+            median_grad_rel_err=closed["median_grad_rel_err"],
+            grad_rel_err_by_layer=closed["grad_rel_err_by_layer"],
+            grad_rel_err_by_layer_before=gap["grad_rel_err_by_layer"],
+            code_flips_by_layer=_code_flips(logs["card"], injected[2])),
+        dw_codes="none: the weight gradient is a float product (x^T g) in AQT's int8 mode")
     r = runs["int8"]
     loss_c, loss_h, norm_c, norm_h = r["loss_card"], r["loss_cpu"], r["grad_norm_card"], \
         r["grad_norm_cpu"]
@@ -3169,8 +3221,102 @@ def phase_train_int8_parity(card):
           f"train_int8_parity: AQT's products on the card against the CPU: {aqt}")
     emit("train_int8_parity", t0, card=card, layers=cfg.num_decoder_layers,
          tokens=rows, quantized_layers=len(noise), runs=runs, aqt_products=aqt,
-         aqt_product_shape=list(AQT_PARITY_SHAPE), tol=tol)
+         aqt_product_shape=list(AQT_PARITY_SHAPE), tol=tol, localisation=localisation)
     del card_state, cpu_state
+
+
+def _int8_step(state, cfg, batch, noise, dev, capture=None, inject=None):
+    """One loss and gradient of ``state``'s model on ``dev`` with one noise
+    tensor a quantized layer: (loss, gradients on the host, the int8 codes of
+    every AQT quantization in call order, each labelled (layer, pass, side):
+    the forward's x ("lhs") and kernel ("rhs") codes, the input gradient's g
+    ("lhs") and transposed-kernel ("rhs") codes). ``capture``: a dict that
+    gets decoder layer 0's output; ``inject``: a tensor put in place of that
+    output (the gradient still flows through the layer)."""
+    from maxtext_indextts2_tpu_torch.ops import quantization
+    from maxtext_indextts2_tpu_torch.train import train
+
+    real = quantization.aqt_quantize
+    where = {"name": None, "stage": "fwd"}
+    log = []
+
+    class Noise(dict):  # the backward asks a layer's noise just before its product
+        def __getitem__(self, name):
+            where.update(name=name, stage="bwd")
+            return dict.__getitem__(self, name)
+
+    def quantize(x, dim, codes, noise_=None):
+        q, sc = real(x, dim, codes, noise_)
+        log.append(((where["name"], where["stage"], "lhs" if dim == 1 else "rhs"),
+                    q.detach().cpu()))
+        return q, sc
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, n=name: where.update(name=n, stage="fwd"))
+        for name, m in state.model.named_modules() if name in noise]
+    layer0 = state.model.decoder.layers_0
+    if capture is not None:
+        def keep(mod, args, out):  # returns None: the output stays the layer's
+            capture.setdefault("out", out.detach().cpu())
+
+        hooks.append(layer0.register_forward_hook(keep))
+    if inject is not None:
+        hooks.append(layer0.register_forward_hook(
+            lambda mod, args, out: out + (inject.to(out.device, out.dtype) - out).detach()))
+    quantization.aqt_quantize = quantize
+    try:
+        b = {k: v.to(dev) for k, v in batch.items()}
+        aqt = quantization.AqtNoise(tensors=Noise({k: v.to(dev) for k, v in noise.items()}))
+        loss, _ = train.loss_fn(state.model, cfg, b, aqt_noise=aqt)
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+    finally:
+        quantization.aqt_quantize = real
+        for h in hooks:
+            h.remove()
+    return float(loss.detach()), {n: g.detach().float().cpu() for n, g in zip(names, grads)}, log
+
+
+def _layer_of(name: str) -> str:
+    parts = name.split(".")
+    return parts[1] if len(parts) > 1 and parts[0] == "decoder" else parts[0]
+
+
+def _step_gap(card, cpu) -> dict:
+    """Loss, grad norm and gradient differences of two ``_int8_step`` results
+    (each gradient relative to its largest entry; by layer, the worst)."""
+    (loss_c, g_c, _), (loss_h, g_h, _) = card, cpu
+    rel = {n: float((g_c[n] - g_h[n]).abs().max() / g_h[n].abs().max().clamp(min=1e-30))
+           for n in g_h}
+    by_layer: dict = {}
+    for n, v in rel.items():
+        by_layer[_layer_of(n)] = max(by_layer.get(_layer_of(n), 0.0), v)
+    return dict(loss_card=loss_c, loss_cpu=loss_h,
+                grad_norm_card=float(torch.sqrt(sum((t * t).sum() for t in g_c.values()))),
+                grad_norm_cpu=float(torch.sqrt(sum((t * t).sum() for t in g_h.values()))),
+                worst_grad=max(rel, key=rel.get), worst_grad_rel_err=max(rel.values()),
+                median_grad_rel_err=float(np.median(list(rel.values()))),
+                grad_rel_err_by_layer=by_layer)
+
+
+def _code_flips(log_a, log_b) -> dict:
+    """For each layer and code kind, [codes that differ, codes] between two
+    runs' AQT logs (the first quantization of each label: a remat region's
+    recomputed forward repeats its codes)."""
+    check([k for k, _ in log_a] == [k for k, _ in log_b],
+          "train_int8_parity: the two runs quantized in different orders")
+    kinds = {("fwd", "lhs"): "x", ("fwd", "rhs"): "kernel", ("bwd", "lhs"): "dlhs_g",
+             ("bwd", "rhs"): "dlhs_kernel"}
+    seen, out = set(), {}
+    for (label, qa), (_, qb) in zip(log_a, log_b):
+        if label in seen:
+            continue
+        seen.add(label)
+        name, stage, side = label
+        cell = out.setdefault(_layer_of(name), {}).setdefault(kinds[(stage, side)], [0, 0])
+        cell[0] += int((qa != qb).sum())
+        cell[1] += qa.numel()
+    return out
 
 
 def phase_train_lora(card, train_fields):
@@ -3270,6 +3416,378 @@ def phase_lora_merge(card):
     del unmerged, merged
 
 
+def _decode_launches(layers: int, steps: int) -> dict:
+    """K1 and K2 of ``steps`` dense decode steps (the serve phase's formula)."""
+    return {"ragged_decode_attention": layers * steps, "inplace_row_update": 2 * layers * steps}
+
+
+def _lm_counts() -> dict:
+    c = _all_counts()
+    return {k: c[k] for k in ("ragged_decode_attention", "inplace_row_update")}
+
+
+def _others_idle(counts: dict, phase: str):
+    c = {k: v for k, v in _all_counts().items()
+         if k not in ("ragged_decode_attention", "inplace_row_update") and v}
+    check(not c, f"{phase}: kernels off the decode path launched: {c}")
+
+
+def phase_serve_scanned(engine, tmp, card, want_fused):
+    """ROADMAP 5.7: ``scan_layers=true serve_unroll_layers=false``. The serve
+    engine's weights are written stacked (``decoder.layers.*``, a leading
+    layer axis) by the checkpoint writer and loaded back by a scanned-config
+    engine, which serves the 80 requests queued (fused admission) through its
+    captured decode graph: the serve engine's streams, K1 and K2 once a layer
+    a step."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.train import checkpointing
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "scanned_params")
+    checkpointing.save_params_only(path, checkpointing.stack_unrolled_params(engine.params))
+    stacked = checkpointing.params_checkpoint_is_scanned(path)
+    check(stacked is True, f"serve_scanned: the checkpoint is not stacked ({stacked})")
+    t1 = time.perf_counter()
+    scanned = Engine(load_config(SERVE_ARGS + ["scan_layers=true", "serve_unroll_layers=false",
+                                               f"load_parameters_path={path}"]))
+    scanned.load_params()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    check(scanned.scanned_layout and not scanned.cfg.scan_layers,
+          "serve_scanned: the engine does not keep the stacked layout")
+    differ = _same_tensors(scanned.params, engine.params)
+    check(not differ, f"serve_scanned: loaded weights differ: {differ[:5]}")
+    prompts, budgets = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    _reset_all_counts()
+    t1 = time.perf_counter()
+    got, steps = _serve_queued(scanned, prompts, budgets)
+    serve_s = time.perf_counter() - t1
+    launches = _lm_counts()
+    _others_idle(launches, "serve_scanned")
+    layers = engine.cfg.num_decoder_layers
+    check(launches == _decode_launches(layers, steps),
+          f"serve_scanned: launches {launches} != predicted ({steps} steps)")
+    check(scanned.graphs.captures >= 1 and scanned.graphs.replays > 0,
+          f"serve_scanned: no captured decode graph ({scanned.graphs.captures} captures, "
+          f"{scanned.graphs.replays} replays)")
+    same = got == want_fused
+    check(same, "serve_scanned: the scanned engine's streams differ from the serve engine's")
+    tokens = sum(len(t) for t in got)
+    emit("serve_scanned", t0, card=card, params_ckpt_bytes=_bytes(path), load_seconds=load_s,
+         serve_seconds=serve_s, tokens=tokens, tokens_per_s=tokens / serve_s, decode_steps=steps,
+         captures=scanned.graphs.captures, replays=scanned.graphs.replays,
+         streams_equal=same, launches=launches)
+    del scanned
+    shutil.rmtree(path)
+    return launches
+
+
+def _serve_timed(engine, prompts, budgets, mode: str):
+    """The serve phase's traffic (every request submitted once the loop
+    runs) in ``mode``: seconds, tokens/s, each request's time to its first
+    token (polled every millisecond), launches. Returns (fields, streams)."""
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH, mode=mode)
+    orch.start()
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t1 = time.perf_counter()
+    reqs = [orch.submit(p, n) for p, n in zip(prompts, budgets)]
+    first = [None] * len(reqs)
+    while any(f is None for f in first) and time.perf_counter() - t1 < 600:
+        now = time.perf_counter() - t1
+        for i, r in enumerate(reqs):
+            if first[i] is None and (r.tokens or r.done.is_set()):
+                first[i] = now
+        time.sleep(0.001)
+    finished = all(r.done.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = _lm_counts()
+    orch.stop()
+    check(finished and not any(r.error for r in reqs),
+          f"serve_disaggregated ({mode}): {[r.error for r in reqs if r.error][:1]}")
+    check(not orch._thread.is_alive() and (orch._prefill_thread is None
+                                          or not orch._prefill_thread.is_alive()),
+          f"serve_disaggregated ({mode}): stop() left a thread running")
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = np.asarray([f for f in first if f is not None])
+    return dict(mode=mode, seconds=seconds, tokens=tokens, tokens_per_s=tokens / seconds,
+                ttft_p50_s=float(np.percentile(ttft, 50)),
+                ttft_p99_s=float(np.percentile(ttft, 99)), ttft_max_s=float(ttft.max()),
+                decode_steps=orch.stats["decode_steps_total"],
+                prefills=orch.stats["prefills_total"],
+                admission_dispatches=orch.stats["admission_dispatches_total"],
+                launches=launches), [list(r.tokens) for r in reqs]
+
+
+def phase_serve_disaggregated(engine, card, want_single, want_fused):
+    """ROADMAP 5.9: the serve phase's 80 requests in disaggregated mode (a
+    prefill thread on its own CUDA stream, the decode loop inserting and
+    replaying its captured graph), beside interleaved mode on the same
+    traffic: tokens/s and time to first token. Disaggregated admission is one
+    prefill a request, so its streams are the serve engine's per-request
+    streams; K1 and K2 once a layer a decode step."""
+    t0 = time.perf_counter()
+    prompts, budgets = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    inter, _ = _serve_timed(engine, prompts, budgets, "interleaved")
+    dis, streams = _serve_timed(engine, prompts, budgets, "disaggregated")
+    layers = engine.cfg.num_decoder_layers
+    check(dis["launches"] == _decode_launches(layers, dis["decode_steps"]),
+          f"serve_disaggregated: launches {dis['launches']} != predicted "
+          f"({dis['decode_steps']} steps)")
+    check(dis["prefills"] == NUM_REQUESTS and dis["admission_dispatches"] == NUM_REQUESTS,
+          f"serve_disaggregated: {dis['prefills']} prefills, {dis['admission_dispatches']} inserts")
+    same = streams == want_single
+    check(same, "serve_disaggregated: streams differ from the per-request interleaved ones")
+    emit("serve_disaggregated", t0, card=card, requests=NUM_REQUESTS, disaggregated=dis,
+         interleaved=inter, streams_equal=same,
+         tokens_compared=sum(len(t) for t in streams),
+         streams_equal_to_fused_admission=sum(a == b for a, b in zip(streams, want_fused)))
+    return dis["launches"]
+
+
+def _counting_generate(engine):
+    """``engine.generate`` wrapped to count its calls (one decode step each)."""
+    calls = [0]
+    real = engine.generate
+
+    def generate(state, *a, **k):
+        calls[0] += 1
+        return real(state, *a, **k)
+
+    engine.generate = generate
+    return calls
+
+
+def phase_offline_loadgen(engine, card, want_single) -> dict:
+    """ROADMAP 5.12 on the serve engine. ``offline_engine``: the 80 prompts
+    through ``OfflineEngine.generate_batch`` (one prefill a prompt, one
+    captured step a dispatch): each serve stream is a prefix of its offline
+    stream. ``loadgen_offline``: the Offline scenario over the same prompts
+    (VALID, samples/s). ``loadgen_server``: the Server scenario through the
+    ``Orchestrator``, Poisson arrivals at LOADGEN_SERVER_RATE of the Offline
+    rate (VALID, completed qps, latency percentiles). K1 and K2 once a layer
+    a decode step in each."""
+    from maxtext_indextts2_tpu_torch.infer.loadgen import (
+        OFFLINE, SERVER, OfflineEngineSUT, OrchestratorSUT, QuerySampleLibrary, TestSettings,
+        run_test,
+    )
+    from maxtext_indextts2_tpu_torch.infer.offline_engine import OfflineEngine
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+
+    layers = engine.cfg.num_decoder_layers
+    prompts, budgets = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    offline = OfflineEngine(engine.cfg, engine=engine)
+    out = {}
+    calls = _counting_generate(engine)
+    try:
+        t0 = time.perf_counter()
+        _reset_all_counts()
+        outs = offline.generate_batch(prompts, OFFLINE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _lm_counts()
+        check(launches == _decode_launches(layers, calls[0]),
+              f"offline_engine: launches {launches} != predicted ({calls[0]} steps)")
+        same = all(o[:len(w)] == w for o, w in zip(outs, want_single))
+        check(same and all(len(o) == OFFLINE_NEW_TOKENS for o in outs),
+              "offline_engine: a stream differs from the serve engine's")
+        tokens = sum(len(o) for o in outs)
+        emit("offline_engine", t0, card=card, prompts=len(prompts), tokens=tokens,
+             seconds=seconds, tokens_per_s=tokens / seconds, decode_steps=calls[0],
+             captures=engine.graphs.captures, streams_equal=same,
+             tokens_compared=sum(len(w) for w in want_single), launches=launches)
+        out["offline_engine"] = launches
+
+        qsl = QuerySampleLibrary(prompts)
+        t0 = time.perf_counter()
+        calls[0] = 0
+        _reset_all_counts()
+        res = run_test(OfflineEngineSUT(offline, LOADGEN_NEW_TOKENS).bind(qsl), qsl,
+                       TestSettings(scenario=OFFLINE, min_query_count=len(prompts)))
+        launches = _lm_counts()
+        check(res.valid and res.completed == len(prompts),
+              f"loadgen_offline: {res.summary()}")
+        check(launches == _decode_launches(layers, calls[0]),
+              f"loadgen_offline: launches {launches} != predicted ({calls[0]} steps)")
+        emit("loadgen_offline", t0, card=card, valid=res.valid, issued=res.issued,
+             completed=res.completed, samples_per_s=res.completed_qps,
+             new_tokens=LOADGEN_NEW_TOKENS, decode_steps=calls[0], launches=launches,
+             summary=res.summary())
+        out["loadgen_offline"] = launches
+    finally:
+        del engine.generate
+    offline_rate = res.completed_qps
+
+    t0 = time.perf_counter()
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch.start()
+    _reset_all_counts()
+    target = LOADGEN_SERVER_RATE * offline_rate
+    try:
+        res = run_test(OrchestratorSUT(orch, LOADGEN_NEW_TOKENS).bind(qsl), qsl, TestSettings(
+            scenario=SERVER, target_qps=target, min_duration_s=LOADGEN_MIN_SECONDS,
+            min_query_count=len(prompts), server_target_latency_s=LOADGEN_LATENCY_BOUND_S))
+    finally:
+        orch.stop()
+    launches = _lm_counts()
+    steps = orch.stats["decode_steps_total"]
+    check(res.valid and res.completed == res.issued, f"loadgen_server: {res.summary()}")
+    check(launches == _decode_launches(layers, steps),
+          f"loadgen_server: launches {launches} != predicted ({steps} steps)")
+    emit("loadgen_server", t0, card=card, valid=res.valid, target_qps=target,
+         scheduled_qps=res.scheduled_qps, completed_qps=res.completed_qps, issued=res.issued,
+         completed=res.completed, latency_s=res.percentiles,
+         latency_bound_s=LOADGEN_LATENCY_BOUND_S, decode_steps=steps, launches=launches,
+         summary=res.summary())
+    out["loadgen_server"] = launches
+    return out
+
+
+def phase_microbenchmark(engine, card):
+    """ROADMAP 5.12: ``run_microbenchmark`` on the serve engine at the
+    config's ``inference_microbenchmark_prefill_lengths`` (those within the
+    prefill limit); its JSON document on a line of its own."""
+    from maxtext_indextts2_tpu_torch.infer.microbenchmark import run_microbenchmark
+
+    t0 = time.perf_counter()
+    _reset_all_counts()
+    doc = run_microbenchmark(engine.cfg, engine=engine)
+    launches = _lm_counts()
+    print(json.dumps({"phase": "microbenchmark_document", "card": card, **doc}), flush=True)
+    want = [n for n in engine.cfg.inference_microbenchmark_prefill_lengths
+            if n <= engine.cfg.max_prefill_predict_length]
+    check(sorted(int(k) for k in doc["prefill_ms"]) == sorted(want)
+          and doc["decode"]["slots"] == engine.num_slots and doc["decode"]["step_ms"] > 0,
+          f"microbenchmark: {doc}")
+    # 4 + 4 + 20 + 20 decode steps with every slot full (prefills launch neither)
+    layers = engine.cfg.num_decoder_layers
+    check(launches["ragged_decode_attention"] >= layers * 48
+          and launches["inplace_row_update"] >= 2 * layers * 48,
+          f"microbenchmark: launches {launches}")
+    emit("microbenchmark", t0, card=card, prefill_lengths=want, launches=launches)
+    return launches
+
+
+def phase_uniserver(pipe, card):
+    """ROADMAP 5.11: the single-threaded UniServer over the full-width
+    pipeline (one request an admission: the /generate streams are then the
+    threaded server's per-request ones): 8 concurrent ``POST /tts`` (the
+    tts_http bodies), 4 ``/generate``, 1 ``/generate_stream``, ``/health``
+    and ``/metrics`` at once. /tts answers finite and of tts_http's lengths,
+    K1 / K2 once a layer a decode step, K5-K8 as the sampler predicts, K12
+    never; the stage clock."""
+    from maxtext_indextts2_tpu_torch.infer.uniserver import UniServer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(pipe.cfg, tts_allow_force_frames=True,
+                              tts_batch_max=HTTP_REQUESTS, tts_batch_window_ms=2000,
+                              serving_admission_fusion_max=1)
+    bodies, frames, _ = _tts_bodies(60)
+    payloads = [json.dumps(b).encode() for b in bodies]
+    rng = np.random.default_rng(11)
+    lm_prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+                  for n in rng.integers(8, 401, size=UNI_GENERATE)]
+    want, _ = _serve_queued(pipe.engine, lm_prompts, [UNI_GENERATE_TOKENS] * UNI_GENERATE,
+                            fusion=1)
+    srv = UniServer(cfg, pipe, port=0, host="127.0.0.1")
+    srv.start()
+    t1 = time.perf_counter()
+    srv.warm()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    captures = pipe.engine.graphs.captures
+    url = f"http://127.0.0.1:{srv.port}"
+    answers: dict = {}
+
+    def call(key, path, payload=None):
+        req = urllib.request.Request(url + path, data=payload,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            raw = resp.read().decode()
+        answers[key] = raw
+
+    jobs = [(("tts", i), "/tts", payloads[i]) for i in range(HTTP_REQUESTS)]
+    for i, p in enumerate(lm_prompts):
+        path = "/generate_stream" if i == UNI_GENERATE - 1 else "/generate"
+        body = {"prompt": p.tolist(), "max_new_tokens": UNI_GENERATE_TOKENS}
+        jobs.append((("lm", i), path, json.dumps(body).encode()))
+    jobs += [(("health", 0), "/health", None), (("metrics", 0), "/metrics", None)]
+    stage_before = dict(srv.stage_s)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t1 = time.perf_counter()
+        posts = [threading.Thread(target=call, args=j) for j in jobs]
+        for p in posts:
+            p.start()
+        for p in posts:
+            p.join(timeout=900)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = _all_counts()
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            metrics = resp.read().decode()
+    finally:
+        srv.stop()
+        thread.join(timeout=60)
+        srv.close()
+    check(not thread.is_alive(), "uniserver: the event loop did not stop")
+    check(len(answers) == len(jobs), f"uniserver: {len(jobs) - len(answers)} requests unanswered")
+    hop = int(np.prod(pipe.codec.strides))
+    for i, n in enumerate(frames):
+        a = json.loads(answers[("tts", i)])
+        check("wav_b64" in a, f"uniserver: /tts {i} failed: {a.get('error')}")
+        wav = np.frombuffer(base64.b64decode(a["wav_b64"]), np.float32)
+        check(a["info"]["semantic_tokens"] == n and wav.shape == (n * hop,),
+              f"uniserver: /tts {i} got {wav.shape} samples for {n} frames")
+        check(bool(np.isfinite(wav).all()) and float(wav.std()) > 0,
+              f"uniserver: /tts {i}'s waveform is not finite or is constant")
+    got = []
+    for i in range(UNI_GENERATE):
+        raw = answers[("lm", i)]
+        if i == UNI_GENERATE - 1:
+            lines = [json.loads(line) for line in raw.splitlines() if line.strip()]
+            check(all("token" in line for line in lines), f"uniserver: stream {lines[-1:]}")
+            got.append([line["token"] for line in lines])
+        else:
+            got.append(json.loads(raw).get("tokens"))
+    same = got == want
+    check(same, "uniserver: /generate streams differ from the threaded server's")
+    health = json.loads(answers[("health", 0)])
+    check(health.get("ok") is True, f"uniserver: /health {health}")
+    check("serving_stage_decode_seconds" in answers[("metrics", 0)]
+          and f"serving_requests_completed {HTTP_REQUESTS + UNI_GENERATE}" in metrics,
+          "uniserver: /metrics lacks the stage clock or the completed requests")
+    dispatches = srv.stats["decode_dispatches"]
+    forwards = _denoiser_forwards(pipe) * srv.stats["s2a_batches"]
+    c, layers = pipe.s2a.cfg, pipe.engine.cfg.num_decoder_layers
+    want_launches = {**_decode_launches(layers, dispatches * srv.spd),
+                     "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
+                     "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
+                     "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0,
+                     **NO_FLASH, **NO_PAGED, **NO_INT8W}
+    check(launches == want_launches, f"uniserver: launches {launches} != predicted "
+                                     f"{want_launches} ({dispatches} dispatches)")
+    check(pipe.engine.graphs.captures == captures,
+          "uniserver: a decode graph was captured while serving (warm() missed one)")
+    audio = sum(n * hop for n in frames) / 24_000.0
+    stage = {k: v - stage_before[k] for k, v in srv.stage_s.items()}
+    emit("uniserver", t0, card=card, requests=len(jobs), warm_seconds=warm_s,
+         http_seconds=seconds, audio_seconds=audio, s2a_batches=srv.stats["s2a_batches"],
+         decode_dispatches=dispatches, steps_per_dispatch=srv.spd, generate_streams_equal=same,
+         generate_tokens_compared=sum(len(t) for t in got), stage_seconds=stage,
+         stage_max_seconds=srv.stage_max, device_memory=srv._dev_mem(), launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
 def _bytes(path: str) -> int:
     if os.path.isfile(path):
         return os.path.getsize(path)
@@ -3288,13 +3806,15 @@ def _same_tensors(got: dict, want: dict) -> list[str]:
     return bad
 
 
-def _serve_queued(engine, prompts, budgets):
+def _serve_queued(engine, prompts, budgets, fusion: int = 8):
     """Every request queued before the Orchestrator's loop starts, so that its
     admission groups do not depend on timing: the same engine weights give
-    the same streams, token for token. Returns (streams, decode steps)."""
+    the same streams, token for token (``fusion=1``: one request an
+    admission). Returns (streams, decode steps)."""
     from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
 
-    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH,
+                        admission_fusion_max=fusion)
     reqs = [orch.submit(p, n) for p, n in zip(prompts, budgets)]
     orch.start()
     finished = all(r.done.wait(timeout=600) for r in reqs)
@@ -3763,6 +4283,18 @@ def _phases(tmp, card) -> dict:
     phase_generate_stream_http(engine)
     phase_lm_ckpt(engine, tmp)
     record("serve_int8w", phase_serve_int8w(engine, tmp, card))
+    # ROADMAP item 5 (5.7, 5.9, 5.12) on the serve engine: the fused and the
+    # per-request streams of its 80 requests are the references
+    prompts, budgets = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
+    want_fused, _ = _serve_queued(engine, prompts, budgets)
+    want_single, _ = _serve_queued(engine, prompts, budgets, fusion=1)
+    record("serve_scanned", phase_serve_scanned(engine, tmp, card, want_fused))
+    release()
+    record("serve_disaggregated", phase_serve_disaggregated(engine, card, want_single,
+                                                           want_fused))
+    for phase, counts in phase_offline_loadgen(engine, card, want_single).items():
+        record(phase, counts)
+    record("microbenchmark", phase_microbenchmark(engine, card))
     del engine
     release()
     engine, paged = phase_serve_paged()
@@ -3792,6 +4324,8 @@ def _phases(tmp, card) -> dict:
     record("tts_synthesize", {"s2a_attention": phase_tts_synthesize(pipe)["s2a_attention"]})
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
+    record("uniserver", phase_uniserver(pipe, card))  # ROADMAP 5.11
+    release()
     files, prompt, semantic = phase_audio_ckpt(pipe, tmp)
     phase_audio_cli(pipe, tmp, files, prompt, semantic)
     del pipe

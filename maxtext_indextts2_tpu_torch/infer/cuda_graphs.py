@@ -110,7 +110,10 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         before = launch_counts.snapshot()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            # thread_local: a capture refuses this thread's unsafe calls; other
+            # threads are kept out of it by utils/dispatch_lock (the server's
+            # prefill thread may only wait for its own stream meanwhile)
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 outputs = fn(*static)
         except Exception as e:
             raise CaptureError(f"capturing the decode dispatch {full_key[0]} as a CUDA graph "

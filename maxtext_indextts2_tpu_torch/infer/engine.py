@@ -76,7 +76,6 @@ from maxtext_indextts2_tpu_torch.models import (
 )
 from maxtext_indextts2_tpu_torch.models.layers import to_dtype
 from maxtext_indextts2_tpu_torch.ops.quantization import quantize_params_for_serving
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 def set_cuda_numerics() -> None:
@@ -143,12 +142,13 @@ class Engine:
                 raise ValueError(
                     "paged_attention=true is incompatible with quantize_kvcache (the "
                     "page pool stores raw KV)")
+        # serve_unroll_layers=false: the JAX engine serves a scan-stacked
+        # model; this one keeps its layout at the edges only. The model is
+        # always built unrolled (scan-stacked checkpoints are unstacked by name
+        # in load_params) and the engine's own checkpoints are written stacked
+        # (tools/quantize_checkpoint.py, checkpoint_params)
+        self.scanned_layout = bool(cfg.scan_layers and not cfg.serve_unroll_layers)
         if cfg.scan_layers:
-            if not cfg.serve_unroll_layers and model is None:
-                _unsupported("serving with scan-stacked layers (serve_unroll_layers=false)",
-                         "5, decode extras: item 5.7")
-            # the model is always built unrolled; scan-stacked weights are
-            # unstacked by utils/param_bridge.py
             cfg = dataclasses.replace(cfg, scan_layers=False)
         self.cfg = cfg
         self.model = model if model is not None else Transformer(cfg, device=self.device)
@@ -213,6 +213,17 @@ class Engine:
         if checkpointing.names_are_scanned(params):
             params = checkpointing.unroll_scanned_params(params)
         return self.set_params(params, cast_dtype)
+
+    def checkpoint_params(self) -> dict:
+        """The loaded weights in the layout of this engine's config: stacked
+        on a leading layer axis (``decoder.layers.*``) for a scan-stacked
+        engine, as the JAX scanned engine's parameter tree is; else as loaded."""
+        self._check_params()
+        if not self.scanned_layout:
+            return self.params
+        from maxtext_indextts2_tpu_torch.train.checkpointing import stack_unrolled_params
+
+        return stack_unrolled_params(self.params)
 
     def set_params(self, state_dict, cast_dtype=None):
         """Take weights from a state dict (e.g. ``utils.param_bridge

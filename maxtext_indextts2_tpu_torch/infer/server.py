@@ -11,8 +11,19 @@ request failed), ``GET /metrics`` (Prometheus text) and, with a TTS pipeline,
 -> {"wav": [...], "info": {...}}`` (``*_b64`` prompts and
 ``"wav_encoding": "b64"`` carry little-endian float32 as base64).
 
-One thread, the decode loop, owns the device: the TTS batcher hands its
-device stages to it (``Orchestrator.run_on_loop``) between decode rounds.
+In the default ``mode="interleaved"`` one thread, the decode loop, owns the
+device: it admits (fused prefill + insert) and decodes in turn, and the TTS
+batcher hands its device stages to it (``Orchestrator.run_on_loop``) between
+decode rounds. In ``mode="disaggregated"`` a prefill thread drains the request
+queue into prefixes, each prefilled on a CUDA stream of its own, and the decode
+loop only inserts them and decodes: a burst of prefills no longer stalls the
+decode graphs on the device. The two threads serialize the host side of their
+device work with ``utils/dispatch_lock.device_dispatch`` (so no prefill
+launches or allocates while the decode loop captures a dispatch); a prefix
+crosses to the decode stream behind an event, and its tensors are recorded on
+the decode stream so that the caching allocator does not reuse them before
+the insert has read them. A prefill that fails is retried up to
+``max_prefill_attempts`` times, then failed.
 
 A failed decode dispatch is RECOVERED when the CUDA context survived it (an
 out-of-memory error, a failure before any launch): the host knows every
@@ -40,6 +51,7 @@ time (prefill + insert), as in the JAX server.
 from __future__ import annotations
 
 import base64
+import contextlib
 import gc
 import json
 import queue
@@ -57,7 +69,7 @@ import torch
 from maxtext_indextts2_tpu_torch.config import Config
 from maxtext_indextts2_tpu_torch.infer.cuda_graphs import CaptureError
 from maxtext_indextts2_tpu_torch.infer.engine import Engine
-from maxtext_indextts2_tpu_torch.unported import _unsupported
+from maxtext_indextts2_tpu_torch.utils.dispatch_lock import device_dispatch
 
 
 @dataclass
@@ -69,6 +81,7 @@ class _Request:
     error: str | None = None
     # with stream=True each token is also put here as it is emitted; None ends it
     stream_q: queue.Queue | None = None
+    attempts: int = 0  # failed prefills (disaggregated mode retries them)
 
 
 # the CUDA runtime's errors after which the context is lost for the process
@@ -92,14 +105,22 @@ def context_survived(err: Exception, device: torch.device) -> bool:
     return True
 
 
+def _prefix_tensors(prefix) -> list[torch.Tensor]:
+    out = [prefix["token"], prefix["pos"], prefix["logits"]]
+    for unit in prefix["cache"]:
+        for c in unit:
+            out.extend(c.leaves().values())
+    return out
+
+
 class Orchestrator:
-    """Slot scheduler: request queue -> prefill+insert -> shared generate loop."""
+    """Slot scheduler: request queue -> prefill+insert -> shared generate loop
+    (``mode="interleaved"``), or a prefill thread feeding a prefix queue that
+    the decode loop inserts from (``mode="disaggregated"``)."""
 
     def __init__(self, engine: Engine, eos_id: int | None = None,
                  steps_per_dispatch: int = 4, mode: str = "interleaved",
                  admission_fusion_max: int = 8):
-        if mode != "interleaved":
-            _unsupported(f"serving_mode={mode!r}", "5, decode extras: item 5.9")
         self.engine = engine
         self.eos_id = eos_id
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
@@ -108,6 +129,12 @@ class Orchestrator:
         # the per-request prefill+insert path
         self.admission_fusion_max = admission_fusion_max
         self.queue: queue.Queue[_Request] = queue.Queue()
+        # disaggregated: (request, prefix, first token, event the prefix is ready at)
+        self.prefix_queue: queue.Queue = queue.Queue(maxsize=max(engine.num_slots, 2))
+        self._held_prefix = None  # a prefix whose request waits for pages
+        self.max_prefill_attempts = 6
+        self._prefill_thread: threading.Thread | None = None
+        self._prefill_fatal: Exception | None = None  # a sticky error the prefill thread saw
         self.slots: list[_Request | None] = [None] * engine.num_slots
         self.remaining = np.zeros(engine.num_slots, np.int32)
         self._paged = bool(engine.cfg.paged_attention)
@@ -139,11 +166,56 @@ class Orchestrator:
         self.decode_state = self.engine.init_decode_state()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+        if self.mode == "disaggregated":
+            self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True)
+            self._prefill_thread.start()
 
     def stop(self):
         self._stop.set()
-        if self._thread:
-            self._thread.join(timeout=30)
+        for thread in (self._thread, self._prefill_thread):
+            if thread:
+                thread.join(timeout=30)
+
+    def _prefill_loop(self):
+        """Disaggregated mode: drain the request queue into prefixes, each
+        prefilled on this thread's CUDA stream, independently of the decode
+        loop. A failed prefill goes back to the queue until its
+        ``max_prefill_attempts``-th failure, which fails the request; after a
+        sticky CUDA error the decode loop is told to fail everything."""
+        dev = self.engine.device
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        on_stream = (lambda: torch.cuda.stream(stream)) if stream else contextlib.nullcontext
+        while not self._stop.is_set():
+            try:
+                req = self.queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            self.stats["prefills_total"] += 1
+            try:
+                with device_dispatch(), on_stream():
+                    prefix, first = self.engine.prefill(req.prompt, len(req.prompt))
+                    ready = torch.cuda.Event() if stream else None
+                    if ready is not None:
+                        ready.record(stream)
+                with on_stream():  # waits for this stream only, outside the lock
+                    first_tok = int(first.cpu()[0])
+            except Exception as e:  # noqa: BLE001 - bounded retry, unless sticky
+                req.attempts += 1
+                if not context_survived(e, dev):
+                    self._fail(req, e)
+                    self._prefill_fatal = e
+                    return
+                if req.attempts < self.max_prefill_attempts:
+                    self.queue.put(req)
+                else:
+                    self._fail(req, e)
+                continue
+            while not self._stop.is_set():
+                try:
+                    self.prefix_queue.put((req, prefix, first_tok, ready), timeout=0.05)
+                    break
+                except queue.Full:
+                    continue
 
     def run_on_loop(self, fn, timeout: float = 600.0):
         """Run ``fn()`` on the decode loop between decode rounds and return
@@ -283,7 +355,11 @@ class Orchestrator:
 
     def _loop_body(self):
         while not self._stop.is_set():
-            if self.admission_fusion_max > 1 and not self._paged:
+            if self._prefill_fatal is not None:
+                raise self._prefill_fatal
+            if self.mode == "disaggregated":
+                admitted = self._admit_prefixes()
+            elif self.admission_fusion_max > 1 and not self._paged:
                 admitted = self._admit_interleaved()
             else:
                 admitted = self._admit_sequential()
@@ -349,8 +425,9 @@ class Orchestrator:
             self.stats["prefills_total"] += len(group)
             self.stats["admission_dispatches_total"] += 1
             try:
-                self.decode_state, firsts = self.engine.prefill_insert_many(
-                    self.decode_state, [r.prompt for r in group], slots)
+                with device_dispatch():
+                    self.decode_state, firsts = self.engine.prefill_insert_many(
+                        self.decode_state, [r.prompt for r in group], slots)
                 firsts = firsts.cpu().numpy()
             except Exception as e:  # noqa: BLE001 - these requests only, unless sticky
                 self._admission_failed(group, slots, e)
@@ -372,12 +449,46 @@ class Orchestrator:
                 return admitted
             admitted |= self._admit_via_prefill(free[0], req)
 
+    def _admit_prefixes(self) -> bool:
+        """Disaggregated mode: insert the prefill thread's prefixes into free
+        slots, in the order they were made. A paged request whose pages the
+        pool cannot give yet is held at the head of the line."""
+        admitted = False
+        while True:
+            free = [i for i, r in enumerate(self.slots) if r is None]
+            if not free:
+                return admitted
+            if self._held_prefix is None:
+                try:
+                    self._held_prefix = self.prefix_queue.get_nowait()
+                except queue.Empty:
+                    return admitted
+            req, prefix, first_tok, ready = self._held_prefix
+            if not self._can_admit(req):
+                return admitted
+            self._held_prefix = None
+            self.stats["admission_dispatches_total"] += 1
+            try:
+                with device_dispatch():
+                    if ready is not None:  # the prefix was made on the prefill stream
+                        decode_stream = torch.cuda.current_stream(self.engine.device)
+                        decode_stream.wait_event(ready)
+                        for t in _prefix_tensors(prefix):
+                            t.record_stream(decode_stream)
+                    self.decode_state = self.engine.insert(prefix, self.decode_state, free[0])
+            except Exception as e:  # noqa: BLE001 - this request only, unless sticky
+                self._admission_failed([req], [free[0]], e)
+                continue
+            self._admit_bookkeeping(free[0], req, first_tok)
+            admitted = True
+
     def _admit_via_prefill(self, slot: int, req: _Request) -> bool:
         self.stats["prefills_total"] += 1
         self.stats["admission_dispatches_total"] += 1
         try:
-            prefix, first = self.engine.prefill(req.prompt, len(req.prompt))
-            self.decode_state = self.engine.insert(prefix, self.decode_state, slot)
+            with device_dispatch():
+                prefix, first = self.engine.prefill(req.prompt, len(req.prompt))
+                self.decode_state = self.engine.insert(prefix, self.decode_state, slot)
             first_tok = int(first.cpu()[0])
         except Exception as e:  # noqa: BLE001 - this request only, unless sticky
             self._admission_failed([req], [slot], e)
@@ -406,7 +517,8 @@ class Orchestrator:
         (:meth:`_recover_decode`) or, after a sticky error, re-raised."""
         n = self.steps_per_dispatch
         try:
-            self.decode_state, toks_n = self.engine.generate_n(self.decode_state, n)
+            with device_dispatch():  # a capture sees no other thread's work
+                self.decode_state, toks_n = self.engine.generate_n(self.decode_state, n)
             toks_n = toks_n.cpu().numpy()  # [n, slots]
         except Exception as e:  # noqa: BLE001 - recovered, or re-raised when sticky
             self.stats["decode_failures"] = self.stats.get("decode_failures", 0) + 1
@@ -460,11 +572,12 @@ class Orchestrator:
         for slot, req in survivors:
             resume = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
             try:
-                if len(resume) <= limit:
-                    prefix, first = self.engine.prefill(resume, len(resume))
-                else:
-                    prefix, first = self.engine.prefill_chunked(resume, len(resume), limit)
-                self.decode_state = self.engine.insert(prefix, self.decode_state, slot)
+                with device_dispatch():
+                    if len(resume) <= limit:
+                        prefix, first = self.engine.prefill(resume, len(resume))
+                    else:
+                        prefix, first = self.engine.prefill_chunked(resume, len(resume), limit)
+                    self.decode_state = self.engine.insert(prefix, self.decode_state, slot)
                 first_tok = int(first.cpu()[0])
             except Exception as e2:  # noqa: BLE001 - this stream only
                 self._fail(req, e2)

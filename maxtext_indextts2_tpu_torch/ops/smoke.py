@@ -1281,20 +1281,31 @@ def flash_cases(device, timing, full_size=True):
 # group 2); ``train_flagship_vocab``: the tts-1b body at the flagship's
 # vocabulary (K9-K11 at the train shape); ``train_flagship``: tts-flagship
 # at full width (one 4096-token row, D = 256).
+# the serving paths of ROADMAP item 5 that run the tts-1b decode step (K1, K2)
+# at the serve phase's shapes: scanned, disaggregated, offline, loadgen,
+# microbenchmark, the UniServer
+SERVE_DECODE_PATHS = ("serve_scanned", "serve_disaggregated", "offline_engine",
+                      "loadgen_offline", "loadgen_server", "microbenchmark", "uniserver")
 MAIN_PATH_CASES = {
     "s2a_attention": {"tts_synthesize": "s2a_attention_bf16_main_path"},
     "ragged_decode_attention": {"serve": "ragged_bf16_main_path",
                                 "flagship_serve": "ragged_bf16_flagship",
-                                "spec_decode": "ragged_f32_spec_draft"},
+                                "spec_decode": "ragged_f32_spec_draft",
+                                **{p: "ragged_bf16_main_path" for p in SERVE_DECODE_PATHS}},
     "paged_decode_attention": {"serve_paged": "paged_bf16_main_path"},
     "inplace_row_update": {"serve": "inplace_kv_bf16_k1_main_path",
                            "flagship_serve": "inplace_kv_bf16_k1_flagship",
-                           "spec_decode": "inplace_kv_f32_k5_verify"},
+                           "spec_decode": "inplace_kv_f32_k5_verify",
+                           **{p: "inplace_kv_bf16_k1_main_path" for p in SERVE_DECODE_PATHS}},
     "ada_rmsnorm": {"tts_backend": "ada_rmsnorm_bf16_main_path",
-                    "s2a_train": "ada_rmsnorm_grad_f32_s2a_train"},
-    "row_quantize_int8": {"tts_backend": "row_quantize_int8_bf16_main_path"},
-    "ada_rmsnorm_quantize": {"tts_backend": "ada_rmsnorm_quantize_bf16_main_path"},
-    "silu_mul_quantize": {"tts_backend": "silu_mul_quantize_bf16_main_path"},
+                    "s2a_train": "ada_rmsnorm_grad_f32_s2a_train",
+                    "uniserver": "ada_rmsnorm_bf16_main_path"},
+    "row_quantize_int8": {"tts_backend": "row_quantize_int8_bf16_main_path",
+                          "uniserver": "row_quantize_int8_bf16_main_path"},
+    "ada_rmsnorm_quantize": {"tts_backend": "ada_rmsnorm_quantize_bf16_main_path",
+                             "uniserver": "ada_rmsnorm_quantize_bf16_main_path"},
+    "silu_mul_quantize": {"tts_backend": "silu_mul_quantize_bf16_main_path",
+                          "uniserver": "silu_mul_quantize_bf16_main_path"},
     "flash_fwd": {"train": "flash_bf16_main_path_fwd",
                   "train_dropout": "flash_bf16_main_path_fwd",
                   "train_packed": "flash_bf16_emilia_packed_fwd",

@@ -43,7 +43,8 @@ def run(argv=None, device=None) -> dict:
     cfg = load_config(keep + ["quantization=int8w_serve", "checkpoint_is_quantized=false"])
     eng = Engine(cfg, device=device)
     params = eng.load_params()  # the float weights, quantized
-    save_params_only(save_path, params)
+    # a scan-stacked engine writes stacked names, as the JAX engine's tree is
+    save_params_only(save_path, eng.checkpoint_params())
     n_int8 = sum(t.numel() for t in params.values() if t.dtype == torch.int8)
     n_total = sum(t.numel() for t in params.values())
     return {

@@ -351,3 +351,20 @@ def unroll_scanned_params(params: dict) -> dict:
         else:
             out[name] = t
     return out
+
+
+def stack_unrolled_params(params: dict) -> dict:
+    """The inverse of :func:`unroll_scanned_params`: ``decoder.<region>_{i}.<rest>``
+    -> ``decoder.<region>.<rest>`` stacked on a new leading layer axis."""
+    out: dict = {}
+    groups: dict = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        if len(parts) > 2 and parts[0] == "decoder" and _is_unrolled_key(parts[1]):
+            region, _, i = parts[1].rpartition("_")
+            groups.setdefault(f"decoder.{region}.{'.'.join(parts[2:])}", {})[int(i)] = t
+        else:
+            out[name] = t
+    for name, layers in groups.items():
+        out[name] = torch.stack([layers[i] for i in range(len(layers))])
+    return out

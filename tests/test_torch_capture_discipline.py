@@ -49,6 +49,7 @@ ROUTES = {
                           "pagedattn_tokens_per_page=4", "pagedattn_num_pages=40"],
     "aqt_int8": ["decode_attention=ragged", "quantization=int8"],
     "lora": ["decode_attention=ragged", "lora_rank=4"],
+    "scanned": ["decode_attention=ragged", "scan_layers=true", "serve_unroll_layers=false"],
 }
 
 
@@ -81,7 +82,8 @@ def _populated(eng):
     return eng.insert(prefix, state, 3)
 
 
-@pytest.mark.parametrize("route", ["dense_ragged", "dense_int8_kv", "paged", "int8w_serve"])
+@pytest.mark.parametrize("route", ["dense_ragged", "dense_int8_kv", "paged", "int8w_serve",
+                                   "scanned"])
 def test_state_tensors_keep_their_storage(route):
     eng = _engine(ROUTES[route])
     state = eng.init_decode_state()

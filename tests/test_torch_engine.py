@@ -157,14 +157,15 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    # MoE layers (item 6, int8w_serve or not) and scan-stacked serving (item 5.7)
-    for extra in (["num_experts=4", "quantization=int8w_serve"],
-                  ["scan_layers=true", "serve_unroll_layers=false"]):
+    # MoE layers (item 6, int8w_serve or not)
+    for extra in (["num_experts=4", "quantization=int8w_serve"], ["num_experts=4"]):
         cfg = load_config(TINY_TTS + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu").load_params()
-    # ported since: the AQT matmuls in serving, int8w_serve and LoRA adapters (item 5.6)
-    for extra in (["quantization=int8"], ["quantization=int8w_serve"], ["lora_rank=4"]):
+    # ported since: the AQT matmuls in serving, int8w_serve and LoRA adapters (item 5.6),
+    # scan-stacked serving (item 5.7; parity: tests/test_torch_scanned_serving.py)
+    for extra in (["quantization=int8"], ["quantization=int8w_serve"], ["lora_rank=4"],
+                  ["scan_layers=true", "serve_unroll_layers=false"]):
         eng = Engine(load_config(TINY_TTS + extra), device="cpu")
         eng.load_params()
         assert len(eng.generate_stream(prompt(10, 5), 3)) == 3

@@ -34,8 +34,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "maxtext_indextts2_tpu_torch")
 JAX_DIR = os.path.join(REPO, "maxtext_indextts2_tpu")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "maxtext_indextts2_tpu")
-YAMLS = ["tiny.yml", "tiny_tts.yml", os.path.join("models", "tts-1b.yml"),
-         os.path.join("models", "tts-flagship.yml")]
+# every preset of the JAX package, each a byte copy
+YAMLS = ["tiny.yml", "tiny_tts.yml"] + sorted(
+    os.path.join("models", n) for n in os.listdir(os.path.join(JAX_DIR, "configs", "models"))
+    if n.endswith(".yml"))
 
 
 def _python_sources():
@@ -116,6 +118,9 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.audio.quantize_extended\n"
         "import maxtext_indextts2_tpu_torch.ops.int8w_matmul, maxtext_indextts2_tpu_torch.ops.quantization\n"
         "import maxtext_indextts2_tpu_torch.tools.quantize_checkpoint\n"
+        "import maxtext_indextts2_tpu_torch.infer.loadgen, maxtext_indextts2_tpu_torch.infer.uniserver\n"
+        "import maxtext_indextts2_tpu_torch.infer.offline_engine\n"
+        "import maxtext_indextts2_tpu_torch.infer.microbenchmark\n"
         "from maxtext_indextts2_tpu_torch.train.data import packing, audio_iterator, grain_pipeline\n"
         "from maxtext_indextts2_tpu_torch.train.data import mlperf_pipeline, tfds_pipeline, hf_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -465,6 +470,11 @@ COPIES = [
      "maxtext_indextts2_tpu.train.data.synthetic", ["make_batch"]),
     ("maxtext_indextts2_tpu_torch.infer.prefix_cache",
      "maxtext_indextts2_tpu.infer.prefix_cache", ["PrefixCache"]),
+    ("maxtext_indextts2_tpu_torch.infer.loadgen", "maxtext_indextts2_tpu.infer.loadgen",
+     ["QuerySample", "TestSettings", "QuerySampleLibrary", "LoadgenResult", "_Context",
+      "run_test", "OfflineEngineSUT", "OrchestratorSUT"]),
+    ("maxtext_indextts2_tpu_torch.utils.dispatch_lock",
+     "maxtext_indextts2_tpu.utils.dispatch_lock", ["_FairRLock", "device_dispatch"]),
 ]
 
 

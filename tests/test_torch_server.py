@@ -156,8 +156,20 @@ def test_http_generate_and_metrics_round_trip(engine):
 
 
 def test_unported_serving_mode_raises(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Orchestrator(engine, mode="disaggregated")
+    """No serving mode of the JAX package is refused any more: disaggregated
+    mode starts its prefill thread and serves (its parity with the JAX
+    package: tests/test_torch_disaggregated.py)."""
+    orch = Orchestrator(engine, mode="disaggregated")
+    orch.start()
+    try:
+        assert orch._prefill_thread is not None and orch._prefill_thread.is_alive()
+        p = prompt(31, 6)
+        req = orch.submit(p, 5)
+        _wait([req])
+    finally:
+        orch.stop()
+    assert req.error is None and req.tokens == engine.generate_stream(p, 5)
+    assert not orch._thread.is_alive() and not orch._prefill_thread.is_alive()
 
 
 def test_decode_cli_on_the_cpu(capsys):

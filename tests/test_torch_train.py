@@ -257,16 +257,16 @@ def _refuse_vision_sft(kind):
     make_hf_vision_sft_iterator(load_config([f"dataset_type={kind}"]), dataset=[])
 
 
-def _refuse_scan_stacked_serving(kind):
+def _refuse_moe_serving(kind):
     from maxtext_indextts2_tpu_torch.infer.engine import Engine
 
-    Engine(load_config(TINY_TTS + [f"{kind}=false", "scan_layers=true"]), device="cpu")
+    Engine(load_config(TINY_TTS + [f"{kind}=4"]), device="cpu")
 
 
-def _refuse_disaggregated_serving(kind):
-    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+def _refuse_moe_preset(kind):
+    from maxtext_indextts2_tpu_torch.models import Transformer
 
-    Orchestrator(None, mode=kind)
+    Transformer(load_config([f"model_name={kind}"]), device="meta")
 
 
 def _refuse_moe_training(kind):
@@ -283,8 +283,8 @@ def _refuse_moe_int8w_serve(kind):
 
 @pytest.mark.parametrize("refuse,arg,item", [
     (_refuse_vision_sft, "hf", "6"),
-    (_refuse_scan_stacked_serving, "serve_unroll_layers", "5.7"),
-    (_refuse_disaggregated_serving, "disaggregated", "5.9"),
+    (_refuse_moe_serving, "num_experts", "6"),
+    (_refuse_moe_preset, "qwen3-30b-a3b", "6"),
     (_refuse_moe_training, "num_experts", "6"), (_refuse_moe_int8w_serve, "int8w_serve", "6"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
