@@ -104,7 +104,15 @@ the single-threaded UniServer over the full-width pipeline; each stream
 comparison is exact, against the serve engine's streams of the same
 admission. ``train_int8_parity`` also counts the int8 codes that differ card
 against CPU, layer by layer, and feeds the card's layer-0 output to the CPU
-step. ``device`` reports whether ``grpc`` and ``google.protobuf`` import. The
+step. ``device`` reports whether ``grpc`` and ``google.protobuf`` import.
+ROADMAP 5.10 and item 6's serving part: ``grpc`` streams 8 ``Decode`` calls
+over the serve engine against ``/generate``, ``grpc_synthesize`` one
+``Synthesize`` against ``synthesize``; last, ``moe_serve`` serves
+``qwen3-30b-a3b`` whole through the grouped kernel (decode captured),
+``moe_serve_parity`` holds its sparse route against the dense one,
+``moe_serve_int8w`` serves it with int8 experts, then ``mixtral_serve``,
+``mla_serve`` (``deepseek-v2-lite`` whole), ``gpt3_serve`` (``gpt3-6b``
+whole) and ``llama4_serve`` (a float32 twin for its teacher-forced check). The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -116,6 +124,7 @@ back to the CPU.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import gc
 import json
@@ -186,6 +195,13 @@ KERNELS = [
     dict(name="int8w_matmul", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/int8w_matmul.cu",
          replaces="maxtext_indextts2_tpu/models/layers.py:168"),
+    # no Pallas site: the ragged_dot calls XLA lowers in RoutedMoE._sparse_experts
+    dict(name="grouped_matmul_bf16", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
+    dict(name="grouped_matmul_int8", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:252"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -566,15 +582,17 @@ def phase_build():
                          r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
                         for r in _build.ptxas_report(kernel)]
                for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES,
-                              "int8w_matmul")}
+                              "int8w_matmul", "grouped_matmul")}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
     flash, int8w = reports[FLASH_KERNEL_NAMES], reports["int8w_matmul"]
+    gmm = reports["grouped_matmul"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
         norm_rows_registers_spill_stores_loads=norm,
         flash_registers_spill_stores_loads=flash,
-        int8w_matmul_registers_spill_stores_loads=int8w)
+        int8w_matmul_registers_spill_stores_loads=int8w,
+        grouped_matmul_registers_spill_stores_loads=gmm)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
     check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
@@ -584,6 +602,9 @@ def phase_build():
     # (the file's anonymous namespace carries its name: its 2 reduce kernels match too)
     check(len(int8w) == 6 and all(r[2] == 0 and r[3] == 0 for r in int8w),
           f"an int8w_matmul instantiation spills, or one is missing: {int8w}")
+    # bf16: 2 row tiles; int8: 2 row tiles x (int32 sums, bf16 rescaled)
+    check(len(gmm) == 6 and all(r[2] == 0 and r[3] == 0 for r in gmm),
+          f"a grouped_matmul instantiation spills, or one is missing: {gmm}")
 
 
 def phase_kernels():
@@ -1583,10 +1604,13 @@ def _k12_count() -> int:
 
 def _reset_all_counts():
     from maxtext_indextts2_tpu_torch.ops import (
-        flash_attention, inplace_update, int8w_matmul, ragged_decode_attention, s2a_attention,
+        flash_attention, grouped_matmul, inplace_update, int8w_matmul, ragged_decode_attention,
+        s2a_attention,
     )
 
     _reset_row_kernel_counts()
+    for name in grouped_matmul.launch_counts:
+        grouped_matmul.launch_counts[name] = 0
     int8w_matmul.launch_count = 0
     ragged_decode_attention.launch_count = inplace_update.launch_count = 0
     inplace_update.span_launch_counts.clear()
@@ -1598,19 +1622,22 @@ def _reset_all_counts():
 
 def _all_counts() -> dict:
     from maxtext_indextts2_tpu_torch.ops import (
-        flash_attention, inplace_update, int8w_matmul, ragged_decode_attention,
+        flash_attention, grouped_matmul, inplace_update, int8w_matmul, ragged_decode_attention,
     )
 
     return {"ragged_decode_attention": ragged_decode_attention.launch_count,
             "paged_decode_attention": ragged_decode_attention.paged_launch_count,
             "inplace_row_update": inplace_update.launch_count, **_row_kernel_counts(),
             "s2a_attention": _k12_count(), **flash_attention.launch_counts,
-            "int8w_matmul": int8w_matmul.launch_count}
+            "int8w_matmul": int8w_matmul.launch_count,
+            "grouped_matmul_bf16": grouped_matmul.launch_counts["grouped_matmul"],
+            "grouped_matmul_int8": grouped_matmul.launch_counts["grouped_matmul_int8"]}
 
 
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 NO_PAGED = {"paged_decode_attention": 0}
 NO_INT8W = {"int8w_matmul": 0}
+NO_GMM = {"grouped_matmul_bf16": 0, "grouped_matmul_int8": 0}
 
 
 def _audio_only_lm(pipe):
@@ -1684,7 +1711,7 @@ def phase_tts_synthesize(pipe):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": want_k12,
-            **NO_FLASH, **NO_PAGED, **NO_INT8W}
+            **NO_FLASH, **NO_PAGED, **NO_INT8W, **NO_GMM}
     check(launches == want, f"tts_synthesize: launches {launches} != predicted {want}")
     emit("tts_synthesize", t0, call_seconds=seconds, info=info, denoiser_forwards=forwards,
          prompt_seconds=SYNTH_PROMPT_SECONDS, launches=launches,
@@ -1874,7 +1901,7 @@ def phase_tts_http(pipe):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0, **NO_FLASH,
-            **NO_PAGED, **NO_INT8W}
+            **NO_PAGED, **NO_INT8W, **NO_GMM}
     check(launches == want, f"tts_http: launches {launches} != predicted {want} "
                             f"({steps} decode steps, {batcher.batches} batches)")
     audio = sum(n * hop for n in frames) / 24_000.0
@@ -2889,19 +2916,27 @@ def _reckoned_int8w_bytes(engine) -> int:
     return total
 
 
-def _near_tie_agreement(engine, prompts, streams):
+def _near_tie_agreement(engine, prompts, streams, router_gaps=None):
     """For each stream, the tokens that its own engine's prefill forward over
     prompt + stream gives as argmax, or within a near tie of it
-    (``TOL_NEAR_TIE`` of the largest |logit|): (agreeing, compared, exact)."""
+    (``TOL_NEAR_TIE`` of the largest |logit|): (agreeing, compared, exact).
+    Given a list ``router_gaps``, a MoE model's forward also records, at each
+    compared token, the smallest router gap over its MoE layers (the k-th
+    selection score less the (k+1)-th), and the list gets one entry a token
+    that does not agree: its gap and the share of compared tokens whose gap
+    is no larger."""
     from maxtext_indextts2_tpu_torch.models import MODE_PREFILL
 
     agree = compared = exact = 0
     dev = engine.device
+    gaps, missed = [], []
     for prompt, stream in zip(prompts, streams):
         full = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
         toks = torch.as_tensor(full, device=dev)[None, :]
         pos = torch.arange(len(full), dtype=torch.int32, device=dev)[None, :]
-        with torch.no_grad():
+        layer_gaps = []
+        with torch.no_grad(), _recording_router_gaps(
+                layer_gaps if router_gaps is not None else None):
             logits = engine.model(toks, pos, torch.ones_like(toks), mode=MODE_PREFILL,
                                   cache=engine.model.init_cache(1, len(full), dev))[0].float()
         rows = logits[len(prompt) - 1:]
@@ -2909,10 +2944,44 @@ def _near_tie_agreement(engine, prompts, streams):
         top = rows.max(-1).values
         got = rows.gather(-1, want[:, None])[:, 0]
         tie = TOL_NEAR_TIE * rows.abs().max(-1).values
-        agree += int(((top - got) <= tie).sum())
+        ok = (top - got) <= tie
+        agree += int(ok.sum())
         exact += int((rows.argmax(-1) == want).sum())
         compared += len(stream)
+        if layer_gaps:
+            gap = torch.stack(layer_gaps).min(0).values[len(prompt) - 1:]
+            gaps.append(gap)
+            missed.append(gap[~ok])
+    if router_gaps is not None and gaps:
+        every = torch.cat(gaps)
+        router_gaps.extend(dict(gap=float(g), share_no_larger=float((every <= g).float().mean()))
+                           for g in torch.cat(missed).tolist())
     return agree, compared, exact
+
+
+@contextlib.contextmanager
+def _recording_router_gaps(gaps):
+    """While active, every routing of a MoE layer appends to ``gaps`` its gap
+    at each position: the k-th selection score less the (k+1)-th (the scores
+    with ``gate_bias``, before group limits). ``gaps=None``: records nothing."""
+    from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
+
+    original = RoutedMoE.route
+
+    def route(module, inputs):
+        out = original(module, inputs)
+        k = module.cfg.num_experts_per_tok
+        select = out[2] if module.gate_bias is None else out[2] + module.gate_bias.float()
+        top = torch.topk(select, k + 1, dim=-1).values
+        gaps.append((top[..., k - 1] - top[..., k]).reshape(-1))
+        return out
+
+    if gaps is not None:
+        RoutedMoE.route = route
+    try:
+        yield
+    finally:
+        RoutedMoE.route = original
 
 
 def _leading_agreement(a, b) -> list[int]:
@@ -3772,7 +3841,7 @@ def phase_uniserver(pipe, card):
                      "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
                      "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
                      "silu_mul_quantize": c.num_layers * forwards, "s2a_attention": 0,
-                     **NO_FLASH, **NO_PAGED, **NO_INT8W}
+                     **NO_FLASH, **NO_PAGED, **NO_INT8W, **NO_GMM}
     check(launches == want_launches, f"uniserver: launches {launches} != predicted "
                                      f"{want_launches} ({dispatches} dispatches)")
     check(pipe.engine.graphs.captures == captures,
@@ -4088,7 +4157,7 @@ def phase_audio_ckpt(pipe, tmp):
             "ada_rmsnorm": forwards, "row_quantize_int8": c.num_layers * forwards,
             "ada_rmsnorm_quantize": 2 * c.num_layers * forwards,
             "silu_mul_quantize": c.num_layers * forwards,
-            "s2a_attention": c.num_layers * forwards, **NO_FLASH, **NO_PAGED, **NO_INT8W}
+            "s2a_attention": c.num_layers * forwards, **NO_FLASH, **NO_PAGED, **NO_INT8W, **NO_GMM}
     check(launches == want, f"audio_ckpt: launches {launches} != predicted {want}")
     check(info_b["semantic_tokens"] == info_a["semantic_tokens"] == SYNTH_FRAMES,
           f"audio_ckpt: {info_b['semantic_tokens']} frames")
@@ -4188,6 +4257,578 @@ def phase_audio_cli(pipe, tmp, files, prompt, semantic):
          tokenize=printed["tokenize"], synthesize=printed["synthesize"])
 
 
+# ROADMAP 5.10, the gRPC front end: 8 streamed Decode calls over the serve
+# engine, their greedy tokens against /generate's for the same prompts; one
+# Synthesize over the full-width pipeline, its chunks against synthesize's
+# waveform (chunks of a third of it, so that it arrives in three).
+GRPC_STREAMS = 8
+GRPC_NEW_TOKENS = 32
+
+# ROADMAP item 6, serving: the other model families at full width, weights
+# drawn in bfloat16 on the card (weight_dtype=bfloat16), 8 slots of a
+# 2048-token cache, 8 greedy requests of 16-1024 prompt tokens and 64 new
+# ones through the Orchestrator, decode captured (4 steps a dispatch). Each
+# phase frees its engine before the next. Cuts of depth, listed: mixtral-8x7b
+# 8 of its 32 layers (a whole one is 93 GB), llama4-scout 4 of its 48 (216 GB)
+# with a 256-token attention chunk (its 8192 would need prompts of 8192 to
+# cross one).
+FAMILY_PROMPT_LENGTHS = (16, 512, 200, 1024, 64, 700, 300, 333)
+FAMILY_NEW_TOKENS = 64
+FAMILY_ARGS = ["weight_dtype=bfloat16", "serve_params_dtype=bfloat16", "dtype=bfloat16",
+               "decode_attention=ragged", "decode_sampling_strategy=greedy",
+               "per_device_batch_size=8", "max_target_length=2048",
+               "max_prefill_predict_length=1024", "scan_layers=false"]
+MOE_ARGS = ["model_name=qwen3-30b-a3b"] + FAMILY_ARGS
+MOE_PARAMS = 30_532_122_624
+MIXTRAL_LAYERS = 8
+MIXTRAL_ARGS = ["model_name=mixtral-8x7b", f"base_num_decoder_layers={MIXTRAL_LAYERS}"] \
+    + FAMILY_ARGS
+MIXTRAL_PARAMS = 11_872_309_248
+MLA_ARGS = ["model_name=deepseek-v2-lite"] + FAMILY_ARGS
+MLA_PARAMS = 15_706_484_224
+GPT3_ARGS = ["model_name=gpt3-6b"] + FAMILY_ARGS
+GPT3_PARAMS = 5_544_695_808
+LLAMA4_LAYERS = 4
+LLAMA4_CHUNK = 256
+LLAMA4_ARGS = ["model_name=llama4-scout-17b-16e", f"base_num_decoder_layers={LLAMA4_LAYERS}",
+               f"chunk_attn_window_size={LLAMA4_CHUNK}"] + FAMILY_ARGS
+LLAMA4_PARAMS = 10_877_383_680
+# cached greedy against the teacher-forced argmax: 16 tokens of 4 streams,
+# each the argmax of a prefill forward over prompt + stream or within a near
+# tie of it (TOL_NEAR_TIE of the largest |logit|: the prefill and the cached
+# decode sum in other orders in bfloat16)
+TEACHER_FORCED_STREAMS = 4
+TEACHER_FORCED_TOKENS = 16
+# moe_serve_parity: one decode step on the sparse route (the grouped kernels)
+# against the dense einsum route, both on the card in bfloat16 from one
+# populated state: the experts' outputs differ by a bfloat16 step here and
+# there (other summation order), which 48 layers carry to the logits as a
+# share of their scale (the flagship parity's bound, 2**-4 of the largest
+# logit); the argmax equal, or within a near tie.
+TOL_MOE_PARITY_REL = 2.0 ** -4
+# every MoE family phase: one eager decode step with each MoE layer run on
+# both routes from the same inputs and routing, max |sparse - dense| over the
+# layer's largest |dense output|. bf16: the routes round the same bfloat16
+# intermediates and differ in summation order only, a step or two of
+# bfloat16 (2**-8) near the largest output. int8w_serve: the sparse route
+# also rounds each row of activations to 127 steps of its largest |value|
+# (q_rows), where the dense route multiplies the dequantized experts by the
+# bfloat16 activations: about 1 % of the output's scale, 2**-4 leaves room
+# for the tail.
+TOL_ROUTES_BF16 = 2.0 ** -6
+TOL_ROUTES_INT8 = 2.0 ** -4
+
+
+def phase_grpc(engine, card):
+    """ROADMAP 5.10: 8 streamed ``Decode`` calls over the serve engine on
+    localhost, one after another as the 8 ``/generate`` calls they are held
+    against (each admitted alone: a packed admission rounds its bfloat16
+    prefill in another order), their greedy tokens equal; then the same 8 at
+    once (every stream its full budget); ``HealthCheck``."""
+    from maxtext_indextts2_tpu_torch.infer import grpc_server as gs
+    from maxtext_indextts2_tpu_torch.infer.proto import orchestrator_pb2 as pb
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator, make_server
+    import grpc
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 401, size=GRPC_STREAMS)]
+    httpd, horch, _ = make_server(engine.cfg, port=0, engine=engine, host="127.0.0.1")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    want = []
+    try:
+        for p in prompts:
+            body = json.dumps({"prompt": p.tolist(), "max_new_tokens": GRPC_NEW_TOKENS}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+                                         data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                want.append(json.loads(resp.read())["tokens"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        horch.stop()
+        thread.join(timeout=30)
+
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch.start()
+    server = gs.create_server(orch, port=0, host="127.0.0.1")
+    server.start()
+    msgs = [None] * GRPC_STREAMS
+    try:
+        chan = grpc.insecure_channel(f"127.0.0.1:{server._mtt_port}")
+        stub = gs.OrchestratorStub(chan)
+
+        def call(i, out):
+            out[i] = list(stub.Decode(pb.DecodeRequest(token_ids=prompts[i].tolist(),
+                                                       max_tokens=GRPC_NEW_TOKENS), timeout=300))
+
+        for i in range(GRPC_STREAMS):
+            call(i, msgs)
+        together = [None] * GRPC_STREAMS
+        t1 = time.perf_counter()
+        calls = [threading.Thread(target=call, args=(i, together)) for i in range(GRPC_STREAMS)]
+        for c in calls:
+            c.start()
+        for c in calls:
+            c.join(timeout=300)
+        seconds = time.perf_counter() - t1
+        health = stub.HealthCheck(pb.HealthCheckRequest(), timeout=30)
+        chan.close()
+    finally:
+        server.stop(grace=1)
+        orch.stop()
+    check(all(m is not None and m[-1].done and not m[-1].error for m in msgs + together),
+          "grpc: a Decode stream failed or did not end")
+    got = [[t for m in ms for t in m.token_ids] for ms in msgs]
+    check(got == want, "grpc: the streamed tokens differ from /generate's")
+    got_together = [[t for m in ms for t in m.token_ids] for ms in together]
+    check(all(len(g) == GRPC_NEW_TOKENS for g in got_together),
+          "grpc: a concurrent stream did not get its budget")
+    check(health.ok, "grpc: HealthCheck did not answer ok")
+    emit("grpc", t0, card=card, streams=GRPC_STREAMS, new_tokens=GRPC_NEW_TOKENS,
+         messages=[len(m) for m in msgs], messages_concurrent=[len(m) for m in together],
+         concurrent_seconds=seconds,
+         concurrent_tokens_per_s=sum(len(g) for g in got_together) / seconds,
+         equal_to_generate=True,
+         concurrent_equal_to_generate=sum(a == b for a, b in zip(got_together, want)))
+
+
+def phase_grpc_synthesize(pipe, card):
+    """One gRPC ``Synthesize`` over the full-width pipeline: its chunks, put
+    together, against ``synthesize``'s waveform for the same request."""
+    from maxtext_indextts2_tpu_torch.audio.pipeline import prompt_signal
+    from maxtext_indextts2_tpu_torch.infer import grpc_server as gs
+    from maxtext_indextts2_tpu_torch.infer.proto import orchestrator_pb2 as pb
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+    import grpc
+
+    t0 = time.perf_counter()
+    w16 = prompt_signal(43, SYNTH_PROMPT_SECONDS, 16_000)
+    w24 = prompt_signal(43, SYNTH_PROMPT_SECONDS, 24_000)
+    text = "The same sentence over gRPC and in process."
+    want, info = pipe.synthesize(text, w16, w24, max_new_tokens=SYNTH_FRAMES)
+    chunk = len(want) // 3 + 1
+    orch = Orchestrator(pipe.engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch.start()
+    server = gs.create_server(orch, tts_pipeline=pipe, port=0, host="127.0.0.1")
+    server.start()
+    old, gs._WAV_CHUNK_SAMPLES = gs._WAV_CHUNK_SAMPLES, chunk
+    try:
+        chan = grpc.insecure_channel(f"127.0.0.1:{server._mtt_port}")
+        t1 = time.perf_counter()
+        msgs = list(gs.OrchestratorStub(chan).Synthesize(pb.SynthesizeRequest(
+            text=text, prompt_wav_16k=w16.tolist(), prompt_wav_24k=w24.tolist(),
+            max_new_tokens=SYNTH_FRAMES), timeout=600))
+        seconds = time.perf_counter() - t1
+        chan.close()
+    finally:
+        gs._WAV_CHUNK_SAMPLES = old
+        server.stop(grace=1)
+        orch.stop()
+    check(len(msgs) == 3 and msgs[-1].done and not msgs[-1].error,
+          f"grpc_synthesize: {len(msgs)} messages, last {msgs[-1].error if msgs else None}")
+    wav = np.concatenate([np.frombuffer(m.wav_f32le, "<f4") for m in msgs])
+    same = bool(np.array_equal(wav, np.asarray(want, np.float32).ravel()))
+    check(same, "grpc_synthesize: the chunks differ from synthesize's waveform")
+    emit("grpc_synthesize", t0, card=card, messages=len(msgs), samples=int(wav.size),
+         semantic_tokens=info["semantic_tokens"], synthesize_seconds=seconds,
+         equal_to_synthesize=same)
+
+
+def _load_family(phase, args, want_params):
+    """A family's engine on the card, weights drawn there in bfloat16."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(load_config(args))
+    engine.load_params()
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in engine.model.parameters())
+    check(params == want_params and all(
+        p.dtype == torch.bfloat16 for n, p in engine.model.named_parameters() if "scale" not in n),
+        f"{phase}: {params} parameters (want {want_params}), all bfloat16")
+    return engine, dict(params=params, param_bytes=_param_bytes(engine),
+                        load_seconds=time.perf_counter() - t0,
+                        load_peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _moe_layers(engine) -> int:
+    from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
+
+    return sum(isinstance(m, RoutedMoE) for m in engine.model.modules())
+
+
+def _moe_step_audit(engine, state):
+    """One eager decode step on a copy of ``state`` with every MoE layer run
+    on both routes from the same inputs and routing: the sparse route (the
+    grouped kernels; its output goes on to the next layer) and the dense
+    einsum route (int8 experts dequantized), shared experts included in both.
+    Returns, layer by layer, the experts the step routes to and max |sparse -
+    dense| over max |dense|, and the grouped kernels' launches in the step
+    (three a layer: the dense route launches none)."""
+    from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
+
+    touched, rel = [], []
+    original = RoutedMoE.forward
+
+    def forward(self, inputs, impl=None, aux_loss=True):
+        touched.append(torch.unique(self.route(inputs)[0]).numel())
+        sparse, loss = original(self, inputs, impl, aux_loss)
+        cfg = self.cfg
+        self.cfg = dataclasses.replace(cfg, sparse_matmul=False)
+        try:
+            dense, _ = original(self, inputs, impl, aux_loss)
+        finally:
+            self.cfg = cfg
+        rel.append((sparse.float() - dense.float()).abs().max() / dense.float().abs().max())
+        return sparse, loss
+
+    RoutedMoE.forward = forward
+    _reset_all_counts()
+    try:
+        engine._generate_step(_clone_state(state))
+        torch.cuda.synchronize()
+    finally:
+        RoutedMoE.forward = original
+    counts = _all_counts()
+    launches = counts["grouped_matmul_bf16"] + counts["grouped_matmul_int8"]
+    return [int(t) for t in touched], [float(r) for r in rel], launches
+
+
+def _serve_family(phase, engine, card, load_fields, grouped="grouped_matmul_bf16",
+                  extra=None, teacher_forced=True):
+    """8 greedy requests through the Orchestrator (decode captured), the
+    grouped kernel's launches, tokens/s, peak memory and the captured step's
+    time and trace (``tools/profile_decode.measure``), cached greedy against
+    the teacher-forced argmax (required where ``teacher_forced``; else
+    reported with the router gap at each token that does not agree), and for
+    a MoE model each layer's sparse route against its dense route
+    (``_moe_step_audit``, required)."""
+    from maxtext_indextts2_tpu_torch.infer.server import Orchestrator
+    from maxtext_indextts2_tpu_torch.tools import profile_decode
+
+    t0 = time.perf_counter()
+    cfg = engine.cfg
+    rng = np.random.default_rng(50)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FAMILY_PROMPT_LENGTHS]
+    seconds: dict[str, float] = {}
+    engine.prefill_insert_many = _timed(engine.prefill_insert_many, seconds, "prefill")
+    engine.generate_n = _timed(engine.generate_n, seconds, "decode")
+    captures0, replays0 = engine.graphs.captures, engine.graphs.replays
+    orch = Orchestrator(engine, steps_per_dispatch=STEPS_PER_DISPATCH)
+    orch.start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()  # every count to 0 just before the main path, read just after
+    t1 = time.perf_counter()
+    reqs = [orch.submit(p, FAMILY_NEW_TOKENS) for p in prompts]
+    finished = all(r.done.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    orch.stop()
+    launches = _all_counts()
+    del engine.prefill_insert_many, engine.generate_n
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(finished, f"{phase}: a request did not finish in 600 s")
+    errors = [r.error for r in reqs if r.error]
+    check(not errors, f"{phase}: {len(errors)} requests failed, first: {errors[:1]}")
+    check(all(len(r.tokens) == FAMILY_NEW_TOKENS for r in reqs),
+          f"{phase}: a request did not get exactly its token budget")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          f"{phase}: a token outside [0, vocab)")
+    steps = orch.stats["decode_steps_total"]
+    captures, replays = engine.graphs.captures - captures0, engine.graphs.replays - replays0
+    check(steps > 0 and replays > 0, f"{phase}: decode not captured ({captures} captures, "
+                                     f"{replays} replays)")
+    moe_layers = _moe_layers(engine)
+    if moe_layers:  # wi_0, wi_1 and wo of every MoE layer, every decode step at least
+        check(launches[grouped] >= 3 * moe_layers * steps,
+              f"{phase}: {grouped} launched {launches[grouped]} times, want at least "
+              f"{3 * moe_layers * steps} ({moe_layers} MoE layers, {steps} steps)")
+    streams = [list(r.tokens) for r in reqs]
+    fields = dict(card=card, **load_fields, layers=cfg.num_decoder_layers, emb_dim=cfg.emb_dim,
+                  heads=[cfg.num_query_heads, cfg.num_kv_heads], vocab=cfg.vocab_size,
+                  experts=[cfg.num_experts, cfg.num_experts_per_tok] if moe_layers else None,
+                  moe_layers=moe_layers, slots=engine.num_slots,
+                  max_target_length=cfg.max_target_length,
+                  prompt_lengths=list(FAMILY_PROMPT_LENGTHS), new_tokens=FAMILY_NEW_TOKENS,
+                  serve_seconds=serve_s, prefill_seconds=seconds.get("prefill"),
+                  decode_seconds=seconds.get("decode"), decode_steps=steps,
+                  captures=captures, replays=replays,
+                  tokens_per_s=sum(map(len, streams)) / serve_s,
+                  decode_tokens_per_s=sum(map(len, streams)) / seconds["decode"],
+                  decode_ms_a_step=1e3 * seconds["decode"] / steps,
+                  admission_dispatches=orch.stats["admission_dispatches_total"],
+                  grouped_matmul_launches=launches[grouped], launches=launches,
+                  serve_peak_memory_bytes=serve_peak)
+    gaps = None if teacher_forced or not moe_layers else []
+    agree, compared, exact = _near_tie_agreement(
+        engine, prompts[:TEACHER_FORCED_STREAMS],
+        [s[:TEACHER_FORCED_TOKENS] for s in streams[:TEACHER_FORCED_STREAMS]], gaps)
+    if teacher_forced:
+        check(agree == compared, f"{phase}: cached greedy differs from the teacher-forced "
+                                 f"argmax in {compared - agree} of {compared} tokens")
+    fields.update(teacher_forced_agree=agree, teacher_forced_compared=compared,
+                  teacher_forced_exact=exact, **(extra or {}))
+    if gaps is not None:
+        fields.update(router_gaps_where_not_agreeing=gaps)
+    state, _ = _populate(engine, prompts)
+    if moe_layers:
+        # the sparse route against the dense one, layer by layer, on the
+        # step's own inputs and routing (no routing near a tie can flip)
+        touched, rel, audit_launches = _moe_step_audit(engine, state)
+        tol = TOL_ROUTES_INT8 if engine.cfg.quantization == "int8w_serve" else TOL_ROUTES_BF16
+        check(len(rel) == moe_layers and audit_launches == 3 * moe_layers,
+              f"{phase}: the route audit ran {len(rel)} MoE layers with {audit_launches} "
+              f"grouped launches (want {moe_layers} and {3 * moe_layers})")
+        check(max(rel) <= tol,
+              f"{phase}: the sparse route differs from the dense one by {max(rel)} of the "
+              f"largest |output| in a MoE layer (tolerance {tol})")
+        fields.update(experts_touched_a_step=dict(min=min(touched), max=max(touched),
+                                                  mean=float(np.mean(touched))),
+                      routes_rel_err_max=max(rel), routes_rel_err_mean=float(np.mean(rel)),
+                      routes_tol_rel=tol)
+    # the captured step at the populated state, timed and traced
+    step, prof = profile_decode.measure(engine, state, steps=STEPS_PER_DISPATCH)
+    del state
+    fields.update(captured_step_ms=step["step_ms_host_clock"],
+                  captured_step_ms_repeats=step["step_ms_host_clock_repeats"],
+                  device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+                  device_idle_share=prof["device_idle_share"],
+                  device_kernels_per_step=prof["device_kernels_per_step"],
+                  own_kernels=prof["own_kernels"], top_kernels=prof["top_kernels"][:6])
+    emit(phase, t0, **fields)
+    return streams, fields, {k: v for k, v in launches.items() if v}
+
+
+def phase_moe_serve(card):
+    """qwen3-30b-a3b whole: 48 layers, E 2048, 32 q / 4 kv heads of 128, 128
+    experts of 768 (top 8) in every layer, a 151,936-row vocabulary, bf16."""
+    engine, load = _load_family("moe_serve", MOE_ARGS, MOE_PARAMS)
+    streams, fields, launches = _serve_family("moe_serve", engine, card, load)
+    return engine, streams, fields, launches
+
+
+def phase_moe_serve_parity(engine, card):
+    """One decode step's logits, sparse route (the grouped kernels) against
+    the dense einsum route, on the card from one populated state."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(51)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, size=n).astype(np.int32)
+               for n in FAMILY_PROMPT_LENGTHS]
+    state, _ = _populate(engine, prompts)
+    state, _ = engine.generate_n(state, 3)
+    twin = _clone_state(state)
+    _reset_all_counts()
+    _, sparse = engine._generate_step(state)
+    sparse_launches = _all_counts()["grouped_matmul_bf16"]
+    moes = [m for m in engine.model.modules() if hasattr(m, "sparse_experts")]
+    for m in moes:
+        m.cfg = dataclasses.replace(m.cfg, sparse_matmul=False)
+    try:
+        _, dense = engine._generate_step(twin)
+    finally:
+        for m in moes:
+            m.cfg = dataclasses.replace(m.cfg, sparse_matmul=True)
+    torch.cuda.synchronize()
+    dense_launches = _all_counts()["grouped_matmul_bf16"] - sparse_launches
+    a, b = sparse.float(), dense.float()
+    err = float((a - b).abs().max().item())
+    scale = float(b.abs().max().item())
+    top = b.max(-1).values
+    got = b.gather(-1, a.argmax(-1, keepdim=True))[:, 0]
+    near = bool(((top - got) <= TOL_NEAR_TIE * b.abs().max(-1).values).all().item())
+    same = bool((a.argmax(-1) == b.argmax(-1)).all().item())
+    check(sparse_launches == 3 * len(moes) and dense_launches == 0,
+          f"moe_serve_parity: grouped launches {sparse_launches} (sparse), {dense_launches} "
+          "(dense)")
+    check(bool(torch.isfinite(a).all()) and err <= TOL_MOE_PARITY_REL * scale and near,
+          f"moe_serve_parity: logits differ by {err} (max |logit| {scale}), argmax equal "
+          f"{same}, within a near tie {near}")
+    del state, twin
+    emit("moe_serve_parity", t0, card=card, logits_max_abs_err=err, logits_max_abs=scale,
+         tol_rel=TOL_MOE_PARITY_REL, same_argmax=same, argmax_within_near_tie=near,
+         grouped_launches_sparse_step=sparse_launches)
+
+
+def _engine_in_place(engine, cfg):
+    """An engine of config ``cfg`` made from ``engine``'s weights tensor by
+    tensor, each freed in ``engine`` as soon as it is converted: a weight with
+    an int8 twin (``quantization=int8w_serve``) quantized (one scale an output
+    channel, for experts an (expert, output channel)), a weight of another
+    dtype widened, the rest shared. ``engine`` is consumed; peak memory stays
+    near the larger of the two models."""
+    from torch import nn
+
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.ops.quantization import quantize_weight_for_serving
+
+    engine.graphs.clear()
+    engine.params = None  # its tensors would keep every old weight alive
+    model = Transformer(cfg, device="meta")
+    src = dict(engine.model.named_parameters())
+    want = dict(model.named_parameters())
+
+    def put(name, tensor, buffer=False):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        if buffer:
+            mod._buffers[leaf] = tensor
+        else:
+            mod._parameters[leaf] = nn.Parameter(tensor, requires_grad=False)
+
+    with torch.no_grad():
+        for name, ref in want.items():
+            base = want.get(name[:-6]) if name.endswith("_scale") else None
+            if base is not None and base.dtype == torch.int8:
+                continue  # made with its weight
+            w = src[name]
+            if ref.dtype == torch.int8:
+                scale_shape = want[f"{name}_scale"].shape
+                q, sc = quantize_weight_for_serving(
+                    w.data, tuple(i for i, d in enumerate(scale_shape) if d == 1))
+                w.data = torch.empty(0, dtype=w.dtype, device=w.device)
+                put(name, q)
+                put(f"{name}_scale", sc)
+            elif ref.dtype != w.dtype:
+                wide = w.data.to(ref.dtype)
+                w.data = torch.empty(0, dtype=w.dtype, device=w.device)
+                put(name, wide)
+            else:
+                put(name, w.data)
+        for name, b in engine.model.named_buffers():
+            put(name, b, buffer=True)
+    out = Engine(cfg, model=model)
+    out.params = model.state_dict()
+    return out
+
+
+def phase_moe_serve_int8w(bf16_engine, card, bf16_fields):
+    """qwen3-30b-a3b under ``int8w_serve``, quantized from the bf16 engine on
+    the card tensor by tensor: the int8 grouped kernel on the experts and
+    int8w_matmul on attention; step ms against bf16's."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = _engine_in_place(
+        bf16_engine, dataclasses.replace(bf16_engine.cfg, quantization="int8w_serve"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    load = dict(params=sum(p.numel() for p in engine.model.parameters()),
+                param_bytes=_param_bytes(engine), load_seconds=time.perf_counter() - t0,
+                load_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                param_bytes_bfloat16=bf16_fields["param_bytes"])
+    check(load["load_peak_memory_bytes"] < 80e9,
+          f"moe_serve_int8w: quantizing peaked at {load['load_peak_memory_bytes']} bytes")
+    bf16_step = bf16_fields["decode_ms_a_step"]
+    _, fields, launches = _serve_family(
+        "moe_serve_int8w", engine, card, load, grouped="grouped_matmul_int8",
+        extra=dict(decode_ms_a_step_bfloat16=bf16_step))
+    check(launches.get("int8w_matmul", 0) > 0 and not launches.get("grouped_matmul_bf16"),
+          f"moe_serve_int8w: launches {launches}")
+    return engine, launches
+
+
+def phase_mixtral_serve(card):
+    """mixtral-8x7b at full widths (E 4096, 8 experts of 14336, top 2,
+    normalised weights), 8 of its 32 layers: few large experts."""
+    engine, load = _load_family("mixtral_serve", MIXTRAL_ARGS, MIXTRAL_PARAMS)
+    # the bfloat16 teacher-forced agreement is reported with the router gap
+    # at each token that does not agree; the sparse route is held to the
+    # dense one layer by layer (required)
+    _, _, launches = _serve_family("mixtral_serve", engine, card, load, teacher_forced=False)
+    del engine
+    return launches
+
+
+def phase_mla_serve(card):
+    """deepseek-v2-lite whole: 27 layers (the first dense), MLA with a
+    512-row latent, 64 routed experts (top 6) and 2 shared; the latent
+    cache's bytes against the expanded K/V's."""
+    engine, load = _load_family("mla_serve", MLA_ARGS, MLA_PARAMS)
+    cfg = engine.cfg
+    latent = sum(c.nbytes() for unit in engine.model.init_cache(1, cfg.max_target_length)
+                 for c in unit) * engine.num_slots
+    expanded = (cfg.num_decoder_layers * engine.num_slots * cfg.max_target_length
+                * cfg.num_query_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                                         + cfg.v_head_dim) * 2)
+    _, _, launches = _serve_family(
+        "mla_serve", engine, card, load,
+        extra=dict(latent_cache_bytes=latent, expanded_kv_bytes=expanded,
+                   latent_over_expanded=latent / expanded))
+    del engine
+    return launches
+
+
+def phase_gpt3_serve(card):
+    """gpt3-6b whole: 48 layers, E 3072, 12 heads of 256 (K1 at D 256),
+    LayerNorm, learned positions, biases, gelu, bf16."""
+    engine, load = _load_family("gpt3_serve", GPT3_ARGS, GPT3_PARAMS)
+    _, _, launches = _serve_family("gpt3_serve", engine, card, load)
+    del engine
+    check(launches.get("ragged_decode_attention", 0) > 0, f"gpt3_serve: launches {launches}")
+    return launches
+
+
+def _teacher_forced_float32(phase, engine, prompts) -> dict:
+    """Cached greedy against the teacher-forced argmax on a float32 twin of
+    ``engine`` (its bfloat16 weights widened exactly, tensor by tensor:
+    ``engine`` is consumed), decode captured: in float32 the prefill and the
+    cached decode round alike, so a router score near a tie picks the same
+    expert on both; each token must be the argmax, or within a near tie."""
+    # the grouped kernels take bfloat16 and int8: float32 experts take the dense route
+    twin = _engine_in_place(engine, dataclasses.replace(
+        engine.cfg, dtype="float32", weight_dtype="float32", serve_params_dtype="",
+        sparse_matmul=False))
+    streams = _decode_streams(twin, prompts, TEACHER_FORCED_TOKENS)[:, :TEACHER_FORCED_TOKENS]
+    agree, compared, exact = _near_tie_agreement(twin, prompts, [list(s) for s in streams])
+    check(agree == compared, f"{phase}: float32 cached greedy differs from the teacher-forced "
+                             f"argmax in {compared - agree} of {compared} tokens")
+    twin.graphs.clear()
+    del twin
+    return dict(teacher_forced_float32_agree=agree, teacher_forced_float32_compared=compared,
+                teacher_forced_float32_exact=exact)
+
+
+def phase_llama4_serve(card):
+    """llama4-scout at full widths, 4 of its 48 layers (3 chunked rope layers
+    and the NoPE global one), every layer 16 experts of 8192 (top 1) and a
+    shared expert; requests cross a 256-token chunk boundary. The sparse
+    route is held to the dense one layer by layer on the bfloat16 engine; the
+    teacher-forced check is required on a float32 twin (43.5 GB: the
+    bfloat16 engine's weights widened in place) and reported on the bfloat16
+    streams with the router gap at each token that does not agree."""
+    t0 = time.perf_counter()
+    engine, load = _load_family("llama4_serve", LLAMA4_ARGS, LLAMA4_PARAMS)
+    _, _, launches = _serve_family("llama4_serve", engine, card, load,
+                                   extra=dict(chunk_attn_window_size=LLAMA4_CHUNK),
+                                   teacher_forced=False)
+    rng = np.random.default_rng(52)
+    prompts = [rng.integers(1, engine.cfg.vocab_size, size=n).astype(np.int32)
+               for n in FAMILY_PROMPT_LENGTHS[:TEACHER_FORCED_STREAMS]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields = _teacher_forced_float32("llama4_serve", engine, prompts)
+    del engine
+    gc.collect()
+    emit("llama4_serve_float32", t0, card=card, prompt_lengths=[len(p) for p in prompts],
+         tokens=TEACHER_FORCED_TOKENS, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         **fields)
+    return launches
+
+
 def kernels_line(cases, paths):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes the first main path's run gives the kernel (the
@@ -4280,6 +4921,7 @@ def _phases(tmp, card) -> dict:
     prompts, _ = make_requests(np.random.default_rng(0), engine.cfg.vocab_size)
     phase_serve_captured_parity(engine, "dense", prompts[:engine.num_slots], card)
     phase_http(engine)
+    phase_grpc(engine, card)  # ROADMAP 5.10
     phase_generate_stream_http(engine)
     phase_lm_ckpt(engine, tmp)
     record("serve_int8w", phase_serve_int8w(engine, tmp, card))
@@ -4324,6 +4966,7 @@ def _phases(tmp, card) -> dict:
     record("tts_synthesize", {"s2a_attention": phase_tts_synthesize(pipe)["s2a_attention"]})
     phase_tts_synthesize_parity(pipe)
     phase_tts_http(pipe)
+    phase_grpc_synthesize(pipe, card)  # ROADMAP 5.10
     record("uniserver", phase_uniserver(pipe, card))  # ROADMAP 5.11
     release()
     files, prompt, semantic = phase_audio_ckpt(pipe, tmp)
@@ -4382,6 +5025,23 @@ def _phases(tmp, card) -> dict:
     record("train_lora", phase_train_lora(card, train_fields))
     release()
     phase_lora_merge(card)
+    release()
+    # ROADMAP item 6, serving: the other model families at full width
+    engine, _, moe_fields, launches = phase_moe_serve(card)
+    record("moe_serve", launches)
+    phase_moe_serve_parity(engine, card)
+    engine, launches = phase_moe_serve_int8w(engine, card, moe_fields)
+    record("moe_serve_int8w", launches)
+    del engine
+    release()
+    record("mixtral_serve", phase_mixtral_serve(card))
+    release()
+    record("mla_serve", phase_mla_serve(card))
+    release()
+    record("gpt3_serve", phase_gpt3_serve(card))
+    release()
+    record("llama4_serve", phase_llama4_serve(card))
+    release()
     return paths
 
 

@@ -75,6 +75,7 @@ from maxtext_indextts2_tpu_torch.models import (
     Transformer,
 )
 from maxtext_indextts2_tpu_torch.models.layers import to_dtype
+from maxtext_indextts2_tpu_torch.models.registry import get_block_style
 from maxtext_indextts2_tpu_torch.ops.quantization import quantize_params_for_serving
 
 
@@ -142,6 +143,14 @@ class Engine:
                 raise ValueError(
                     "paged_attention=true is incompatible with quantize_kvcache (the "
                     "page pool stores raw KV)")
+            if get_block_style(cfg.decoder_block).use_mla:
+                # the JAX engine builds such an engine and serves wrong streams:
+                # its insert never writes the prompt's latents (ROADMAP queue 3)
+                raise ValueError(
+                    "paged_attention=true does not serve multi-head latent attention "
+                    f"(decoder_block={cfg.decoder_block}): its decode cache is the "
+                    "compressed latent, which has no paged layout; serve it with "
+                    "paged_attention=false")
         # serve_unroll_layers=false: the JAX engine serves a scan-stacked
         # model; this one keeps its layout at the edges only. The model is
         # always built unrolled (scan-stacked checkpoints are unstacked by name
@@ -555,14 +564,7 @@ class Engine:
         ``pre`` to rows [0, length) of ``slot`` in ``full``; reset the slot's
         segment ids and write index. Touches only this slot, in place."""
         for dst, src in zip(_flat_caches(full), _flat_caches(pre)):
-            dst.cached_key[slot, :length] = src.cached_key[0, start:start + length]
-            dst.cached_value[slot, :length] = src.cached_value[0, start:start + length]
-            if dst.quantize:
-                dst.key_scale[slot, :length] = src.key_scale[0, start:start + length]
-                dst.value_scale[slot, :length] = src.value_scale[0, start:start + length]
-            dst.cached_segment_ids[slot, :length] = 1
-            dst.cached_segment_ids[slot, length:] = 0
-            dst.cache_index[slot] = length
+            dst.insert_rows(src, slot, start, length)
 
     @torch.no_grad()
     def insert(self, prefix, decode_state, slot: int):

@@ -56,7 +56,6 @@ from maxtext_indextts2_tpu_torch.ops.ragged_decode_attention import (
     paged_decode_attention_v2,
     ragged_decode_attention_v2,
 )
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 # Large negative for masked logits.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -191,6 +190,19 @@ class KVCache:
         self.cached_segment_ids[:, n:] = 0
         self.cache_index.fill_(n)
 
+    def insert_rows(self, src: "KVCache", slot: int, start: int, length: int) -> None:
+        """Rows [start, start+length) of ``src``'s batch row 0 into rows [0,
+        length) of ``slot``; the slot's segment ids and write index reset.
+        Touches only this slot, in place."""
+        self.cached_key[slot, :length] = src.cached_key[0, start:start + length]
+        self.cached_value[slot, :length] = src.cached_value[0, start:start + length]
+        if self.quantize:
+            self.key_scale[slot, :length] = src.key_scale[0, start:start + length]
+            self.value_scale[slot, :length] = src.value_scale[0, start:start + length]
+        self.cached_segment_ids[slot, :length] = 1
+        self.cached_segment_ids[slot, length:] = 0
+        self.cache_index[slot] = length
+
     def clone(self) -> "KVCache":
         out = object.__new__(KVCache)
         out.max_length, out.quantize, out.dtype = self.max_length, self.quantize, self.dtype
@@ -309,6 +321,8 @@ class Attention(nn.Module):
         qk_norm_scale_plus_one: bool = False,
         qk_norm_type: str = "rms",
         use_temperature_tuning: bool = False,
+        attn_temperature_scale: float = 0.1,
+        attn_temperature_floor_scale: float = 8192.0,
         query_pre_attn_scalar: float | None = None,
         normalization_layer_epsilon: float = 1e-6,
         use_bias: bool = False,
@@ -322,10 +336,8 @@ class Attention(nn.Module):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
         if decode_attention not in ("dot_product", "bucketed", "ragged"):
             raise ValueError(f"unknown decode_attention {decode_attention!r}")
-        if use_qk_norm and qk_norm_type != "rms":
-            _unsupported(f"qk_norm_type={qk_norm_type!r} (llama4)", "6, other model families")
-        if use_temperature_tuning:
-            _unsupported("attention temperature tuning (llama4)", "6, other model families")
+        if use_qk_norm and qk_norm_type not in ("rms", "l2"):
+            raise ValueError(f"unknown qk_norm_type {qk_norm_type!r}")
 
         self.num_query_heads = num_query_heads
         self.num_kv_heads = num_kv_heads
@@ -341,6 +353,11 @@ class Attention(nn.Module):
         self.rope_interleave = rope_interleave
         self.query_pre_attn_scalar = query_pre_attn_scalar
         self.quantize_kvcache = quantize_kvcache
+        self.l2_qk_norm = use_qk_norm and qk_norm_type == "l2"
+        self.normalization_layer_epsilon = normalization_layer_epsilon
+        self.use_temperature_tuning = use_temperature_tuning
+        self.attn_temperature_scale = attn_temperature_scale
+        self.attn_temperature_floor_scale = attn_temperature_floor_scale
         # a buffer, so it lives on the module's device (a numpy array would be
         # copied from the host on every call); not part of the state dict
         inv_freq = None
@@ -360,7 +377,7 @@ class Attention(nn.Module):
                                   lora_rank=lora_rank, **dense)
         self.out = DenseGeneral((num_query_heads, head_dim), emb_dim, axis=(-2, -1), **dense)
         self.query_norm = self.key_norm = None
-        if use_qk_norm:
+        if use_qk_norm and qk_norm_type == "rms":
             norm = dict(epsilon=normalization_layer_epsilon, dtype=dtype,
                         weight_dtype=weight_dtype, scale_plus_one=qk_norm_scale_plus_one,
                         device=device)
@@ -507,10 +524,26 @@ class Attention(nn.Module):
             q = rope_lib.apply_rope(q, None, None, self.rope_interleave, sin_cos=sin_cos)
             k = rope_lib.apply_rope(k, None, None, self.rope_interleave, sin_cos=sin_cos)
 
+        if self.l2_qk_norm:
+            # llama4: parameter-free L2 (an rms norm without scale) AFTER rope
+            q, k = self._l2(q), self._l2(k)
+
+        if self.use_temperature_tuning:
+            # llama4 NoPE layers: q times log1p(floor((pos + 1) / floor)) * scale + 1
+            pos = positions.float() + 1.0
+            floor = torch.floor(pos / torch.full_like(pos, self.attn_temperature_floor_scale))
+            scales = torch.log1p(floor) * self.attn_temperature_scale + 1.0
+            q = q * scales[..., None, None].to(q.dtype)
+
         if self.query_pre_attn_scalar is not None:
             # gemma semantics: scores = qk / sqrt(query_pre_attn_scalar)
             q = q * (math.sqrt(self.head_dim) / math.sqrt(self.query_pre_attn_scalar))
         return q, k, v
+
+    def _l2(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        return (x32 * torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True)
+                                  + self.normalization_layer_epsilon)).to(x.dtype)
 
     def attend(self, inputs_q, inputs_kv, positions, segment_ids, impl: str | None = None):
         """The training forward up to the output projection, in ``dtype``:

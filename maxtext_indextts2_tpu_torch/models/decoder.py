@@ -53,6 +53,8 @@ from torch.utils.checkpoint import checkpoint
 from maxtext_indextts2_tpu_torch.config import Config
 from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN, Attention
 from maxtext_indextts2_tpu_torch.models.layers import MlpBlock, MlpDropout, RMSNorm, to_dtype
+from maxtext_indextts2_tpu_torch.models.mla import MLAttention
+from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
 from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
@@ -84,6 +86,8 @@ def _attention_kwargs(cfg: Config, block, attention_type: str) -> dict[str, Any]
         qk_norm_scale_plus_one=block.rmsnorm_scale_plus_one,
         qk_norm_type=block.qk_norm_type,
         use_temperature_tuning=nope and block.attn_temperature_tuning,
+        attn_temperature_scale=cfg.attn_temperature_scale,
+        attn_temperature_floor_scale=cfg.attn_temperature_floor_scale,
         decode_attention=cfg.decode_attention,
         query_pre_attn_scalar=(
             cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar > 0
@@ -128,37 +132,44 @@ def _save_matmuls_context():
 
 
 class DecoderLayer(nn.Module):
-    """One stack unit: ``len(block.attention_pattern)`` transformer sub-layers."""
+    """One stack unit: ``len(block.attention_pattern)`` transformer sub-layers.
+    ``use_moe``: the MLP of each sub-layer that ``moe_sublayer_pattern`` (or
+    the block's ``moe_sublayers``; neither: every one) names is a
+    ``RoutedMoE`` (``moe_{i}``), the others a ``MlpBlock`` (``mlp_{i}``)."""
 
-    def __init__(self, cfg: Config, block, device=None):
+    def __init__(self, cfg: Config, block, device=None, use_moe: bool = False):
         super().__init__()
-        if block.use_mla:
-            _unsupported("multi-head latent attention (deepseek)", "6, other model families")
-        if block.use_layer_norm:
-            _unsupported("mean-centred LayerNorm blocks (gpt3)", "6, other model families")
-        if cfg.num_experts > 1:
-            _unsupported("mixture-of-experts layers",
-                         "6, other model families: models/moe.py, item 6")
         self.block = block
         dtype, wdtype = to_dtype(cfg.dtype), to_dtype(cfg.weight_dtype)
 
         def norm():
             return RMSNorm(cfg.emb_dim, epsilon=cfg.normalization_layer_epsilon, dtype=dtype,
                            weight_dtype=wdtype, scale_plus_one=block.rmsnorm_scale_plus_one,
+                           use_mean=block.use_layer_norm, use_bias=block.use_layer_norm,
                            device=device)
 
+        moe_subs = tuple(cfg.moe_sublayer_pattern) or block.moe_sublayers
+        self.moe = [use_moe and (moe_subs is None or i in moe_subs)
+                    for i in range(len(block.attention_pattern))]
         for i, attention_type in enumerate(block.attention_pattern):
             if block.use_pre_norm:
                 setattr(self, f"pre_self_attention_norm_{i}", norm())
                 setattr(self, f"pre_mlp_norm_{i}", norm())
-            setattr(self, f"self_attention_{i}",
-                    Attention(**_attention_kwargs(cfg, block, attention_type), device=device))
+            if block.use_mla:
+                attn = MLAttention(cfg, device=device)
+            else:
+                attn = Attention(**_attention_kwargs(cfg, block, attention_type), device=device)
+            setattr(self, f"self_attention_{i}", attn)
             if block.use_post_attn_norm:
                 setattr(self, f"post_self_attention_norm_{i}", norm())
-            setattr(self, f"mlp_{i}", MlpBlock(
-                cfg.emb_dim, cfg.mlp_dim, cfg.mlp_activations, dtype=dtype,
-                weight_dtype=wdtype, use_bias=block.use_mlp_bias,
-                quantization=cfg.quantization, dropout_rate=cfg.dropout_rate, device=device))
+            if self.moe[i]:
+                setattr(self, f"moe_{i}", RoutedMoE(cfg, device=device))
+            else:
+                setattr(self, f"mlp_{i}", MlpBlock(
+                    cfg.emb_dim, cfg.mlp_dim, cfg.mlp_activations, dtype=dtype,
+                    weight_dtype=wdtype, use_bias=block.use_mlp_bias,
+                    quantization=cfg.quantization, dropout_rate=cfg.dropout_rate,
+                    device=device))
             if block.use_post_ffw_norm:
                 setattr(self, f"post_ffw_norm_{i}", norm())
 
@@ -213,7 +224,7 @@ class DecoderLayer(nn.Module):
                 cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step,
                 cache_offset=cache_offset, decode_width=decode_width)
             x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out),
-                                   None if masks is None else masks[i])
+                                   None if masks is None else masks[i], impl)
         return x
 
     def _pre_attn(self, i, x):
@@ -234,7 +245,12 @@ class DecoderLayer(nn.Module):
             mlp_out = getattr(self, f"post_ffw_norm_{i}")(mlp_out)
         return x + mlp_out
 
-    def _mlp_sublayer(self, i, x, keep_mask=None):
+    def _mlp_sublayer(self, i, x, keep_mask=None, impl=None):
+        if self.moe[i]:  # nothing consumes the load-balance loss yet (MoE training: item 6)
+            mlp_out, _ = getattr(self, f"moe_{i}")(self._pre_mlp(i, x), impl, aux_loss=False)
+            if self.block.use_post_ffw_norm:
+                mlp_out = getattr(self, f"post_ffw_norm_{i}")(mlp_out)
+            return x + mlp_out
         pre = getattr(self, f"mlp_{i}").pre_wo(self._pre_mlp(i, x))
         return self._after_mlp(i, x, pre, keep_mask)
 
@@ -254,29 +270,50 @@ class DecoderLayer(nn.Module):
         return x1, getattr(self, f"mlp_{i}").pre_wo(self._pre_mlp(i, x1))
 
 
+def layer_regions(cfg: Config, group: int) -> list[tuple[str, int, bool]]:
+    """The decoder's regions (name, units, MoE), as the JAX package's: with
+    experts and ``first_num_dense_layers`` leading dense layers,
+    ``dense_layers`` then ``moe_layers``; otherwise one ``layers`` region."""
+    moe = cfg.num_experts > 1
+    if moe and cfg.first_num_dense_layers > 0:
+        regions = [("dense_layers", cfg.first_num_dense_layers // group, False),
+                   ("moe_layers", (cfg.num_decoder_layers - cfg.first_num_dense_layers) // group,
+                    True)]
+    else:
+        regions = [("layers", cfg.num_decoder_layers // group, moe)]
+    return [r for r in regions if r[1] > 0]
+
+
 class Decoder(nn.Module):
-    """Unrolled stack of DecoderLayers (``layers_{i}``)."""
+    """Unrolled stack of DecoderLayers: ``layers_{i}``, or ``dense_layers_{i}``
+    then ``moe_layers_{i}`` (deepseek's leading dense layers)."""
 
     def __init__(self, cfg: Config, block, device=None):
         super().__init__()
         if cfg.using_pipeline_parallelism:
             _unsupported("pipeline parallelism", "6, parallelism on torch.distributed")
         group = len(block.attention_pattern)
-        self.num_units = cfg.num_decoder_layers // group
+        self.unit_names = []
+        for region, units, use_moe in layer_regions(cfg, group):
+            for i in range(units):
+                name = f"{region}_{i}"
+                setattr(self, name, DecoderLayer(cfg, block, device=device, use_moe=use_moe))
+                self.unit_names.append(name)
+        self.num_units = len(self.unit_names)
         self.remat_policy = cfg.remat_policy
         self.group, self.mlp_dim = group, cfg.mlp_dim
-        for i in range(self.num_units):
-            setattr(self, f"layers_{i}", DecoderLayer(cfg, block, device=device))
+
+    def units(self) -> list[DecoderLayer]:
+        return [getattr(self, name) for name in self.unit_names]
 
     def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
-        """Per-unit list of per-sub-layer KVCaches."""
-        return [getattr(self, f"layers_{i}").init_cache(batch, max_length, device)
-                for i in range(self.num_units)]
+        """Per-unit list of per-sub-layer KVCaches (LatentCaches for MLA)."""
+        return [unit.init_cache(batch, max_length, device) for unit in self.units()]
 
     def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
         """Per-unit list of per-sub-layer page pools (PagedKVCaches)."""
-        return [getattr(self, f"layers_{i}").init_paged_cache(num_pages, tokens_per_page, device)
-                for i in range(self.num_units)]
+        return [unit.init_paged_cache(num_pages, tokens_per_page, device)
+                for unit in self.units()]
 
     def forward(self, y: torch.Tensor, positions, segment_ids, mode: str = MODE_TRAIN,
                 cache=None, impl: str | None = None, paged_step=None,
@@ -286,12 +323,12 @@ class Decoder(nn.Module):
         masks are taken before the unit runs."""
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
         shape = (*y.shape[:-1], self.mlp_dim)
-        for i in range(self.num_units):
+        for i, unit in enumerate(self.units()):
             masks = None
             if dropout is not None and mode == MODE_TRAIN:
                 masks = [dropout.keep_mask(i * self.group + j, shape, y.device)
                          for j in range(self.group)]
-            y = getattr(self, f"layers_{i}")(
+            y = unit(
                 y, positions, segment_ids, mode,
                 None if cache is None else cache[i], impl, remat, paged_step, masks,
                 cache_offset, decode_width)

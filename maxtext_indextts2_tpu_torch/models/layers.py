@@ -184,7 +184,9 @@ class DenseGeneral(nn.Module):
 class RMSNorm(nn.Module):
     """RMS layer norm: statistics and scale in float32, result cast back to
     the input dtype. ``scale_plus_one`` is the gemma convention (the
-    parameter stores scale-1)."""
+    parameter stores scale-1). With ``use_mean`` and ``use_bias`` it is a
+    LayerNorm (mean-centred, with a learned ``bias`` added after the scale):
+    the gpt3 family's norm, reductions in float32."""
 
     def __init__(
         self,
@@ -193,28 +195,41 @@ class RMSNorm(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         weight_dtype: torch.dtype = torch.float32,
         scale_plus_one: bool = False,
+        use_mean: bool = False,
+        use_bias: bool = False,
         device=None,
     ):
         super().__init__()
         self.epsilon = epsilon
         self.dtype = dtype
         self.scale_plus_one = scale_plus_one
+        self.use_mean = use_mean
         self.scale = nn.Parameter(
             torch.empty((features,), dtype=weight_dtype, device=device),
             requires_grad=False,
         )
+        self.bias = (nn.Parameter(torch.zeros((features,), dtype=weight_dtype, device=device),
+                                  requires_grad=False)
+                     if use_bias else None)
 
     def reset_parameters(self, generator=None):
         self.scale.fill_(0.0 if self.scale_plus_one else 1.0)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
+        if self.use_mean:
+            x32 = x32 - torch.mean(x32, dim=-1, keepdim=True)
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         normed = x32 * torch.rsqrt(var + self.epsilon)
         scale = self.scale.float()
         if self.scale_plus_one:
             scale = scale + 1.0
-        return (normed * scale).to(x.dtype)
+        out = normed * scale
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(x.dtype)
 
 
 class Embed(nn.Module):

@@ -98,3 +98,10 @@ def apply_rope(
         x1, x2 = x[..., :half], x[..., half:]
         out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(in_dtype)
+
+
+def yarn_attention_scaling(factor: float) -> float:
+    """mscale: temperature adjustment used with YaRN (deepseek convention)."""
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * float(np.log(factor)) + 1.0

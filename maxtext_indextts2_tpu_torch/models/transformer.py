@@ -31,10 +31,9 @@ from maxtext_indextts2_tpu_torch.unported import _unsupported
 class Transformer(nn.Module):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
-        if cfg.use_positional_embedding:
-            _unsupported("learned positional embeddings (gpt3)", "6, other model families")
         if cfg.mtp_num_layers > 0:
-            _unsupported("multi-token prediction layers", "6, other model families")
+            _unsupported("multi-token prediction layers (deepseek-v3's MTP loss)",
+                         "6, MTP and MoE training (item 6)")
         self.cfg = cfg
         self.block = get_block_style(cfg.decoder_block)
         dtype, wdtype = to_dtype(cfg.dtype), to_dtype(cfg.weight_dtype)
@@ -44,7 +43,12 @@ class Transformer(nn.Module):
         self.decoder_norm = RMSNorm(
             cfg.emb_dim, epsilon=cfg.normalization_layer_epsilon, dtype=dtype,
             weight_dtype=wdtype, scale_plus_one=self.block.rmsnorm_scale_plus_one,
+            use_mean=self.block.use_layer_norm, use_bias=self.block.use_layer_norm,
             device=device)
+        self.position_embedder = None
+        if cfg.use_positional_embedding:  # gpt3: learned positions
+            self.position_embedder = Embed(cfg.max_target_length, cfg.emb_dim, dtype=dtype,
+                                           weight_dtype=wdtype, device=device)
         self.logits_dense = None
         if not cfg.logits_via_embedding:
             self.logits_dense = DenseGeneral(
@@ -128,6 +132,8 @@ class Transformer(nn.Module):
         if self.block.scale_embedding:
             emb = emb * torch.tensor(self.cfg.emb_dim ** 0.5, dtype=emb.dtype,
                                      device=emb.device)
+        if self.position_embedder is not None:
+            emb = emb + self.position_embedder(positions)
         y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
                          paged_step=paged_step, dropout=dropout, cache_offset=cache_offset,
                          decode_width=decode_width)

@@ -74,6 +74,11 @@ SIGNATURES = {
     "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _I, _P],
     # (x, q, scale, bias, out, partial, M, K, N, splits, K a split, is_bf16, stream)
     "int8w_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # (x, w, offsets, out, rows, K, N, groups, tile_rows, stream)
+    "grouped_matmul_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # (x, w, offsets, row_scale, w_scale, out, rows, K, N, groups, tile_rows,
+    #  stream): null scales give the int32 sums
+    "grouped_matmul_int8": [_P] * 6 + [_I] * 5 + [_P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

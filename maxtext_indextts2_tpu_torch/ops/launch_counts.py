@@ -12,6 +12,7 @@ from __future__ import annotations
 from maxtext_indextts2_tpu_torch.ops import (
     ada_rmsnorm,
     flash_attention,
+    grouped_matmul,
     inplace_update,
     int8w_matmul,
     quant_kernels,
@@ -31,6 +32,7 @@ _SCALARS = (
 # (module, attribute holding a dict of integers)
 _DICTS = (
     (flash_attention, "launch_counts"),
+    (grouped_matmul, "launch_counts"),
     (quant_kernels, "launch_counts"),
     (inplace_update, "span_launch_counts"),
 )

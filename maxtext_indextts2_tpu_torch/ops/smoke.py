@@ -40,6 +40,7 @@ import torch
 
 from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm as arn
 from maxtext_indextts2_tpu_torch.ops import flash_attention as fa
+from maxtext_indextts2_tpu_torch.ops import grouped_matmul as gm
 from maxtext_indextts2_tpu_torch.ops import inplace_update as iu
 from maxtext_indextts2_tpu_torch.ops import int8w_matmul as iw
 from maxtext_indextts2_tpu_torch.ops import quant_kernels as qk
@@ -1326,7 +1327,13 @@ MAIN_PATH_CASES = {
                      "train_int8": "flash_bf16_main_path_dq",
                      "train_lora": "flash_bf16_main_path_dq"},
     "int8w_matmul": {"serve_int8w": "int8w_bf16_main_path",
-                     "flagship_serve_int8w": "int8w_bf16_flagship"},
+                     "flagship_serve_int8w": "int8w_bf16_flagship",
+                     "moe_serve_int8w": "int8w_bf16_qwen3_moe_decode"},
+    "grouped_matmul_bf16": {"moe_serve": "gmm_bf16_main_path",
+                            "mixtral_serve": "gmm_bf16_mixtral_decode_wi",
+                            "mla_serve": "gmm_bf16_deepseek_decode_wi",
+                            "llama4_serve": "gmm_bf16_llama4_decode_wi"},
+    "grouped_matmul_int8": {"moe_serve_int8w": "gmm_int8_main_path"},
     "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
                       "train_dropout": "flash_bf16_main_path_dkv",
                       "train_packed": "flash_bf16_emilia_packed_dkv",
@@ -1364,6 +1371,8 @@ INT8W_CASES = [
     ("int8w_bf16_odd_n", 32, 2048, 1001, {}),
     ("int8w_bf16_bias", 32, 2048, 2048, dict(bias=True)),
     ("int8w_f32_odd_k_n_bias", 7, 200, 77, dict(bias=True, dtype=torch.float32)),
+    # qwen3-30b-a3b's attention projections under int8w_serve at 8 slots
+    ("int8w_bf16_qwen3_moe_decode", 8, 2048, 4096, {}),
 ]
 
 
@@ -1470,6 +1479,189 @@ def int8w_cases(device, timing, full_size=True):
     return out
 
 
+# grouped_matmul (the MoE layer's grouped products) against its plain version
+# (a float32 product a group, exact products of the operands): both sides
+# round a float32 sum, summed in another order, to bfloat16, so they differ by
+# at most one bfloat16 step, at most 2**-7 of max(1, max |y|). The int8
+# variant's int32 sums are exact on both sides: equal.
+TOL_GMM_BF16 = 2.0 ** -7
+# (name, rows R, groups G, K, N, routing): decode at 8 slots (R = 8 x top-k;
+# 32 slots of qwen3 is 256 rows), each model's first product (wi_0 / wi_1:
+# emb -> expert mlp) and its last (wo), a prefill of 2048 tokens, and the
+# edge cases. Routing "uniform": each row's group drawn uniformly (at decode
+# many groups are empty, some hold a single row); "one": every row in one
+# group; "skewed": most rows in a few groups, some groups empty.
+GMM_CASES = [
+    ("gmm_bf16_main_path", 64, 128, 2048, 768, "uniform"),  # qwen3-30b-a3b decode wi
+    ("gmm_bf16_qwen3_decode_wo", 64, 128, 768, 2048, "uniform"),
+    ("gmm_bf16_qwen3_decode_32_slots", 256, 128, 2048, 768, "uniform"),
+    ("gmm_bf16_qwen3_prefill_wi", 2048 * 8, 128, 2048, 768, "uniform"),
+    ("gmm_bf16_qwen3_prefill_wo", 2048 * 8, 128, 768, 2048, "uniform"),
+    ("gmm_bf16_mixtral_decode_wi", 16, 8, 4096, 14336, "uniform"),
+    ("gmm_bf16_mixtral_decode_wo", 16, 8, 14336, 4096, "uniform"),
+    ("gmm_bf16_mixtral_prefill_wi", 2048 * 2, 8, 4096, 14336, "uniform"),
+    ("gmm_bf16_deepseek_decode_wi", 48, 64, 2048, 1408, "uniform"),
+    ("gmm_bf16_deepseek_decode_wo", 48, 64, 1408, 2048, "uniform"),
+    ("gmm_bf16_llama4_decode_wi", 8, 16, 5120, 8192, "uniform"),
+    ("gmm_bf16_llama4_decode_wo", 8, 16, 8192, 5120, "uniform"),
+    ("gmm_bf16_one_group_holds_all", 1000, 16, 512, 384, "one"),
+    ("gmm_bf16_skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
+    ("gmm_bf16_single_rows", 8, 128, 2048, 768, "uniform"),
+    ("gmm_int8_main_path", 64, 128, 2048, 768, "uniform"),
+    ("gmm_int8_qwen3_decode_wo", 64, 128, 768, 2048, "uniform"),
+    ("gmm_int8_qwen3_prefill_wi", 2048 * 8, 128, 2048, 768, "uniform"),
+    ("gmm_int8_mixtral_decode_wi", 16, 8, 4096, 14336, "uniform"),
+    ("gmm_int8_one_group_holds_all", 1000, 16, 512, 384, "one"),
+    ("gmm_int8_skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
+]
+
+
+def _gmm_groups(rows, groups, routing, g, device) -> torch.Tensor:
+    """Each row's group, sorted (the sparse route's order)."""
+    if routing == "one":
+        ids = torch.full((rows,), groups // 2, dtype=torch.long, device=device)
+    elif routing == "skewed":
+        hot = torch.randint(0, groups, (rows,), generator=g, device=device) % 4
+        cold = torch.randint(0, groups, (rows,), generator=g, device=device)
+        pick = torch.rand((rows,), generator=g, device=device) < 0.8
+        ids = torch.where(pick, hot * 3, cold) % groups
+        ids = torch.where(ids == groups - 1, ids - 1, ids)  # the last group stays empty
+    else:
+        ids = torch.randint(0, groups, (rows,), generator=g, device=device)
+    return torch.sort(ids).values
+
+
+def _gmm_library():
+    """``torch._grouped_mm`` where this PyTorch build has it and runs it here,
+    else None (timed as a yardstick only)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    x = torch.ones((32, 64), dtype=torch.bfloat16, device="cuda")
+    w = torch.ones((2, 64, 64), dtype=torch.bfloat16, device="cuda")
+    try:
+        fn(x, w, offs=torch.tensor([16, 32], dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError, TypeError):
+        return None
+
+
+def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
+    """grouped_matmul (bf16, the ``gmm_bf16_*`` cases) or grouped_matmul_int8
+    (``gmm_int8_*``: the int32 sums equal, the rescaled bf16 result within
+    :data:`TOL_GMM_BF16`) against its plain version."""
+    int8 = name.startswith("gmm_int8")
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = _gmm_groups(rows, groups, routing, g, device)
+    counts = torch.bincount(ids, minlength=groups)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
+                         torch.cumsum(counts, 0)]).to(torch.int32)
+    touched = int((counts > 0).sum().item())
+    kname = "grouped_matmul_int8" if int8 else "grouped_matmul_bf16"
+    count = "grouped_matmul_int8" if int8 else "grouped_matmul"
+    before = gm.launch_counts[count]
+    if int8:
+        x = torch.randint(-127, 128, (rows, k), generator=g, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (groups, k, n), generator=g, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        rs = (torch.rand((rows, 1), generator=g, device=device) + 0.5) / 127
+        ws = (torch.rand((groups, 1, n), generator=g, device=device) + 0.5) / (127 * k)
+        sums = gm.grouped_matmul_int8(x, w, offsets)
+        out = gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        want_sums = gm.grouped_matmul_int8(x, w, offsets, impl="plain")
+        ref = gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16, impl="plain")
+        err = float((sums.double() - want_sums.double()).abs().max().item())
+        tol = 0.0
+        launched = gm.launch_counts[count] - before
+        want_launched = 2
+    else:
+        x = torch.randn((rows, k), generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn((groups, k, n), generator=g, device=device)
+             / math.sqrt(k)).to(torch.bfloat16)
+        out = gm.grouped_matmul(x, w, offsets)
+        torch.cuda.synchronize()
+        launched = gm.launch_counts[count] - before
+        want_launched = 1
+        ref = gm.grouped_matmul(x, w, offsets, impl="plain")
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all().item())
+    out_err = float((out.float() - ref.float()).abs().max().item())
+    largest = float(ref.float().abs().max().item())
+    rel = out_err / max(1.0, largest)
+    res = dict(name=name, kernel=kname, finite=finite, launched=launched,
+               max_abs_out=largest,
+               shape=dict(rows=rows, groups=groups, k=k, n=n, routing=routing,
+                          groups_touched=touched, largest_group=int(counts.max().item()),
+                          tile_rows=gm.tile_rows(rows, groups)))
+    if int8:
+        res.update(max_abs_err=err, max_err=err, tol=tol, unit="int32 sums",
+                   scaled_max_abs_err=out_err, scaled_max_rel_err=rel,
+                   scaled_tol=TOL_GMM_BF16,
+                   ok=bool(err == 0 and rel <= TOL_GMM_BF16 and finite
+                           and launched == want_launched))
+    else:
+        res.update(max_abs_err=out_err, max_err=rel, tol=TOL_GMM_BF16,
+                   unit="relative to max(1, max |plain|)",
+                   ok=bool(rel <= TOL_GMM_BF16 and finite and launched == want_launched))
+    if name in main_path_case_names():
+        again = (gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16) if int8
+                 else gm.grouped_matmul(x, w, offsets))
+        res["repeat_bitwise_equal"] = bool(torch.equal(again, out))
+        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
+    if timing:
+        esize = 1 if int8 else 2
+        # the touched groups' weights, the rows in, the result out (bf16), the offsets
+        nbytes = (touched * k * n * esize + rows * k * esize + rows * n * 2
+                  + 4 * (groups + 1) + (4 * rows + 4 * touched * n if int8 else 0))
+        ops = 2 * rows * k * n
+        peak = 1979e12 if int8 else PEAK_OPS_PER_S[torch.bfloat16]
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        if int8:
+            def kernel():
+                return gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16)
+
+            def plain():
+                return gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16,
+                                              impl="plain")
+        else:
+            def kernel():
+                return gm.grouped_matmul(x, w, offsets)
+
+            def plain():
+                return gm.grouped_matmul(x, w, offsets, impl="plain")
+        library = None if int8 else _gmm_library()
+        ends = offsets[1:].contiguous()
+        res.update(
+            kernel_ms=time_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1, iters=3), plain_device_ms=None,
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            bytes_moved=nbytes, ops=ops, library_ms=None, library_device_ms=None,
+            library_call=None if library is None else "torch._grouped_mm")
+        if library is not None:
+            def library_call():
+                return library(x, w, offs=ends)
+
+            res.update(library_ms=time_ms(library_call),
+                       library_device_ms=device_ms(library_call))
+    return res
+
+
+def gmm_cases(device, timing, full_size=True):
+    """grouped_matmul at every shape of :data:`GMM_CASES` (``full_size=False``:
+    K and N cut by 4, rows by 8)."""
+    out = []
+    for i, (name, rows, groups, k, n, routing) in enumerate(GMM_CASES):
+        if not full_size:
+            rows, k, n = max(8, rows // 8), max(64, k // 4), max(64, n // 4)
+        out.append(gmm_case(name, device, timing, rows=rows, groups=groups, k=k, n=n,
+                            routing=routing, seed=80 + i))
+    return out
+
+
 # the part of every K9-K11 instantiation's mangled name (namespace ``flash``)
 FLASH_KERNEL_NAMES = "_ZN5flash"
 
@@ -1571,16 +1763,17 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
     return ragged_cases(device, timing, full_size, serve_slots) \
         + paged_cases(device, timing, full_size, serve_slots) \
         + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
-        + flash_cases(device, timing, full_size) + int8w_cases(device, timing, full_size)
+        + flash_cases(device, timing, full_size) + int8w_cases(device, timing, full_size) \
+        + gmm_cases(device, timing, full_size)
 
 
 def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows", "int8w"}:
+    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows", "int8w", "gmm"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[ragged | flash | paged | s2a | rows | int8w]")
+                         "[ragged | flash | paged | s2a | rows | int8w | gmm]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
@@ -1596,6 +1789,8 @@ def main(argv=None):
         results = row_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "int8w" in argv:  # int8w_matmul only
         results = int8w_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "gmm" in argv:  # grouped_matmul only
+        results = gmm_cases(torch.device("cuda"), timing=True, full_size=full)
     else:
         results = run_all(full_size=full)
     for r in results:
@@ -1604,10 +1799,12 @@ def main(argv=None):
 
     selected = set(argv) - {"small"}
     reports = []  # registers and spills of the instantiations these cases ran
-    if not selected & {"flash", "s2a", "rows", "int8w"}:
+    if not selected & {"flash", "s2a", "rows", "int8w", "gmm"}:
         reports.append("ragged_decode_kernel")  # K1 / K3 / K4
     if not selected or "int8w" in selected:
         reports.append("int8w_matmul")
+    if not selected or "gmm" in selected:
+        reports.append("grouped_matmul")
     if not selected or "rows" in selected:
         reports.append("norm_rows_kernel")  # K5 / K7
     if not selected or "flash" in selected:

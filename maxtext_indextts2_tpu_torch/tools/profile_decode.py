@@ -96,7 +96,7 @@ def main(argv=None):
         print(json.dumps({"phase": "profile", "card": card, **prof}), flush=True)
 
 
-OWN_KERNELS = ("ragged_decode_kernel", "row_copy", "int8w")
+OWN_KERNELS = ("ragged_decode_kernel", "row_copy", "int8w", "grouped_matmul")
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
                  "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 

@@ -3,8 +3,10 @@
 The counterpart of the JAX package's ``tools/quantize_checkpoint.py`` (at the
 repository root): an ``int8w_serve`` engine loads the float checkpoint (or,
 without ``load_parameters_path``, the seeded weights of the unquantized
-model) and quantizes it (int8 kernels, float32 per-output-channel scales,
-``ops/quantization.quantize_params_for_serving``); its state dict is written
+model) and quantizes it (int8 kernels, float32 per-output-channel scales;
+an MoE layer's experts ``[E, in, out]`` int8 with one scale an (expert,
+output channel), ``[E, 1, out]``: ``ops/quantization.quantize_params_for_serving``,
+the JAX package's rule); its state dict is written
 as a params-only checkpoint in this package's own format
 (``train/checkpointing.save_params_only``). A serving job then reads it as it
 is with ``quantization=int8w_serve checkpoint_is_quantized=true``, half the

@@ -34,11 +34,11 @@ from collections.abc import Mapping
 
 import torch
 
+from maxtext_indextts2_tpu_torch.utils.param_bridge import LAYER_REGIONS, is_unrolled_key
+
 logger = logging.getLogger(__name__)
 
 PARAMS_FILE, OPT_FILE, META_FILE = "params.pt", "opt_state.pt", "meta.json"
-# scan regions of the JAX package's decoder (dense / MoE split included)
-_LAYER_REGIONS = ("layers", "dense_layers", "moe_layers")
 
 
 class _Snapshot:
@@ -307,11 +307,6 @@ def load_params_only(path: str, abstract_params=None) -> dict[str, torch.Tensor]
     return params
 
 
-def _is_unrolled_key(k: str) -> bool:
-    base, _, idx = k.rpartition("_")
-    return base in _LAYER_REGIONS and idx.isdigit()
-
-
 def _decoder_keys(names) -> set[str]:
     return {n.split(".")[1] for n in names if n.startswith("decoder.") and n.count(".") >= 2}
 
@@ -321,9 +316,9 @@ def names_are_scanned(names) -> bool | None:
     layer axis); False: unrolled (``decoder.layers_{i}.*``); None: no
     decoder layers among ``names``."""
     keys = _decoder_keys(names)
-    if any(k in _LAYER_REGIONS for k in keys):
+    if any(k in LAYER_REGIONS for k in keys):
         return True
-    if any(_is_unrolled_key(k) for k in keys):
+    if any(is_unrolled_key(k) for k in keys):
         return False
     return None
 
@@ -344,7 +339,7 @@ def unroll_scanned_params(params: dict) -> dict:
     out = {}
     for name, t in params.items():
         parts = name.split(".")
-        if len(parts) > 2 and parts[0] == "decoder" and parts[1] in _LAYER_REGIONS:
+        if len(parts) > 2 and parts[0] == "decoder" and parts[1] in LAYER_REGIONS:
             rest = ".".join(parts[2:])
             for i in range(t.shape[0]):
                 out[f"decoder.{parts[1]}_{i}.{rest}"] = t[i]
@@ -360,7 +355,7 @@ def stack_unrolled_params(params: dict) -> dict:
     groups: dict = {}
     for name, t in params.items():
         parts = name.split(".")
-        if len(parts) > 2 and parts[0] == "decoder" and _is_unrolled_key(parts[1]):
+        if len(parts) > 2 and parts[0] == "decoder" and is_unrolled_key(parts[1]):
             region, _, i = parts[1].rpartition("_")
             groups.setdefault(f"decoder.{region}.{'.'.join(parts[2:])}", {})[int(i)] = t
         else:

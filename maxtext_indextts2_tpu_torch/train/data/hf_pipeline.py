@@ -78,4 +78,4 @@ def make_hf_vision_sft_iterator(cfg: Config, process_index: int = 0, process_cou
     from maxtext_indextts2_tpu_torch.unported import _unsupported
 
     _unsupported("the vision SFT data iterator",
-                 "6, other model families: train/sft.py, item 6")
+                 "6, vision: train/sft.py, item 6")

@@ -84,9 +84,11 @@ def check_training_config(cfg: Config) -> None:
     """Raise on what this slice of the port does not train (before any
     weight is made); an unknown remat policy raises too."""
     if cfg.mtp_num_layers > 0:
-        _unsupported("the multi-token-prediction auxiliary loss", "6, other model families")
+        _unsupported("the multi-token-prediction auxiliary loss",
+                     "6, MTP and MoE training (item 6)")
     if cfg.num_experts > 1:
-        _unsupported("the MoE load-balance auxiliary loss", "6, other model families")
+        _unsupported("the MoE load-balance auxiliary loss and the grouped products' backward",
+                     "6, MTP and MoE training (item 6)")
     if cfg.quantization == "int8w_serve":
         raise ValueError("quantization=int8w_serve is a serving structure: its int8 kernels "
                          "take no gradient (train with int8, int8w or fp8)")

@@ -10,9 +10,11 @@ every kernel in the JAX layout ``[in..., out...]``, float32 as the JAX
 converters make them (``utils/param_bridge.py`` docstring). The export
 direction keeps each tensor's dtype.
 
-The families of ROADMAP item 6 (mixtral, deepseek, gpt2 / paxml gpt3,
-llama4, qwen3_moe and the vision towers) raise ``NotImplementedError`` with
-that item.
+The other families have the JAX package's converters: mixtral (both
+directions), deepseek (MLA, dense layers), qwen3_moe, gpt2 and paxml gpt3
+(LayerNorm biases, learned positions) and the llama4 text model (units of 4
+sub-layers, experts and a shared expert). The vision towers' converters
+raise ``NotImplementedError`` naming ROADMAP item 6's vision part.
 
 CLI, both directions, with ``key=value`` config overrides after the flags::
 
@@ -37,9 +39,6 @@ import torch
 
 from maxtext_indextts2_tpu_torch.config import Config
 from maxtext_indextts2_tpu_torch.unported import _unsupported
-
-_ITEM6 = "6, other model families"
-
 
 def _t(x) -> torch.Tensor:
     """A float32 CPU tensor of a torch leaf (numpy leaves keep their dtype),
@@ -212,28 +211,302 @@ def convert_framework_to_hf_gemma3(params: dict, cfg: Config,
     return _export_grouped(params, cfg, 6, True, hf_vocab_size)
 
 
-def _item6(name: str, what: str):
+def _stack_experts(get, fmt: str, layer: int, n_exp: int, transform) -> torch.Tensor:
+    """``[E, in, out]``: expert ``e``'s HF weight ``fmt.format(layer, e)``, transformed."""
+    return torch.stack([transform(get(fmt.format(layer, e))) for e in range(n_exp)])
+
+
+def _attention(get, h: str, a: str, cfg: Config) -> dict[str, torch.Tensor]:
+    """The llama layout's q / k / v / o projections of HF layer prefix ``h``."""
+    E, nq, nkv, hd = _dims(cfg)
+    return {
+        a + "query.kernel": _c(get(h + "self_attn.q_proj.weight").T.reshape(E, nq, hd)),
+        a + "key.kernel": _c(get(h + "self_attn.k_proj.weight").T.reshape(E, nkv, hd)),
+        a + "value.kernel": _c(get(h + "self_attn.v_proj.weight").T.reshape(E, nkv, hd)),
+        a + "out.kernel": _c(get(h + "self_attn.o_proj.weight").T.reshape(nq, hd, E)),
+    }
+
+
+def _lm_head(state_dict: dict, cfg: Config) -> torch.Tensor:
+    return _c(_pad_vocab(_t(state_dict["lm_head.weight"]), cfg.vocab_size).T)
+
+
+def convert_hf_mixtral_to_framework(state_dict: dict, cfg: Config) -> dict[str, torch.Tensor]:
+    """HF Mixtral -> this package's state dict: llama attention, per-layer
+    stacked experts (w1 -> ``wi_0`` gate, w3 -> ``wi_1`` up, w2 -> ``wo``) and
+    the router as ``moe_0.gate``."""
+    sd = state_dict
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {"token_embedder.embedding": _pad_vocab(get("model.embed_tokens.weight"),
+                                                  cfg.vocab_size)}
+    fmt = "model.layers.{}.block_sparse_moe.experts.{}.%s.weight"
+    for i in range(cfg.num_decoder_layers):
+        h, pre = f"model.layers.{i}.", f"decoder.layers_{i}."
+        out.update(_attention(get, h, pre + "self_attention_0.", cfg))
+        m = pre + "moe_0."
+        out[m + "gate.kernel"] = _c(get(h + "block_sparse_moe.gate.weight").T)
+        for name, hf in (("wi_0", "w1"), ("wi_1", "w3"), ("wo", "w2")):
+            out[m + name] = _stack_experts(get, fmt % hf, i, cfg.num_experts, lambda w: w.T)
+        out[pre + "pre_self_attention_norm_0.scale"] = get(h + "input_layernorm.weight")
+        out[pre + "pre_mlp_norm_0.scale"] = get(h + "post_attention_layernorm.weight")
+    out["decoder_norm.scale"] = get("model.norm.weight")
+    out["logits_dense.kernel"] = _lm_head(sd, cfg)
+    return out
+
+
+def convert_framework_to_hf_mixtral(params: dict, cfg: Config,
+                                    hf_vocab_size: int | None = None) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`convert_hf_mixtral_to_framework` (dtypes kept).
+    ``hf_vocab_size`` trims rows the import padded."""
+    E, nq, nkv, hd = _dims(cfg)
+    v = hf_vocab_size or cfg.vocab_size
+
+    def g(name):
+        return params[name].detach().cpu()
+
+    sd = {"model.embed_tokens.weight": _c(g("token_embedder.embedding")[:v]),
+          "model.norm.weight": g("decoder_norm.scale"),
+          "lm_head.weight": _c(g("logits_dense.kernel").T[:v])}
+    for i in range(cfg.num_decoder_layers):
+        h, pre = f"model.layers.{i}.", f"decoder.layers_{i}."
+        a, m = pre + "self_attention_0.", pre + "moe_0."
+        sd[h + "self_attn.q_proj.weight"] = _c(g(a + "query.kernel").reshape(E, nq * hd).T)
+        sd[h + "self_attn.k_proj.weight"] = _c(g(a + "key.kernel").reshape(E, nkv * hd).T)
+        sd[h + "self_attn.v_proj.weight"] = _c(g(a + "value.kernel").reshape(E, nkv * hd).T)
+        sd[h + "self_attn.o_proj.weight"] = _c(g(a + "out.kernel").reshape(nq * hd, E).T)
+        sd[h + "block_sparse_moe.gate.weight"] = _c(g(m + "gate.kernel").T)
+        for e in range(cfg.num_experts):
+            ep = f"{h}block_sparse_moe.experts.{e}."
+            sd[ep + "w1.weight"] = _c(g(m + "wi_0")[e].T)
+            sd[ep + "w3.weight"] = _c(g(m + "wi_1")[e].T)
+            sd[ep + "w2.weight"] = _c(g(m + "wo")[e].T)
+        sd[h + "input_layernorm.weight"] = g(pre + "pre_self_attention_norm_0.scale")
+        sd[h + "post_attention_layernorm.weight"] = g(pre + "pre_mlp_norm_0.scale")
+    return sd
+
+
+def convert_hf_deepseek_to_framework(state_dict: dict, cfg: Config) -> dict[str, torch.Tensor]:
+    """HF DeepseekV2 / V3 (dense layers) -> this package's MLA state dict:
+    q_a / q_b (or q_proj), kv_a_proj_with_mqa, kv_b_proj and o_proj onto
+    ``wq_a`` / ``wq_b`` (``wq``), ``wkv_a``, ``wkv_b`` and ``out``; every
+    layer's MLP dense, in the ``layers`` region (the JAX package's converter
+    has no expert layers either)."""
+    sd = state_dict
+    n = cfg.num_query_heads
+    d_qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    d_kv_out = cfg.qk_nope_head_dim + cfg.v_head_dim
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {"token_embedder.embedding": _pad_vocab(get("model.embed_tokens.weight"),
+                                                  cfg.vocab_size)}
+    for i in range(cfg.num_decoder_layers):
+        h, pre = f"model.layers.{i}.", f"decoder.layers_{i}."
+        a = pre + "self_attention_0."
+        out[a + "wkv_a.kernel"] = _c(get(h + "self_attn.kv_a_proj_with_mqa.weight").T)
+        out[a + "kv_norm.scale"] = get(h + "self_attn.kv_a_layernorm.weight")
+        out[a + "wkv_b.kernel"] = _c(get(h + "self_attn.kv_b_proj.weight").T.reshape(
+            cfg.kv_lora_rank, n, d_kv_out))
+        out[a + "out.kernel"] = _c(get(h + "self_attn.o_proj.weight").T.reshape(
+            n, cfg.v_head_dim, -1))
+        if cfg.q_lora_rank > 0:
+            out[a + "wq_a.kernel"] = _c(get(h + "self_attn.q_a_proj.weight").T)
+            out[a + "q_norm.scale"] = get(h + "self_attn.q_a_layernorm.weight")
+            out[a + "wq_b.kernel"] = _c(get(h + "self_attn.q_b_proj.weight").T.reshape(
+                cfg.q_lora_rank, n, d_qk))
+        else:
+            out[a + "wq.kernel"] = _c(get(h + "self_attn.q_proj.weight").T.reshape(-1, n, d_qk))
+        m = pre + "mlp_0."
+        out[m + "wi_0.kernel"] = _c(get(h + "mlp.gate_proj.weight").T)
+        out[m + "wi_1.kernel"] = _c(get(h + "mlp.up_proj.weight").T)
+        out[m + "wo.kernel"] = _c(get(h + "mlp.down_proj.weight").T)
+        out[pre + "pre_self_attention_norm_0.scale"] = get(h + "input_layernorm.weight")
+        out[pre + "pre_mlp_norm_0.scale"] = get(h + "post_attention_layernorm.weight")
+    out["decoder_norm.scale"] = get("model.norm.weight")
+    out["logits_dense.kernel"] = _lm_head(sd, cfg)
+    return out
+
+
+def convert_hf_qwen3_moe_to_framework(state_dict: dict,
+                                      cfg: Config) -> dict[str, torch.Tensor]:
+    """HF Qwen3MoeForCausalLM -> this package's state dict: the qwen3 block
+    (q / k norms) through the llama mapping, every layer's MLP a
+    ``RoutedMoE`` (per-expert Linear weights stacked ``[E, in, out]``, the
+    gate as the router's kernel)."""
+    sd = state_dict
+
+    def get(name):
+        return _t(sd[name])
+
+    dense_keys = {k: v for k, v in sd.items() if ".mlp." not in k}
+    out = convert_hf_llama_to_framework(dense_keys, cfg)
+    fmt = "model.layers.{}.mlp.experts.{}.%s.weight"
+    for i in range(cfg.num_decoder_layers):
+        m = f"decoder.layers_{i}.moe_0."
+        out[m + "gate.kernel"] = _c(get(f"model.layers.{i}.mlp.gate.weight").T)
+        for name, hf in (("wi_0", "gate_proj"), ("wi_1", "up_proj"), ("wo", "down_proj")):
+            out[m + name] = _stack_experts(get, fmt % hf, i, cfg.num_experts, lambda w: w.T)
+    return out
+
+
+def convert_hf_gpt2_to_framework(state_dict: dict, cfg: Config) -> dict[str, torch.Tensor]:
+    """HF GPT-2 -> this package's gpt3-family state dict: LayerNorms with
+    bias, the fused qkv Conv1D split, attention and MLP biases, learned
+    positions, tied unembedding (HF's Conv1D stores ``[in, out]``: no
+    transpose)."""
+    sd = state_dict
+    E, nq, nkv, hd = _dims(cfg)
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {"token_embedder.embedding": _pad_vocab(get("transformer.wte.weight"), cfg.vocab_size),
+           "position_embedder.embedding": _pad_vocab(get("transformer.wpe.weight"),
+                                                     cfg.max_target_length)}
+    for i in range(cfg.num_decoder_layers):
+        h, pre = f"transformer.h.{i}.", f"decoder.layers_{i}."
+        a = pre + "self_attention_0."
+        w, b = get(h + "attn.c_attn.weight"), get(h + "attn.c_attn.bias")
+        for part, name in enumerate(("query", "key", "value")):
+            heads = nq if part == 0 else nkv
+            out[a + name + ".kernel"] = _c(w[:, part * E:(part + 1) * E].reshape(E, heads, hd))
+            out[a + name + ".bias"] = _c(b[part * E:(part + 1) * E].reshape(heads, hd))
+        out[a + "out.kernel"] = _c(get(h + "attn.c_proj.weight").reshape(nq, hd, E))
+        out[a + "out.bias"] = get(h + "attn.c_proj.bias")
+        out[pre + "mlp_0.wi.kernel"] = get(h + "mlp.c_fc.weight")
+        out[pre + "mlp_0.wi.bias"] = get(h + "mlp.c_fc.bias")
+        out[pre + "mlp_0.wo.kernel"] = get(h + "mlp.c_proj.weight")
+        out[pre + "mlp_0.wo.bias"] = get(h + "mlp.c_proj.bias")
+        for norm, hf in (("pre_self_attention_norm_0", "ln_1"), ("pre_mlp_norm_0", "ln_2")):
+            out[f"{pre}{norm}.scale"] = get(f"{h}{hf}.weight")
+            out[f"{pre}{norm}.bias"] = get(f"{h}{hf}.bias")
+    out["decoder_norm.scale"] = get("transformer.ln_f.weight")
+    out["decoder_norm.bias"] = get("transformer.ln_f.bias")
+    return out
+
+
+def convert_paxml_gpt3_to_framework(get, cfg: Config) -> dict[str, torch.Tensor]:
+    """paxml-format GPT-3 (the MLPerf reference checkpoint) -> this package's
+    gpt3-family state dict. ``get(name)`` returns the paxml variable of a
+    dotted name such as
+    ``.params.lm.transformer.repeat.sub.x_layers_0.self_attention.combined_qkv.w``
+    (a tensorstore reader, :func:`load_paxml_gpt3_checkpoint`, or a dict):
+    every layer variable carries a leading layer axis, ``combined_qkv.w``
+    ``[L, 3, E, nq, hd]``, ``post.w`` ``[L, E, nq, hd]`` (-> ``out`` ``[nq, hd,
+    E]``), the tied ``softmax.logits_ffn.linear.w`` ``[E, V]``."""
+    E, nq, hd = cfg.emb_dim, cfg.num_query_heads, cfg.head_dim
+    P = ".params.lm"
+    X = P + ".transformer.repeat.sub.x_layers_0"
+
+    def g(name):
+        return _t(np.asarray(get(name)))
+
+    w, b = g(f"{X}.self_attention.combined_qkv.w"), g(f"{X}.self_attention.combined_qkv.b")
+    out_w = g(f"{X}.self_attention.post.w")
+    per_layer = {
+        "self_attention_0.out.bias": g(f"{X}.self_attention.post.b"),
+        "mlp_0.wi.kernel": g(f"{X}.ff_layer.ffn_layer1.linear.w"),
+        "mlp_0.wi.bias": g(f"{X}.ff_layer.ffn_layer1.bias.b"),
+        "mlp_0.wo.kernel": g(f"{X}.ff_layer.ffn_layer2.linear.w"),
+        "mlp_0.wo.bias": g(f"{X}.ff_layer.ffn_layer2.bias.b"),
+        "pre_self_attention_norm_0.scale": g(f"{X}.layer_norm.scale"),
+        "pre_self_attention_norm_0.bias": g(f"{X}.layer_norm.bias"),
+        "pre_mlp_norm_0.scale": g(f"{X}.ff_layer.layer_norm.scale"),
+        "pre_mlp_norm_0.bias": g(f"{X}.ff_layer.layer_norm.bias"),
+    }
+    out = {"token_embedder.embedding": _pad_vocab(
+               _c(g(f"{P}.softmax.logits_ffn.linear.w").T), cfg.vocab_size),
+           "position_embedder.embedding": _pad_vocab(g(f"{P}.position_emb.emb_var"),
+                                                     cfg.max_target_length)}
+    for i in range(w.shape[0]):
+        pre = f"decoder.layers_{i}."
+        for part, name in enumerate(("query", "key", "value")):
+            out[f"{pre}self_attention_0.{name}.kernel"] = _c(w[i, part].reshape(E, nq, hd))
+            out[f"{pre}self_attention_0.{name}.bias"] = _c(b[i, part].reshape(nq, hd))
+        out[f"{pre}self_attention_0.out.kernel"] = _c(torch.movedim(out_w[i], 0, -1))
+        out.update({pre + k: _c(v[i]) for k, v in per_layer.items()})
+    out["decoder_norm.scale"] = g(f"{P}.final_ln.scale")
+    out["decoder_norm.bias"] = g(f"{P}.final_ln.bias")
+    return out
+
+
+def load_paxml_gpt3_checkpoint(path: str, cfg: Config) -> dict[str, torch.Tensor]:
+    """Read a paxml GPT-3 checkpoint (its ``state`` directory: each variable a
+    zarr tensorstore in a directory named ``mdl_vars<dotted name>``, local or
+    ``gs://``) and convert it. Needs ``tensorstore`` (imported here only)."""
+    import tensorstore as ts
+
+    def get(name):
+        full = f"mdl_vars{name}"
+        if path.startswith("gs://"):
+            bucket, prefix = path[len("gs://"):].split("/", 1)
+            kv = {"driver": "gcs", "bucket": bucket, "path": os.path.join(prefix, full)}
+        else:
+            kv = {"driver": "file", "path": os.path.join(path, full)}
+        spec = {"driver": "zarr", "metadata_key": ".zarray", "kvstore": kv}
+        return ts.open(ts.Spec(spec), open=True).result().read().result()
+
+    return convert_paxml_gpt3_to_framework(get, cfg)
+
+
+def convert_hf_llama4_to_framework(state_dict: dict, cfg: Config) -> dict[str, torch.Tensor]:
+    """HF Llama4 text model -> this package's llama4-family state dict: units
+    of 4 sub-layers (HF layer ``4 u + sub``), each MLP a ``RoutedMoE``: the
+    router as its gate, the fused experts ``gate_up_proj`` ``[E, H, 2M]``
+    split into ``wi_0`` / ``wi_1``, ``down_proj`` as ``wo``, and the shared
+    expert's gated MLP."""
+    sd = state_dict
+    m = cfg.moe_mlp_dim
+    group = 4
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {"token_embedder.embedding": _pad_vocab(get("model.embed_tokens.weight"),
+                                                  cfg.vocab_size)}
+    for u in range(cfg.num_decoder_layers // group):
+        pre = f"decoder.layers_{u}."
+        for sub in range(group):
+            h = f"model.layers.{group * u + sub}."
+            out.update(_attention(get, h, f"{pre}self_attention_{sub}.", cfg))
+            moe = f"{pre}moe_{sub}."
+            ff = h + "feed_forward."
+            gate_up = get(ff + "experts.gate_up_proj")
+            out[moe + "gate.kernel"] = _c(get(ff + "router.weight").T)
+            out[moe + "wi_0"] = _c(gate_up[:, :, :m])
+            out[moe + "wi_1"] = _c(gate_up[:, :, m:])
+            out[moe + "wo"] = get(ff + "experts.down_proj")
+            for name, hf in (("wi_0", "gate_proj"), ("wi_1", "up_proj"), ("wo", "down_proj")):
+                out[f"{moe}shared_experts.{name}.kernel"] = _c(
+                    get(f"{ff}shared_expert.{hf}.weight").T)
+            out[f"{pre}pre_self_attention_norm_{sub}.scale"] = get(h + "input_layernorm.weight")
+            out[f"{pre}pre_mlp_norm_{sub}.scale"] = get(h + "post_attention_layernorm.weight")
+    out["decoder_norm.scale"] = get("model.norm.weight")
+    if not cfg.logits_via_embedding:
+        out["logits_dense.kernel"] = _lm_head(sd, cfg)
+    return out
+
+
+_VISION = "6, vision (item 6)"
+
+
+def _vision(name: str):
     def refuse(*args, **kwargs):
-        _unsupported(f"{name} ({what})", _ITEM6)
+        _unsupported(f"{name} (a vision tower)", _VISION)
 
     refuse.__name__ = name
-    refuse.__doc__ = f"{what}: not ported (ROADMAP.md, port queue item 6)."
+    refuse.__doc__ = "A vision tower's converter: not ported (ROADMAP.md, port queue item 6)."
     return refuse
 
 
-convert_hf_mixtral_to_framework = _item6("convert_hf_mixtral_to_framework", "mixtral MoE")
-convert_framework_to_hf_mixtral = _item6("convert_framework_to_hf_mixtral", "mixtral MoE")
-convert_hf_deepseek_to_framework = _item6("convert_hf_deepseek_to_framework", "deepseek MLA")
-convert_hf_gpt2_to_framework = _item6("convert_hf_gpt2_to_framework", "gpt2 / gpt3 LayerNorm")
-convert_paxml_gpt3_to_framework = _item6("convert_paxml_gpt3_to_framework", "paxml gpt3")
-load_paxml_gpt3_checkpoint = _item6("load_paxml_gpt3_checkpoint", "paxml gpt3")
-convert_hf_llama4_to_framework = _item6("convert_hf_llama4_to_framework", "llama4")
-convert_hf_qwen3_moe_to_framework = _item6("convert_hf_qwen3_moe_to_framework", "qwen3 MoE")
-convert_hf_siglip_to_framework = _item6("convert_hf_siglip_to_framework", "vision tower")
-convert_hf_gemma3_multimodal = _item6("convert_hf_gemma3_multimodal", "vision tower")
-convert_hf_llama4_vision_to_framework = _item6("convert_hf_llama4_vision_to_framework",
-                                               "vision tower")
-convert_hf_llama4_multimodal = _item6("convert_hf_llama4_multimodal", "vision tower")
+convert_hf_siglip_to_framework = _vision("convert_hf_siglip_to_framework")
+convert_hf_gemma3_multimodal = _vision("convert_hf_gemma3_multimodal")
+convert_hf_llama4_vision_to_framework = _vision("convert_hf_llama4_vision_to_framework")
+convert_hf_llama4_multimodal = _vision("convert_hf_llama4_multimodal")
 
 # decoder_block -> (HF->framework, framework->HF or None), the JAX package's table
 _CONVERTERS = {
@@ -251,18 +524,15 @@ _CONVERTERS = {
     "llama4": ("convert_hf_llama4_to_framework", None),
     "qwen3_moe": ("convert_hf_qwen3_moe_to_framework", None),
 }
-_ITEM6_BLOCKS = ("mixtral", "deepseek", "gpt3", "gpt3_paxml", "llama4", "qwen3_moe")
 
 
 def get_converter(decoder_block: str, direction: str = "to_framework"):
     """Converter for a decoder_block family and direction ('to_framework' |
-    'to_hf'). Unknown families raise ``ValueError``, item-6 families
-    ``NotImplementedError``."""
+    'to_hf'). An unknown family, or a direction the family has no converter
+    for, raises ``ValueError``."""
     if decoder_block not in _CONVERTERS:
         raise ValueError(f"no converters for decoder_block={decoder_block}; "
                          f"supported: {sorted(_CONVERTERS)}")
-    if decoder_block in _ITEM6_BLOCKS:
-        _unsupported(f"the {decoder_block} checkpoint converters", _ITEM6)
     to_fw, to_hf = _CONVERTERS[decoder_block]
     name = to_fw if direction == "to_framework" else to_hf
     if name is None:

@@ -12,6 +12,14 @@ checkpoints, the split of the leading layer axis::
     decoder/layers/self_attention_0/query/kernel[3]  (scan-stacked, axis 0)
       -> decoder.layers_3.self_attention_0.query.kernel
 
+The same holds for deepseek's two regions, ``dense_layers`` and
+``moe_layers`` (``decoder.moe_layers_0.moe_0.wi_0``: an expert tensor
+``[E, emb, mlp]``, a direct parameter of ``RoutedMoE``; ``wi_0_scale`` and its
+siblings under ``int8w_serve``; ``shared_experts.wi_0.kernel``), the MLA
+projections (``self_attention_0.wkv_a.kernel``, ``kv_norm.scale``, ...), the
+LayerNorm biases (``pre_mlp_norm_0.bias``) and the learned positions
+(``position_embedder.embedding``).
+
 The optimizer state crosses the same way (:func:`opt_state_from_jax`,
 :func:`opt_state_to_jax`): ``count``, ``mu`` and ``nu`` of adamw and
 adam_pax (optax's ``ScaleByAdamState``, alone or inside adamw's chain) and
@@ -49,7 +57,14 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-_SCAN_REGIONS = ("layers",)
+# the decoder's layer regions (``models/decoder.layer_regions``)
+LAYER_REGIONS = ("layers", "dense_layers", "moe_layers")
+
+
+def is_unrolled_key(key: str) -> bool:
+    """``layers_3``, ``dense_layers_0``, ``moe_layers_12``: an unrolled unit."""
+    base, _, idx = key.rpartition("_")
+    return base in LAYER_REGIONS and idx.isdigit()
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -88,10 +103,13 @@ def params_from_jax(tree, cfg=None) -> dict[str, torch.Tensor]:
     checks the number of layers."""
     flat = _flat_from_jax(tree)
     if cfg is not None:
-        units = {p.split(".")[1] for p in flat if p.startswith("decoder.layers_")}
+        units = {p.split(".")[1] for p in flat
+                 if p.startswith("decoder.") and is_unrolled_key(p.split(".")[1])}
+        from maxtext_indextts2_tpu_torch.models.decoder import layer_regions
         from maxtext_indextts2_tpu_torch.models.registry import get_block_style
 
-        want = cfg.num_decoder_layers // len(get_block_style(cfg.decoder_block).attention_pattern)
+        group = len(get_block_style(cfg.decoder_block).attention_pattern)
+        want = sum(n for _, n, _ in layer_regions(cfg, group))
         if len(units) != want:
             raise ValueError(f"tree has {len(units)} decoder units, config wants {want}")
     # np.array copies: the tensors own writable, contiguous memory
@@ -109,7 +127,7 @@ def _flat_from_jax(tree) -> dict[str, np.ndarray]:
         if key == "decoder" and isinstance(val, Mapping):
             dec = {}
             for name, sub in val.items():
-                if name in _SCAN_REGIONS and isinstance(sub, Mapping):
+                if name in LAYER_REGIONS and isinstance(sub, Mapping):
                     stacked: dict[str, np.ndarray] = {}
                     _flatten(sub, "", stacked)
                     n_layers = {a.shape[0] for a in stacked.values()}
@@ -187,17 +205,18 @@ def params_to_jax(state_dict, scan_layers: bool = False) -> dict:
         node[parts[-1]] = _to_numpy(tensor)
     if scan_layers and "decoder" in tree:
         dec = tree["decoder"]
-        units = sorted((k for k in dec if k.startswith("layers_")),
-                       key=lambda k: int(k.rpartition("_")[2]))
 
         def stack(nodes):
             if isinstance(nodes[0], dict):
                 return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
             return np.stack(nodes)
 
-        if units:
-            stacked = stack([dec.pop(u) for u in units])
-            dec["layers"] = stacked
+        for region in LAYER_REGIONS:
+            units = sorted((k for k in dec
+                            if is_unrolled_key(k) and k.rpartition("_")[0] == region),
+                           key=lambda k: int(k.rpartition("_")[2]))
+            if units:
+                dec[region] = stack([dec.pop(u) for u in units])
     return tree
 
 

@@ -8,7 +8,8 @@ cannot read a value back to the host in the middle. So:
   ``prefill_insert_many``, ``release_slot(s)``, dense and paged, and a
   speculative round;
 - a decode step (``Engine._generate_step``: dense, paged, bucketed, with
-  weighted sampling) and a speculative round (``SpeculativeEngine._round``)
+  weighted sampling, with experts and with MLA's latent cache, the MoE
+  layer's sparse route included) and a speculative round (``SpeculativeEngine._round``)
   make no device-to-host read: no ``aten._local_scalar_dense`` (``.item()``,
   ``int(t)``), ``aten.item``, ``aten.nonzero`` or ``aten.masked_select``, and
   no indexing by a boolean mask (whose result's size the host must read);
@@ -50,6 +51,13 @@ ROUTES = {
     "aqt_int8": ["decode_attention=ragged", "quantization=int8"],
     "lora": ["decode_attention=ragged", "lora_rank=4"],
     "scanned": ["decode_attention=ragged", "scan_layers=true", "serve_unroll_layers=false"],
+    # ROADMAP item 6: experts (the dense route on the CPU; the sparse route's
+    # own test below) and MLA's latent cache with leading dense layers
+    "moe": ["decode_attention=ragged", "num_experts=4", "num_experts_per_tok=2",
+            "shared_experts=1"],
+    "mla": ["decoder_block=deepseek", "kv_lora_rank=32", "qk_nope_head_dim=16",
+            "qk_rope_head_dim=8", "v_head_dim=16", "num_experts=4", "num_experts_per_tok=2",
+            "first_num_dense_layers=1", "base_num_decoder_layers=3"],
 }
 
 
@@ -83,7 +91,7 @@ def _populated(eng):
 
 
 @pytest.mark.parametrize("route", ["dense_ragged", "dense_int8_kv", "paged", "int8w_serve",
-                                   "scanned"])
+                                   "scanned", "moe", "mla"])
 def test_state_tensors_keep_their_storage(route):
     eng = _engine(ROUTES[route])
     state = eng.init_decode_state()
@@ -113,6 +121,40 @@ def test_a_decode_step_copies_nothing_between_host_and_device(route):
     with NoHostDeviceCopy():
         toks, logits = eng._generate_step(state, None, uniform, width)
     assert toks.shape == (eng.num_slots,) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("route", ["moe", "mla"])
+def test_the_sparse_moe_route_copies_nothing(route, monkeypatch):
+    """The MoE layer's sparse route (a CUDA tensor's route) run on the CPU
+    inside a decode step: the stable sort by expert, the counts built with
+    ``scatter_add_`` and ``cumsum``, the gathers and the ordered sum back
+    read nothing on the host. The grouped products stand in by a gathered
+    product over the device offsets (the kernel reads them on the device; its
+    plain version reads them on the host), and the stream equals the dense
+    route's."""
+    from maxtext_indextts2_tpu_torch.models import moe as moe_lib
+
+    def grouped(x, w, offsets, impl=None):
+        rows = torch.arange(x.shape[0], dtype=torch.int32)
+        group = torch.searchsorted(offsets[1:].contiguous(), rows, right=True)
+        return torch.einsum("rk,rkn->rn", x, w[group]).to(x.dtype)
+
+    eng = _engine(ROUTES[route])
+    want = eng.generate_stream(prompt(5, 6), 5)
+    calls = []
+
+    def sparse_instead(self, x, top_idx, top_w, wi_0, wi_1, wo):
+        calls.append(1)
+        return self.sparse_experts(x, top_idx, top_w, wi_0, wi_1, wo)
+
+    monkeypatch.setattr(moe_lib, "grouped_matmul", grouped)
+    monkeypatch.setattr(moe_lib.RoutedMoE, "dense_experts", sparse_instead)
+    state = _populated(eng)
+    with NoHostDeviceCopy():
+        toks, logits = eng._generate_step(state)
+    assert calls and torch.isfinite(logits).all()
+    got = eng.generate_stream(prompt(5, 6), 5)
+    assert got == want
 
 
 def test_the_dispatch_mode_sees_a_read_back():

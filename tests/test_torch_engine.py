@@ -157,15 +157,17 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    # MoE layers (item 6, int8w_serve or not)
-    for extra in (["num_experts=4", "quantization=int8w_serve"], ["num_experts=4"]):
+    # multi-token-prediction layers (deepseek-v3's; item 6, MTP and MoE training)
+    for extra in (["mtp_num_layers=1", "num_experts=4"], ["mtp_num_layers=1"]):
         cfg = load_config(TINY_TTS + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, device="cpu").load_params()
     # ported since: the AQT matmuls in serving, int8w_serve and LoRA adapters (item 5.6),
-    # scan-stacked serving (item 5.7; parity: tests/test_torch_scanned_serving.py)
+    # scan-stacked serving (item 5.7; parity: tests/test_torch_scanned_serving.py), MoE
+    # layers, int8w_serve or not (item 6; parity: tests/test_torch_model_families.py)
     for extra in (["quantization=int8"], ["quantization=int8w_serve"], ["lora_rank=4"],
-                  ["scan_layers=true", "serve_unroll_layers=false"]):
+                  ["scan_layers=true", "serve_unroll_layers=false"], ["num_experts=4"],
+                  ["num_experts=4", "quantization=int8w_serve"]):
         eng = Engine(load_config(TINY_TTS + extra), device="cpu")
         eng.load_params()
         assert len(eng.generate_stream(prompt(10, 5), 3)) == 3

@@ -146,10 +146,12 @@ def test_activations(name):
 def test_unported_layer_options_name_the_roadmap():
     from maxtext_indextts2_tpu_torch.models.attention import Attention
 
-    # llama4's qk-norm and temperature tuning (item 6)
-    for kw in (dict(use_qk_norm=True, qk_norm_type="l2"), dict(use_temperature_tuning=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Attention(16, 2, 2, 8, **kw)
+    # llama4's l2 qk-norm and temperature tuning are ported (item 6; parity:
+    # tests/test_torch_model_families.py); an unknown qk-norm type is an error
+    assert Attention(16, 2, 2, 8, use_qk_norm=True, qk_norm_type="l2").l2_qk_norm
+    assert Attention(16, 2, 2, 8, use_temperature_tuning=True).use_temperature_tuning
+    with pytest.raises(ValueError, match="unknown qk_norm_type"):
+        Attention(16, 2, 2, 8, use_qk_norm=True, qk_norm_type="layer")
     # ported since (item 5.6): every quantization and LoRA; an unknown mode is an error
     for kw in (dict(quantization="int8"), dict(quantization="int8w"), dict(quantization="fp8"),
                dict(quantization="int8w_serve"), dict(lora_rank=4)):
@@ -263,9 +265,11 @@ def test_kvcache_write_past_the_end_lands_on_the_last_row():
 
 def test_unported_attention_options_raise():
     base = dict(emb_dim=32, num_query_heads=2, num_kv_heads=2, head_dim=16)
-    for kw in (dict(qk_norm_type="l2", use_qk_norm=True), dict(use_temperature_tuning=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attn.Attention(**base, **kw)
+    # llama4's options build (item 6); a qk-norm type the JAX package lacks does not
+    assert attn.Attention(**base, qk_norm_type="l2", use_qk_norm=True).query_norm is None
+    assert attn.Attention(**base, use_temperature_tuning=True).use_temperature_tuning
+    with pytest.raises(ValueError, match="unknown qk_norm_type"):
+        attn.Attention(**base, qk_norm_type="layer", use_qk_norm=True)
     # bucketed decode and the verify span are ported (tests/test_torch_bucketed_decode.py,
     # tests/test_torch_speculative.py); an unknown decode route or mode is an error
     assert attn.Attention(**base, decode_attention="bucketed").decode_attention == "bucketed"

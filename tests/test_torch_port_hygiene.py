@@ -71,7 +71,8 @@ def test_source_imports_nothing_of_jax(path):
 
 
 GATED = ("transformers", "tiktoken", "sentencepiece", "safetensors", "scipy", "grain",
-         "pyarrow", "array_record", "datasets", "tensorflow", "tensorflow_datasets")
+         "pyarrow", "array_record", "datasets", "tensorflow", "tensorflow_datasets",
+         "grpc", "tensorstore")
 
 
 @pytest.mark.parametrize("path", _python_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -121,6 +122,9 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.infer.loadgen, maxtext_indextts2_tpu_torch.infer.uniserver\n"
         "import maxtext_indextts2_tpu_torch.infer.offline_engine\n"
         "import maxtext_indextts2_tpu_torch.infer.microbenchmark\n"
+        "import maxtext_indextts2_tpu_torch.infer.grpc_server\n"
+        "import maxtext_indextts2_tpu_torch.models.moe, maxtext_indextts2_tpu_torch.models.mla\n"
+        "import maxtext_indextts2_tpu_torch.ops.grouped_matmul\n"
         "from maxtext_indextts2_tpu_torch.train.data import packing, audio_iterator, grain_pipeline\n"
         "from maxtext_indextts2_tpu_torch.train.data import mlperf_pipeline, tfds_pipeline, hf_pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -138,6 +142,18 @@ def test_yaml_copies_equal_the_originals(name):
     with open(os.path.join(PORT_DIR, "configs", name), "rb") as a, \
             open(os.path.join(JAX_DIR, "configs", name), "rb") as b:
         assert a.read() == b.read(), f"configs/{name} drifted from the JAX package's file"
+
+
+PROTO_FILES = ["__init__.py", "orchestrator.proto", "orchestrator_pb2.py"]
+
+
+@pytest.mark.parametrize("name", PROTO_FILES)
+def test_proto_copies_equal_the_originals(name):
+    """The gRPC messages (``infer/proto``) are the JAX package's files, byte
+    for byte: nothing here can regenerate them (no ``protoc``)."""
+    with open(os.path.join(PORT_DIR, "infer", "proto", name), "rb") as a, \
+            open(os.path.join(JAX_DIR, "infer", "proto", name), "rb") as b:
+        assert a.read() == b.read(), f"infer/proto/{name} drifted from the JAX package's file"
 
 
 def test_registry_copy_equals_the_original():
@@ -251,6 +267,17 @@ def test_kernel_sources_carry_their_note(source, replaced):
     assert "torch/extension.h" not in text
 
 
+def test_grouped_matmul_kernel_source_carries_its_note():
+    """The grouped products replace no Pallas kernel (XLA lowers
+    ``ragged_dot``): the note names what they are the counterpart of."""
+    with open(os.path.join(PORT_DIR, "csrc", "grouped_matmul.cu")) as fh:
+        text = fh.read()
+    assert "Replaces no Pallas kernel" in text and "ragged_dot" in text
+    assert "_sparse_experts" in text
+    assert "What bounds it on this card" in text and "What the design does about it" in text
+    assert "torch/extension.h" not in text
+
+
 def test_int8w_kernel_source_carries_its_note():
     """The int8-weight product replaces no Pallas kernel: its note says what
     it is the counterpart of instead."""
@@ -262,6 +289,8 @@ def test_int8w_kernel_source_carries_its_note():
 
 
 @pytest.mark.parametrize("module,plain", [
+    ("grouped_matmul", "grouped_matmul_plain"),
+    ("grouped_matmul", "grouped_matmul_int8_plain"),
     ("int8w_matmul", "int8w_matmul_plain"),
     ("ragged_decode_attention", "ragged_decode_attention_plain"),
     ("ragged_decode_attention", "paged_decode_attention_v2_plain"),
@@ -305,12 +334,14 @@ def test_build_module_targets_sm_90a_into_an_ignored_directory():
         "inplace_update.cu", "ragged_decode_attention_bf16.cu", "ada_rmsnorm.cu",
         "row_quantize.cu", "ada_rmsnorm_quantize.cu", "silu_mul_quantize.cu",
         "s2a_attention.cu", "flash_attention_bf16.cu", "flash_attention_f32.cu",
-        "paged_decode_attention_bf16.cu", "paged_decode_attention_f32.cu"}
+        "paged_decode_attention_bf16.cu", "paged_decode_attention_f32.cu",
+        "grouped_matmul.cu"}
     assert {"ada_rmsnorm", "row_quantize_int8", "ada_rmsnorm_quantize",
             "silu_mul_quantize", "s2a_attention", "flash_fwd_bf16", "flash_fwd_f32",
             "flash_bwd_dq_bf16", "flash_bwd_dq_f32", "flash_bwd_dkv_bf16",
             "flash_bwd_dkv_f32", "paged_decode_attention_bf16",
-            "paged_decode_attention_f32"} <= set(_build.SIGNATURES)
+            "paged_decode_attention_f32", "grouped_matmul_bf16",
+            "grouped_matmul_int8"} <= set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         assert argtypes[0] is _build._P and argtypes[-1] is _build._P, name
 

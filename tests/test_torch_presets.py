@@ -4,9 +4,11 @@ packages.
 The port keeps byte copies of the JAX package's ``configs/models/*.yml``
 (``tests/test_torch_port_hygiene.py`` holds each one equal). A preset the
 port can build gives the JAX package's configuration values and parameter
-shapes; a preset of a family the port does not have yet (queue item 6)
-raises that item's refusal when its model is built, and never falls back to
-the default model.
+shapes: the dense families and, since ROADMAP item 6's serving part, MoE,
+MLA, gpt3 and llama4 text. ``deepseek-v3`` sets ``mtp_num_layers``, whose
+layers train only (item 6's MTP and MoE training part): it raises that
+item's refusal when its model is built, and never falls back to the default
+model.
 """
 
 import os
@@ -30,6 +32,11 @@ PRESETS = os.path.join(os.path.dirname(port_config.__file__), "configs", "models
 BUILT = ["llama3-8b", "qwen3-8b", "gemma2-2b", "mistral-7b"]
 ITEM_6 = sorted(n[:-4] for n in os.listdir(PRESETS)
                 if n.startswith(("deepseek-", "mixtral-", "qwen3-30b-a3b", "llama4-", "gpt3-")))
+# the item-6 presets the chip run serves (gpt3-52k and gpt3-6b's head dims
+# differ; deepseek-v2-lite has leading dense layers and shared experts)
+ITEM_6_SHAPES = ["qwen3-30b-a3b", "deepseek-v2-lite", "mixtral-8x7b", "gpt3-6b",
+                 "llama4-scout-17b-16e"]
+STILL_REFUSED = {"deepseek-v3"}  # mtp_num_layers: 1
 SMALL = ["max_target_length=16", "max_prefill_predict_length=8"]
 # widths, depth, heads, vocabulary, norms and RoPE: what a preset sets and what it derives
 DERIVED = ("decoder_block", "emb_dim", "mlp_dim", "num_decoder_layers", "num_query_heads",
@@ -91,11 +98,39 @@ def test_preset_parameter_shapes_equal_the_jax_abstract_init(name):
 
 @pytest.mark.parametrize("name", ITEM_6)
 def test_item_6_presets_refuse_when_built(name):
+    """Each item-6 preset builds (on ``meta``), except ``deepseek-v3``, whose
+    MTP layers still refuse, naming item 6's training part."""
     cfg = load_config([f"model_name={name}"] + SMALL)
     assert cfg.decoder_block == jax_load_config([f"model_name={name}"]).decoder_block
     assert cfg.decoder_block != "llama2"
-    with pytest.raises(NotImplementedError, match=r"port queue: 6, "):
-        Transformer(cfg, device="meta")
+    if name in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match=r"port queue: 6, MTP and MoE training"):
+            Transformer(cfg, device="meta")
+        return
+    model = Transformer(cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) > 10 ** 4
+
+
+@pytest.mark.parametrize("name", ITEM_6_SHAPES)
+def test_item_6_preset_shapes_equal_the_jax_abstract_init(name):
+    model = Transformer(load_config([f"model_name={name}"] + SMALL), device="meta")
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert got == _jax_shapes(name)
+    assert sum(int(np.prod(s)) for s in got.values()) > 5 * 10 ** 9
+
+
+@pytest.mark.parametrize("name", ITEM_6_SHAPES)
+def test_item_6_preset_config_equals_the_jax_packages(name):
+    cfg = load_config([f"model_name={name}"])
+    jcfg = jax_load_config([f"model_name={name}"])
+    keys = _preset_keys(name) | set(DERIVED) | {
+        "num_experts", "num_experts_per_tok", "moe_mlp_dim", "shared_experts",
+        "first_num_dense_layers", "kv_lora_rank", "q_lora_rank", "use_positional_embedding",
+        "chunk_attn_window_size", "routed_score_func", "normalize_topk_weights",
+        "moe_weight_on_input"}
+    keys.discard("model_name")
+    assert {k: getattr(cfg, k) for k in sorted(keys)} == {k: getattr(jcfg, k)
+                                                          for k in sorted(keys)}
 
 
 def test_an_unknown_model_name_falls_through_as_in_the_jax_package():

@@ -12,7 +12,7 @@ here from a seed:
   JAX package's own bar (float32, two to six layers, another summation
   order);
 - the export gives the HF state dict back bitwise;
-- the CLI runs both ways through files, and the item-6 families raise.
+- the CLI runs both ways through files; the vision towers' converters raise.
 """
 
 import os
@@ -215,9 +215,23 @@ def test_a_converted_checkpoint_serves_the_stream_of_set_params(tmp_path):
 @pytest.mark.parametrize("block", ["mixtral", "deepseek", "gpt3", "gpt3_paxml", "llama4",
                                    "qwen3_moe"])
 def test_other_families_raise_naming_item_6(block):
+    """The item-6 families are ported (their parity:
+    ``tests/test_torch_family_converters.py``): each direction gives the
+    port's converter of the JAX table's name, or, where the JAX package has
+    none (every export but mixtral's), the JAX package's ``ValueError``."""
     for direction in ("to_framework", "to_hf"):
-        with pytest.raises(NotImplementedError, match="port queue: 6, other model families"):
-            cc.get_converter(block, direction)
+        name = cc._CONVERTERS[block][0 if direction == "to_framework" else 1]
+        if name is None:
+            with pytest.raises(ValueError, match=f"{block} has no {direction} converter yet"):
+                cc.get_converter(block, direction)
+            with pytest.raises(ValueError, match=f"{block} has no {direction} converter yet"):
+                jcc.get_converter(block, direction)
+        else:
+            assert cc.get_converter(block, direction) is getattr(cc, name)
+
+
+VISION_CONVERTERS = ("convert_hf_siglip_to_framework", "convert_hf_gemma3_multimodal",
+                     "convert_hf_llama4_vision_to_framework", "convert_hf_llama4_multimodal")
 
 
 @pytest.mark.parametrize("name", [
@@ -228,9 +242,16 @@ def test_other_families_raise_naming_item_6(block):
     "convert_hf_siglip_to_framework", "convert_hf_gemma3_multimodal",
     "convert_hf_llama4_vision_to_framework", "convert_hf_llama4_multimodal"])
 def test_item_6_converters_raise_when_called(name):
+    """The vision towers' converters still raise, naming item 6's vision
+    part; the text families' are the port's own (none is a refusal)."""
     assert hasattr(jcc, name)  # the JAX package has each of them
-    with pytest.raises(NotImplementedError, match="port queue: 6, other model families"):
-        getattr(cc, name)({}, None)
+    if name in VISION_CONVERTERS:
+        with pytest.raises(NotImplementedError, match="port queue: 6, vision"):
+            getattr(cc, name)({}, None)
+    else:
+        import inspect
+
+        assert "_unsupported" not in inspect.getsource(getattr(cc, name))
 
 
 def test_converter_table_mirrors_the_jax_package():

@@ -57,6 +57,11 @@ def numpy_weights(cfg, seed=0):
             w = 1.0 + 0.1 * rng.normal(size=shape)
         elif name in fan_in:
             w = rng.normal(size=shape) / math.sqrt(fan_in[name])
+        elif name.endswith((".wi_0", ".wi_1", ".wo")) and len(shape) == 3:
+            # the experts of a RoutedMoE, [E, in, out]
+            w = rng.normal(size=shape) / math.sqrt(shape[1])
+        elif name.endswith(".gate_bias"):
+            w = 0.1 * rng.normal(size=shape)
         else:  # embedding table, biases
             w = rng.normal(size=shape)
         out[name] = w.astype(np.float32)
