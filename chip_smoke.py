@@ -202,6 +202,14 @@ KERNELS = [
     dict(name="grouped_matmul_int8", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul.cu",
          replaces="maxtext_indextts2_tpu/models/moe.py:252"),
+    # no Pallas site: the transpose of those ragged_dot calls, which XLA
+    # derives for the MoE training step
+    dict(name="grouped_matmul_dgrad", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_bwd.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
+    dict(name="grouped_matmul_wgrad", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_bwd.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
 ]
 
 # One decode step through the kernels against one through their plain
@@ -582,17 +590,18 @@ def phase_build():
                          r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
                         for r in _build.ptxas_report(kernel)]
                for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES,
-                              "int8w_matmul", "grouped_matmul")}
+                              "int8w_matmul", "grouped_matmul", "gmm_bwd")}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
     flash, int8w = reports[FLASH_KERNEL_NAMES], reports["int8w_matmul"]
-    gmm = reports["grouped_matmul"]
+    gmm, gmm_bwd = reports["grouped_matmul"], reports["gmm_bwd"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
         norm_rows_registers_spill_stores_loads=norm,
         flash_registers_spill_stores_loads=flash,
         int8w_matmul_registers_spill_stores_loads=int8w,
-        grouped_matmul_registers_spill_stores_loads=gmm)
+        grouped_matmul_registers_spill_stores_loads=gmm,
+        grouped_matmul_bwd_registers_spill_stores_loads=gmm_bwd)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
     check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
@@ -605,6 +614,9 @@ def phase_build():
     # bf16: 2 row tiles; int8: 2 row tiles x (int32 sums, bf16 rescaled)
     check(len(gmm) == 6 and all(r[2] == 0 and r[3] == 0 for r in gmm),
           f"a grouped_matmul instantiation spills, or one is missing: {gmm}")
+    # dgrad: one row tile (64); wgrad: one
+    check(len(gmm_bwd) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_bwd),
+          f"a grouped_matmul backward instantiation spills, or one is missing: {gmm_bwd}")
 
 
 def phase_kernels():
@@ -1631,13 +1643,16 @@ def _all_counts() -> dict:
             "s2a_attention": _k12_count(), **flash_attention.launch_counts,
             "int8w_matmul": int8w_matmul.launch_count,
             "grouped_matmul_bf16": grouped_matmul.launch_counts["grouped_matmul"],
-            "grouped_matmul_int8": grouped_matmul.launch_counts["grouped_matmul_int8"]}
+            "grouped_matmul_int8": grouped_matmul.launch_counts["grouped_matmul_int8"],
+            "grouped_matmul_dgrad": grouped_matmul.launch_counts["grouped_matmul_dgrad"],
+            "grouped_matmul_wgrad": grouped_matmul.launch_counts["grouped_matmul_wgrad"]}
 
 
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 NO_PAGED = {"paged_decode_attention": 0}
 NO_INT8W = {"int8w_matmul": 0}
-NO_GMM = {"grouped_matmul_bf16": 0, "grouped_matmul_int8": 0}
+NO_GMM = {"grouped_matmul_bf16": 0, "grouped_matmul_int8": 0, "grouped_matmul_dgrad": 0,
+          "grouped_matmul_wgrad": 0}
 
 
 def _audio_only_lm(pipe):
@@ -2916,7 +2931,7 @@ def _reckoned_int8w_bytes(engine) -> int:
     return total
 
 
-def _near_tie_agreement(engine, prompts, streams, router_gaps=None):
+def _near_tie_agreement(engine, prompts, streams, router_gaps=None, vision=None):
     """For each stream, the tokens that its own engine's prefill forward over
     prompt + stream gives as argmax, or within a near tie of it
     (``TOL_NEAR_TIE`` of the largest |logit|): (agreeing, compared, exact).
@@ -2924,13 +2939,14 @@ def _near_tie_agreement(engine, prompts, streams, router_gaps=None):
     compared token, the smallest router gap over its MoE layers (the k-th
     selection score less the (k+1)-th), and the list gets one entry a token
     that does not agree: its gap and the share of compared tokens whose gap
-    is no larger."""
+    is no larger. ``vision``: each prompt's image soft tokens ``[1, T, E]``,
+    fused by the forward as by the prefill."""
     from maxtext_indextts2_tpu_torch.models import MODE_PREFILL
 
     agree = compared = exact = 0
     dev = engine.device
     gaps, missed = [], []
-    for prompt, stream in zip(prompts, streams):
+    for i, (prompt, stream) in enumerate(zip(prompts, streams)):
         full = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])
         toks = torch.as_tensor(full, device=dev)[None, :]
         pos = torch.arange(len(full), dtype=torch.int32, device=dev)[None, :]
@@ -2938,7 +2954,9 @@ def _near_tie_agreement(engine, prompts, streams, router_gaps=None):
         with torch.no_grad(), _recording_router_gaps(
                 layer_gaps if router_gaps is not None else None):
             logits = engine.model(toks, pos, torch.ones_like(toks), mode=MODE_PREFILL,
-                                  cache=engine.model.init_cache(1, len(full), dev))[0].float()
+                                  cache=engine.model.init_cache(1, len(full), dev),
+                                  vision_embeddings=None if vision is None else vision[i]
+                                  )[0].float()
         rows = logits[len(prompt) - 1:]
         want = torch.as_tensor(np.asarray(stream), device=dev).long()
         top = rows.max(-1).values
@@ -4829,6 +4847,589 @@ def phase_llama4_serve(card):
     return launches
 
 
+
+# ROADMAP item 6, training: MoE and MTP at full width, float32 weights and two
+# Adam moments (16 bytes a parameter, the JAX recipe's weight_dtype), bf16
+# compute, cut in depth where the optimizer state forces it.
+MOE_TRAIN_STEPS = 5
+TRAIN_FAMILY_ARGS = ["dataset_type=synthetic", "weight_dtype=float32", "dtype=bfloat16",
+                     "scan_layers=false", "remat_policy=full", "max_target_length=1024",
+                     "max_prefill_predict_length=1024"]
+# qwen3-30b-a3b, 2 of its 48 layers: 4 x 1024 tokens a step, top 8 of 128
+# experts: 32,768 rows through each grouped product
+# through K9-K11 at GQA group 8 (32 query / 4 kv heads, the autoselected
+# route at 1024 tokens) and the grouped products
+MOE_TRAIN_ARGS = ["model_name=qwen3-30b-a3b", "base_num_decoder_layers=2",
+                  "per_device_batch_size=4", f"steps={MOE_TRAIN_STEPS}"] + TRAIN_FAMILY_ARGS
+# moe_train_parity: one step of 1 x 1024 tokens, the sparse route against the
+# dense einsum route on the card, on each of 3 (weights seed, batch) pairs, on
+# one routing a pair (the first pass's selection, pinned). Both round the same
+# bf16 products at the same points (h0, h1, the expert output); they sum the
+# experts' rows back in another order and the sparse route rounds the weighted
+# rows once more. Held with the MoE sub-layers in bf16 and the rest of the step
+# in float32: the loss and every gradient within 2**-6 of the tensor's largest
+# |entry| (a scalar: of its |value|). With the whole step in bf16 every later
+# bf16 rounding may move with the routes' last bits: there two computations of
+# the same step that sum in another order (the kernels against the plain
+# grouped products on one route, as well as the two routes) differ by 1.0-1.6 %
+# and each is 2.1-2.9 % from a float32 step (``tools/moe_route_noise.py``), so
+# that comparison is reported beside the float32 witness and not held to 2**-6.
+TOL_MOE_TRAIN_ROUTES = 2.0 ** -6
+MOE_PARITY_BATCHES = 3
+# deepseek-v2-lite at its published widths, its leading dense layer and one
+# MoE layer (64 experts of 1408, top 6, 2 shared experts), with DeepSeek-V3's
+# router (sigmoid scores, a selection bias, 8 groups of which 4 are kept,
+# normalised top-k weights) so that a training step runs it too
+DEEPSEEK_TRAIN_STEPS = 3
+DEEPSEEK_TRAIN_ARGS = ["model_name=deepseek-v2-lite", "base_num_decoder_layers=2",
+                       "per_device_batch_size=4", "routed_score_func=sigmoid",
+                       "routed_bias=true", "n_routing_groups=8", "topk_routing_group=4",
+                       "normalize_topk_weights=true",
+                       f"steps={DEEPSEEK_TRAIN_STEPS}"] + TRAIN_FAMILY_ARGS
+# deepseek-v3: its trunk cut to one dense layer, its MTP depth whole, 1 x 1024
+MTP_TRAIN_STEPS = 3
+MTP_TRAIN_ARGS = ["model_name=deepseek-v3", "base_num_decoder_layers=1",
+                  "first_num_dense_layers=1", "mtp_num_layers=1", "per_device_batch_size=1",
+                  f"steps={MTP_TRAIN_STEPS}"] + TRAIN_FAMILY_ARGS
+# mtp_train's CPU check: deepseek-v3's blocks at a width the CPU takes, one
+# float32 step on the card and on the CPU from one set of weights and one
+# batch; only the summation order differs (TF32 off): 1e-4 of the largest
+# |entry| of each gradient, 1e-5 of each loss
+MTP_PARITY_ARGS = ["model_name=deepseek-v3", "base_num_decoder_layers=1",
+                   "first_num_dense_layers=1", "mtp_num_layers=2", "base_emb_dim=256",
+                   "base_num_query_heads=4", "base_num_kv_heads=4", "q_lora_rank=64",
+                   "kv_lora_rank=32", "qk_nope_head_dim=32", "qk_rope_head_dim=16",
+                   "v_head_dim=32", "base_mlp_dim=512", "vocab_size=1024",
+                   "max_target_length=64", "per_device_batch_size=2", "dtype=float32",
+                   "weight_dtype=float32", "dataset_type=synthetic", "scan_layers=false"]
+TOL_MTP_PARITY_GRAD, TOL_MTP_PARITY_LOSS = 1e-4, 1e-5
+SFT_TRAIN_STEPS = 5
+
+# ROADMAP item 6, vision: gemma3-4b whole with the SigLIP tower of
+# google/gemma-3-4b-it's vision_config (896-pixel images, 14-pixel patches,
+# 4,096 patches pooled to 256 soft tokens), llama4-scout cut as llama4_serve
+# with the vision tower of its vision_config (336-pixel tiles, 14-pixel
+# patches, pixel shuffle 0.5: 144 soft tokens a tile), bf16, seeded weights
+VISION_IMAGES = 8
+VISION_NEW_TOKENS = 64
+GEMMA3_IMAGE_TOKEN = 262144  # <image_soft_token>
+GEMMA3_VISION_ARGS = ["model_name=gemma3-4b", f"image_token_id={GEMMA3_IMAGE_TOKEN}"] \
+    + FAMILY_ARGS
+GEMMA3_SIGLIP = dict(image_size=896, patch_size=14, hidden_size=1152, num_layers=27,
+                     num_heads=16, mlp_dim=4304)
+LLAMA4_IMAGE_TOKEN = 200092  # <|patch|>
+LLAMA4_VISION_ARGS = LLAMA4_ARGS + [f"image_token_id={LLAMA4_IMAGE_TOKEN}"]
+LLAMA4_VISION = dict(image_size=336, patch_size=14, hidden_size=1408, num_layers=34,
+                     num_heads=16, intermediate_size=5632, projector_input_dim=4096,
+                     projector_output_dim=4096, pixel_shuffle_ratio=0.5)
+VISION_TOWER_BATCH = 2  # images a tower call: the attention's float32 scores stay ~2 GB
+
+
+def _gmm_train_want(cfg, moe_layers: int, steps: int) -> dict:
+    """The grouped kernels' launches a training run makes: three products a
+    MoE sub-layer forward, once more where a remat policy recomputes the
+    forward in the backward, and a dgrad and a wgrad for each product."""
+    from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
+
+    fwd = 2 if _remat_policy(cfg.remat_policy) else 1
+    return {"grouped_matmul_bf16": 3 * moe_layers * steps * fwd,
+            "grouped_matmul_dgrad": 3 * moe_layers * steps,
+            "grouped_matmul_wgrad": 3 * moe_layers * steps}
+
+
+def _flash_train_want(cfg, attention_layers: int, steps: int) -> dict:
+    """K9-K11's launches a training run of 1024-token rows makes (the
+    autoselected route): a forward an attention layer, once more where a
+    remat policy recomputes it, and a dq and a dkv."""
+    from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
+
+    fwd = 2 if _remat_policy(cfg.remat_policy) else 1
+    return {"flash_fwd": fwd * attention_layers * steps,
+            "flash_bwd_dq": attention_layers * steps,
+            "flash_bwd_dkv": attention_layers * steps}
+
+
+def _model_counts(cfg):
+    """(parameters, MoE sub-layers, attention sub-layers of the flash route:
+    MLA attends through its own einsum)."""
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.models.attention import Attention
+    from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
+
+    meta = Transformer(cfg, device="meta")
+    return (sum(p.numel() for p in meta.parameters()),
+            sum(isinstance(m, RoutedMoE) for m in meta.modules()),
+            sum(isinstance(m, Attention) for m in meta.modules()))
+
+
+def _train_family(phase, args, card, steps):
+    """A family's training through the training entry point (``train.main``,
+    the card): losses, the auxiliary losses, step seconds, tokens/s, MFU,
+    peak memory, and the grouped kernels' launches against the prediction."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    cfg = load_config(args)
+    params, moe_layers, attention_layers = _model_counts(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()  # every count to 0 just before the main path, read just after
+    out = train.main(list(args))
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and all(np.isfinite(losses)),
+          f"{phase}: losses {losses} over {len(hist)} of {steps} steps")
+    aux = {k: [h[k] for h in hist] for k in ("moe_lb_loss", "mtp_loss") if k in hist[0]}
+    check(all(np.isfinite(v).all() for v in aux.values()), f"{phase}: {aux}")
+    if moe_layers:
+        check("moe_lb_loss" in aux, f"{phase}: no moe_lb_loss metric")
+    want = {**_gmm_train_want(cfg, moe_layers, steps),
+            **_flash_train_want(cfg, attention_layers, steps)}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{phase}: grouped and flash launches {got} != predicted {want} "
+                       f"({moe_layers} MoE layers, {attention_layers} flash attention layers, "
+                       f"{steps} steps, remat {cfg.remat_policy})")
+    step_s = _median_step_seconds(hist)
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    tflops = flops.training_tflops_per_step(cfg)
+    fields = dict(card=card, params=params, layers=cfg.num_decoder_layers, emb_dim=cfg.emb_dim,
+                  moe_layers=moe_layers,
+                  experts=[cfg.num_experts, cfg.num_experts_per_tok] if moe_layers else None,
+                  remat_policy=cfg.remat_policy, steps=steps, losses=losses, **aux,
+                  step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+                  tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+                  tflops_per_step=tflops, mfu_at_989_tflops=flops.mfu(tflops, step_s),
+                  peak_memory_bytes=peak, kernel_launches=got, kernel_launches_predicted=want,
+                  launches={k: v for k, v in launches.items() if v})
+    emit(phase, t0, **fields)
+    return {k: v for k, v in launches.items() if v}, fields
+
+
+def phase_moe_train(card):
+    """qwen3-30b-a3b at full width, 2 layers, 4 x 1024 tokens, 5 steps: the
+    sparse route through the grouped products and their backward kernels."""
+    return _train_family("moe_train", MOE_TRAIN_ARGS, card, MOE_TRAIN_STEPS)
+
+
+def phase_moe_train_parity(card):
+    """One step's loss, moe_lb_loss and every gradient, sparse route (the
+    grouped kernels, forward and backward) against the dense einsum route,
+    on each of MOE_PARITY_BATCHES (weights seed, synthetic batch) pairs on
+    the card, every layer's expert selection pinned to the first pass's
+    (``tools/moe_route_noise.pinned_routing``). Required within TOL_MOE_TRAIN_ROUTES: the two
+    routes with the MoE sub-layers in bf16 (both routes' grouped or einsum
+    products, as in training) and the rest of the step in float32, so that
+    what differs is the routes' arithmetic and not bf16 re-rounding
+    downstream of it. Reported beside it: the same two routes with the whole
+    step in bf16 (the training recipe), and how far each is from a float32
+    step of the dense route (the witness)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
+    from maxtext_indextts2_tpu_torch.tools.moe_route_noise import (
+        pinned_routing, rel_gaps, shared_model,
+    )
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.train.data.synthetic import make_batch
+
+    t0 = time.perf_counter()
+    cfg = load_config(MOE_TRAIN_ARGS + ["per_device_batch_size=1"])
+    _, moe_layers, attention_layers = _model_counts(cfg)
+    model = shared_model(cfg)
+    names = [n for n, _ in model.named_parameters()]
+    cfg32 = load_config(MOE_TRAIN_ARGS + ["per_device_batch_size=1", "dtype=float32"])
+    model32 = shared_model(cfg32, model.state_dict())
+    device = model.token_embedder.embedding.device
+    want = {**_gmm_train_want(cfg, moe_layers, 1), **_flash_train_want(cfg, attention_layers, 1)}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (pass, model, config, sparse route, the MoE sub-layers' dtype)
+    passes = (("bf16_sparse", model, cfg, True, bf16), ("bf16_dense", model, cfg, False, bf16),
+              ("moe_bf16_sparse", model32, cfg32, True, bf16),
+              ("moe_bf16_dense", model32, cfg32, False, bf16),
+              ("float32_dense", model32, cfg32, False, f32))
+    per_batch, failures = [], []
+    for i in range(MOE_PARITY_BATCHES):
+        # weights of seed init_weights_seed + i (drawn in place: the float32
+        # model shares them) and synthetic batch i
+        if i:
+            model.init_params(cfg.init_weights_seed + i)
+        check(all(a.data_ptr() == b.data_ptr()
+                  for a, b in zip(model.parameters(), model32.parameters())),
+              "moe_train_parity: the float32 model does not share the weights")
+        batch = {k: torch.from_numpy(np.array(v)).to(device)
+                 for k, v in make_batch(cfg, i).items()}
+        out, selection, flips = {}, {}, []
+        with pinned_routing((model, model32), selection, flips):
+            for name, m, c, sparse, moe_dtype in passes:
+                for moe in m.modules():
+                    if isinstance(moe, RoutedMoE):
+                        moe.cfg = dataclasses.replace(c, sparse_matmul=sparse)
+                        moe.dtype = moe_dtype
+                _reset_all_counts()
+                loss, aux = train.loss_fn(m, c, batch)
+                grads = train._grads(loss, list(m.parameters()))
+                torch.cuda.synchronize()
+                out[name] = dict(loss=float(loss.detach()),
+                                 moe_lb_loss=float(aux["moe_lb_loss"].detach()), grads=grads,
+                                 counts={k: v for k, v in _all_counts().items() if v})
+                del loss, aux
+        for name, _, _, sparse, _ in passes:
+            grouped = {k: out[name]["counts"].get(k, 0) for k in want if "grouped" in k}
+            flash = {k: out[name]["counts"].get(k, 0) for k in want if "flash" in k}
+            if flash != {k: v for k, v in want.items() if "flash" in k} or grouped != (
+                    {k: v for k, v in want.items() if "grouped" in k} if sparse
+                    else dict.fromkeys(grouped, 0)):
+                failures.append(f"batch {i} {name}: launches {out[name]['counts']}, want {want} "
+                                "(grouped on the sparse route only)")
+
+        def compare(a, b):
+            rel = dict(zip(names, rel_gaps(out[a]["grads"], out[b]["grads"])))
+            top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+            scalars = {k: abs(out[a][k] - out[b][k]) / max(abs(out[b][k]), 1e-30)
+                       for k in ("loss", "moe_lb_loss")}
+            return dict(scalar_rel_err=scalars, grad_rel_err_top=top,
+                        grad_rel_err_mean=float(np.mean(list(rel.values()))))
+
+        gated = compare("moe_bf16_sparse", "moe_bf16_dense")
+        whole = compare("bf16_sparse", "bf16_dense")
+        leaf = whole["grad_rel_err_top"][0][0]
+        j = names.index(leaf)
+        to32 = rel_gaps([out["bf16_sparse"]["grads"][j], out["bf16_dense"]["grads"][j]],
+                         [out["float32_dense"]["grads"][j]] * 2)
+        per_batch.append(dict(
+            batch=i, weights_seed=cfg.init_weights_seed + i,
+            routing_flips_of_the_later_passes=flips,
+            loss={k: out[k]["loss"] for k in out},
+            moe_lb_loss={k: out[k]["moe_lb_loss"] for k in out},
+            moe_bf16_sparse_vs_dense=gated, bf16_sparse_vs_dense=whole,
+            bf16_worst_leaf_vs_float32={"leaf": leaf, "sparse": to32[0], "dense": to32[1]}))
+        worst = max(max(gated["scalar_rel_err"].values()), gated["grad_rel_err_top"][0][1])
+        if worst > TOL_MOE_TRAIN_ROUTES:
+            failures.append(f"batch {i}: sparse against dense, MoE sub-layers in bf16: "
+                            f"{gated['scalar_rel_err']}, worst gradients "
+                            f"{gated['grad_rel_err_top']}")
+        del out
+        torch.cuda.empty_cache()
+    emit("moe_train_parity", t0, card=card,
+         tokens=cfg.global_batch_size_to_train_on * cfg.max_target_length,
+         moe_layers=moe_layers, grads=len(names), tol_rel=TOL_MOE_TRAIN_ROUTES,
+         grad_rel_err_max=max(b["moe_bf16_sparse_vs_dense"]["grad_rel_err_top"][0][1]
+                              for b in per_batch),
+         bf16_step_grad_rel_err_max=max(b["bf16_sparse_vs_dense"]["grad_rel_err_top"][0][1]
+                                        for b in per_batch),
+         kernel_launches_per_pass=want, batches=per_batch)
+    check(not failures, f"moe_train_parity (tolerance {TOL_MOE_TRAIN_ROUTES}): {failures}")
+    del model, model32
+
+
+def phase_deepseek_train(card):
+    """deepseek-v2-lite at full width, its dense layer and one MoE layer:
+    MLA's backward, the shared experts and the sigmoid, group-limited router
+    with its bias in a training step."""
+    return _train_family("deepseek_train", DEEPSEEK_TRAIN_ARGS, card, DEEPSEEK_TRAIN_STEPS)
+
+
+def _mtp_parity(card):
+    """One float32 step of a deepseek-v3-shaped model at CPU size (two MTP
+    depths), card against CPU from one set of weights and one batch."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+
+    cfg = load_config(MTP_PARITY_ARGS)
+    cpu = train.setup_train_state(cfg, device="cpu")
+    weights = {k: v.detach().clone() for k, v in cpu.params.items()}
+    gpu = train.setup_train_state(cfg, params={k: v.cuda() for k, v in weights.items()})
+    batch = next(train.create_data_iterator(cfg, torch.device("cpu")))
+    res = {}
+    for name, state in (("cpu", cpu), ("card", gpu)):
+        b = {k: v.to(state.device) for k, v in batch.items()}
+        loss, aux = train.loss_fn(state.model, cfg, b)
+        grads = train._grads(loss, list(state.params.values()))
+        res[name] = (float(loss.detach()), float(aux["mtp_loss"].detach()),
+                     [g.detach().cpu() for g in grads])
+    loss_rel = max(abs(res["card"][i] - res["cpu"][i]) / abs(res["cpu"][i]) for i in (0, 1))
+    rel = {n: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+           for n, a, b in zip(cpu.params, res["card"][2], res["cpu"][2])}
+    worst = max(rel, key=rel.get)
+    check(loss_rel <= TOL_MTP_PARITY_LOSS and rel[worst] <= TOL_MTP_PARITY_GRAD,
+          f"mtp_train: card against CPU, loss / mtp_loss {loss_rel}, worst gradient {worst} "
+          f"{rel[worst]}")
+    return dict(cpu_parity_loss=[res["card"][0], res["cpu"][0]],
+                cpu_parity_mtp_loss=[res["card"][1], res["cpu"][1]],
+                cpu_parity_loss_rel_err=loss_rel, cpu_parity_grad_rel_err_max=rel[worst],
+                cpu_parity_grad_worst=worst, cpu_parity_tol=[TOL_MTP_PARITY_LOSS,
+                                                             TOL_MTP_PARITY_GRAD])
+
+
+def phase_mtp_train(card):
+    """deepseek-v3 at full width, the trunk cut to one dense layer, its MTP
+    depth whole, 1 x 1024 tokens: mtp_loss finite, every mtp_1 weight with a
+    gradient (Adam's first moment after step 1), steps timed; then one step
+    card against CPU at a CPU-sized width."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import train
+    from maxtext_indextts2_tpu_torch.utils import flops
+
+    t0 = time.perf_counter()
+    cfg = load_config(MTP_TRAIN_ARGS)
+    params, _, _ = _model_counts(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    mtp_params = sum(p.numel() for n, p in state.params.items() if n.startswith("mtp_1."))
+    hist, no_grad = [], None
+    for step in range(MTP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = train.train_step(cfg, state, batch)
+        torch.cuda.synchronize()
+        hist.append({**{k: float(v) for k, v in m.items()},
+                     "step_time_s": time.perf_counter() - t1})
+        if step == 0:
+            mu = state.opt_state["mu"]
+            no_grad = [n for n in state.params if n.startswith("mtp_1.")
+                       and float(mu[n].abs().max()) == 0.0]
+    peak = torch.cuda.max_memory_allocated()
+    losses, mtp = [h["loss"] for h in hist], [h["mtp_loss"] for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(mtp)), f"mtp_train: {losses} {mtp}")
+    check(not no_grad, f"mtp_train: mtp_1 weights with no gradient: {no_grad}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = _median_step_seconds(hist)
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    tflops = flops.training_tflops_per_step(cfg)
+    emit("mtp_train", t0, card=card, params=params, mtp_params=mtp_params,
+         layers=cfg.num_decoder_layers, mtp_layers=cfg.mtp_num_layers, emb_dim=cfg.emb_dim,
+         vocab=cfg.vocab_size, steps=MTP_TRAIN_STEPS, losses=losses, mtp_loss=mtp,
+         step_seconds=[h["step_time_s"] for h in hist], median_step_seconds=step_s,
+         tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+         mfu_at_989_tflops_trunk_only=flops.mfu(tflops, step_s), peak_memory_bytes=peak,
+         mtp_weights_with_gradient=True, **_mtp_parity(card))
+
+
+def phase_sft_train(card):
+    """train_sft (``train/sft.py``'s entry point) on tts-1b at full width:
+    synthetic prompt / completion pairs, the prompt's targets weighing
+    nothing; K9-K11 launches as the train recipe's. A functional check, not
+    a throughput figure: the JAX package's synthetic pairs are 8-47 tokens in
+    2,048-token rows (about 1 % of each row real), so no step time is
+    reported."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.train import sft
+
+    t0 = time.perf_counter()
+    args = [a for a in TRAIN_ARGS if not a.startswith("steps=")] + [f"steps={SFT_TRAIN_STEPS}"]
+    cfg = load_config(args)
+    rows = next(sft.SFTDataIterator(cfg))
+    weighted = float((rows["targets_segmentation"] != 0).mean())
+    real = float((rows["inputs_segmentation"] != 0).mean())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = sft.main(args)
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == SFT_TRAIN_STEPS and all(np.isfinite(losses)), f"sft_train: {losses}")
+    want = _train_launches_want(cfg.num_decoder_layers, SFT_TRAIN_STEPS)
+    check(launches == want, f"sft_train: launches {launches} != predicted {want}")
+    check(0 < weighted < real, f"sft_train: weighted targets {weighted}, real tokens {real}")
+    emit("sft_train", t0, card=card, steps=SFT_TRAIN_STEPS, losses=losses,
+         rows=cfg.global_batch_size_to_train_on, max_target_length=cfg.max_target_length,
+         real_token_share=real, weighted_target_share=weighted,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches={k: v for k, v in launches.items() if v})
+    return {k: v for k, v in launches.items() if v}
+
+
+def _vision_prompts(rng, vocab, image_token, image_tokens, n):
+    """n prompts of text, one image's placeholders, text (under 1024 tokens)."""
+    out = []
+    for _ in range(n):
+        a, b = int(rng.integers(8, 300)), int(rng.integers(8, 200))
+        out.append(np.concatenate([rng.integers(1, image_token - 1, size=a),
+                                   np.full(image_tokens, image_token),
+                                   rng.integers(1, image_token - 1, size=b)]).astype(np.int32))
+    return out
+
+
+def _serve_vision(phase, engine, card, load, tower, prompts, teacher_forced, extra):
+    """The image soft tokens of ``tower`` (a callable: pixels -> [n, T, E],
+    timed), one ``Engine.prefill(vision_embeddings=)`` a prompt into its slot,
+    greedy decode through the captured step, and the teacher-forced check of
+    the cached streams (the forward fusing the same soft tokens)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    soft = tower()
+    torch.cuda.synchronize()
+    tower_s = time.perf_counter() - t1
+    check(bool(torch.isfinite(soft.float()).all()) and soft.shape[0] == len(prompts),
+          f"{phase}: soft tokens {tuple(soft.shape)} not finite or not one an image")
+    captures0, replays0 = engine.graphs.captures, engine.graphs.replays
+    _reset_all_counts()
+    state, firsts = engine.init_decode_state(), []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        prefix, first = engine.prefill(p, len(p), vision_embeddings=soft[i:i + 1])
+        state = engine.insert(prefix, state, i)
+        firsts.append(first)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    toks = []
+    t1 = time.perf_counter()
+    for _ in range((VISION_NEW_TOKENS - 1) // STEPS_PER_DISPATCH):
+        state, t = engine.generate_n(state, STEPS_PER_DISPATCH)
+        toks.append(t)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = _all_counts()
+    steps = len(toks) * STEPS_PER_DISPATCH
+    gen = torch.cat(toks).cpu().numpy()
+    first = torch.cat(firsts).cpu().numpy()
+    streams = [[int(first[i])] + gen[:, i].tolist() for i in range(len(prompts))]
+    check(all(0 <= t < engine.cfg.vocab_size for s in streams for t in s),
+          f"{phase}: a token outside [0, vocab)")
+    replays = engine.graphs.replays - replays0
+    check(replays >= len(toks) - 1, f"{phase}: decode not captured ({replays} replays)")
+    n_tf = TEACHER_FORCED_STREAMS
+    gaps = None if teacher_forced else []
+    agree, compared, exact = _near_tie_agreement(
+        engine, prompts[:n_tf], [s[:TEACHER_FORCED_TOKENS] for s in streams[:n_tf]], gaps,
+        vision=[soft[i:i + 1] for i in range(n_tf)])
+    if teacher_forced:
+        check(agree == compared, f"{phase}: cached greedy differs from the teacher-forced "
+                                 f"argmax in {compared - agree} of {compared} tokens")
+    fields = dict(card=card, **load, images=len(prompts), soft_tokens_an_image=soft.shape[1],
+                  prompt_lengths=[len(p) for p in prompts], new_tokens=steps + 1,
+                  tower_seconds=tower_s, tower_ms_an_image=1e3 * tower_s / len(prompts),
+                  prefill_ms_a_prompt=1e3 * prefill_s / len(prompts),
+                  decode_ms_a_step=1e3 * decode_s / steps, decode_steps=steps,
+                  captures=engine.graphs.captures - captures0, replays=replays,
+                  teacher_forced_agree=agree, teacher_forced_compared=compared,
+                  teacher_forced_exact=exact, teacher_forced_required=teacher_forced,
+                  launches={k: v for k, v in launches.items() if v}, **extra)
+    if gaps is not None:
+        fields["router_gaps_where_not_agreeing"] = gaps
+    emit(phase, t0, **fields)
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_vision_serve(card):
+    """gemma3-4b whole (bf16) with the SigLIP tower and the Gemma 3 projector:
+    8 image prompts of seeded pixels (preprocessed to 896 x 896), 256 soft
+    tokens each, prefilled one by one, 63 greedy steps captured; the
+    teacher-forced check is required."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models import vision
+    from maxtext_indextts2_tpu_torch.utils import multimodal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(load_config(GEMMA3_VISION_ARGS))
+    engine.load_params()
+    enc = vision.VisionEncoder(vision.VisionConfig(**GEMMA3_SIGLIP, output_dim=0, pool_stride=1,
+                                                   dtype=torch.bfloat16), device="cuda")
+    enc.init_params(seed=7)
+    patches = GEMMA3_SIGLIP["image_size"] // GEMMA3_SIGLIP["patch_size"]
+    proj = vision.Gemma3MultiModalProjector(GEMMA3_SIGLIP["hidden_size"], engine.cfg.emb_dim,
+                                            patches, 16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.no_grad():
+        proj.mm_soft_emb_norm.scale.zero_()
+        proj.mm_input_projection.copy_(torch.randn(proj.mm_input_projection.shape, generator=gen,
+                                                   device="cuda")
+                                       / math.sqrt(GEMMA3_SIGLIP["hidden_size"]))
+    torch.cuda.synchronize()
+    load = dict(params=sum(p.numel() for p in engine.model.parameters()),
+                tower_params=sum(p.numel() for p in enc.parameters()),
+                projector_params=sum(p.numel() for p in proj.parameters()),
+                load_seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(61)
+    images = [rng.integers(0, 256, (int(rng.integers(300, 900)), int(rng.integers(300, 900)), 3),
+                           np.uint8) for _ in range(VISION_IMAGES)]
+    t1 = time.perf_counter()
+    pixels = np.concatenate([multimodal.preprocess_image_gemma3(im) for im in images])
+    preprocess_s = time.perf_counter() - t1
+
+    def tower():
+        with torch.no_grad():
+            x = torch.from_numpy(pixels).cuda()
+            return torch.cat([proj(enc(x[i:i + VISION_TOWER_BATCH])).to(torch.bfloat16)
+                              for i in range(0, len(x), VISION_TOWER_BATCH)])
+
+    prompts = _vision_prompts(rng, engine.cfg.vocab_size, GEMMA3_IMAGE_TOKEN, 256, VISION_IMAGES)
+    launches = _serve_vision("vision_serve", engine, card, load, tower, prompts, True,
+                             dict(siglip=GEMMA3_SIGLIP, preprocess_seconds=preprocess_s,
+                                  peak_memory_bytes=torch.cuda.max_memory_allocated()))
+    del engine, enc, proj
+    return launches
+
+
+def phase_llama4_vision_serve(card):
+    """llama4-scout cut as llama4_serve (4 of 48 layers) with Llama 4's
+    vision tower at its published widths and the projector: 8 image prompts
+    of one 336-pixel tile, 144 soft tokens each; the teacher-forced check is
+    reported with the router gap at each token that does not agree (a bf16
+    MoE's router near a tie, as llama4_serve)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models import vision
+    from maxtext_indextts2_tpu_torch.utils import multimodal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(load_config(LLAMA4_VISION_ARGS))
+    engine.load_params()
+    enc = vision.Llama4VisionEncoder(**LLAMA4_VISION, dtype=torch.bfloat16, device="cuda")
+    enc.init_params(seed=9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out_dim = LLAMA4_VISION["projector_output_dim"]
+    kernel = (torch.randn((out_dim, engine.cfg.emb_dim), generator=gen, device="cuda")
+              / math.sqrt(out_dim)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    load = dict(params=sum(p.numel() for p in engine.model.parameters()),
+                tower_params=sum(p.numel() for p in enc.parameters()),
+                projector_params=kernel.numel(), load_seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(62)
+    images = [rng.integers(0, 256, (int(rng.integers(200, 336)), int(rng.integers(200, 336)), 3),
+                           np.uint8) for _ in range(VISION_IMAGES)]
+    tiles = [multimodal.preprocess_image_llama4(im) for im in images]
+    check(all(grid == (1, 1) for _, grid in tiles), "llama4_vision_serve: an image took tiles")
+    pixels = np.concatenate([t for t, _ in tiles])
+
+    def tower():
+        with torch.no_grad():
+            x = torch.from_numpy(pixels).cuda()
+            return torch.cat([(enc(x[i:i + VISION_TOWER_BATCH]).to(torch.bfloat16) @ kernel)
+                              for i in range(0, len(x), VISION_TOWER_BATCH)])
+
+    per_tile = (LLAMA4_VISION["image_size"] // LLAMA4_VISION["patch_size"]) ** 2 // 4
+    prompts = _vision_prompts(rng, engine.cfg.vocab_size, LLAMA4_IMAGE_TOKEN, per_tile,
+                              VISION_IMAGES)
+    launches = _serve_vision("llama4_vision_serve", engine, card, load, tower, prompts, False,
+                             dict(tower=LLAMA4_VISION, layers=engine.cfg.num_decoder_layers,
+                                  peak_memory_bytes=torch.cuda.max_memory_allocated()))
+    del engine, enc
+    return launches
+
+
 def kernels_line(cases, paths):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes the first main path's run gives the kernel (the
@@ -5041,6 +5642,23 @@ def _phases(tmp, card) -> dict:
     record("gpt3_serve", phase_gpt3_serve(card))
     release()
     record("llama4_serve", phase_llama4_serve(card))
+    release()
+    # ROADMAP item 6, training and vision
+    launches, _ = phase_moe_train(card)
+    record("moe_train", launches)
+    release()
+    phase_moe_train_parity(card)
+    release()
+    launches, _ = phase_deepseek_train(card)
+    record("deepseek_train", launches)
+    release()
+    phase_mtp_train(card)
+    release()
+    record("vision_serve", phase_vision_serve(card))
+    release()
+    record("llama4_vision_serve", phase_llama4_vision_serve(card))
+    release()
+    record("sft_train", phase_sft_train(card))
     release()
     return paths
 

@@ -328,9 +328,12 @@ class Engine:
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill(self, tokens: np.ndarray, true_length: int):
+    def prefill(self, tokens: np.ndarray, true_length: int, vision_embeddings=None):
         """One prompt -> (prefix, first_token [1] on the device). The prefix
-        cache holds ``true_length`` rows (no padding to a bucket)."""
+        cache holds ``true_length`` rows (no padding to a bucket).
+        ``vision_embeddings`` ``[1, T_img, E]`` (numpy or a tensor): image soft
+        tokens fused at the prompt's ``image_token_id`` positions (multimodal
+        serving; the decode steps that follow are the usual ones)."""
         self._check_params()
         cfg = self.cfg
         n = int(true_length)
@@ -340,7 +343,10 @@ class Engine:
         positions = torch.arange(n, dtype=torch.int32, device=self.device)[None, :]
         segs = torch.ones_like(toks)
         cache = self.model.init_cache(1, n, self.device)
-        logits = self.model(toks, positions, segs, mode=MODE_PREFILL, cache=cache)
+        if vision_embeddings is not None:
+            vision_embeddings = torch.as_tensor(vision_embeddings, device=self.device)
+        logits = self.model(toks, positions, segs, mode=MODE_PREFILL, cache=cache,
+                            vision_embeddings=vision_embeddings)
         last = logits[:, n - 1]  # [1, V]
         first_token = self._sample(last)
         prefix = {

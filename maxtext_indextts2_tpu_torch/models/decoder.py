@@ -184,28 +184,43 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, segment_ids, mode: str = MODE_TRAIN, cache=None,
                 impl: str | None = None, remat: str | None = None, paged_step=None,
                 keep_masks=None, cache_offset: int | None = None,
-                decode_width: int | None = None):
-        """``remat``: a policy of :func:`_remat_policy`, applied in
-        ``MODE_TRAIN`` while gradients are recorded. ``paged_step``: the
-        engine's ``PagedDecodeStep`` when ``cache`` holds page pools.
-        ``keep_masks``: one MLP dropout keep mask per sub-layer (training).
-        ``cache_offset`` / ``decode_width``: chunked prefill's first position
-        and bucketed decode's cache prefix (``models/attention.py``)."""
+                decode_width: int | None = None, lb_losses: list | None = None):
+        """The unit's output. ``lb_losses``: where given, the load-balance
+        loss of each MoE sub-layer of a ``MODE_TRAIN`` forward is appended
+        (serving computes none). ``remat``: a policy of
+        :func:`_remat_policy`, applied in ``MODE_TRAIN`` while gradients are
+        recorded. ``paged_step``: the engine's ``PagedDecodeStep`` when
+        ``cache`` holds page pools. ``keep_masks``: one MLP dropout keep mask
+        per sub-layer (training). ``cache_offset`` / ``decode_width``: chunked
+        prefill's first position and bucketed decode's cache prefix
+        (``models/attention.py``)."""
         masks = keep_masks or [None] * len(self.block.attention_pattern)
         if mode != MODE_TRAIN or remat is None or not torch.is_grad_enabled():
-            return self._unit(x, positions, segment_ids, mode, cache, impl, paged_step, masks,
-                              cache_offset, decode_width)
-        if remat == "full":
-            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
-                              masks, use_reentrant=False)
-        if remat == "minimal":
-            return checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
-                              masks, use_reentrant=False, context_fn=_save_matmuls_context)
+            x, losses = self._unit(x, positions, segment_ids, mode, cache, impl, paged_step,
+                                   masks, cache_offset, decode_width)
+        elif remat in ("full", "minimal"):
+            context = {} if remat == "full" else dict(context_fn=_save_matmuls_context)
+            x, losses = checkpoint(self._unit, x, positions, segment_ids, mode, None, impl, None,
+                                   masks, use_reentrant=False, **context)
+        else:
+            x, losses = self._regions(x, positions, segment_ids, impl, remat, masks)
+        if lb_losses is not None:
+            lb_losses.extend(losses)
+        return x
+
+    def _regions(self, x, positions, segment_ids, impl, remat, masks):
+        """The checkpointed regions of ``save_attn_out`` / ``save_attn_and_mlp``
+        (x, the MoE sub-layers' load-balance losses)."""
+        losses = []
         for i in range(len(self.block.attention_pattern)):
             attn_out = checkpoint(self._attn_anchor, i, x, positions, segment_ids, impl,
                                   use_reentrant=False)
-            if remat == "save_attn_out":
-                x = checkpoint(self._after_attn, i, x, attn_out, masks[i], use_reentrant=False)
+            # a MoE sub-layer has no mlp_pre_wo anchor (nor has the JAX
+            # package's): under save_attn_and_mlp it is recomputed from attn_out
+            if remat == "save_attn_out" or self.moe[i]:
+                x, lb = checkpoint(self._after_attn, i, x, attn_out, masks[i], impl,
+                                   use_reentrant=False)
+                losses += [] if lb is None else [lb]
                 continue
             # save_attn_and_mlp
             x1, pre = checkpoint(self._mlp_anchor, i, x, attn_out, use_reentrant=False)
@@ -213,19 +228,22 @@ class DecoderLayer(nn.Module):
                 x = self._after_mlp(i, x1, pre)
             else:  # the dropped-out product is recomputed from the anchor and the mask
                 x = checkpoint(self._after_mlp, i, x1, pre, masks[i], use_reentrant=False)
-        return x
+        return x, losses
 
     def _unit(self, x, positions, segment_ids, mode, cache, impl, paged_step=None, masks=None,
               cache_offset=None, decode_width=None):
+        losses = []
         for i in range(len(self.block.attention_pattern)):
             h = self._pre_attn(i, x)
             attn_out = getattr(self, f"self_attention_{i}")(
                 h, h, positions, segment_ids, mode=mode,
                 cache=None if cache is None else cache[i], impl=impl, paged_step=paged_step,
                 cache_offset=cache_offset, decode_width=decode_width)
-            x = self._mlp_sublayer(i, self._add_attn(i, x, attn_out),
-                                   None if masks is None else masks[i], impl)
-        return x
+            x, lb = self._mlp_sublayer(i, self._add_attn(i, x, attn_out),
+                                       None if masks is None else masks[i], impl,
+                                       aux=mode == MODE_TRAIN)
+            losses += [] if lb is None else [lb]
+        return x, losses
 
     def _pre_attn(self, i, x):
         return getattr(self, f"pre_self_attention_norm_{i}")(x) if self.block.use_pre_norm else x
@@ -245,14 +263,17 @@ class DecoderLayer(nn.Module):
             mlp_out = getattr(self, f"post_ffw_norm_{i}")(mlp_out)
         return x + mlp_out
 
-    def _mlp_sublayer(self, i, x, keep_mask=None, impl=None):
-        if self.moe[i]:  # nothing consumes the load-balance loss yet (MoE training: item 6)
-            mlp_out, _ = getattr(self, f"moe_{i}")(self._pre_mlp(i, x), impl, aux_loss=False)
+    def _mlp_sublayer(self, i, x, keep_mask=None, impl=None, aux=True):
+        """(x after the MLP or MoE sub-layer, the MoE sub-layer's load-balance
+        loss where ``aux``, else None): the JAX package sows one a MoE
+        sub-layer; a serving step computes none."""
+        if self.moe[i]:
+            mlp_out, lb = getattr(self, f"moe_{i}")(self._pre_mlp(i, x), impl, aux_loss=aux)
             if self.block.use_post_ffw_norm:
                 mlp_out = getattr(self, f"post_ffw_norm_{i}")(mlp_out)
-            return x + mlp_out
+            return x + mlp_out, lb
         pre = getattr(self, f"mlp_{i}").pre_wo(self._pre_mlp(i, x))
-        return self._after_mlp(i, x, pre, keep_mask)
+        return self._after_mlp(i, x, pre, keep_mask), None
 
     def _out(self, i, attn_out):
         return getattr(self, f"self_attention_{i}").out(attn_out)
@@ -262,8 +283,9 @@ class DecoderLayer(nn.Module):
         h = self._pre_attn(i, x)
         return getattr(self, f"self_attention_{i}").attend(h, h, positions, segment_ids, impl)
 
-    def _after_attn(self, i, x, attn_out, keep_mask=None):
-        return self._mlp_sublayer(i, self._add_attn(i, x, self._out(i, attn_out)), keep_mask)
+    def _after_attn(self, i, x, attn_out, keep_mask=None, impl=None):
+        return self._mlp_sublayer(i, self._add_attn(i, x, self._out(i, attn_out)), keep_mask,
+                                  impl)
 
     def _mlp_anchor(self, i, x, attn_out):
         x1 = self._add_attn(i, x, self._out(i, attn_out))
@@ -318,9 +340,11 @@ class Decoder(nn.Module):
     def forward(self, y: torch.Tensor, positions, segment_ids, mode: str = MODE_TRAIN,
                 cache=None, impl: str | None = None, paged_step=None,
                 dropout: MlpDropout | None = None, cache_offset: int | None = None,
-                decode_width: int | None = None) -> torch.Tensor:
+                decode_width: int | None = None, lb_losses: list | None = None) -> torch.Tensor:
         """``dropout``: the MLP dropout of a training forward; each unit's
-        masks are taken before the unit runs."""
+        masks are taken before the unit runs. ``lb_losses``: where given, the
+        load-balance loss of every MoE sub-layer of a ``MODE_TRAIN`` forward
+        is appended (what the JAX package sows)."""
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
         shape = (*y.shape[:-1], self.mlp_dim)
         for i, unit in enumerate(self.units()):
@@ -331,5 +355,5 @@ class Decoder(nn.Module):
             y = unit(
                 y, positions, segment_ids, mode,
                 None if cache is None else cache[i], impl, remat, paged_step, masks,
-                cache_offset, decode_width)
+                cache_offset, decode_width, lb_losses)
         return y

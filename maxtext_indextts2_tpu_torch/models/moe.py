@@ -9,7 +9,7 @@ parameter names:
   (``n_routing_groups`` / ``topk_routing_group``); top-k, the combine weights
   taken from the unbiased scores, ``normalize_topk_weights`` and
   ``routed_scaling_factor``; the Switch-style load-balance loss, returned
-  beside the output (training does not consume it yet);
+  beside the output (a training forward's; ``train.loss_fn`` adds it);
 - ``wi_0`` / ``wi_1`` ``[E, emb, mlp]`` and ``wo`` ``[E, mlp, emb]``: the
   experts, direct parameters (``int8w_serve``: int8, with float32
   ``*_scale`` ``[E, 1, out]``, one scale an (expert, output channel));
@@ -113,22 +113,26 @@ class RoutedMoE(nn.Module):
             self.gate_bias.zero_()
 
     # ------------------------------------------------------------- routing
-    def route(self, inputs: torch.Tensor):
+    def route(self, inputs: torch.Tensor, top_idx: torch.Tensor | None = None):
         """(top_idx [B, S, k] int64, top_w [B, S, k] in dtype, scores [B, S, E]
-        float32)."""
+        float32). ``top_idx``: where given, the selection taken instead of the
+        scores' top-k (a comparison of two routes pins one routing), the
+        weights still gathered from these scores. No gradient passes through
+        the selection, as in the JAX package."""
         cfg = self.cfg
         logits = self.gate(inputs.float())
         if cfg.routed_score_func == "sigmoid":
             scores = torch.sigmoid(logits)
         else:
             scores = torch.softmax(logits, dim=-1)
-        select = scores
-        if self.gate_bias is not None:
-            # aux-loss-free balancing bias: the selection only
-            select = scores + self.gate_bias.float()
-        if cfg.n_routing_groups > 0:
-            select = self._group_limited(select)
-        _, top_idx = torch.topk(select, cfg.num_experts_per_tok, dim=-1)
+        if top_idx is None:
+            select = scores
+            if self.gate_bias is not None:
+                # aux-loss-free balancing bias: the selection only
+                select = scores + self.gate_bias.float()
+            if cfg.n_routing_groups > 0:
+                select = self._group_limited(select)
+            _, top_idx = torch.topk(select, cfg.num_experts_per_tok, dim=-1)
         top_w = torch.gather(scores, -1, top_idx)
         if cfg.normalize_topk_weights:
             top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)

@@ -5,6 +5,11 @@ from a separate unembedding ``logits_dense`` or are tied to the embedding
 table (``logits_via_embedding``); optional soft cap; float32 cast.
 ``return_prelogits`` stops at the final-normed hidden states, which the
 vocabulary-fused cross-entropy (``ops/losses.py``) projects itself.
+``vision_embeddings`` (image soft tokens) replace the scaled text embeddings
+at ``image_token_id`` positions (``models/vision.merge_vision_embeddings``).
+With ``mtp_num_layers > 0`` the model holds ``mtp_1`` ... (``models/mtp.py``)
+and a ``MODE_TRAIN`` forward given ``targets`` computes the MTP loss
+(:meth:`Transformer._mtp_loss`) into ``aux["mtp_loss"]``; serving skips it.
 """
 
 from __future__ import annotations
@@ -23,20 +28,23 @@ from maxtext_indextts2_tpu_torch.models.layers import (
     RMSNorm,
     to_dtype,
 )
+from maxtext_indextts2_tpu_torch.models.mtp import MTPLayer
 from maxtext_indextts2_tpu_torch.models.registry import get_block_style
+from maxtext_indextts2_tpu_torch.ops import losses
 from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, AqtNoise
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
-        if cfg.mtp_num_layers > 0:
-            _unsupported("multi-token prediction layers (deepseek-v3's MTP loss)",
-                         "6, MTP and MoE training (item 6)")
         self.cfg = cfg
         self.block = get_block_style(cfg.decoder_block)
         dtype, wdtype = to_dtype(cfg.dtype), to_dtype(cfg.weight_dtype)
+        # sqrt(E) rounded to the embedding's dtype, as the JAX package's
+        # asarray(.., dtype), kept as a host number: a tensor made in the
+        # forward would be a host-to-device copy, which a captured decode step
+        # cannot hold
+        self.emb_scale = float(torch.tensor(cfg.emb_dim ** 0.5, dtype=dtype, device="cpu"))
         self.token_embedder = Embed(cfg.vocab_size, cfg.emb_dim, dtype=dtype,
                                     weight_dtype=wdtype, device=device)
         self.decoder = Decoder(cfg, self.block, device=device)
@@ -49,6 +57,8 @@ class Transformer(nn.Module):
         if cfg.use_positional_embedding:  # gpt3: learned positions
             self.position_embedder = Embed(cfg.max_target_length, cfg.emb_dim, dtype=dtype,
                                            weight_dtype=wdtype, device=device)
+        for k in range(1, cfg.mtp_num_layers + 1):
+            setattr(self, f"mtp_{k}", MTPLayer(cfg, self.block, device=device))
         self.logits_dense = None
         if not cfg.logits_via_embedding:
             self.logits_dense = DenseGeneral(
@@ -127,16 +137,70 @@ class Transformer(nn.Module):
         decode_width: int | None = None,  # bucketed decode: the cache prefix read
         return_prelogits: bool = False,  # fused-vocabulary CE: skip the unembedding
         dropout=None,  # training: models.layers.MlpDropout (None: deterministic)
+        targets: torch.Tensor | None = None,  # [B, S]: enables the MTP loss in training
+        target_weights: torch.Tensor | None = None,  # [B, S] float, the MTP loss's weights
+        vision_embeddings: torch.Tensor | None = None,  # [B, T_img, E] image soft tokens
+        aux: dict | None = None,  # filled with "moe_lb_loss" (a list) and "mtp_loss"
     ) -> torch.Tensor:
+        cfg = self.cfg
         emb = self.token_embedder(tokens)
         if self.block.scale_embedding:
-            emb = emb * torch.tensor(self.cfg.emb_dim ** 0.5, dtype=emb.dtype,
-                                     device=emb.device)
+            emb = emb * self.emb_scale
+        if vision_embeddings is not None:
+            from maxtext_indextts2_tpu_torch.models.vision import merge_vision_embeddings
+
+            emb = merge_vision_embeddings(emb, vision_embeddings, tokens, cfg.image_token_id)
         if self.position_embedder is not None:
             emb = emb + self.position_embedder(positions)
+        lb_losses = None if aux is None else []
         y = self.decoder(emb, positions, segment_ids, mode=mode, cache=cache, impl=impl,
                          paged_step=paged_step, dropout=dropout, cache_offset=cache_offset,
-                         decode_width=decode_width)
+                         decode_width=decode_width, lb_losses=lb_losses)
+        if lb_losses:  # no MoE sub-layer (or serving): nothing sown
+            aux["moe_lb_loss"] = lb_losses
+        if cfg.mtp_num_layers > 0 and mode == MODE_TRAIN and targets is not None:
+            mtp_loss = self._mtp_loss(y, tokens, targets, target_weights, positions,
+                                      segment_ids, impl, dropout)
+            if aux is not None:
+                aux["mtp_loss"] = mtp_loss
         if return_prelogits:
             return self.prelogits(y)
         return self._unembed(y)
+
+    def _mtp_loss(self, hidden, tokens, targets, target_weights, positions, segment_ids,
+                  impl=None, dropout=None) -> torch.Tensor:
+        """The DeepSeek-style MTP loss of the JAX package: at depth k the
+        tokens, targets and weights rolled k to the left (the last k
+        positions weighted 0), the depth's layer on the previous depth's
+        hidden state and the rolled tokens' embedding, float32 logits of the
+        shared unembedding, and the weighted CE summed over the depths over
+        the summed weights (at least 1e-6). ``dropout``: the MLP dropout,
+        each depth's masks after the trunk's in layer order."""
+        cfg = self.cfg
+        if target_weights is not None:
+            w0 = target_weights.float()
+        elif segment_ids is not None:
+            w0 = (segment_ids != 0).float()
+        else:
+            w0 = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+        s = tokens.shape[1]
+        h = hidden
+        total_loss = total_weight = 0.0
+        for k in range(1, cfg.mtp_num_layers + 1):
+            tok_k = torch.roll(tokens, -k, dims=1)
+            tgt_k = torch.roll(targets, -k, dims=1)
+            valid = (torch.arange(s, device=tokens.device) < s - k)[None, :]
+            w_k = torch.roll(w0, -k, dims=1) * valid
+            masks = None
+            if dropout is not None:
+                group = self.decoder.group
+                shape = (*h.shape[:-1], cfg.mlp_dim)
+                first = (cfg.num_decoder_layers + k - 1) * group
+                masks = [dropout.keep_mask(first + j, shape, h.device) for j in range(group)]
+            h = getattr(self, f"mtp_{k}")(h, self.token_embedder(tok_k), positions, segment_ids,
+                                          impl, masks)
+            logits = self._unembed(h).float()
+            ce, _ = losses.cross_entropy_with_logits(logits, tgt_k, 0.0)
+            total_loss = total_loss + torch.sum(ce * w_k)
+            total_weight = total_weight + torch.sum(w_k)
+        return total_loss / torch.clamp(total_weight, min=1e-6)

@@ -79,6 +79,10 @@ SIGNATURES = {
     # (x, w, offsets, row_scale, w_scale, out, rows, K, N, groups, tile_rows,
     #  stream): null scales give the int32 sums
     "grouped_matmul_int8": [_P] * 6 + [_I] * 5 + [_P],
+    # (dy, w, offsets, dx, rows, K, N, groups, stream)
+    "grouped_matmul_dgrad": [_P] * 4 + [_I] * 4 + [_P],
+    # (x, dy, offsets, dw, rows, K, N, groups, stream)
+    "grouped_matmul_wgrad": [_P] * 4 + [_I] * 4 + [_P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

@@ -53,7 +53,7 @@ from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (64, 128, 256)  # head widths the kernels are built for
-GROUPS = (1, 2, 4)  # q heads per kv head the kernels are checked at
+GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernels are checked at (8: qwen3-30b-a3b)
 
 # launches of each CUDA kernel by this process
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}

@@ -14,6 +14,22 @@ group, w ``[G, K, N]``, and ``offsets`` ``[G + 1]`` int32 (group g holds rows
   ``(float(sum) * row_scale[r]) * w_scale[g(r)]`` in ``out_dtype``: the
   arithmetic of the JAX package's int8 experts (``moe.py:241-266``).
 
+``grouped_matmul`` takes gradients (training's sparse route): where autograd
+records, it goes through :class:`GroupedMatmul`, whose backward launches the
+two kernels of ``csrc/grouped_matmul_bwd.cu``,
+
+* ``grouped_matmul_dgrad(dy, w, offsets)``: ``dx[r] = dy[r] @ w[g(r)]^T``;
+* ``grouped_matmul_wgrad(x, dy, offsets)``: ``dw[g] = x[rows of g]^T @
+  dy[rows of g]`` ``[G, K, N]``, zeros for an empty group;
+
+with the result dtypes of ``jax.vjp`` of ``ragged_dot(x, w, ...,
+preferred_element_type=float32).astype(x.dtype)``: its jaxpr converts the
+cotangent to float32, sums exact products in float32 and converts both
+gradients back to the operands' dtype, so for bfloat16 operands ``dx`` and
+``dw`` are bfloat16 (float32 sums rounded once), for float32 ones float32.
+``grouped_matmul_int8`` takes no gradient: int8 experts are a serving
+structure.
+
 On a CUDA tensor the hand-written kernels of ``csrc/grouped_matmul.cu`` run
 (bfloat16 operands and result, or int8 operands with an int32 or bfloat16
 result; anything else raises), with ``offsets`` read on the
@@ -29,7 +45,8 @@ from __future__ import annotations
 import torch
 
 # launches of each CUDA kernel by this process ("grouped_matmul": the bf16 kernel)
-launch_counts = {"grouped_matmul": 0, "grouped_matmul_int8": 0}
+launch_counts = {"grouped_matmul": 0, "grouped_matmul_int8": 0, "grouped_matmul_dgrad": 0,
+                 "grouped_matmul_wgrad": 0}
 
 
 def tile_rows(rows: int, groups: int) -> int:
@@ -53,6 +70,34 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
         if b > a:
             y[a:b] = x[a:b].float() @ w[g].float()
     return y.to(x.dtype)
+
+
+def grouped_matmul_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                               offsets: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the input gradient: one float32 product
+    ``dy[rows of g] @ w[g]^T`` a group, cast to dy's dtype."""
+    dx = torch.zeros((dy.shape[0], w.shape[1]), dtype=torch.float32, device=dy.device)
+    offs = _host_offsets(offsets)
+    for g in range(w.shape[0]):
+        a, b = offs[g], offs[g + 1]
+        if b > a:
+            dx[a:b] = dy[a:b].float() @ w[g].float().t()
+    return dx.to(dy.dtype)
+
+
+def grouped_matmul_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                               offsets: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight gradient: one float32 product
+    ``x[rows of g]^T @ dy[rows of g]`` a group (zeros for an empty one),
+    ``[G, K, N]`` in x's dtype."""
+    groups = offsets.numel() - 1
+    dw = torch.zeros((groups, x.shape[1], dy.shape[1]), dtype=torch.float32, device=x.device)
+    offs = _host_offsets(offsets)
+    for g in range(groups):
+        a, b = offs[g], offs[g + 1]
+        if b > a:
+            dw[g] = x[a:b].float().t() @ dy[a:b].float()
+    return dw.to(x.dtype)
 
 
 def grouped_matmul_int8_plain(xq: torch.Tensor, wq: torch.Tensor, offsets: torch.Tensor,
@@ -119,11 +164,41 @@ def _launched(name: str, code: int) -> None:
     _build.check_launch(code, name)
 
 
+class GroupedMatmul(torch.autograd.Function):
+    """``grouped_matmul`` with its gradients: dgrad for x, wgrad for w (each
+    only where asked for), on the route the forward took; the offsets take
+    none."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets, impl):
+        ctx.save_for_backward(x, w, offsets)
+        ctx.impl = impl
+        return _forward(x, w, offsets, impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offsets = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_dgrad(dy, w, offsets, ctx.impl)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_matmul_wgrad(x, dy, offsets, ctx.impl)
+        return dx, dw, None, None
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                    impl: str | None = None) -> torch.Tensor:
     """x ``[R, K]`` (rows sorted by group) by w ``[G, K, N]`` with group
-    bounds ``offsets`` ``[G + 1]`` int32 -> ``[R, N]`` in x's dtype."""
+    bounds ``offsets`` ``[G + 1]`` int32 -> ``[R, N]`` in x's dtype;
+    differentiable in x and w (:class:`GroupedMatmul`)."""
     _check(x, w, offsets, int8=False)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w, offsets, impl)
+    return _forward(x, w, offsets, impl)
+
+
+def _forward(x, w, offsets, impl):
     if _route(impl, (x, w, offsets)) == "plain":
         return grouped_matmul_plain(x, w, offsets)
     if x.dtype != torch.bfloat16:
@@ -144,6 +219,74 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
         tile_rows(r, g), torch.cuda.current_stream(x.device).cuda_stream)
     _launched("grouped_matmul", code)
     return out
+
+
+def _check_bwd(a, b, offsets, what):
+    if a.ndim != 2 or b.ndim not in (2, 3):
+        raise ValueError(f"{what}: need 2-d rows and [G, K, N] experts")
+    if offsets.ndim != 1 or offsets.dtype != torch.int32:
+        raise ValueError(f"{what}: offsets must be [G + 1] int32")
+    if a.dtype != b.dtype:
+        raise TypeError(f"{what}: operands must share a dtype, got {a.dtype} and {b.dtype}")
+
+
+def _bwd_kernel_ready(tensors, what, k, n) -> None:
+    if tensors[0].dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel: bfloat16 operands, got {tensors[0].dtype}")
+    if k % 8 or n % 8:
+        raise ValueError(f"{what} kernel: K and N multiples of 8, got {k}, {n}")
+
+
+def grouped_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                         impl: str | None = None) -> torch.Tensor:
+    """dy ``[R, N]`` (rows sorted by group) by w ``[G, K, N]`` transposed ->
+    dx ``[R, K]`` in dy's dtype: ``dx[r] = dy[r] @ w[g(r)]^T``."""
+    _check_bwd(dy, w, offsets, "grouped_matmul_dgrad")
+    if w.shape[2] != dy.shape[1] or offsets.numel() != w.shape[0] + 1:
+        raise ValueError(f"dy {tuple(dy.shape)} against w {tuple(w.shape)}, "
+                         f"offsets {tuple(offsets.shape)}")
+    if _route(impl, (dy, w, offsets)) == "plain":
+        return grouped_matmul_dgrad_plain(dy, w, offsets)
+    r, n = dy.shape
+    g, k, _ = w.shape
+    _bwd_kernel_ready((dy, w), "grouped_matmul_dgrad", k, n)
+    dx = torch.empty((r, k), dtype=dy.dtype, device=dy.device)
+    if r == 0:
+        return dx
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    dy, w, offsets = _kernel_operands(dy, w, offsets)
+    code = lib.grouped_matmul_dgrad(
+        dy.data_ptr(), w.data_ptr(), offsets.data_ptr(), dx.data_ptr(), r, k, n, g,
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _launched("grouped_matmul_dgrad", code)
+    return dx
+
+
+def grouped_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
+                         impl: str | None = None) -> torch.Tensor:
+    """x ``[R, K]`` and dy ``[R, N]`` (rows sorted by group) -> dw ``[G, K,
+    N]`` in x's dtype, ``G = offsets.numel() - 1``: ``dw[g] = x[rows of g]^T
+    @ dy[rows of g]``, zeros for an empty group."""
+    _check_bwd(x, dy, offsets, "grouped_matmul_wgrad")
+    if x.shape[0] != dy.shape[0] or offsets.numel() < 2:
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)}: one row each")
+    if _route(impl, (x, dy, offsets)) == "plain":
+        return grouped_matmul_wgrad_plain(x, dy, offsets)
+    r, k = x.shape
+    n, g = dy.shape[1], offsets.numel() - 1
+    _bwd_kernel_ready((x, dy), "grouped_matmul_wgrad", k, n)
+    dw = torch.empty((g, k, n), dtype=x.dtype, device=x.device)
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    x, dy, offsets = _kernel_operands(x, dy, offsets)
+    code = lib.grouped_matmul_wgrad(
+        x.data_ptr(), dy.data_ptr(), offsets.data_ptr(), dw.data_ptr(), r, k, n, g,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _launched("grouped_matmul_wgrad", code)
+    return dw
 
 
 def grouped_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, offsets: torch.Tensor,

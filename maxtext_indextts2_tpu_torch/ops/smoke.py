@@ -22,11 +22,12 @@ with device time, and check that two launches of the kernel give bitwise
 equal outputs (``repeat_bitwise_equal``; K1, K4, K5 and K7).
 
 Run: ``python -m maxtext_indextts2_tpu_torch.ops.smoke [small]
-[ragged | flash | paged | s2a | rows | int8w]`` (needs the GPU; ``small`` shrinks the
+[ragged | flash | paged | s2a | rows | int8w | gmm]`` (needs the GPU; ``small`` shrinks the
 serving and training shapes for a quick first check of a changed kernel,
 ``ragged`` runs the K1-K3 cases only, ``flash`` the K9-K11 cases only,
 ``paged`` the K4 cases only, ``s2a`` the K12 cases only, ``rows`` the K5-K8
-cases only, ``int8w`` the int8w_matmul cases only; the repo's
+cases only, ``int8w`` the int8w_matmul cases only, ``gmm`` the grouped
+products and their backward only; the repo's
 ``chip_smoke.py`` calls :func:`run_all`).
 """
 
@@ -899,6 +900,9 @@ FLASH_MAIN = dict(b=4, s=2048, h=16, hkv=8, d=128)
 # The flagship's training step (tts-flagship at full width): one row of 4096
 # tokens, 16 query / 8 kv heads of 256.
 FLASH_FLAGSHIP = dict(b=1, s=4096, h=16, hkv=8, d=256)
+# qwen3-30b-a3b's training step (moe_train): 4 x 1024 tokens, 32 query / 4 kv
+# heads of 128 (GQA group 8).
+FLASH_QWEN3_MOE = dict(b=4, s=1024, h=32, hkv=4, d=128)
 # The S2A training step on its sequence-flash route: 8 x 512 frames, 16 heads
 # of 64 (no grouping).
 S2A_TRAIN_FLASH = dict(b=8, s=512, h=16, hkv=16, d=64)
@@ -1197,13 +1201,15 @@ def flash_cases(device, timing, full_size=True):
     ``c4_mlperf`` rows, the S2A's sequence-flash route in float32 (its main
     path) and with pad tails, and the masked serving pass on that route; at
     D = 256 (the flagship's heads) its training shape, packed documents, a
-    sliding window, chunks with a soft cap, and odd-length float32 cases."""
+    sliding window, chunks with a soft cap, and odd-length float32 cases; at
+    GQA group 8 qwen3-30b-a3b's training shape and packed documents."""
     main = dict(FLASH_MAIN) if full_size else dict(FLASH_MAIN, b=1, s=512)
     flagship = dict(FLASH_FLAGSHIP) if full_size else dict(FLASH_FLAGSHIP, s=512)
     d256 = dict(b=2, s=1000 if full_size else 200, h=16, hkv=8, d=256)
     s2a_main = dict(S2A_TRAIN_FLASH) if full_size else dict(S2A_TRAIN_FLASH, b=2)
     serving = dict(S2A_SERVING_FLASH) if full_size else dict(S2A_SERVING_FLASH, b=2)
     small = dict(b=2, s=1024 if full_size else 256, h=16, hkv=8, d=128)
+    qwen3 = dict(FLASH_QWEN3_MOE) if full_size else dict(FLASH_QWEN3_MOE, b=1, s=256)
     f32 = torch.float32
     groups = [
         flash_case("flash_bf16_main_path", device, timing, **main, seed=300),
@@ -1263,6 +1269,14 @@ def flash_cases(device, timing, full_size=True):
                    dtype=f32, seed=334),
         flash_case("flash_f32_d256_packed", device, timing, **d256, dtype=f32,
                    segments="packed", seed=335),
+        # GQA group 8: qwen3-30b-a3b's training step (moe_train), then packed
+        # documents with a segment-0 tail in both dtypes at its heads
+        flash_case("flash_bf16_qwen3_moe_train", device, timing, **qwen3, seed=340),
+        flash_case("flash_bf16_group8_packed_padding", device, timing,
+                   **dict(qwen3, b=2, s=qwen3["s"] - 24), segments="packed", seed=341),
+        flash_case("flash_f32_group8_packed_padding", device, timing,
+                   **dict(qwen3, b=2, s=qwen3["s"] - 24), dtype=f32, segments="packed",
+                   seed=342),
     ]
     return [r for g in groups for r in g]
 
@@ -1281,7 +1295,8 @@ def flash_cases(device, timing, full_size=True):
 # ``flagship_serve``: tts-flagship's decode (8 slots of 4096 rows, D = 256,
 # group 2); ``train_flagship_vocab``: the tts-1b body at the flagship's
 # vocabulary (K9-K11 at the train shape); ``train_flagship``: tts-flagship
-# at full width (one 4096-token row, D = 256).
+# at full width (one 4096-token row, D = 256); ``moe_train``: qwen3-30b-a3b's
+# step (K9-K11 at group 8, the grouped products and their backward).
 # the serving paths of ROADMAP item 5 that run the tts-1b decode step (K1, K2)
 # at the serve phase's shapes: scanned, disaggregated, offline, loadgen,
 # microbenchmark, the UniServer
@@ -1316,7 +1331,8 @@ MAIN_PATH_CASES = {
                   "train_flagship_vocab": "flash_bf16_main_path_fwd",
                   "train_flagship": "flash_bf16_flagship_fwd",
                   "train_int8": "flash_bf16_main_path_fwd",
-                  "train_lora": "flash_bf16_main_path_fwd"},
+                  "train_lora": "flash_bf16_main_path_fwd",
+                  "moe_train": "flash_bf16_qwen3_moe_train_fwd"},
     "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
                      "train_dropout": "flash_bf16_main_path_dq",
                      "train_packed": "flash_bf16_emilia_packed_dq",
@@ -1325,7 +1341,8 @@ MAIN_PATH_CASES = {
                      "train_flagship_vocab": "flash_bf16_main_path_dq",
                      "train_flagship": "flash_bf16_flagship_dq",
                      "train_int8": "flash_bf16_main_path_dq",
-                     "train_lora": "flash_bf16_main_path_dq"},
+                     "train_lora": "flash_bf16_main_path_dq",
+                     "moe_train": "flash_bf16_qwen3_moe_train_dq"},
     "int8w_matmul": {"serve_int8w": "int8w_bf16_main_path",
                      "flagship_serve_int8w": "int8w_bf16_flagship",
                      "moe_serve_int8w": "int8w_bf16_qwen3_moe_decode"},
@@ -1334,6 +1351,10 @@ MAIN_PATH_CASES = {
                             "mla_serve": "gmm_bf16_deepseek_decode_wi",
                             "llama4_serve": "gmm_bf16_llama4_decode_wi"},
     "grouped_matmul_int8": {"moe_serve_int8w": "gmm_int8_main_path"},
+    "grouped_matmul_dgrad": {"moe_train": "gmm_dgrad_main_path",
+                             "deepseek_train": "gmm_dgrad_deepseek_train_wi"},
+    "grouped_matmul_wgrad": {"moe_train": "gmm_wgrad_main_path",
+                             "deepseek_train": "gmm_wgrad_deepseek_train_wi"},
     "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
                       "train_dropout": "flash_bf16_main_path_dkv",
                       "train_packed": "flash_bf16_emilia_packed_dkv",
@@ -1342,7 +1363,8 @@ MAIN_PATH_CASES = {
                       "train_flagship_vocab": "flash_bf16_main_path_dkv",
                       "train_flagship": "flash_bf16_flagship_dkv",
                       "train_int8": "flash_bf16_main_path_dkv",
-                      "train_lora": "flash_bf16_main_path_dkv"},
+                      "train_lora": "flash_bf16_main_path_dkv",
+                      "moe_train": "flash_bf16_qwen3_moe_train_dkv"},
 }
 
 
@@ -1662,6 +1684,134 @@ def gmm_cases(device, timing, full_size=True):
     return out
 
 
+# The grouped product's backward (training's sparse route) against its plain
+# version (a float32 product a group, exact products of the operands): both
+# sides round a float32 sum, summed in another order, to bfloat16 (dx, dw),
+# so they differ by at most one bfloat16 step where the float32 values
+# straddle a rounding boundary: 2**-7 of max(1, max |plain|), as the forward.
+# (name, rows R, groups G, K, N, routing): the forward's product x [R, K] @
+# w [G, K, N]; dgrad takes dy [R, N] to dx [R, K], wgrad x and dy to dw
+# [G, K, N]. The training phases' products: qwen3-30b-a3b at 4 x 1024 tokens
+# a step, top 8 of 128 experts (wi: 2048 -> 768, wo: 768 -> 2048),
+# deepseek-v2-lite at 4,096 tokens, top 6 of 64 (2048 -> 1408), mixtral at
+# 4,096 tokens, top 2 of 8 (4096 -> 14336); then empty groups, one group
+# holding every row, skewed routing.
+GMM_BWD_CASES = [
+    ("main_path", 4096 * 8, 128, 2048, 768, "uniform"),
+    ("qwen3_train_wo", 4096 * 8, 128, 768, 2048, "uniform"),
+    ("deepseek_train_wi", 4096 * 6, 64, 2048, 1408, "uniform"),
+    ("deepseek_train_wo", 4096 * 6, 64, 1408, 2048, "uniform"),
+    ("mixtral_train_wi", 4096 * 2, 8, 4096, 14336, "uniform"),
+    ("mixtral_train_wo", 4096 * 2, 8, 14336, 4096, "uniform"),
+    ("empty_groups", 24, 128, 512, 384, "uniform"),
+    ("one_group_holds_all", 1000, 16, 512, 384, "one"),
+    ("skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
+]
+
+
+def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, seed=0):
+    """grouped_matmul_dgrad (``kind="dgrad"``) or grouped_matmul_wgrad
+    against its plain version, and, timed, against ``torch._grouped_mm`` on
+    the same product (dgrad: ``dy @ w^T`` a group; wgrad: ``x^T @ dy`` a
+    group)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = _gmm_groups(rows, groups, routing, g, device)
+    counts = torch.bincount(ids, minlength=groups)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
+                         torch.cumsum(counts, 0)]).to(torch.int32)
+    touched = int((counts > 0).sum().item())
+    kname = f"grouped_matmul_{kind}"
+    x = torch.randn((rows, k), generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn((groups, k, n), generator=g, device=device) / math.sqrt(k)).to(torch.bfloat16)
+    dy = torch.randn((rows, n), generator=g, device=device).to(torch.bfloat16)
+    if kind == "dgrad":
+        def kernel():
+            return gm.grouped_matmul_dgrad(dy, w, offsets)
+
+        def plain():
+            return gm.grouped_matmul_dgrad(dy, w, offsets, impl="plain")
+    else:
+        def kernel():
+            return gm.grouped_matmul_wgrad(x, dy, offsets)
+
+        def plain():
+            return gm.grouped_matmul_wgrad(x, dy, offsets, impl="plain")
+    before = gm.launch_counts[kname]
+    out = kernel()
+    torch.cuda.synchronize()
+    launched = gm.launch_counts[kname] - before
+    ref = plain()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out.float()).all().item())
+    out_err = float((out.float() - ref.float()).abs().max().item())
+    largest = float(ref.float().abs().max().item())
+    rel = out_err / max(1.0, largest)
+    again = kernel()
+    repeat = bool(torch.equal(again, out))
+    empty_zero = True
+    if kind == "wgrad":  # every empty group's gradient is written as zeros
+        empty = counts == 0
+        empty_zero = bool((out[empty] == 0).all().item()) if bool(empty.any()) else True
+    res = dict(name=f"gmm_{kind}_{name}", kernel=kname, finite=finite, launched=launched,
+               max_abs_out=largest, max_abs_err=out_err, max_err=rel, tol=TOL_GMM_BF16,
+               unit="relative to max(1, max |plain|)", repeat_bitwise_equal=repeat,
+               empty_groups_zero=empty_zero,
+               shape=dict(rows=rows, groups=groups, k=k, n=n, routing=routing,
+                          groups_touched=touched, largest_group=int(counts.max().item()),
+                          out_dtype=str(out.dtype).replace("torch.", "")),
+               ok=bool(rel <= TOL_GMM_BF16 and finite and launched == 1 and repeat
+                       and empty_zero))
+    if timing:
+        ops = 2 * rows * k * n
+        if kind == "dgrad":  # dy in, the touched experts' weights in, dx out
+            nbytes = rows * n * 2 + touched * k * n * 2 + rows * k * 2 + 4 * (groups + 1)
+        else:  # x and dy in, every expert's dw out (bf16, empty ones as zeros)
+            nbytes = rows * k * 2 + rows * n * 2 + groups * k * n * 2 + 4 * (groups + 1)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        library = _gmm_library()
+        ends = offsets[1:].contiguous()
+        res.update(
+            kernel_ms=time_ms(kernel), device_ms=device_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1, iters=3), plain_device_ms=None,
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            bytes_moved=nbytes, ops=ops, library_ms=None, library_device_ms=None,
+            library_call=None)
+        if library is not None:
+            if kind == "dgrad":
+                def library_call():
+                    return library(dy, w.transpose(1, 2), offs=ends)
+            else:
+                def library_call():
+                    return library(x.t(), dy, offs=ends)
+            try:
+                library_call()
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError, TypeError) as e:
+                res["library_error"] = str(e)[:200]
+            else:
+                res.update(library_ms=time_ms(library_call),
+                           library_device_ms=device_ms(library_call),
+                           library_call=("torch._grouped_mm(dy, w.transpose(1, 2), offs)"
+                                         if kind == "dgrad" else
+                                         "torch._grouped_mm(x.t(), dy, offs)"))
+    return res
+
+
+def gmm_bwd_cases(device, timing, full_size=True):
+    """dgrad and wgrad at every shape of :data:`GMM_BWD_CASES`
+    (``full_size=False``: K and N cut by 4, rows by 8)."""
+    out = []
+    for i, (name, rows, groups, k, n, routing) in enumerate(GMM_BWD_CASES):
+        if not full_size:
+            rows, k, n = max(8, rows // 8), max(64, k // 4), max(64, n // 4)
+        for kind in ("dgrad", "wgrad"):
+            out.append(gmm_bwd_case(name, device, timing, kind=kind, rows=rows, groups=groups,
+                                    k=k, n=n, routing=routing, seed=120 + i))
+    return out
+
+
 # the part of every K9-K11 instantiation's mangled name (namespace ``flash``)
 FLASH_KERNEL_NAMES = "_ZN5flash"
 
@@ -1764,7 +1914,7 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
         + paged_cases(device, timing, full_size, serve_slots) \
         + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
         + flash_cases(device, timing, full_size) + int8w_cases(device, timing, full_size) \
-        + gmm_cases(device, timing, full_size)
+        + gmm_cases(device, timing, full_size) + gmm_bwd_cases(device, timing, full_size)
 
 
 def main(argv=None):
@@ -1789,8 +1939,9 @@ def main(argv=None):
         results = row_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "int8w" in argv:  # int8w_matmul only
         results = int8w_cases(torch.device("cuda"), timing=True, full_size=full)
-    elif "gmm" in argv:  # grouped_matmul only
-        results = gmm_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "gmm" in argv:  # grouped_matmul and its backward only
+        results = (gmm_cases(torch.device("cuda"), timing=True, full_size=full)
+                   + gmm_bwd_cases(torch.device("cuda"), timing=True, full_size=full))
     else:
         results = run_all(full_size=full)
     for r in results:
@@ -1804,7 +1955,7 @@ def main(argv=None):
     if not selected or "int8w" in selected:
         reports.append("int8w_matmul")
     if not selected or "gmm" in selected:
-        reports.append("grouped_matmul")
+        reports += ["grouped_matmul", "gmm_bwd"]
     if not selected or "rows" in selected:
         reports.append("norm_rows_kernel")  # K5 / K7
     if not selected or "flash" in selected:

@@ -24,8 +24,13 @@ generator on the device seeded with ``seed`` and the step (:func:`step_dropout`)
 input gradients is an input too (:func:`step_aqt_noise`), and the MFU counts
 the same FLOPs whatever the quantization, as the JAX package's does.
 ``lora_rank > 0`` with ``lora_only_training`` updates the ``lora_*`` weights
-only (``train/optimizers.lora_only``). MTP and MoE auxiliary losses,
-colocated-python data input and the Zero-1 all-gather raise, naming their
+only (``train/optimizers.lora_only``). MoE models train (the sparse route
+through the grouped products' backward kernels on the card, the dense einsum
+route on the CPU), with the mean of the MoE sub-layers' load-balance losses
+times ``load_balance_loss_weight`` added to the loss (``moe_lb_loss``), and
+``mtp_num_layers > 0`` adds the multi-token-prediction loss times
+``mtp_loss_scaling_factor`` (``mtp_loss``), as the JAX package's ``loss_fn``.
+Colocated-python data input and the Zero-1 all-gather raise, naming their
 ROADMAP queue item.
 ``enable_checkpointing=true`` restores the newest checkpoint of
 ``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
@@ -83,12 +88,6 @@ class TrainState:
 def check_training_config(cfg: Config) -> None:
     """Raise on what this slice of the port does not train (before any
     weight is made); an unknown remat policy raises too."""
-    if cfg.mtp_num_layers > 0:
-        _unsupported("the multi-token-prediction auxiliary loss",
-                     "6, MTP and MoE training (item 6)")
-    if cfg.num_experts > 1:
-        _unsupported("the MoE load-balance auxiliary loss and the grouped products' backward",
-                     "6, MTP and MoE training (item 6)")
     if cfg.quantization == "int8w_serve":
         raise ValueError("quantization=int8w_serve is a serving structure: its int8 kernels "
                          "take no gradient (train with int8, int8w or fp8)")
@@ -176,16 +175,37 @@ def loss_fn(model: Transformer, cfg: Config, batch: dict, is_train: bool = True,
     fused = is_train and (cfg.fused_vocab_ce_chunk > 0 or cfg.fused_vocab_ce_tile > 0)
     if cfg.quantization in AQT_MODES:
         model.set_aqt_noise(aqt_noise)
+    sown: dict = {}
     out = model(batch["inputs"], batch["inputs_position"], batch["inputs_segmentation"],
                 mode=MODE_TRAIN, impl=impl, return_prelogits=fused,
-                dropout=dropout if is_train else None)
+                dropout=dropout if is_train else None,
+                targets=batch["targets"] if cfg.mtp_num_layers > 0 else None, aux=sown)
     weights = (batch["targets_segmentation"] != 0).to(torch.float32)
     if fused:
         loss, total_weights = fused_ce(model, cfg, out, batch["targets"], weights)
     else:
         loss, total_weights = losses.masked_cross_entropy(out, batch["targets"], weights,
                                                           cfg.z_loss_weight)
-    return loss, {"ce_loss": loss, "total_weights": total_weights}
+    aux = {"ce_loss": loss, "total_weights": total_weights}
+    # the auxiliary losses the JAX package sows: the mean of each MoE
+    # sub-layer's load-balance loss, and the MTP loss, each times its weight
+    if sown.get("moe_lb_loss"):
+        moe_loss = torch.stack(sown["moe_lb_loss"]).mean() * cfg.load_balance_loss_weight
+        loss = loss + moe_loss
+        aux["moe_lb_loss"] = moe_loss
+    if "mtp_loss" in sown:
+        mtp_loss = sown["mtp_loss"] * cfg.mtp_loss_scaling_factor
+        loss = loss + mtp_loss
+        aux["mtp_loss"] = mtp_loss
+    return loss, aux
+
+
+def _grads(loss: torch.Tensor, leaves: list) -> list:
+    """d loss / d leaf for every leaf; zeros for a leaf that no gradient
+    reaches (a MoE router's selection bias: it picks the experts, and the
+    JAX package's gradient of it is zero)."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
 def _global_norm(tensors) -> torch.Tensor:
@@ -225,7 +245,7 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
                   for k, v in batch.items()}
             loss, _ = loss_fn(state.model, cfg, mb, impl=impl, dropout=dropout[i],
                               aqt_noise=aqt_noise)
-            g = torch.autograd.grad(loss, leaves)
+            g = _grads(loss, leaves)
             with torch.no_grad():
                 grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
                 loss_sum = loss_sum + loss.detach()
@@ -236,7 +256,7 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
     else:
         loss, aux = loss_fn(state.model, cfg, batch, impl=impl, dropout=dropout[0],
                             aqt_noise=aqt_noise)
-        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        grads = dict(zip(names, _grads(loss, leaves)))
         loss = loss.detach()
         aux = {k: v.detach() for k, v in aux.items() if k != "total_weights"}
 

@@ -12,9 +12,10 @@ direction keeps each tensor's dtype.
 
 The other families have the JAX package's converters: mixtral (both
 directions), deepseek (MLA, dense layers), qwen3_moe, gpt2 and paxml gpt3
-(LayerNorm biases, learned positions) and the llama4 text model (units of 4
-sub-layers, experts and a shared expert). The vision towers' converters
-raise ``NotImplementedError`` naming ROADMAP item 6's vision part.
+(LayerNorm biases, learned positions), the llama4 text model (units of 4
+sub-layers, experts and a shared expert), and the vision towers: SigLIP
+(gemma3) and Llama 4's, alone or split out of the multimodal checkpoints
+with their projectors (state dicts of ``models/vision.py``'s modules).
 
 CLI, both directions, with ``key=value`` config overrides after the flags::
 
@@ -38,7 +39,6 @@ import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.config import Config
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 def _t(x) -> torch.Tensor:
     """A float32 CPU tensor of a torch leaf (numpy leaves keep their dtype),
@@ -491,22 +491,105 @@ def convert_hf_llama4_to_framework(state_dict: dict, cfg: Config) -> dict[str, t
     return out
 
 
-_VISION = "6, vision (item 6)"
+def convert_hf_siglip_to_framework(state_dict: dict, num_layers: int) -> dict[str, torch.Tensor]:
+    """HF ``SiglipVisionModel`` state dict -> ``models/vision.VisionEncoder``
+    state dict (the gemma3 vision tower): the q / k / v projections fused into
+    ``qkv``, kernels ``[in, out]``, the patch convolution ``[P, P, 3, E]``."""
+    sd = {k.removeprefix("vision_model."): v for k, v in state_dict.items()}
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {
+        # Conv2d [E, 3, P, P] -> flax's Conv [P, P, 3, E]
+        "patch_embed.kernel": _c(get("embeddings.patch_embedding.weight").permute(2, 3, 1, 0)),
+        "patch_embed.bias": get("embeddings.patch_embedding.bias"),
+        "pos_embedding": get("embeddings.position_embedding.weight")[None],
+        "final_ln.scale": get("post_layernorm.weight"),
+        "final_ln.bias": get("post_layernorm.bias"),
+    }
+    for i in range(num_layers):
+        pre, b = f"encoder.layers.{i}", f"block_{i}"
+        out[f"{b}.qkv.kernel"] = _c(torch.cat(
+            [get(f"{pre}.self_attn.{n}_proj.weight").T for n in ("q", "k", "v")], dim=1))
+        out[f"{b}.qkv.bias"] = torch.cat(
+            [get(f"{pre}.self_attn.{n}_proj.bias") for n in ("q", "k", "v")])
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            out[f"{b}.{ours}.scale"] = get(f"{pre}.{theirs}.weight")
+            out[f"{b}.{ours}.bias"] = get(f"{pre}.{theirs}.bias")
+        for ours, theirs in (("proj", "self_attn.out_proj"), ("fc1", "mlp.fc1"),
+                             ("fc2", "mlp.fc2")):
+            out[f"{b}.{ours}.kernel"] = _c(get(f"{pre}.{theirs}.weight").T)
+            out[f"{b}.{ours}.bias"] = get(f"{pre}.{theirs}.bias")
+    return out
 
 
-def _vision(name: str):
-    def refuse(*args, **kwargs):
-        _unsupported(f"{name} (a vision tower)", _VISION)
+def convert_hf_gemma3_multimodal(state_dict: dict, cfg: Config, vision_num_layers: int):
+    """HF ``Gemma3ForConditionalGeneration`` -> (text, vision, projector)
+    state dicts: the gemma3 text converter, the SigLIP tower converter and
+    ``models/vision.Gemma3MultiModalProjector``'s weights."""
+    text_sd = {"model." + k.removeprefix("model.language_model."): v
+               for k, v in state_dict.items() if k.startswith("model.language_model.")}
+    if "lm_head.weight" in state_dict:
+        text_sd["lm_head.weight"] = state_dict["lm_head.weight"]
+    vision_sd = {k.removeprefix("model.vision_tower.vision_model."): v
+                 for k, v in state_dict.items() if k.startswith("model.vision_tower.")}
+    text = convert_hf_gemma3_to_framework(text_sd, cfg)
+    vision = convert_hf_siglip_to_framework(vision_sd, vision_num_layers)
+    projector = {
+        "mm_soft_emb_norm.scale": _t(
+            state_dict["model.multi_modal_projector.mm_soft_emb_norm.weight"]),
+        "mm_input_projection": _t(
+            state_dict["model.multi_modal_projector.mm_input_projection_weight"]),
+    }
+    return text, vision, projector
 
-    refuse.__name__ = name
-    refuse.__doc__ = "A vision tower's converter: not ported (ROADMAP.md, port queue item 6)."
-    return refuse
+
+def convert_hf_llama4_vision_to_framework(state_dict: dict,
+                                          num_layers: int) -> dict[str, torch.Tensor]:
+    """HF ``Llama4VisionModel`` -> ``models/vision.Llama4VisionEncoder`` state
+    dict (unfold linear, end-appended CLS, 2D rope blocks, pixel-shuffle
+    adapter)."""
+    sd = {k.removeprefix("vision_model."): v for k, v in state_dict.items()}
+
+    def get(name):
+        return _t(sd[name])
+
+    out = {
+        "patch_embed.kernel": _c(get("patch_embedding.linear.weight").T),
+        "class_embedding": get("class_embedding"),
+        "positional_embedding_vlm": get("positional_embedding_vlm"),
+        "adapter_fc1.kernel": _c(get("vision_adapter.mlp.fc1.weight").T),
+        "adapter_fc2.kernel": _c(get("vision_adapter.mlp.fc2.weight").T),
+    }
+    for name in ("layernorm_pre", "layernorm_post"):
+        out[f"{name}.scale"] = get(f"{name}.weight")
+        out[f"{name}.bias"] = get(f"{name}.bias")
+    for i in range(num_layers):
+        pre = f"model.layers.{i}"
+        for ours, theirs in (("ln1", "input_layernorm"), ("ln2", "post_attention_layernorm")):
+            out[f"{ours}_{i}.scale"] = get(f"{pre}.{theirs}.weight")
+            out[f"{ours}_{i}.bias"] = get(f"{pre}.{theirs}.bias")
+        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            out[f"{ours}_{i}.kernel"] = _c(get(f"{pre}.{theirs}.weight").T)
+            out[f"{ours}_{i}.bias"] = get(f"{pre}.{theirs}.bias")
+    return out
 
 
-convert_hf_siglip_to_framework = _vision("convert_hf_siglip_to_framework")
-convert_hf_gemma3_multimodal = _vision("convert_hf_gemma3_multimodal")
-convert_hf_llama4_vision_to_framework = _vision("convert_hf_llama4_vision_to_framework")
-convert_hf_llama4_multimodal = _vision("convert_hf_llama4_multimodal")
+def convert_hf_llama4_multimodal(state_dict: dict, cfg: Config, vision_num_layers: int):
+    """HF ``Llama4ForConditionalGeneration`` -> (text, vision, projector)
+    state dicts; the projector is one kernel ``[vision_output_dim, emb]``."""
+    text_sd = {k.removeprefix("language_model."): v for k, v in state_dict.items()
+               if k.startswith("language_model.")}
+    vision_sd = {k.removeprefix("vision_model."): v for k, v in state_dict.items()
+                 if k.startswith("vision_model.")}
+    text = convert_hf_llama4_to_framework(text_sd, cfg)
+    vision = convert_hf_llama4_vision_to_framework(vision_sd, vision_num_layers)
+    projector = {"kernel": _c(_t(state_dict["multi_modal_projector.linear_1.weight"]).T)}
+    return text, vision, projector
+
 
 # decoder_block -> (HF->framework, framework->HF or None), the JAX package's table
 _CONVERTERS = {

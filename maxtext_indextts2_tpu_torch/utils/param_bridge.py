@@ -20,6 +20,14 @@ projections (``self_attention_0.wkv_a.kernel``, ``kv_norm.scale``, ...), the
 LayerNorm biases (``pre_mlp_norm_0.bias``) and the learned positions
 (``position_embedder.embedding``).
 
+The multi-token-prediction depths cross as they are (``mtp_1/layer/
+self_attention_0/...`` -> ``mtp_1.layer.self_attention_0....``: top-level
+modules, beside the decoder), and so do the vision modules' trees
+(:func:`tree_to_state_dict`: ``models/vision.VisionEncoder``,
+``Gemma3MultiModalProjector`` and ``Llama4VisionEncoder`` keep the JAX
+modules' names and layouts, the patch convolution's kernel ``[P, P, 3, E]``
+included; back with :func:`params_to_jax`).
+
 The optimizer state crosses the same way (:func:`opt_state_from_jax`,
 :func:`opt_state_to_jax`): ``count``, ``mu`` and ``nu`` of adamw and
 adam_pax (optax's ``ScaleByAdamState``, alone or inside adamw's chain) and

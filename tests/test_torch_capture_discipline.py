@@ -58,6 +58,9 @@ ROUTES = {
     "mla": ["decoder_block=deepseek", "kv_lora_rank=32", "qk_nope_head_dim=16",
             "qk_rope_head_dim=8", "v_head_dim=16", "num_experts=4", "num_experts_per_tok=2",
             "first_num_dense_layers=1", "base_num_decoder_layers=3"],
+    # the gemma blocks scale the embedding by sqrt(E) (ROADMAP item 6, vision:
+    # gemma3-4b serves image prompts through the captured step)
+    "gemma3": ["decoder_block=gemma3", "base_num_decoder_layers=6", "sliding_window_size=8"],
 }
 
 

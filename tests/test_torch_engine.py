@@ -157,11 +157,14 @@ def test_serving_cast_keeps_scales_float32():
 
 
 def test_engine_refuses_what_is_not_ported():
-    # multi-token-prediction layers (deepseek-v3's; item 6, MTP and MoE training)
+    # ported since: multi-token-prediction layers (deepseek-v3's; item 6, MTP and
+    # MoE training): an engine holds them and serves without them, as the JAX
+    # package's (tests/test_torch_mtp.py)
     for extra in (["mtp_num_layers=1", "num_experts=4"], ["mtp_num_layers=1"]):
-        cfg = load_config(TINY_TTS + extra)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, device="cpu").load_params()
+        eng = Engine(load_config(TINY_TTS + extra), device="cpu")
+        eng.load_params()
+        assert hasattr(eng.model, "mtp_1")
+        assert len(eng.generate_stream(prompt(10, 5), 3)) == 3
     # ported since: the AQT matmuls in serving, int8w_serve and LoRA adapters (item 5.6),
     # scan-stacked serving (item 5.7; parity: tests/test_torch_scanned_serving.py), MoE
     # layers, int8w_serve or not (item 6; parity: tests/test_torch_model_families.py)

@@ -86,6 +86,7 @@ CASES = {
     "mha_4_4": dict(HKV=4),
     "s200_ragged_tail": dict(S=200),
     "d128_group4": dict(H=4, HKV=1, S=128, D=128),
+    "d128_group8": dict(H=8, HKV=1, S=128, D=128),
 }
 
 

@@ -272,15 +272,15 @@ def _logits_both(args, scan_layers):
 
 def test_moe_in_transformer_train():
     """A mixtral-style decoder: the training forward's logits equal the JAX
-    package's (scan-stacked tree); MoE training itself (the load-balance loss
-    in the objective) is refused, naming its queue item."""
+    package's (scan-stacked tree); MoE training itself is ported since item
+    6's training part (the load-balance loss in the objective:
+    tests/test_torch_moe_train.py), so the training config is taken."""
     from maxtext_indextts2_tpu_torch.train import train as ttrain
 
     args = _tiny_lm("mixtral", ["base_num_decoder_layers=2"])
     got, want = _logits_both(args, scan_layers=True)
     np.testing.assert_allclose(got, want, atol=TOL)
-    with pytest.raises(NotImplementedError, match="port queue: 6, MTP and MoE training"):
-        ttrain.check_training_config(load_config(args))
+    ttrain.check_training_config(load_config(args))
 
 
 def test_deepseek_dense_then_moe_layers():

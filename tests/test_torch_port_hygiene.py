@@ -104,6 +104,7 @@ def test_package_imports_in_a_process_without_jax():
         "import maxtext_indextts2_tpu_torch.infer.server, maxtext_indextts2_tpu_torch.infer.decode\n"
         "import maxtext_indextts2_tpu_torch.ops.smoke, maxtext_indextts2_tpu_torch.train.train\n"
         "import maxtext_indextts2_tpu_torch.tools.profile_train\n"
+        "import maxtext_indextts2_tpu_torch.tools.moe_route_noise\n"
         "import maxtext_indextts2_tpu_torch.infer.page_manager\n"
         "import maxtext_indextts2_tpu_torch.infer.paged_attention\n"
         "import maxtext_indextts2_tpu_torch.infer.speculative\n"
@@ -231,6 +232,10 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
             codec_train.main([f"codec_target={target}", "steps=1"])
     from maxtext_indextts2_tpu_torch.tools import quantize_checkpoint
 
+    from maxtext_indextts2_tpu_torch.train import sft
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sft.main([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"), "steps=1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quantize_checkpoint.run([os.path.join(PORT_DIR, "configs", "tiny_tts.yml"),
                                  "save_path=/nonexistent"])
@@ -278,6 +283,21 @@ def test_grouped_matmul_kernel_source_carries_its_note():
     assert "torch/extension.h" not in text
 
 
+def test_grouped_matmul_backward_kernel_source_carries_its_note():
+    """dgrad and wgrad replace no Pallas kernel either: they are the
+    transpose of ``ragged_dot`` that XLA derives for training."""
+    with open(os.path.join(PORT_DIR, "csrc", "grouped_matmul_bwd.cu")) as fh:
+        text = fh.read()
+    assert "Replaces no Pallas kernel" in text and "ragged_dot" in text
+    assert "_sparse_experts" in text and "jax.value_and_grad" in text
+    assert "What bounds them on this card" in text and "What the designs do about it" in text
+    assert "torch/extension.h" not in text
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    assert "grouped_matmul_bwd.cu" in {os.path.basename(s) for s in _build._sources()}
+    assert {"grouped_matmul_dgrad", "grouped_matmul_wgrad"} <= set(_build.SIGNATURES)
+
+
 def test_int8w_kernel_source_carries_its_note():
     """The int8-weight product replaces no Pallas kernel: its note says what
     it is the counterpart of instead."""
@@ -291,6 +311,8 @@ def test_int8w_kernel_source_carries_its_note():
 @pytest.mark.parametrize("module,plain", [
     ("grouped_matmul", "grouped_matmul_plain"),
     ("grouped_matmul", "grouped_matmul_int8_plain"),
+    ("grouped_matmul", "grouped_matmul_dgrad_plain"),
+    ("grouped_matmul", "grouped_matmul_wgrad_plain"),
     ("int8w_matmul", "int8w_matmul_plain"),
     ("ragged_decode_attention", "ragged_decode_attention_plain"),
     ("ragged_decode_attention", "paged_decode_attention_v2_plain"),

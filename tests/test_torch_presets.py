@@ -5,10 +5,9 @@ The port keeps byte copies of the JAX package's ``configs/models/*.yml``
 (``tests/test_torch_port_hygiene.py`` holds each one equal). A preset the
 port can build gives the JAX package's configuration values and parameter
 shapes: the dense families and, since ROADMAP item 6's serving part, MoE,
-MLA, gpt3 and llama4 text. ``deepseek-v3`` sets ``mtp_num_layers``, whose
-layers train only (item 6's MTP and MoE training part): it raises that
-item's refusal when its model is built, and never falls back to the default
-model.
+MLA, gpt3 and llama4 text; ``deepseek-v3`` with its ``mtp_num_layers``
+since item 6's MTP and MoE training part (its MTP layer trains only; serving
+skips it). A preset never falls back to the default model.
 """
 
 import os
@@ -36,7 +35,6 @@ ITEM_6 = sorted(n[:-4] for n in os.listdir(PRESETS)
 # differ; deepseek-v2-lite has leading dense layers and shared experts)
 ITEM_6_SHAPES = ["qwen3-30b-a3b", "deepseek-v2-lite", "mixtral-8x7b", "gpt3-6b",
                  "llama4-scout-17b-16e"]
-STILL_REFUSED = {"deepseek-v3"}  # mtp_num_layers: 1
 SMALL = ["max_target_length=16", "max_prefill_predict_length=8"]
 # widths, depth, heads, vocabulary, norms and RoPE: what a preset sets and what it derives
 DERIVED = ("decoder_block", "emb_dim", "mlp_dim", "num_decoder_layers", "num_query_heads",
@@ -98,17 +96,14 @@ def test_preset_parameter_shapes_equal_the_jax_abstract_init(name):
 
 @pytest.mark.parametrize("name", ITEM_6)
 def test_item_6_presets_refuse_when_built(name):
-    """Each item-6 preset builds (on ``meta``), except ``deepseek-v3``, whose
-    MTP layers still refuse, naming item 6's training part."""
+    """Each item-6 preset builds (on ``meta``), ``deepseek-v3`` with its MTP
+    layer (ROADMAP item 6's training part), and none refuses any more."""
     cfg = load_config([f"model_name={name}"] + SMALL)
     assert cfg.decoder_block == jax_load_config([f"model_name={name}"]).decoder_block
     assert cfg.decoder_block != "llama2"
-    if name in STILL_REFUSED:
-        with pytest.raises(NotImplementedError, match=r"port queue: 6, MTP and MoE training"):
-            Transformer(cfg, device="meta")
-        return
     model = Transformer(cfg, device="meta")
     assert sum(p.numel() for p in model.parameters()) > 10 ** 4
+    assert hasattr(model, "mtp_1") == (cfg.mtp_num_layers > 0)
 
 
 @pytest.mark.parametrize("name", ITEM_6_SHAPES)

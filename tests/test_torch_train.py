@@ -241,63 +241,89 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["colocated_python_data_input=true"], "6"),
-    (["num_experts=4"], "6"),
-    (["mtp_num_layers=1"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
-], ids=["colocated_data", "moe", "mtp", "zero1"])
+    (["colocated_python_data_input=true"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
+], ids=["colocated_data", "zero1"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     cfg = _tiny(extra + ["steps=1"])
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
         ttrain.train_loop(cfg, device="cpu", quiet=True)
 
 
-def _refuse_vision_sft(kind):
-    from maxtext_indextts2_tpu_torch.train.data.hf_pipeline import make_hf_vision_sft_iterator
-
-    make_hf_vision_sft_iterator(load_config([f"dataset_type={kind}"]), dataset=[])
-
-
-# MoE serving, MoE presets and int8w_serve experts are ported (ROADMAP item 6,
-# serving: tests/test_torch_model_families.py); what of them still refuses is
-# item 6's training part: an MTP model, and MoE in a training step.
-def _refuse_moe_serving(kind):
-    from maxtext_indextts2_tpu_torch.infer.engine import Engine
-
-    Engine(load_config(TINY_TTS + [f"{kind}=4", "mtp_num_layers=1"]), device="cpu")
+@pytest.mark.parametrize("extra,key", [
+    (["num_experts=4", "num_experts_per_tok=2"], "moe_lb_loss"),
+    (["mtp_num_layers=1"], "mtp_loss"),
+], ids=["moe", "mtp"])
+def test_moe_and_mtp_models_train_through_the_loop(extra, key):
+    """What refused before ROADMAP item 6's training part: each trains, and
+    its auxiliary loss is a metric of every step (its agreement with the JAX
+    package: tests/test_torch_moe_train.py, tests/test_torch_mtp.py)."""
+    out = ttrain.train_loop(_tiny(extra + ["steps=2"]), device="cpu", quiet=True)
+    assert all(np.isfinite(h[key]) and np.isfinite(h["loss"]) for h in out["history"])
 
 
-def _refuse_moe_preset(kind):
+def _refuse_pipeline(kind):
     from maxtext_indextts2_tpu_torch.models import Transformer
 
-    Transformer(load_config([f"model_name={kind}", "mtp_num_layers=1"]), device="meta")
+    Transformer(dataclasses.replace(load_config(TINY_TTS), **{kind: True}), device="meta")
 
 
-def _refuse_moe_training(kind):
-    ttrain.check_training_config(load_config(TINY_TTS + [f"{kind}=4", "quantization=int8"]))
+def _refuse_context_parallel_flash(kind):
+    from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
 
-
-def _refuse_moe_int8w_serve(kind):
-    ttrain.check_training_config(
-        load_config(TINY_TTS + ["num_experts=4", f"quantization={kind}"]))
+    q = torch.zeros((1, 8, 2, 32))
+    flash_attention_sharded(q, q, q, None, algorithm=kind)
 
 
 @pytest.mark.parametrize("refuse,arg,item", [
-    (_refuse_vision_sft, "hf", "6"),
-    (_refuse_moe_serving, "num_experts", "6"),
-    (_refuse_moe_preset, "qwen3-30b-a3b", "6"),
-    (_refuse_moe_training, "num_experts", "6"), (_refuse_moe_int8w_serve, "int8w_serve", "6"),
+    (_refuse_pipeline, "using_pipeline_parallelism", "6"),
+    (_refuse_context_parallel_flash, "ring", "6"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):
-    """The JAX package runs these on data, models and stubs a test makes, so
-    the port's refusal says only that the path is not ported yet and names
-    its queue item; it does not claim that a file is missing. (Every data
-    iterator but the vision SFT one is ported: ``tests/test_torch_data.py``.)"""
+    """The JAX package runs these on models and inputs a test makes, so the
+    port's refusal says only that the path is not ported yet and names its
+    queue item; it does not claim that a file is missing. (Every data
+    iterator is ported: ``tests/test_torch_data.py``, ``tests/test_torch_sft.py``.)"""
     with pytest.raises(NotImplementedError) as err:
         refuse(arg)
     text = str(err.value)
-    assert "not ported" in text and f"item {item}" in text
+    assert "not ported" in text and f"port queue: {item}" in text
     assert "file" not in text and "in the repo" not in text
+
+
+# What refused until ROADMAP item 6's training part: an MTP model in an engine
+# or a preset, MoE in a training step; int8w_serve experts still take no
+# gradient (a serving structure).
+def _moe_mtp_engine(kind):
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+
+    eng = Engine(load_config(TINY_TTS + [f"{kind}=4", "mtp_num_layers=1"]), device="cpu")
+    assert hasattr(eng.model, "mtp_1")
+
+
+def _moe_mtp_preset(kind):
+    from maxtext_indextts2_tpu_torch.models import Transformer
+
+    model = Transformer(load_config([f"model_name={kind}", "mtp_num_layers=1"]), device="meta")
+    assert hasattr(model, "mtp_1")
+
+
+def _moe_aqt_training(kind):
+    ttrain.check_training_config(load_config(TINY_TTS + [f"{kind}=4", "quantization=int8"]))
+
+
+def _moe_int8w_serve_training(kind):
+    with pytest.raises(ValueError, match="serving structure"):
+        ttrain.check_training_config(
+            load_config(TINY_TTS + ["num_experts=4", f"quantization={kind}"]))
+
+
+@pytest.mark.parametrize("run,arg", [
+    (_moe_mtp_engine, "num_experts"), (_moe_mtp_preset, "qwen3-30b-a3b"),
+    (_moe_aqt_training, "num_experts"), (_moe_int8w_serve_training, "int8w_serve"),
+], ids=["moe_mtp_engine", "moe_mtp_preset", "moe_aqt_training", "moe_int8w_serve_training"])
+def test_item_6_training_paths_that_refused_now_build(run, arg):
+    run(arg)
 
 
 def test_make_batch_equals_the_jax_package():

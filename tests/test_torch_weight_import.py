@@ -12,7 +12,7 @@ here from a seed:
   JAX package's own bar (float32, two to six layers, another summation
   order);
 - the export gives the HF state dict back bitwise;
-- the CLI runs both ways through files; the vision towers' converters raise.
+- the CLI runs both ways through files; the vision towers' converters are ported.
 """
 
 import os
@@ -242,16 +242,19 @@ VISION_CONVERTERS = ("convert_hf_siglip_to_framework", "convert_hf_gemma3_multim
     "convert_hf_siglip_to_framework", "convert_hf_gemma3_multimodal",
     "convert_hf_llama4_vision_to_framework", "convert_hf_llama4_multimodal"])
 def test_item_6_converters_raise_when_called(name):
-    """The vision towers' converters still raise, naming item 6's vision
-    part; the text families' are the port's own (none is a refusal)."""
-    assert hasattr(jcc, name)  # the JAX package has each of them
-    if name in VISION_CONVERTERS:
-        with pytest.raises(NotImplementedError, match="port queue: 6, vision"):
-            getattr(cc, name)({}, None)
-    else:
-        import inspect
+    """Every item-6 converter is the port's own, the vision towers' too
+    since item 6's vision part (none is a refusal any more; their outputs
+    against the JAX converters': tests/test_torch_vision.py). Called on an
+    empty state dict (and no config), a vision converter fails on the first
+    missing key or on the missing config."""
+    import inspect
 
-        assert "_unsupported" not in inspect.getsource(getattr(cc, name))
+    assert hasattr(jcc, name)  # the JAX package has each of them
+    assert "_unsupported" not in inspect.getsource(getattr(cc, name))
+    if name in VISION_CONVERTERS:
+        with pytest.raises((KeyError, AttributeError)):
+            getattr(cc, name)({}, None) if name.endswith("framework") else \
+                getattr(cc, name)({}, None, 1)
 
 
 def test_converter_table_mirrors_the_jax_package():
