@@ -113,6 +113,10 @@ over the serve engine against ``/generate``, ``grpc_synthesize`` one
 ``moe_serve_int8w`` serves it with int8 experts, then ``mixtral_serve``,
 ``mla_serve`` (``deepseek-v2-lite`` whole), ``gpt3_serve`` (``gpt3-6b``
 whole) and ``llama4_serve`` (a float32 twin for its teacher-forced check). The
+grouped backward kernels are persistent, TMA-fed ``wgmma`` kernels; float32
+experts run the float32 grouped kernels, whose main path is
+``moe_train_parity``'s float32 sparse step, held against the dense route; the
+flash kernels are checked at GQA groups 5, 6 and 16 too. The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -209,6 +213,16 @@ KERNELS = [
          replaces="maxtext_indextts2_tpu/models/moe.py:268"),
     dict(name="grouped_matmul_wgrad", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_bwd.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
+    # no Pallas site: ragged_dot and its transpose on float32 experts
+    dict(name="grouped_matmul_f32", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_f32.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
+    dict(name="grouped_matmul_f32_dgrad", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_f32.cu",
+         replaces="maxtext_indextts2_tpu/models/moe.py:268"),
+    dict(name="grouped_matmul_f32_wgrad", route="cuda",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_f32.cu",
          replaces="maxtext_indextts2_tpu/models/moe.py:268"),
 ]
 
@@ -590,10 +604,10 @@ def phase_build():
                          r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
                         for r in _build.ptxas_report(kernel)]
                for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES,
-                              "int8w_matmul", "grouped_matmul", "gmm_bwd")}
+                              "int8w_matmul", "grouped_matmul", "gmm_bwd", "gmm_f32")}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
     flash, int8w = reports[FLASH_KERNEL_NAMES], reports["int8w_matmul"]
-    gmm, gmm_bwd = reports["grouped_matmul"], reports["gmm_bwd"]
+    gmm, gmm_bwd, gmm_f32 = reports["grouped_matmul"], reports["gmm_bwd"], reports["gmm_f32"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
@@ -601,7 +615,8 @@ def phase_build():
         flash_registers_spill_stores_loads=flash,
         int8w_matmul_registers_spill_stores_loads=int8w,
         grouped_matmul_registers_spill_stores_loads=gmm,
-        grouped_matmul_bwd_registers_spill_stores_loads=gmm_bwd)
+        grouped_matmul_bwd_registers_spill_stores_loads=gmm_bwd,
+        grouped_matmul_f32_registers_spill_stores_loads=gmm_f32)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
           f"a decode-attention instantiation spills: {decode}")
     check(norm and all(r[2] == 0 and r[3] == 0 for r in norm),
@@ -614,9 +629,13 @@ def phase_build():
     # bf16: 2 row tiles; int8: 2 row tiles x (int32 sums, bf16 rescaled)
     check(len(gmm) == 6 and all(r[2] == 0 and r[3] == 0 for r in gmm),
           f"a grouped_matmul instantiation spills, or one is missing: {gmm}")
-    # dgrad: one row tile (64); wgrad: one
+    # the persistent wgmma kernels: dgrad and wgrad (the consumers' 232
+    # registers after setmaxnreg; ptxas reports the launch's 168)
     check(len(gmm_bwd) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_bwd),
           f"a grouped_matmul backward instantiation spills, or one is missing: {gmm_bwd}")
+    # float32: the forward / dgrad row-tile kernel and wgrad
+    check(len(gmm_f32) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_f32),
+          f"a float32 grouped_matmul instantiation spills, or one is missing: {gmm_f32}")
 
 
 def phase_kernels():
@@ -1645,14 +1664,17 @@ def _all_counts() -> dict:
             "grouped_matmul_bf16": grouped_matmul.launch_counts["grouped_matmul"],
             "grouped_matmul_int8": grouped_matmul.launch_counts["grouped_matmul_int8"],
             "grouped_matmul_dgrad": grouped_matmul.launch_counts["grouped_matmul_dgrad"],
-            "grouped_matmul_wgrad": grouped_matmul.launch_counts["grouped_matmul_wgrad"]}
+            "grouped_matmul_wgrad": grouped_matmul.launch_counts["grouped_matmul_wgrad"],
+            **{k: grouped_matmul.launch_counts[k] for k in F32_GMM}}
 
 
+# the float32 grouped kernels' counts
+F32_GMM = ("grouped_matmul_f32", "grouped_matmul_f32_dgrad", "grouped_matmul_f32_wgrad")
 NO_FLASH = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 NO_PAGED = {"paged_decode_attention": 0}
 NO_INT8W = {"int8w_matmul": 0}
 NO_GMM = {"grouped_matmul_bf16": 0, "grouped_matmul_int8": 0, "grouped_matmul_dgrad": 0,
-          "grouped_matmul_wgrad": 0}
+          "grouped_matmul_wgrad": 0, **dict.fromkeys(F32_GMM, 0)}
 
 
 def _audio_only_lm(pipe):
@@ -4876,6 +4898,12 @@ MOE_TRAIN_ARGS = ["model_name=qwen3-30b-a3b", "base_num_decoder_layers=2",
 # that comparison is reported beside the float32 witness and not held to 2**-6.
 TOL_MOE_TRAIN_ROUTES = 2.0 ** -6
 MOE_PARITY_BATCHES = 3
+# the same step in float32 throughout, sparse route (the float32 grouped
+# kernels) against the dense einsum route, on the first pair's pinned
+# routing: the same float32 arithmetic in another summation order (TF32 off),
+# so the loss, moe_lb_loss and every gradient within 1e-5 of the tensor's
+# largest |entry| (a scalar: of its |value|)
+TOL_MOE_TRAIN_F32 = 1e-5
 # deepseek-v2-lite at its published widths, its leading dense layer and one
 # MoE layer (64 experts of 1408, top 6, 2 shared experts), with DeepSeek-V3's
 # router (sigmoid scores, a selection bias, 8 groups of which 4 are kept,
@@ -5029,7 +5057,10 @@ def phase_moe_train_parity(card):
     what differs is the routes' arithmetic and not bf16 re-rounding
     downstream of it. Reported beside it: the same two routes with the whole
     step in bf16 (the training recipe), and how far each is from a float32
-    step of the dense route (the witness)."""
+    step of the dense route (the witness). On the first pair, the whole step
+    in float32 on the sparse route (the float32 grouped kernels) against that
+    witness, required within TOL_MOE_TRAIN_F32. Returns the float32 sparse
+    step's launches (its own main path)."""
     from maxtext_indextts2_tpu_torch.config import load_config
     from maxtext_indextts2_tpu_torch.models.moe import RoutedMoE
     from maxtext_indextts2_tpu_torch.tools.moe_route_noise import (
@@ -5053,7 +5084,10 @@ def phase_moe_train_parity(card):
               ("moe_bf16_sparse", model32, cfg32, True, bf16),
               ("moe_bf16_dense", model32, cfg32, False, bf16),
               ("float32_dense", model32, cfg32, False, f32))
-    per_batch, failures = [], []
+    want_f32 = {"grouped_matmul_f32": want["grouped_matmul_bf16"],
+                "grouped_matmul_f32_dgrad": want["grouped_matmul_dgrad"],
+                "grouped_matmul_f32_wgrad": want["grouped_matmul_wgrad"]}
+    per_batch, failures, f32_step = [], [], {}
     for i in range(MOE_PARITY_BATCHES):
         # weights of seed init_weights_seed + i (drawn in place: the float32
         # model shares them) and synthetic batch i
@@ -5079,12 +5113,43 @@ def phase_moe_train_parity(card):
                                  moe_lb_loss=float(aux["moe_lb_loss"].detach()), grads=grads,
                                  counts={k: v for k, v in _all_counts().items() if v})
                 del loss, aux
+            if i == 0:  # float32 throughout, sparse route, on the same pinned routing
+                for moe in model32.modules():
+                    if isinstance(moe, RoutedMoE):
+                        moe.cfg = dataclasses.replace(cfg32, sparse_matmul=True)
+                        moe.dtype = f32
+                _reset_all_counts()
+                loss, aux = train.loss_fn(model32, cfg32, batch)
+                grads = train._grads(loss, list(model32.parameters()))
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in _all_counts().items() if v}
+                ref = out["float32_dense"]
+                rel = dict(zip(names, rel_gaps(grads, ref["grads"])))
+                scalars = {"loss": abs(float(loss.detach()) - ref["loss"])
+                           / max(abs(ref["loss"]), 1e-30),
+                           "moe_lb_loss": abs(float(aux["moe_lb_loss"].detach())
+                                              - ref["moe_lb_loss"])
+                           / max(abs(ref["moe_lb_loss"]), 1e-30)}
+                top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+                f32_step = dict(scalar_rel_err=scalars, grad_rel_err_top=top,
+                                grad_rel_err_mean=float(np.mean(list(rel.values()))),
+                                counts=counts, tol_rel=TOL_MOE_TRAIN_F32)
+                bf16_gmm = [k for k in want if "grouped" in k]
+                got = {k: counts.get(k, 0) for k in (*want_f32, *bf16_gmm)}
+                if got != {**want_f32, **dict.fromkeys(bf16_gmm, 0)}:
+                    failures.append(f"float32 sparse step: grouped launches {got}, "
+                                    f"want {want_f32}")
+                if max(max(scalars.values()), top[0][1]) > TOL_MOE_TRAIN_F32:
+                    failures.append(f"float32 sparse against dense: {scalars}, "
+                                    f"worst gradients {top}")
+                del loss, aux, grads
         for name, _, _, sparse, _ in passes:
             grouped = {k: out[name]["counts"].get(k, 0) for k in want if "grouped" in k}
             flash = {k: out[name]["counts"].get(k, 0) for k in want if "flash" in k}
+            f32_counts = {k: out[name]["counts"].get(k, 0) for k in F32_GMM}
             if flash != {k: v for k, v in want.items() if "flash" in k} or grouped != (
                     {k: v for k, v in want.items() if "grouped" in k} if sparse
-                    else dict.fromkeys(grouped, 0)):
+                    else dict.fromkeys(grouped, 0)) or any(f32_counts.values()):
                 failures.append(f"batch {i} {name}: launches {out[name]['counts']}, want {want} "
                                 "(grouped on the sparse route only)")
 
@@ -5123,9 +5188,11 @@ def phase_moe_train_parity(card):
                               for b in per_batch),
          bf16_step_grad_rel_err_max=max(b["bf16_sparse_vs_dense"]["grad_rel_err_top"][0][1]
                                         for b in per_batch),
-         kernel_launches_per_pass=want, batches=per_batch)
+         kernel_launches_per_pass=want, batches=per_batch,
+         float32_sparse_vs_dense=f32_step)
     check(not failures, f"moe_train_parity (tolerance {TOL_MOE_TRAIN_ROUTES}): {failures}")
     del model, model32
+    return {k: f32_step["counts"].get(k, 0) for k in F32_GMM}
 
 
 def phase_deepseek_train(card):
@@ -5647,7 +5714,8 @@ def _phases(tmp, card) -> dict:
     launches, _ = phase_moe_train(card)
     record("moe_train", launches)
     release()
-    phase_moe_train_parity(card)
+    # its float32 sparse step: the float32 grouped kernels' main path
+    record("moe_train_parity", phase_moe_train_parity(card))
     release()
     launches, _ = phase_deepseek_train(card)
     record("deepseek_train", launches)

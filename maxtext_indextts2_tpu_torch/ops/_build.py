@@ -83,6 +83,9 @@ SIGNATURES = {
     "grouped_matmul_dgrad": [_P] * 4 + [_I] * 4 + [_P],
     # (x, dy, offsets, dw, rows, K, N, groups, stream)
     "grouped_matmul_wgrad": [_P] * 4 + [_I] * 4 + [_P],
+    # (a, b, offsets, out, rows, K, N, groups, mode, stream): float32; mode 0
+    # the forward, 1 dgrad, 2 wgrad
+    "grouped_matmul_f32": [_P] * 4 + [_I] * 5 + [_P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

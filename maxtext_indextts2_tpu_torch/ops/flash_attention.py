@@ -24,7 +24,9 @@ one step.
 On a CUDA tensor the hand-written kernels of ``csrc/flash_attention.cuh``
 run (or the call raises); they are built for the head dims of ``HEAD_DIMS``
 (64, 128 and 256, the flagship's), and any other width raises with that list
-(the JAX kernels take any: ROADMAP queues the others). They read q, k and v through their strides, so the
+(the JAX kernels take any: ROADMAP queues the others), and any GQA group
+that divides H (the kernels read the group from H / Hkv at run time; a K11
+block walks the whole group). They read q, k and v through their strides, so the
 [B, S, N, D] projections of the model need no transposed copy, and they
 choose their own tiles (the TPU kernel's VMEM block sizes have no
 counterpart here). In bfloat16, K9, K10 and K11 run on the tensor cores and
@@ -53,7 +55,6 @@ from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (64, 128, 256)  # head widths the kernels are built for
-GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernels are checked at (8: qwen3-30b-a3b)
 
 # launches of each CUDA kernel by this process
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -184,8 +185,9 @@ def _kernel_args(q, k, *more):
     hkv, skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
-    if h // hkv not in GROUPS:
-        raise ValueError(f"flash_attention kernel: group {h // hkv} not in {GROUPS}")
+    if hkv <= 0 or h % hkv:
+        raise ValueError(f"flash_attention kernel: {h} query heads do not split into groups "
+                         f"over {hkv} kv heads")
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention kernel: batch {b} and heads {h} must be <= 65535")
     if any(t.stride(-1) != 1 for t in (q, k, *more)):

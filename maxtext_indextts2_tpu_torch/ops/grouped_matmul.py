@@ -6,9 +6,8 @@ The counterpart of ``jax.lax.ragged_dot``, which the JAX package's MoE layer
 group, w ``[G, K, N]``, and ``offsets`` ``[G + 1]`` int32 (group g holds rows
 ``[offsets[g], offsets[g + 1])``; a group may be empty). Two functions:
 
-* ``grouped_matmul(x, w, offsets)``: bfloat16 (or float32 on the CPU)
-  operands, float32 sums, the result in x's dtype:
-  ``ragged_dot(...).astype(dtype)``;
+* ``grouped_matmul(x, w, offsets)``: bfloat16 or float32 operands, float32
+  sums, the result in x's dtype: ``ragged_dot(...).astype(dtype)``;
 * ``grouped_matmul_int8(xq, wq, offsets, row_scale, w_scale)``: int8
   operands, int32 sums; without scales the int32 sums, with them
   ``(float(sum) * row_scale[r]) * w_scale[g(r)]`` in ``out_dtype``: the
@@ -16,7 +15,8 @@ group, w ``[G, K, N]``, and ``offsets`` ``[G + 1]`` int32 (group g holds rows
 
 ``grouped_matmul`` takes gradients (training's sparse route): where autograd
 records, it goes through :class:`GroupedMatmul`, whose backward launches the
-two kernels of ``csrc/grouped_matmul_bwd.cu``,
+two kernels of ``csrc/grouped_matmul_bwd.cu`` (bfloat16) or
+``csrc/grouped_matmul_f32.cu`` (float32),
 
 * ``grouped_matmul_dgrad(dy, w, offsets)``: ``dx[r] = dy[r] @ w[g(r)]^T``;
 * ``grouped_matmul_wgrad(x, dy, offsets)``: ``dw[g] = x[rows of g]^T @
@@ -30,10 +30,13 @@ gradients back to the operands' dtype, so for bfloat16 operands ``dx`` and
 ``grouped_matmul_int8`` takes no gradient: int8 experts are a serving
 structure.
 
-On a CUDA tensor the hand-written kernels of ``csrc/grouped_matmul.cu`` run
+On a CUDA tensor the hand-written kernels run: ``csrc/grouped_matmul.cu``
 (bfloat16 operands and result, or int8 operands with an int32 or bfloat16
-result; anything else raises), with ``offsets`` read on the
-device: no host sync, so a captured decode step holds the launch. The plain
+result), ``csrc/grouped_matmul_f32.cu`` (float32 operands and result, the
+forward and both gradients, on the CUDA cores: exact products summed in
+float32, as ``ragged_dot`` computes float32 operands); anything else raises.
+``offsets`` is read on the device: no host sync, so a captured decode step
+holds the launch. The plain
 PyTorch versions below loop over the groups with ``torch.matmul`` on host
 offsets; they are taken for tensors on the CPU and by comparisons
 (``impl="plain"``), never on a card path. No Pallas kernel is replaced: XLA
@@ -44,9 +47,14 @@ from __future__ import annotations
 
 import torch
 
-# launches of each CUDA kernel by this process ("grouped_matmul": the bf16 kernel)
+# launches of each CUDA kernel by this process ("grouped_matmul": the bf16
+# kernel; the "_f32" ones: the float32 kernels of the three products)
 launch_counts = {"grouped_matmul": 0, "grouped_matmul_int8": 0, "grouped_matmul_dgrad": 0,
-                 "grouped_matmul_wgrad": 0}
+                 "grouped_matmul_wgrad": 0, "grouped_matmul_f32": 0,
+                 "grouped_matmul_f32_dgrad": 0, "grouped_matmul_f32_wgrad": 0}
+# grouped_matmul_f32's mode argument
+_F32_MODES = {"grouped_matmul_f32": 0, "grouped_matmul_f32_dgrad": 1,
+              "grouped_matmul_f32_wgrad": 2}
 
 
 def tile_rows(rows: int, groups: int) -> int:
@@ -198,17 +206,32 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     return _forward(x, w, offsets, impl)
 
 
+def _launch_f32(name, a, b, offsets, out, r, k, n, g) -> None:
+    """The float32 kernel of one of the three products (``_F32_MODES``)."""
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    a, b, offsets = _kernel_operands(a, b, offsets)
+    code = lib.grouped_matmul_f32(
+        a.data_ptr(), b.data_ptr(), offsets.data_ptr(), out.data_ptr(), r, k, n, g,
+        _F32_MODES[name], torch.cuda.current_stream(a.device).cuda_stream)
+    _launched(name, code)
+
+
 def _forward(x, w, offsets, impl):
     if _route(impl, (x, w, offsets)) == "plain":
         return grouped_matmul_plain(x, w, offsets)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"grouped_matmul kernel: bfloat16 operands, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"grouped_matmul kernel: bfloat16 or float32 operands, got {x.dtype}")
     r, k = x.shape
     g, _, n = w.shape
-    if k % 8 or n % 8:
+    if x.dtype == torch.bfloat16 and (k % 8 or n % 8):
         raise ValueError(f"grouped_matmul kernel: K and N multiples of 8, got {k}, {n}")
     out = torch.empty((r, n), dtype=x.dtype, device=x.device)
     if r == 0:
+        return out
+    if x.dtype == torch.float32:
+        _launch_f32("grouped_matmul_f32", x, w, offsets, out, r, k, n, g)
         return out
     from maxtext_indextts2_tpu_torch.ops import _build
 
@@ -231,9 +254,10 @@ def _check_bwd(a, b, offsets, what):
 
 
 def _bwd_kernel_ready(tensors, what, k, n) -> None:
-    if tensors[0].dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel: bfloat16 operands, got {tensors[0].dtype}")
-    if k % 8 or n % 8:
+    dtype = tensors[0].dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel: bfloat16 or float32 operands, got {dtype}")
+    if dtype == torch.bfloat16 and (k % 8 or n % 8):
         raise ValueError(f"{what} kernel: K and N multiples of 8, got {k}, {n}")
 
 
@@ -252,6 +276,9 @@ def grouped_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, offsets: torch.Tenso
     _bwd_kernel_ready((dy, w), "grouped_matmul_dgrad", k, n)
     dx = torch.empty((r, k), dtype=dy.dtype, device=dy.device)
     if r == 0:
+        return dx
+    if dy.dtype == torch.float32:
+        _launch_f32("grouped_matmul_f32_dgrad", dy, w, offsets, dx, r, k, n, g)
         return dx
     from maxtext_indextts2_tpu_torch.ops import _build
 
@@ -278,6 +305,9 @@ def grouped_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tenso
     n, g = dy.shape[1], offsets.numel() - 1
     _bwd_kernel_ready((x, dy), "grouped_matmul_wgrad", k, n)
     dw = torch.empty((g, k, n), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        _launch_f32("grouped_matmul_f32_wgrad", x, dy, offsets, dw, r, k, n, g)
+        return dw
     from maxtext_indextts2_tpu_torch.ops import _build
 
     lib = _build.load_library()

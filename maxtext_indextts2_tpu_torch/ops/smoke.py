@@ -27,7 +27,7 @@ serving and training shapes for a quick first check of a changed kernel,
 ``ragged`` runs the K1-K3 cases only, ``flash`` the K9-K11 cases only,
 ``paged`` the K4 cases only, ``s2a`` the K12 cases only, ``rows`` the K5-K8
 cases only, ``int8w`` the int8w_matmul cases only, ``gmm`` the grouped
-products and their backward only; the repo's
+products, their backward and the float32 grouped kernels only; the repo's
 ``chip_smoke.py`` calls :func:`run_all`).
 """
 
@@ -1202,7 +1202,8 @@ def flash_cases(device, timing, full_size=True):
     path) and with pad tails, and the masked serving pass on that route; at
     D = 256 (the flagship's heads) its training shape, packed documents, a
     sliding window, chunks with a soft cap, and odd-length float32 cases; at
-    GQA group 8 qwen3-30b-a3b's training shape and packed documents."""
+    GQA group 8 qwen3-30b-a3b's training shape and packed documents; at
+    groups 5, 6 and 16 (the other presets' heads) a causal step."""
     main = dict(FLASH_MAIN) if full_size else dict(FLASH_MAIN, b=1, s=512)
     flagship = dict(FLASH_FLAGSHIP) if full_size else dict(FLASH_FLAGSHIP, s=512)
     d256 = dict(b=2, s=1000 if full_size else 200, h=16, hkv=8, d=256)
@@ -1277,6 +1278,12 @@ def flash_cases(device, timing, full_size=True):
         flash_case("flash_f32_group8_packed_padding", device, timing,
                    **dict(qwen3, b=2, s=qwen3["s"] - 24), dtype=f32, segments="packed",
                    seed=342),
+        # the other GQA groups of the presets: 5 (qwen3-14b, llama4: 40 q / 8
+        # kv heads), 6 (mixtral-8x22b: 48 / 8), 16 (llama3-405b: 128 / 8),
+        # D = 128, causal; K11's block walks the whole group
+        *[flash_case(f"flash_bf16_group{h // 8}", device, timing, b=2,
+                     s=512 if full_size else 256, h=h, hkv=8, d=128, seed=343 + i)
+          for i, h in enumerate((40, 48, 128))],
     ]
     return [r for g in groups for r in g]
 
@@ -1355,6 +1362,10 @@ MAIN_PATH_CASES = {
                              "deepseek_train": "gmm_dgrad_deepseek_train_wi"},
     "grouped_matmul_wgrad": {"moe_train": "gmm_wgrad_main_path",
                              "deepseek_train": "gmm_wgrad_deepseek_train_wi"},
+    # the float32 grouped products: moe_train_parity's float32 sparse step
+    "grouped_matmul_f32": {"moe_train_parity": "gmm_f32_fwd_qwen3_parity"},
+    "grouped_matmul_f32_dgrad": {"moe_train_parity": "gmm_f32_dgrad_qwen3_parity"},
+    "grouped_matmul_f32_wgrad": {"moe_train_parity": "gmm_f32_wgrad_qwen3_parity"},
     "flash_bwd_dkv": {"train": "flash_bf16_main_path_dkv",
                       "train_dropout": "flash_bf16_main_path_dkv",
                       "train_packed": "flash_bf16_emilia_packed_dkv",
@@ -1539,7 +1550,11 @@ GMM_CASES = [
 
 
 def _gmm_groups(rows, groups, routing, g, device) -> torch.Tensor:
-    """Each row's group, sorted (the sparse route's order)."""
+    """Each row's group, sorted (the sparse route's order). ``routing``: a
+    kind (below) or a tuple of the groups' row counts."""
+    if isinstance(routing, tuple):
+        return torch.repeat_interleave(torch.arange(groups, device=device),
+                                       torch.tensor(routing, device=device))
     if routing == "one":
         ids = torch.full((rows,), groups // 2, dtype=torch.long, device=device)
     elif routing == "skewed":
@@ -1706,25 +1721,56 @@ GMM_BWD_CASES = [
     ("empty_groups", 24, 128, 512, 384, "uniform"),
     ("one_group_holds_all", 1000, 16, 512, 384, "one"),
     ("skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
+    # groups of 1, 63, 65, 127, 129 rows (either side of the 64-row half
+    # tile, the 128-row tile and wgrad's 64-row step), an empty one, R = 770
+    # (no multiple of 64); K = 640 and N = 448 (no multiple of the 256-column
+    # tile); then K = 200 and N = 136 (no multiple of 64 either: TMA's zeros
+    # inside a box)
+    ("tile_edges", 770, 10, 640, 448, (1, 63, 65, 0, 127, 129, 64, 128, 2, 191)),
+    ("narrow_edges", 195, 3, 200, 136, (65, 1, 129)),
+]
+# float32 operands (``grouped_matmul_f32.cu``, the CUDA cores): each kernel
+# against its plain version (a float32 product a group, TF32 off): the same
+# exact products summed in another order, so a relative 2e-5 of max(1, max
+# |plain|). The cases: the float32 step of ``moe_train_parity`` (qwen3-30b-a3b
+# at 1 x 1024 tokens: 8,192 rows over 128 experts, wi), its wo, and the edges.
+TOL_GMM_F32 = 2e-5
+GMM_F32_CASES = [
+    ("qwen3_parity", 1024 * 8, 128, 2048, 768, "uniform"),
+    ("qwen3_parity_wo", 1024 * 8, 128, 768, 2048, "uniform"),
+    ("empty_groups", 24, 128, 512, 384, "uniform"),
+    ("one_group_holds_all", 1000, 16, 512, 384, "one"),
+    ("tile_edges", 770, 10, 200, 77, (1, 63, 65, 0, 127, 129, 64, 128, 2, 191)),
 ]
 
 
-def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, seed=0):
+def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, seed=0,
+                 dtype=torch.bfloat16):
     """grouped_matmul_dgrad (``kind="dgrad"``) or grouped_matmul_wgrad
     against its plain version, and, timed, against ``torch._grouped_mm`` on
     the same product (dgrad: ``dy @ w^T`` a group; wgrad: ``x^T @ dy`` a
-    group)."""
+    group). ``dtype=torch.float32``: the float32 kernels
+    (``grouped_matmul_f32.cu``), ``kind="fwd"`` the forward among them."""
     g = torch.Generator(device=device).manual_seed(seed)
     ids = _gmm_groups(rows, groups, routing, g, device)
     counts = torch.bincount(ids, minlength=groups)
     offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
                          torch.cumsum(counts, 0)]).to(torch.int32)
     touched = int((counts > 0).sum().item())
-    kname = f"grouped_matmul_{kind}"
-    x = torch.randn((rows, k), generator=g, device=device).to(torch.bfloat16)
-    w = (torch.randn((groups, k, n), generator=g, device=device) / math.sqrt(k)).to(torch.bfloat16)
-    dy = torch.randn((rows, n), generator=g, device=device).to(torch.bfloat16)
-    if kind == "dgrad":
+    f32 = dtype == torch.float32
+    kname = ("grouped_matmul_f32" + ("" if kind == "fwd" else f"_{kind}") if f32
+             else f"grouped_matmul_{kind}")
+    tol = TOL_GMM_F32 if f32 else TOL_GMM_BF16
+    x = torch.randn((rows, k), generator=g, device=device).to(dtype)
+    w = (torch.randn((groups, k, n), generator=g, device=device) / math.sqrt(k)).to(dtype)
+    dy = torch.randn((rows, n), generator=g, device=device).to(dtype)
+    if kind == "fwd":
+        def kernel():
+            return gm.grouped_matmul(x, w, offsets)
+
+        def plain():
+            return gm.grouped_matmul(x, w, offsets, impl="plain")
+    elif kind == "dgrad":
         def kernel():
             return gm.grouped_matmul_dgrad(dy, w, offsets)
 
@@ -1736,12 +1782,17 @@ def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, see
 
         def plain():
             return gm.grouped_matmul_wgrad(x, dy, offsets, impl="plain")
-    before = gm.launch_counts[kname]
-    out = kernel()
-    torch.cuda.synchronize()
-    launched = gm.launch_counts[kname] - before
-    ref = plain()
-    torch.cuda.synchronize()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain float32 products exact
+    try:
+        before = gm.launch_counts[kname]
+        out = kernel()
+        torch.cuda.synchronize()
+        launched = gm.launch_counts[kname] - before
+        ref = plain()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     finite = bool(torch.isfinite(out.float()).all().item())
     out_err = float((out.float() - ref.float()).abs().max().item())
     largest = float(ref.float().abs().max().item())
@@ -1752,23 +1803,25 @@ def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, see
     if kind == "wgrad":  # every empty group's gradient is written as zeros
         empty = counts == 0
         empty_zero = bool((out[empty] == 0).all().item()) if bool(empty.any()) else True
-    res = dict(name=f"gmm_{kind}_{name}", kernel=kname, finite=finite, launched=launched,
-               max_abs_out=largest, max_abs_err=out_err, max_err=rel, tol=TOL_GMM_BF16,
-               unit="relative to max(1, max |plain|)", repeat_bitwise_equal=repeat,
+    res = dict(name=f"gmm_{'f32_' if f32 else ''}{kind}_{name}", kernel=kname, finite=finite,
+               launched=launched, max_abs_out=largest, max_abs_err=out_err, max_err=rel,
+               tol=tol, unit="relative to max(1, max |plain|)", repeat_bitwise_equal=repeat,
                empty_groups_zero=empty_zero,
-               shape=dict(rows=rows, groups=groups, k=k, n=n, routing=routing,
+               shape=dict(rows=rows, groups=groups, k=k, n=n,
+                          routing=list(routing) if isinstance(routing, tuple) else routing,
                           groups_touched=touched, largest_group=int(counts.max().item()),
                           out_dtype=str(out.dtype).replace("torch.", "")),
-               ok=bool(rel <= TOL_GMM_BF16 and finite and launched == 1 and repeat
-                       and empty_zero))
+               ok=bool(rel <= tol and finite and launched == 1 and repeat and empty_zero
+                       and out.dtype == dtype))
     if timing:
+        esize = 4 if f32 else 2
         ops = 2 * rows * k * n
-        if kind == "dgrad":  # dy in, the touched experts' weights in, dx out
-            nbytes = rows * n * 2 + touched * k * n * 2 + rows * k * 2 + 4 * (groups + 1)
-        else:  # x and dy in, every expert's dw out (bf16, empty ones as zeros)
-            nbytes = rows * k * 2 + rows * n * 2 + groups * k * n * 2 + 4 * (groups + 1)
+        if kind == "wgrad":  # x and dy in, every expert's dw out (empty ones as zeros)
+            nbytes = (rows * k + rows * n + groups * k * n) * esize + 4 * (groups + 1)
+        else:  # rows in, the touched experts' weights in, rows out
+            nbytes = (rows * n + touched * k * n + rows * k) * esize + 4 * (groups + 1)
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
         library = _gmm_library()
         ends = offsets[1:].contiguous()
         res.update(
@@ -1779,10 +1832,19 @@ def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, see
             bytes_moved=nbytes, ops=ops, library_ms=None, library_device_ms=None,
             library_call=None)
         if library is not None:
-            if kind == "dgrad":
+            if kind == "fwd":
+                call = "torch._grouped_mm(x, w, offs)"
+
+                def library_call():
+                    return library(x, w, offs=ends)
+            elif kind == "dgrad":
+                call = "torch._grouped_mm(dy, w.transpose(1, 2), offs)"
+
                 def library_call():
                     return library(dy, w.transpose(1, 2), offs=ends)
             else:
+                call = "torch._grouped_mm(x.t(), dy, offs)"
+
                 def library_call():
                     return library(x.t(), dy, offs=ends)
             try:
@@ -1792,23 +1854,29 @@ def gmm_bwd_case(name, device, timing, *, kind, rows, groups, k, n, routing, see
                 res["library_error"] = str(e)[:200]
             else:
                 res.update(library_ms=time_ms(library_call),
-                           library_device_ms=device_ms(library_call),
-                           library_call=("torch._grouped_mm(dy, w.transpose(1, 2), offs)"
-                                         if kind == "dgrad" else
-                                         "torch._grouped_mm(x.t(), dy, offs)"))
+                           library_device_ms=device_ms(library_call), library_call=call)
     return res
 
 
 def gmm_bwd_cases(device, timing, full_size=True):
-    """dgrad and wgrad at every shape of :data:`GMM_BWD_CASES`
-    (``full_size=False``: K and N cut by 4, rows by 8)."""
+    """dgrad and wgrad at every shape of :data:`GMM_BWD_CASES`, then the
+    float32 kernels at every shape of :data:`GMM_F32_CASES`
+    (``full_size=False``: K and N cut by 4, rows by 8, except where the
+    routing gives the groups' rows)."""
     out = []
     for i, (name, rows, groups, k, n, routing) in enumerate(GMM_BWD_CASES):
-        if not full_size:
+        if not full_size and not isinstance(routing, tuple):
             rows, k, n = max(8, rows // 8), max(64, k // 4), max(64, n // 4)
         for kind in ("dgrad", "wgrad"):
             out.append(gmm_bwd_case(name, device, timing, kind=kind, rows=rows, groups=groups,
                                     k=k, n=n, routing=routing, seed=120 + i))
+    for i, (name, rows, groups, k, n, routing) in enumerate(GMM_F32_CASES):
+        if not full_size and not isinstance(routing, tuple):
+            rows, k, n = max(8, rows // 8), max(64, k // 4), max(64, n // 4)
+        for kind in ("fwd", "dgrad", "wgrad"):
+            out.append(gmm_bwd_case(name, device, timing, kind=kind, rows=rows, groups=groups,
+                                    k=k, n=n, routing=routing, seed=150 + i,
+                                    dtype=torch.float32))
     return out
 
 
@@ -1955,7 +2023,7 @@ def main(argv=None):
     if not selected or "int8w" in selected:
         reports.append("int8w_matmul")
     if not selected or "gmm" in selected:
-        reports += ["grouped_matmul", "gmm_bwd"]
+        reports += ["grouped_matmul", "gmm_bwd", "gmm_f32"]
     if not selected or "rows" in selected:
         reports.append("norm_rows_kernel")  # K5 / K7
     if not selected or "flash" in selected:

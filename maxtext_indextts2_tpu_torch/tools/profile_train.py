@@ -1,5 +1,5 @@
 """Where one training step spends its time on the GPU: the ``tts-1b`` LM, the
-S2A model or the acoustic codec.
+S2A model, the acoustic codec or the MoE LM.
 
 ``model=lm`` builds the recipe of ``chip_smoke.py``'s ``train`` phase (full
 width, seeded random bf16 weights, 4 x 2048 tokens a step, ``attention=flash``,
@@ -12,13 +12,18 @@ sequence-flash route; ``model=codec`` the acoustic codec's step of
 ``chip_smoke.py``'s ``codec_train`` phase (``AcousticCodec()`` at its published
 widths, float32, quantizer dropout 0.5, 16 rows of 0.5 s at 24 kHz; convolutions,
 FFTs and products through cuDNN, cuFFT and cuBLAS, no kernel of this package),
-grouped as convolutions, FFT, products, copies and the rest. It reports, as one
-JSON object: the host-clock
+grouped as convolutions, FFT, products, copies and the rest; ``model=moe`` the
+recipe of ``chip_smoke.py``'s ``moe_train`` phase (qwen3-30b-a3b at full width,
+2 of its 48 layers, 4 x 1024 tokens a step, float32 weights and AdamW moments,
+bf16 compute, remat ``full``; the sparse route), with the grouped products
+apart: the forward, dgrad and wgrad kernels of ``csrc/grouped_matmul*.cu``
+each a group of its own. It reports, as one JSON object: the host-clock
 step time (median of ``steps`` steps, each ending in a synchronise), and from
 ``torch.profiler`` over one more step the device-busy time, the device's idle
 share, the GPU launches, the device time per launch of this package's kernels
-(K9-K11, and K5 in the S2A), the device time by group (flash attention, the
-row kernels, cuBLAS products, copies, the rest) and the kernels that take the
+(K9-K11, K5 in the S2A, the grouped kernels in the MoE LM), the device time
+by group (flash attention, the row kernels, the grouped products, cuBLAS
+products, copies, the rest) and the kernels that take the
 most device time; beside them tokens/s and MFU at the H100's 989 TFLOP/s
 (``utils/flops.py``; the LM), the wrappers' launch counts of the traced step
 and the peak memory.
@@ -30,6 +35,8 @@ Run on the machine with the GPU::
     python -m maxtext_indextts2_tpu_torch.tools.profile_train model=s2a [layers=16] \\
         [batch=8] [seq_flash=false] [steps=3]
     python -m maxtext_indextts2_tpu_torch.tools.profile_train model=codec [batch=16] [steps=3]
+    python -m maxtext_indextts2_tpu_torch.tools.profile_train model=moe [layers=2] [batch=4] \\
+        [remat=full] [steps=3]
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import sys
 import torch
 
 from maxtext_indextts2_tpu_torch.config import load_config
-from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, flash_attention
+from maxtext_indextts2_tpu_torch.ops import ada_rmsnorm, flash_attention, grouped_matmul
 from maxtext_indextts2_tpu_torch.tools.profile_decode import _card
 from maxtext_indextts2_tpu_torch.tools.profile_s2a import profiled, row_kernel_name
 from maxtext_indextts2_tpu_torch.train import train
@@ -67,9 +74,29 @@ def flash_kernel_name(event_name: str) -> str | None:
     return None
 
 
+# kernel of csrc/grouped_matmul*.cu -> the wrapper that launches it
+# (``gmm_f32::rows_kernel`` runs both the float32 forward and dgrad)
+GROUPED_KERNELS = {"grouped_matmul_bf16_kernel": "grouped_matmul_bf16",
+                   "grouped_matmul_int8_kernel": "grouped_matmul_int8",
+                   "gmm_bwd::dgrad_kernel": "grouped_matmul_dgrad",
+                   "gmm_bwd::wgrad_kernel": "grouped_matmul_wgrad",
+                   "gmm_f32::rows_kernel": "grouped_matmul_f32 (forward and dgrad)",
+                   "gmm_f32::wgrad_kernel": "grouped_matmul_f32_wgrad"}
+
+
+def grouped_kernel_name(event_name: str) -> str | None:
+    """The wrapper a profiler event of a grouped-product kernel belongs to."""
+    for kernel, wrapper in GROUPED_KERNELS.items():
+        if kernel in event_name:
+            return wrapper
+    return None
+
+
 def own_kernel_name(event_name: str) -> str | None:
-    """The wrapper of a flash-attention or row-kernel event, else None."""
-    return flash_kernel_name(event_name) or row_kernel_name(event_name)
+    """The wrapper of a flash-attention, row-kernel or grouped-product
+    event, else None."""
+    return (flash_kernel_name(event_name) or row_kernel_name(event_name)
+            or grouped_kernel_name(event_name))
 
 
 def kernel_category(event_name: str) -> str:
@@ -99,21 +126,30 @@ def codec_category(event_name: str) -> str:
     return kernel_category(event_name)
 
 
+def moe_category(event_name: str) -> str:
+    """A coarse group for a profiler event of the MoE step: each grouped
+    product's kernel apart, then as :func:`kernel_category`."""
+    wrapper = grouped_kernel_name(event_name)
+    return f"grouped: {wrapper}" if wrapper else kernel_category(event_name)
+
+
 def _counts() -> dict:
-    return {"ada_rmsnorm": ada_rmsnorm.launch_count, **flash_attention.launch_counts}
+    return {"ada_rmsnorm": ada_rmsnorm.launch_count, **flash_attention.launch_counts,
+            **grouped_matmul.launch_counts}
 
 
 def _reset_counts():
     ada_rmsnorm.launch_count = 0
-    for k in flash_attention.launch_counts:
-        flash_attention.launch_counts[k] = 0
+    for counts in (flash_attention.launch_counts, grouped_matmul.launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def lm_step(opts):
     """(step function, fields): one LM training step on one batch."""
     cfg = load_config([TTS_1B, f"dataset_type={opts['data']}",
                        f"per_device_batch_size={opts['batch'] or 4}",
-                       f"remat_policy={opts['remat']}", "attention=flash",
+                       f"remat_policy={opts['remat'] or 'save_attn_and_mlp'}", "attention=flash",
                        "weight_dtype=bfloat16", "scan_layers=false", "cast_logits_to_fp32=false",
                        f"base_num_decoder_layers={opts['layers'] or 20}"])
     state = train.setup_train_state(cfg)
@@ -172,11 +208,34 @@ def codec_step(opts):
         cfg, state, lambda: codec_train.acoustic_loss(codec, wav, draw))), fields
 
 
-STEPS = {"lm": lm_step, "s2a": s2a_step, "codec": codec_step}
+# chip_smoke.py's moe_train recipe (MOE_TRAIN_ARGS; layers and batch apart)
+MOE_ARGS = ["model_name=qwen3-30b-a3b", "dataset_type=synthetic", "weight_dtype=float32",
+            "dtype=bfloat16", "scan_layers=false", "max_target_length=1024",
+            "max_prefill_predict_length=1024"]
+
+
+def moe_step(opts):
+    """(step function, fields): one MoE LM training step on one batch."""
+    cfg = load_config(MOE_ARGS + [f"base_num_decoder_layers={opts['layers'] or 2}",
+                                  f"per_device_batch_size={opts['batch'] or 4}",
+                                  f"remat_policy={opts['remat'] or 'full'}"])
+    state = train.setup_train_state(cfg)
+    batch = next(train.create_data_iterator(cfg, state.device))
+    tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
+    fields = dict(model="moe", model_name=cfg.model_name, layers=cfg.num_decoder_layers,
+                  batch=cfg.global_batch_size_to_train_on, seq=cfg.max_target_length,
+                  remat=cfg.remat_policy, experts=[cfg.num_experts, cfg.num_experts_per_tok],
+                  rows_a_grouped_product=tokens * cfg.num_experts_per_tok,
+                  tokens_per_step=tokens, tflops_per_step=flops.training_tflops_per_step(cfg))
+    return (lambda: train.train_step(cfg, state, batch)), fields
+
+
+STEPS = {"lm": lm_step, "s2a": s2a_step, "codec": codec_step, "moe": moe_step}
+CATEGORIES = {"codec": codec_category, "moe": moe_category}
 
 
 def main(argv=None):
-    opts = dict(model="lm", layers="", batch="", remat="save_attn_and_mlp", data="synthetic",
+    opts = dict(model="lm", layers="", batch="", remat="", data="synthetic",
                 seq_flash="false", steps="3")
     for a in (sys.argv[1:] if argv is None else argv):
         k, _, v = a.partition("=")
@@ -199,11 +258,14 @@ def main(argv=None):
         step_fn()
         counts.update(_counts())
 
-    category = codec_category if opts["model"] == "codec" else kernel_category
+    category = CATEGORIES.get(opts["model"], kernel_category)
     out = profiled(step, "train_step", card, repeats=int(opts["steps"]),
                    own_kernel_name=own_kernel_name, category=category, **fields)
     seconds = out["ms_host_clock"] / 1e3
-    if opts["model"] == "lm":
+    if opts["model"] == "moe":
+        out.update(tokens_per_s=fields["tokens_per_step"] / seconds,
+                   mfu_at_989_tflops=flops.mfu(fields["tflops_per_step"], seconds))
+    elif opts["model"] == "lm":
         out.update(tokens_per_s=fields["tokens_per_step"] / seconds,
                    real_tokens_per_s=fields["real_tokens_per_step"] / seconds,
                    mfu_at_989_tflops=flops.mfu(fields["tflops_per_step"], seconds))

@@ -169,9 +169,14 @@ def test_kernel_route_raises_on_what_it_cannot_take(monkeypatch):
     with pytest.raises(ValueError, match="head dim 48"):
         tfa.flash_fwd(torch.ones((1, 2, 8, 48)), torch.ones((1, 1, 8, 48)),
                       torch.ones((1, 1, 8, 48)), *ids)
-    with pytest.raises(ValueError, match="group 3"):
+    # any group that divides H goes on to the kernel (here: its build); one
+    # that does not is refused
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         tfa.flash_fwd(torch.ones((1, 3, 8, 64)), torch.ones((1, 1, 8, 64)),
                       torch.ones((1, 1, 8, 64)), *ids)
+    with pytest.raises(ValueError, match="H a multiple of Hkv"):
+        tfa.flash_fwd(torch.ones((1, 3, 8, 64)), torch.ones((1, 2, 8, 64)),
+                      torch.ones((1, 2, 8, 64)), *ids)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tfa.flash_fwd(torch.ones((1, 2, 8, 64)), torch.ones((1, 1, 8, 64)),
                       torch.ones((1, 1, 8, 64)), *ids)
