@@ -116,7 +116,13 @@ whole) and ``llama4_serve`` (a float32 twin for its teacher-forced check). The
 grouped backward kernels are persistent, TMA-fed ``wgmma`` kernels; float32
 experts run the float32 grouped kernels, whose main path is
 ``moe_train_parity``'s float32 sparse step, held against the dense route; the
-flash kernels are checked at GQA groups 5, 6 and 16 too. The
+flash kernels are checked at GQA groups 5, 6 and 16 too. The bf16 grouped
+forward runs the persistent ``wgmma`` kernel where the groups hold many rows
+(its cases at ``moe_train``'s and ``deepseek_train``'s training shapes, which
+are main paths of the forward too) and a weight stream split over a cluster
+where they hold few; ``int8w_matmul`` is one launch with its split-K sum in a
+cluster's shared memory; every grouped and ``int8w_matmul`` case launches
+twice and wants the same bits. The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -209,7 +215,7 @@ KERNELS = [
     # no Pallas site: the transpose of those ragged_dot calls, which XLA
     # derives for the MoE training step
     dict(name="grouped_matmul_dgrad", route="cuda",
-         source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_bwd.cu",
+         source="maxtext_indextts2_tpu_torch/csrc/grouped_wgmma.cuh",
          replaces="maxtext_indextts2_tpu/models/moe.py:268"),
     dict(name="grouped_matmul_wgrad", route="cuda",
          source="maxtext_indextts2_tpu_torch/csrc/grouped_matmul_bwd.cu",
@@ -604,10 +610,11 @@ def phase_build():
                          r.get("registers"), r.get("spill_stores"), r.get("spill_loads")]
                         for r in _build.ptxas_report(kernel)]
                for kernel in ("ragged_decode_kernel", "norm_rows_kernel", FLASH_KERNEL_NAMES,
-                              "int8w_matmul", "grouped_matmul", "gmm_bwd", "gmm_f32")}
+                              "int8w_matmul", "grouped_matmul", "gmm_wg", "gmm_bwd", "gmm_f32")}
     decode, norm = reports["ragged_decode_kernel"], reports["norm_rows_kernel"]
     flash, int8w = reports[FLASH_KERNEL_NAMES], reports["int8w_matmul"]
     gmm, gmm_bwd, gmm_f32 = reports["grouped_matmul"], reports["gmm_bwd"], reports["gmm_f32"]
+    gmm_wg = reports["gmm_wg"]
     emit("build", t0, build_seconds=_build.build_seconds, sources=sorted(
         os.path.relpath(s, REPO) for s in _build._sources()),
         decode_attention_registers_spill_stores_loads=decode,
@@ -615,6 +622,7 @@ def phase_build():
         flash_registers_spill_stores_loads=flash,
         int8w_matmul_registers_spill_stores_loads=int8w,
         grouped_matmul_registers_spill_stores_loads=gmm,
+        grouped_wgmma_registers_spill_stores_loads=gmm_wg,
         grouped_matmul_bwd_registers_spill_stores_loads=gmm_bwd,
         grouped_matmul_f32_registers_spill_stores_loads=gmm_f32)
     check(decode and all(r[2] == 0 and r[3] == 0 for r in decode),
@@ -623,16 +631,21 @@ def phase_build():
           f"a norm_rows_kernel instantiation spills: {norm}")
     check(len(flash) == 18 and all(r[2] == 0 and r[3] == 0 for r in flash),
           f"a flash-attention (K9-K11) instantiation spills, or one is missing: {flash}")
-    # (the file's anonymous namespace carries its name: its 2 reduce kernels match too)
-    check(len(int8w) == 6 and all(r[2] == 0 and r[3] == 0 for r in int8w),
+    # (the file's anonymous namespace carries its name): the bf16 tensor-core
+    # kernel at 16, 32 and 64 rows a block x (16-byte copies, element loads),
+    # the float32 one at 8 and 16 rows
+    check(len(int8w) == 8 and all(r[2] == 0 and r[3] == 0 for r in int8w),
           f"an int8w_matmul instantiation spills, or one is missing: {int8w}")
-    # bf16: 2 row tiles; int8: 2 row tiles x (int32 sums, bf16 rescaled)
-    check(len(gmm) == 6 and all(r[2] == 0 and r[3] == 0 for r in gmm),
+    # the bf16 few-rows kernel's three rings; int8: 2 row tiles x (int32 sums, bf16 rescaled)
+    check(len(gmm) == 7 and all(r[2] == 0 and r[3] == 0 for r in gmm),
           f"a grouped_matmul instantiation spills, or one is missing: {gmm}")
-    # the persistent wgmma kernels: dgrad and wgrad (the consumers' 232
-    # registers after setmaxnreg; ptxas reports the launch's 168)
-    check(len(gmm_bwd) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_bwd),
-          f"a grouped_matmul backward instantiation spills, or one is missing: {gmm_bwd}")
+    # the persistent wgmma kernels (the consumers' 232 registers after
+    # setmaxnreg; ptxas reports the launch's 168): grouped_wgmma.cuh's
+    # rows_kernel for the bf16 forward (many rows) and dgrad, and wgrad
+    check(len(gmm_wg) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_wg),
+          f"a grouped wgmma rows_kernel instantiation spills, or one is missing: {gmm_wg}")
+    check(len(gmm_bwd) == 1 and all(r[2] == 0 and r[3] == 0 for r in gmm_bwd),
+          f"the grouped_matmul wgrad kernel spills, or is missing: {gmm_bwd}")
     # float32: the forward / dgrad row-tile kernel and wgrad
     check(len(gmm_f32) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_f32),
           f"a float32 grouped_matmul instantiation spills, or one is missing: {gmm_f32}")

@@ -17,27 +17,65 @@
 //
 // What bounds it on this card: bytes at decode shapes (R = slots x top-k rows
 // over up to R experts: each touched expert's K x N weights are read once, the
-// rows are few), operations at prefill shapes (R up to 2048 x k rows: 2 R K N
-// products on the tensor cores). What the design does about it: the grid is
-// launched at its upper bound, ceil(R / BM) + G row tiles by ceil(N / 128)
-// column tiles, and each block finds its (group, row tile) from `offsets` with
-// a warp scan (spare blocks exit), so nothing is read back to the host and a
-// captured decode step holds the launch. A block computes BM x 128 of y: 4
-// warps, 32 columns each, on `mma.sync` (bf16 m16n8k16 fragments from
-// mma_bf16.cuh; int8 m16n8k32 with int32 sums). bf16: x's and w's tiles stream
-// through a 3-stage ring of `cp.async` copies in shared memory (rows past the
-// group and columns past N zero-filled by the copy), so the weight bytes of
-// the next stages are in flight while the tensor cores work. int8: the
-// m16n8k32 B fragment wants each column's k bytes together, so the weights
-// are transposed 4 x 4 bytes at a time in registers (`__byte_perm`) on their
-// way to shared memory, and the next stage's weights are loaded into registers
+// rows are few), operations at prefill and training shapes (R up to 32,768
+// rows: 2 R K N products on the tensor cores). What the design does about it: a
+// kernel for each regime. The host picks the regime from the rows a touched
+// group holds at least on average (ops/grouped_matmul.py `forward_plan`: R >=
+// 32 G is "many rows"), a rule on the shape, and both regimes find every
+// block's (group, row tile) from `offsets` on the device, so nothing is read
+// back to the host and a captured decode step holds the launch.
+//
+// bf16, many rows a group (prefill, the MoE training step's forward):
+// grouped_wgmma.cuh's `rows_kernel<true>`, persistent and warp-specialised,
+// TMA into a 4-stage mbarrier ring, two `wgmma` m64n256k16 consumer
+// warpgroups on 128 x 256 tiles; x is the K-major A operand, w[g] the MN-major
+// B operand read in [64 of K][64 of N] boxes of a 3-d tensor map over [G, K,
+// N] through `wgmma`'s transpose bit; items group by group with a group's row
+// tiles together, so each slice of w[g] comes from device memory once and is
+// shared in the L2; masked 16-byte stores where a group ends inside a tile.
+//
+// bf16, few rows a group (decode): `grouped_matmul_bf16_few_rows_kernel`, a
+// weight stream. A block computes 16 rows x 128 columns of y for one row tile
+// of a group (4 warps, 32 columns each, `mma.sync` m16n8k16 from mma_bf16.cuh):
+// x's rows and w[g]'s columns stream through a ring of stages of 64 K (18 KB
+// each, `cp.async` with zero fill past the group's rows, past N and past the
+// block's K range): 6 stages where K is long (two blocks an SM, 80 KB of
+// weights in flight a block while one stage is multiplied), else 4 (three
+// blocks an SM) or 3 (four), as the host picks from the blocks it expects at
+// work: a ring too deep for them leaves blocks waiting for a slot. The group of
+// a block comes from a warp scan of `offsets` that loads 128 groups' bounds in
+// one round trip. Where the touched groups' column tiles alone would leave SMs
+// without a block (8 rows over 128 experts: 48 tiles for 132 SMs), the K axis
+// is split over a thread-block cluster of `splits` blocks (grid z, cluster dims
+// (1, 1, splits), up to 8): each block sums its K range, writes its float32
+// partial tile to its shared memory, and after cluster.sync() each block adds
+// its share of the tile over the cluster's blocks in rank order through
+// distributed shared memory, rounds once to bf16 and stores it; a last
+// cluster.sync() keeps the partials alive until every peer has read them. No
+// atomics, no workspace in device memory, no second launch. The grid's row
+// tiles are sized to the touched work, the most tiles R rows can fill over G
+// groups (min(R, G) + (R - min(R, G)) / 16), so 8 rows over 128 experts launch
+// 8 row tiles, not 129; a spare tile's blocks find no group and leave at once.
+//
+// int8 (the int8w_serve experts): a block computes BM x 128 of y, 4 warps of
+// 32 columns, `mma.sync` int8 m16n8k32 with int32 sums. The m16n8k32 B
+// fragment wants each column's k bytes together, so the weights are
+// transposed 4 x 4 bytes at a time in registers (`__byte_perm`) on their way
+// to shared memory, and the next stage's weights are loaded into registers
 // while this one is multiplied. BM is 16 (decode: most groups hold a row or
-// two) or 64 (prefill). Every sum runs in a fixed order: two launches give the
-// same bits. `wgmma`, TMA and a persistent scheduler are later work (PERF.md).
+// two) or 64 (prefill); the grid is launched at its upper bound, ceil(R / BM)
+// + G row tiles by ceil(N / 128) column tiles, spare blocks exit.
+//
+// Every sum runs in a fixed order (the wgmma tiles' in K, the split partials
+// in rank order): two launches give the same bits. Products are exact bf16 x
+// bf16, sums float32, rounded once to bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+#include "grouped_wgmma.cuh"
 #include "mma_bf16.cuh"
 
 namespace gmm {
@@ -46,42 +84,60 @@ constexpr int kBN = 128;                 // columns of y a block
 constexpr int kWarps = 4;                // 32 columns each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 64;                  // bf16: K a stage (128 bytes a row)
-constexpr int kStages = 3;
+constexpr int kFewRows = 16;             // bf16 few rows: rows of y a block
+constexpr int kMaxSplits = 8;            // the portable cluster size
 constexpr int kBK8 = 128;                // int8: K a stage (128 bytes a row)
 constexpr unsigned kFull = 0xffffffffu;
 
 // The (group, row tile within it) of row-tile block `t`, or group -1 for a
 // spare block: an exclusive scan of ceil(rows / BM) over the groups by warp 0,
-// 32 groups a step. Every thread reads the answer.
+// 128 groups a step (each lane loads the 5 bounds of its 4 groups at once, so
+// a step costs one round trip to the L2). Every thread reads the answer.
 template <int BM>
 __device__ __forceinline__ void find_tile(const int* __restrict__ offsets, int groups, int t,
                                           int* s_group, int* s_tile) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    int carry = 0, group = -1, tile = 0;
-    for (int base = 0; base < groups; base += 32) {
-      const int g = base + lane;
-      int cnt = 0;
-      if (g < groups) cnt = (max(0, offsets[g + 1] - offsets[g]) + BM - 1) / BM;
-      int incl = cnt;
+    if (lane == 0) *s_group = -1;  // a spare block unless a lane finds its group
+    __syncwarp();
+    int carry = 0;
+    for (int base = 0; base < groups; base += 128) {
+      const int g0 = base + 4 * lane;
+      int bound[5];
+#pragma unroll
+      for (int j = 0; j < 5; ++j) bound[j] = g0 + j <= groups ? offsets[g0 + j] : 0;
+      int cnt[4], own = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        cnt[j] = g0 + j < groups ? (max(0, bound[j + 1] - bound[j]) + BM - 1) / BM : 0;
+        own += cnt[j];
+      }
+      int incl = own;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const int v = __shfl_up_sync(kFull, incl, o);
         if (lane >= o) incl += v;
       }
-      const int excl = incl - cnt;
+      const int excl = incl - own;
       const unsigned hit = __ballot_sync(kFull, t >= carry + excl && t < carry + incl);
       if (hit) {
         const int src = __ffs(hit) - 1;
-        group = base + src;
-        tile = t - carry - __shfl_sync(kFull, excl, src);
+        if (lane == src) {  // the group among this lane's four
+          int before = carry + excl, group = -1, tile = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (group < 0 && t < before + cnt[j]) {
+              group = g0 + j;
+              tile = t - before;
+            }
+            before += cnt[j];
+          }
+          *s_group = group;
+          *s_tile = tile;
+        }
         break;
       }
       carry += __shfl_sync(kFull, incl, 31);
-    }
-    if (lane == 0) {
-      *s_group = group;
-      *s_tile = tile;
     }
   }
   __syncthreads();
@@ -110,23 +166,22 @@ inline dim3 grid_of(int rows, int n, int groups, int tile_rows) {
 // ---- bf16
 
 namespace gmm {
-namespace {
+namespace cg = cooperative_groups;
 
 // stage `kt` of x's rows [row0, row_end) and of w[g]'s columns [n0, n0 + 128)
-// into one ring slot: x as a swizzled [BM][64] tile, w as 4 warp tiles [64][32]
-template <int BM>
-__device__ __forceinline__ void load_stage_bf16(unsigned xs, unsigned ws,
-                                                const __nv_bfloat16* __restrict__ x,
-                                                const __nv_bfloat16* __restrict__ wg, int row0,
-                                                int row_end, int n0, int k0, int k, int n) {
-  constexpr int kXChunks = BM * (kBK / 8);
-#pragma unroll
-  for (int it = 0; it < (kXChunks + kThreads - 1) / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    if (kXChunks % kThreads != 0 && i >= kXChunks) break;
-    const int r = i / (kBK / 8), c = i % (kBK / 8);
+// over K [k0, k0 + 64), zeros past row_end, past k_end and past N, into one
+// ring slot: x as a swizzled [16][64] tile, w as 4 warp tiles [64][32]
+__device__ __forceinline__ void load_stage_few(unsigned xs, unsigned ws,
+                                               const __nv_bfloat16* __restrict__ x,
+                                               const __nv_bfloat16* __restrict__ wg, int row0,
+                                               int row_end, int n0, int k0, int k_end, int k,
+                                               int n) {
+  constexpr int kXChunks = kFewRows * (kBK / 8);
+  static_assert(kXChunks <= kThreads, "a chunk of x a thread at most");
+  if (threadIdx.x < kXChunks) {
+    const int r = threadIdx.x / (kBK / 8), c = threadIdx.x % (kBK / 8);
     const int row = row0 + r, kc = k0 + 8 * c;
-    const bool ok = row < row_end && kc < k;
+    const bool ok = row < row_end && kc < k_end;
     hopper::cp_async16(xs + hopper::swz<kBK>(r, c),
                        x + (ok ? (long long)row * k + kc : 0), ok);
   }
@@ -136,115 +191,191 @@ __device__ __forceinline__ void load_stage_bf16(unsigned xs, unsigned ws,
     const int i = threadIdx.x + it * kThreads;
     const int kr = i / (kBN / 8), cc = i % (kBN / 8);
     const int krow = k0 + kr, col = n0 + 8 * cc;
-    const bool ok = krow < k && col < n;
+    const bool ok = krow < k_end && col < n;
     const unsigned dst = ws + (cc / 4) * (kBK * 32 * 2) + hopper::swz<32>(kr, cc % 4);
     hopper::cp_async16(dst, wg + (ok ? (long long)krow * n + col : 0), ok);
   }
 }
 
-template <int BM>
+constexpr int kFewXBytes = kFewRows * kBK * 2, kFewWBytes = kBK * kBN * 2;
+constexpr int kFewStageBytes = kFewXBytes + kFewWBytes;  // 18 KB
+// the ring's depth: 6 stages (108 KB, two blocks an SM), 4 (72 KB, three) or
+// 3 (54 KB, four); the host picks it (ops/grouped_matmul.py `forward_plan`)
+template <int STAGES>
+constexpr int few_smem() { return STAGES * kFewStageBytes; }
+
+// grid (row tiles, column tiles, splits), launched as clusters of `splits`
+// blocks along z when splits > 1; each split covers k_per_split of K (a
+// multiple of 64, every split non-empty)
+template <int STAGES>
 __global__ void __launch_bounds__(kThreads)
-grouped_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ w, const int* __restrict__ offsets,
-                           __nv_bfloat16* __restrict__ out, int rows, int k, int n, int groups) {
-  constexpr int RT = BM / 16;
-  constexpr int kXBytes = BM * kBK * 2, kWBytes = kBK * kBN * 2;
-  constexpr int kStageBytes = kXBytes + kWBytes;
+grouped_matmul_bf16_few_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const __nv_bfloat16* __restrict__ w,
+                                    const int* __restrict__ offsets,
+                                    __nv_bfloat16* __restrict__ out, int rows, int k, int n,
+                                    int groups, int k_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_group, s_tile;
 
-  find_tile<BM>(offsets, groups, blockIdx.x, &s_group, &s_tile);
+  find_tile<kFewRows>(offsets, groups, blockIdx.x, &s_group, &s_tile);
   const int g = s_group;
-  if (g < 0) return;
-  const int row0 = offsets[g] + s_tile * BM;
+  if (g < 0) return;  // a spare row tile: every block of its cluster leaves here
+  const int row0 = offsets[g] + s_tile * kFewRows;
   const int row_end = min(offsets[g + 1], rows);
   const int n0 = blockIdx.y * kBN;
+  const int k_begin = blockIdx.z * k_per_split, k_end = min(k, k_begin + k_per_split);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const __nv_bfloat16* wg = w + (long long)g * k * n;
   const unsigned base = hopper::smem_addr(smem);
 
-  float acc[RT][4][4];
+  float acc[4][4];
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rt][j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  const int ktiles = (k + kBK - 1) / kBK;
+  const int ktiles = (k_end - k_begin + kBK - 1) / kBK;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ktiles)
-      load_stage_bf16<BM>(base + s * kStageBytes, base + s * kStageBytes + kXBytes, x, wg, row0,
-                          row_end, n0, s * kBK, k, n);
+      load_stage_few(base + s * kFewStageBytes, base + s * kFewStageBytes + kFewXBytes, x, wg,
+                     row0, row_end, n0, k_begin + s * kBK, k_end, k, n);
     hopper::cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
-    hopper::cp_async_wait<kStages - 2>();
+    hopper::cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage kt has landed; every warp is done with stage kt - 1
-    const int next = kt + kStages - 1;
+    const int next = kt + STAGES - 1;
     if (next < ktiles) {
-      const int slot = next % kStages;
-      load_stage_bf16<BM>(base + slot * kStageBytes, base + slot * kStageBytes + kXBytes, x, wg,
-                          row0, row_end, n0, next * kBK, k, n);
+      const int slot = next % STAGES;
+      load_stage_few(base + slot * kFewStageBytes, base + slot * kFewStageBytes + kFewXBytes, x,
+                     wg, row0, row_end, n0, k_begin + next * kBK, k_end, k, n);
     }
     hopper::cp_async_commit();
-    const unsigned xs = base + (kt % kStages) * kStageBytes;
-    const unsigned wt = xs + kXBytes + warp * (kBK * 32 * 2);
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) {
-      unsigned a[kBK / 16][4];
-      hopper::load_a<kBK>(a, xs, 16 * rt, lane);
-      hopper::product_am<32, kBK / 16>(acc[rt], a, wt, lane);
-    }
+    const unsigned xs = base + (kt % STAGES) * kFewStageBytes;
+    unsigned a[kBK / 16][4];
+    hopper::load_a<kBK>(a, xs, 0, lane);
+    hopper::product_am<32, kBK / 16>(acc, a, xs + kFewXBytes + warp * (kBK * 32 * 2), lane);
   }
   hopper::cp_async_wait<0>();
 
   // element e of fragment j: row lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2
-#pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
+  if (gridDim.z == 1) {  // no split: the block's sums are final
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 16 * rt + lane / 4 + 8 * h;
+        const int row = row0 + lane / 4 + 8 * h;
         const int col = n0 + 32 * warp + 8 * j + 2 * (lane % 4);
         if (row < row_end && col < n)  // n is even: col + 1 < n too
-          store_bf16x2(out + (long long)row * n + col, acc[rt][j][2 * h], acc[rt][j][2 * h + 1]);
+          store_bf16x2(out + (long long)row * n + col, acc[j][2 * h], acc[j][2 * h + 1]);
       }
+    return;
+  }
+
+  // the split's partial [16][128] float32 tile into this block's shared memory
+  __syncthreads();  // every warp is done with the ring
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane / 4 + 8 * h, c = 32 * warp + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(part + r * kBN + c) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();
+  // this block's share of the tile's column pairs, summed over the splits in rank order
+  constexpr int kPairs = kFewRows * kBN / 2;
+  const int per = (kPairs + splits - 1) / splits;
+  const int lo = rank * per, hi = min(kPairs, lo + per);
+  for (int p = lo + static_cast<int>(threadIdx.x); p < hi; p += kThreads) {
+    const int r = p / (kBN / 2), c = 2 * (p % (kBN / 2));
+    float2 sum = *reinterpret_cast<const float2*>(cluster.map_shared_rank(part, 0) + r * kBN + c);
+    for (int q = 1; q < splits; ++q) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(cluster.map_shared_rank(part, q) + r * kBN + c);
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    const int row = row0 + r, col = n0 + c;
+    if (row < row_end && col < n) store_bf16x2(out + (long long)row * n + col, sum.x, sum.y);
+  }
+  cluster.sync();  // no block leaves (and frees its partial) while a peer reads it
 }
 
-template <int BM>
-int launch_bf16(const void* x, const void* w, const void* offsets, void* out, int rows, int k,
-                int n, int groups, cudaStream_t st) {
-  constexpr int smem = kStages * (BM * kBK * 2 + kBK * kBN * 2);
+// the row tiles of the few-rows grid: the most R rows can fill over G groups,
+// min(R, G) + (R - min(R, G)) / 16 (a touched group's first row takes a tile,
+// each 16 rows more another)
+inline long long few_row_tiles(int rows, int groups) {
+  const int touched = rows < groups ? rows : groups;
+  return touched + (rows - touched) / kFewRows;
+}
+
+template <int STAGES>
+int launch_few_rows(const void* x, const void* w, const void* offsets, void* out, int rows,
+                    int k, int n, int groups, int splits, cudaStream_t st) {
+  const int ktiles = (k + kBK - 1) / kBK;
+  const int k_per_split = (ktiles + splits - 1) / splits * kBK;
+  const long long tiles = few_row_tiles(rows, groups);
+  const int ncol = (n + kBN - 1) / kBN;
+  if ((splits - 1) * k_per_split >= k || tiles > 2147483647LL || ncol > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);  // an empty split, or a grid too large
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(grouped_matmul_bf16_kernel<BM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = cudaFuncSetAttribute(grouped_matmul_bf16_few_rows_kernel<STAGES>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           few_smem<STAGES>());
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  grouped_matmul_bf16_kernel<BM><<<grid_of(rows, n, groups, BM), kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out), rows, k, n, groups);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(ncol),
+                     static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = few_smem<STAGES>();
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = static_cast<unsigned>(splits);
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;  // no split: a plain launch, no cluster barriers
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, grouped_matmul_bf16_few_rows_kernel<STAGES>, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(offsets),
+      static_cast<__nv_bfloat16*>(out), rows, k, n, groups, k_per_split);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
 }  // namespace gmm
 
 // x [rows, k] bf16 (rows sorted by group), w [groups, k, n] bf16, offsets
 // [groups + 1] int32, out [rows, n] bf16; k and n multiples of 8, every
-// pointer 16-byte aligned; tile_rows 16 or 64.
+// pointer 16-byte aligned. splits 0: the many-rows regime (the persistent
+// wgmma kernel); 1..8: the few-rows regime with K split over a cluster of
+// `splits` blocks (each split non-empty: (splits - 1) * ceil(ceil(k / 64) /
+// splits) * 64 < k) and a ring of `stages` stages (3, 4 or 6).
 extern "C" int grouped_matmul_bf16(const void* x, const void* w, const void* offsets, void* out,
-                                   int rows, int k, int n, int groups, int tile_rows,
+                                   int rows, int k, int n, int groups, int splits, int stages,
                                    void* stream) {
-  if (gmm::bad_shape(rows, k, n, groups, tile_rows, 8, 8))
+  if (rows <= 0 || k <= 0 || n <= 0 || groups <= 0 || k % 8 != 0 || n % 8 != 0 || splits < 0 ||
+      splits > gmm::kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile_rows == 16) return gmm::launch_bf16<16>(x, w, offsets, out, rows, k, n, groups, st);
-  return gmm::launch_bf16<64>(x, w, offsets, out, rows, k, n, groups, st);
+  if (splits == 0) return gmm_wg::launch_rows<true>(x, w, offsets, out, rows, n, k, groups, st);
+  if (stages == 6)
+    return gmm::launch_few_rows<6>(x, w, offsets, out, rows, k, n, groups, splits, st);
+  if (stages == 4)
+    return gmm::launch_few_rows<4>(x, w, offsets, out, rows, k, n, groups, splits, st);
+  if (stages == 3)
+    return gmm::launch_few_rows<3>(x, w, offsets, out, rows, k, n, groups, splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- int8

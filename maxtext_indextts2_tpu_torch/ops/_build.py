@@ -72,10 +72,10 @@ SIGNATURES = {
     # (q, k, v, out, B, S, N, D, q strides b/s/n, k strides, v strides, dtype,
     #  query rows of a block, stream)
     "s2a_attention": [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 9 + [_I, _I, _P],
-    # (x, q, scale, bias, out, partial, M, K, N, splits, K a split, is_bf16, stream)
-    "int8w_matmul": [_P] * 6 + [_I] * 6 + [_P],
-    # (x, w, offsets, out, rows, K, N, groups, tile_rows, stream)
-    "grouped_matmul_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # (x, q, scale, bias, out, M, K, N, splits, K a split, is_bf16, stream)
+    "int8w_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # (x, w, offsets, out, rows, K, N, groups, splits (0: many rows), stages, stream)
+    "grouped_matmul_bf16": [_P] * 4 + [_I] * 6 + [_P],
     # (x, w, offsets, row_scale, w_scale, out, rows, K, N, groups, tile_rows,
     #  stream): null scales give the int32 sums
     "grouped_matmul_int8": [_P] * 6 + [_I] * 5 + [_P],
@@ -224,6 +224,20 @@ def ptxas_report(kernel: str) -> list[dict]:
             for r, name in zip(out, names):
                 r["kernel"] = name
     return out
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device`` (read once a device):
+    the host-side launch rules size their grids by it."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check_launch(code: int, what: str) -> None:

@@ -31,8 +31,10 @@ gradients back to the operands' dtype, so for bfloat16 operands ``dx`` and
 structure.
 
 On a CUDA tensor the hand-written kernels run: ``csrc/grouped_matmul.cu``
-(bfloat16 operands and result, or int8 operands with an int32 or bfloat16
-result), ``csrc/grouped_matmul_f32.cu`` (float32 operands and result, the
+(bfloat16 operands and result: :func:`forward_plan` picks the persistent
+``wgmma`` kernel where the groups hold many rows and the split weight stream
+where they hold few; or int8 operands with an int32 or bfloat16 result),
+``csrc/grouped_matmul_f32.cu`` (float32 operands and result, the
 forward and both gradients, on the CUDA cores: exact products summed in
 float32, as ``ragged_dot`` computes float32 operands); anything else raises.
 ``offsets`` is read on the device: no host sync, so a captured decode step
@@ -57,10 +59,74 @@ _F32_MODES = {"grouped_matmul_f32": 0, "grouped_matmul_f32_dgrad": 1,
               "grouped_matmul_f32_wgrad": 2}
 
 
+# the bfloat16 forward's few-rows kernel: blocks of 16 rows x 128 columns, the
+# K axis split over a cluster of at most 8 blocks, each split at least 256
+# rows of K; its rings, (stages, blocks an SM their shared memory allows): 6
+# stages (two an SM) only where K is long (>= 8192 rows: mixtral's wo at
+# decode) and every block the grid can fill fits, else the deepest of 4
+# (three) and 3 (four) whose resident blocks hold the working blocks, 4 where
+# none does
+FEW_ROWS, FEW_COLS, MAX_SPLITS, SPLIT_MIN_DEPTH = 16, 128, 8, 256
+DEEP_RING_MIN_K = 8192
+FEW_RINGS = ((4, 3), (3, 4))
+
+
+def many_rows(rows: int, groups: int) -> bool:
+    """The regime of a product: the groups hold many rows each (prefill,
+    training: at least 32 a group on average, R >= 32 G) or few (decode)."""
+    return rows >= 32 * groups
+
+
 def tile_rows(rows: int, groups: int) -> int:
-    """Rows of y a block: 16 when the groups hold few rows each (decode), 64
-    when they hold many (prefill)."""
-    return 16 if rows < 32 * groups else 64
+    """grouped_matmul_int8's rows of y a block: 16 when the groups hold few
+    rows each (decode), 64 when they hold many (prefill)."""
+    return 64 if many_rows(rows, groups) else 16
+
+
+def few_row_tiles(rows: int, groups: int) -> int:
+    """The few-rows kernel's row tiles at most, the most ``rows`` rows can
+    fill over ``groups`` groups: a touched group's first row takes a tile and
+    each 16 rows more another, so sum_g ceil(rows_g / 16) <= min(R, G) + (R -
+    min(R, G)) // 16. The grid is sized to it; spare tiles' blocks leave at
+    once."""
+    touched = min(rows, groups)
+    return touched + (rows - touched) // FEW_ROWS
+
+
+def working_blocks(rows: int, groups: int, n: int) -> float:
+    """The few-rows kernel's blocks expected to find rows: the groups that
+    ``rows`` rows drawn uniformly over ``groups`` touch, G (1 - (1 - 1/G)^R)
+    (a decode group holds at most a tile of 16 rows), times the column
+    tiles; at most the grid's row tiles (:func:`few_row_tiles`)."""
+    touched = groups * (1.0 - (1.0 - 1.0 / groups) ** rows)
+    return min(few_row_tiles(rows, groups), touched) * -(-n // FEW_COLS)
+
+
+def forward_plan(rows: int, groups: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """The bfloat16 forward's launch, (splits, stages): (0, 0) for the
+    many-rows regime (the persistent ``wgmma`` kernel); else the few-rows
+    kernel over its grid of :func:`few_row_tiles` by ceil(N / 128) column
+    tiles. K is split only where that grid leaves SMs without a block (splits
+    = SMs // blocks, at most 8, each split at least 256 rows of K, none
+    empty). The ring: 6 stages where K >= 8192 and every block the grid
+    can fill fits two an SM, else the deepest of :data:`FEW_RINGS` whose
+    resident blocks hold the :func:`working_blocks`, else 4. Set from the
+    device time of every ring at the decode shapes on an H100: a ring too
+    deep for the blocks at work leaves some waiting for a slot (llama4's wi
+    and, with all its rows on distinct experts, wo), one too shallow for a
+    long K keeps too few bytes in flight (mixtral's wo)."""
+    if many_rows(rows, groups):
+        return 0, 0
+    blocks = few_row_tiles(rows, groups) * -(-n // FEW_COLS)
+    stages_k = -(-k // 64)
+    splits = max(1, min(MAX_SPLITS, -(-k // SPLIT_MIN_DEPTH), sms // blocks))
+    per_split = -(-stages_k // splits)
+    working = working_blocks(rows, groups, n) * splits
+    if k >= DEEP_RING_MIN_K and blocks * splits <= 2 * sms:
+        stages = 6
+    else:
+        stages = next((st for st, per_sm in FEW_RINGS if working <= per_sm * sms), 4)
+    return -(-stages_k // per_split), stages
 
 
 def _host_offsets(offsets: torch.Tensor) -> list[int]:
@@ -239,7 +305,8 @@ def _forward(x, w, offsets, impl):
     x, w, offsets = _kernel_operands(x, w, offsets)
     code = lib.grouped_matmul_bf16(
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(), r, k, n, g,
-        tile_rows(r, g), torch.cuda.current_stream(x.device).cuda_stream)
+        *forward_plan(r, g, k, n, _build.sm_count(x.device)),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _launched("grouped_matmul", code)
     return out
 

@@ -9,7 +9,9 @@ dot's read of the int8 kernel. It replaces no Pallas kernel.
 
 On a CUDA tensor the hand-written kernel in ``csrc/int8w_matmul.cu`` runs for
 the decode rows, ``M <= KERNEL_MAX_ROWS`` (the slots of a step, the
-speculative verify span): it reads each int8 weight once. A prefill (M in the
+speculative verify span): it reads each int8 weight once, in one launch (the
+K axis split over a cluster of blocks by :func:`split_plan`, the partial sums
+merged in distributed shared memory). A prefill (M in the
 thousands) is a large product whose weight read is a small share of its
 time, so there, as in the JAX package, the weight is dequantised and
 multiplied by ``torch.matmul``: a rule on M, not a fallback. A kernel that
@@ -29,9 +31,9 @@ launch_count = 0
 # the decode rows: up to the slot count and the speculative verify span
 # (32 slots x (4 drafts + 1) = 160); more rows take dequantise + matmul
 KERNEL_MAX_ROWS = 256
-_DEPTH = 256  # K a stage of the kernel: a split covers a multiple of it
+_DEPTH = 256  # a split of K covers a multiple of it
 _COLS = 128  # y's columns a block
-_sm_count: dict[int, int] = {}
+MAX_SPLITS = 8  # the splits of K form a cluster: the portable cluster size
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -64,25 +66,39 @@ def _check(x, q, scale, bias):
 
 
 def _rows_a_block(m: int, dtype: torch.dtype) -> int:
-    """x's rows a block: the bfloat16 tensor-core kernel takes 16 or 32, the
-    float32 CUDA-core one 8 or 16."""
+    """x's rows a block: the bfloat16 tensor-core kernel takes 16, 32 or 64
+    (more rows: more blocks), the float32 CUDA-core one 8 or 16."""
     if dtype == torch.bfloat16:
-        return 16 if m <= 16 else 32
+        return 16 if m <= 16 else 32 if m <= 32 else 64
     return 8 if m <= 8 else 16
 
 
-def _splits(m: int, k: int, n: int, device, dtype=torch.bfloat16) -> tuple[int, int]:
-    """(splits of K, K a split): enough blocks for four a streaming
-    multiprocessor (the weight bytes in flight that keep the memory busy),
-    each split a whole number of the kernel's stages."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+def split_plan(m: int, k: int, n: int, sms: int,
+               dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """(splits of K, K a split): K split only until the blocks reach one an
+    SM (at most ``SMs // tiles`` splits, at most :data:`MAX_SPLITS`, one
+    cluster), into splits of whole 256-row stages, none empty. Among those
+    counts the largest that divides K's stages evenly is taken, unless it is
+    under half the most allowed (then the most allowed). Set from the device
+    time of every split count at the decode shapes on an H100: blocks past
+    one an SM add start-up and merge costs that their bytes in flight do not
+    repay, and a cluster of uneven splits is slower than a smaller even one
+    (the flagship's [8, 3840 -> 4096] on 3 splits of 1280 rows against 4 of
+    1024 and one of 768)."""
     tiles = -(-n // _COLS) * -(-m // _rows_a_block(m, dtype))
     stages = -(-k // _DEPTH)
-    splits = max(1, min(-(-4 * _sm_count[index] // tiles), stages, 16))
+    most = max(1, min(sms // tiles, stages, MAX_SPLITS))
+    even = max(d for d in range(1, most + 1) if stages % d == 0)
+    splits = even if 2 * even >= most else most
     per_split = -(-stages // splits) * _DEPTH
     return -(-k // per_split), per_split
+
+
+def _splits(m: int, k: int, n: int, device, dtype=torch.bfloat16) -> tuple[int, int]:
+    """:func:`split_plan` on ``device``'s SMs."""
+    from maxtext_indextts2_tpu_torch.ops import _build
+
+    return split_plan(m, k, n, _build.sm_count(device), dtype)
 
 
 def int8w_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -114,12 +130,9 @@ def int8w_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         bias = bias.reshape(-1).to(x.dtype).contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     splits, per_split = _splits(m, k, n, x.device, x.dtype)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     code = lib.int8w_matmul(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), m, k, n, splits, per_split,
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, k, n, splits, per_split,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     launch_count += 1
     _build.check_launch(code, "int8w_matmul")

@@ -1160,15 +1160,16 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
                                                                 *ids, *mask, impl=impl),
         }
         library, library_call = (None, None), None
-        on_device = f"{name}_fwd" in main_path_case_names()
+        on_device = f"{name}_fwd" in main_path_case_names() or name in FLASH_LIBRARY_ON_DEVICE
         if not (window or chunk or cap) and segments == "one" and positions == "arange":
             library = _flash_library(q, k, v, do, on_device=on_device, causal=causal)
             library_call = f"scaled_dot_product_attention({'is_causal, ' * causal}enable_gqa)"
-        elif on_device and not (window or chunk or cap):
+        elif on_device and not (chunk or cap):
             # the same visibility as a boolean mask (made once, not timed)
             visible = fa._mask(pos, pos, seg, seg, causal, window, chunk)[:, 0]
             library = _flash_library(q, k, v, do, on_device=True, mask=visible)
-            library_call = "scaled_dot_product_attention(attn_mask of the segments, enable_gqa)"
+            library_call = (f"scaled_dot_product_attention(attn_mask of the "
+                            f"{'window' if window else 'segments'}, enable_gqa)")
         for res in results:
             kernel = res["kernel"]
             nbytes, ops = work[kernel]
@@ -1187,6 +1188,13 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
             if len(library) == 4:
                 res["library_device_ms"] = library[2] if kernel == "flash_fwd" else library[3]
     return results
+
+
+# cases off the main paths whose library call is timed on the device too:
+# SDPA with enable_gqa at GQA groups 5, 6 and 16, and masked SDPA (the
+# visible pairs as a boolean mask) at D = 256 on packed rows and a window
+FLASH_LIBRARY_ON_DEVICE = {"flash_bf16_group5", "flash_bf16_group6", "flash_bf16_group16",
+                           "flash_bf16_d256_packed", "flash_bf16_d256_window256"}
 
 
 def flash_cases(device, timing, full_size=True):
@@ -1356,7 +1364,9 @@ MAIN_PATH_CASES = {
     "grouped_matmul_bf16": {"moe_serve": "gmm_bf16_main_path",
                             "mixtral_serve": "gmm_bf16_mixtral_decode_wi",
                             "mla_serve": "gmm_bf16_deepseek_decode_wi",
-                            "llama4_serve": "gmm_bf16_llama4_decode_wi"},
+                            "llama4_serve": "gmm_bf16_llama4_decode_wi",
+                            "moe_train": "gmm_bf16_qwen3_train_wi",
+                            "deepseek_train": "gmm_bf16_deepseek_train_wi"},
     "grouped_matmul_int8": {"moe_serve_int8w": "gmm_int8_main_path"},
     "grouped_matmul_dgrad": {"moe_train": "gmm_dgrad_main_path",
                              "deepseek_train": "gmm_dgrad_deepseek_train_wi"},
@@ -1404,6 +1414,16 @@ INT8W_CASES = [
     ("int8w_bf16_odd_n", 32, 2048, 1001, {}),
     ("int8w_bf16_bias", 32, 2048, 2048, dict(bias=True)),
     ("int8w_f32_odd_k_n_bias", 7, 200, 77, dict(bias=True, dtype=torch.float32)),
+    # the edges of the single-launch design: 64 and 256 rows (one and four
+    # 64-row blocks), N = 1001 with a bias (byte loads of the weight rows), K
+    # no multiple of a 128-row stage or of a 256-row split, bf16 at K 200 and
+    # N 77 with a bias (element loads), float32 x split over a cluster
+    ("int8w_bf16_m64", 64, 2048, 2048, {}),
+    ("int8w_bf16_m256", 256, 2048, 2048, {}),
+    ("int8w_bf16_odd_n_bias", 32, 2048, 1001, dict(bias=True)),
+    ("int8w_bf16_k_not_a_stage", 8, 2000, 2048, {}),
+    ("int8w_bf16_odd_k_n_bias", 7, 200, 77, dict(bias=True)),
+    ("int8w_f32_split_bias", 8, 2048, 1024, dict(bias=True, dtype=torch.float32)),
     # qwen3-30b-a3b's attention projections under int8w_serve at 8 slots
     ("int8w_bf16_qwen3_moe_decode", 8, 2048, 4096, {}),
 ]
@@ -1448,9 +1468,8 @@ def int8w_case(name, device, timing, *, m, k, n, bias=False, dtype=torch.bfloat1
                finite=finite, launched=launched, max_abs_out=largest,
                shape=dict(m=m, k=k, n=n, x=str(dtype), bias=bias, k_splits=splits,
                           k_a_split=per_split))
-    if name in main_path_case_names():
-        res["repeat_bitwise_equal"] = bool(torch.equal(iw.int8w_matmul(x, q, scale, b), out))
-        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
+    res["repeat_bitwise_equal"] = bool(torch.equal(iw.int8w_matmul(x, q, scale, b), out))
+    res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         # the weights of one decode step are far more than the L2 holds, so each
         # timed launch reads its int8 weight from device memory (a rotation of copies)
@@ -1540,6 +1559,24 @@ GMM_CASES = [
     ("gmm_bf16_one_group_holds_all", 1000, 16, 512, 384, "one"),
     ("gmm_bf16_skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
     ("gmm_bf16_single_rows", 8, 128, 2048, 768, "uniform"),
+    # the training step's forward (moe_train: qwen3-30b-a3b at 4 x 1024 tokens,
+    # top 8 of 128; deepseek_train: deepseek-v2-lite, top 6 of 64)
+    ("gmm_bf16_qwen3_train_wi", 4096 * 8, 128, 2048, 768, "uniform"),
+    ("gmm_bf16_qwen3_train_wo", 4096 * 8, 128, 768, 2048, "uniform"),
+    ("gmm_bf16_deepseek_train_wi", 4096 * 6, 64, 2048, 1408, "uniform"),
+    # the regimes' edges. Many rows: groups of 1-191 rows around the 64-row
+    # half tile and the 128-row tile, an empty one, K 640 and N 448 (no
+    # multiple of the 256-column tile), then K 200 and N 136 (no multiple of
+    # 64: TMA's zeros inside a box). Few rows: groups of 0-17 rows (one ending
+    # inside a 16-row tile, one of 16, one of 17), K 520 and N 200 (multiples
+    # of 8, not of 64); then K 2056 (a part stage at the end) with N 136; both
+    # grids small enough that K is split over a cluster
+    ("gmm_bf16_tile_edges", 770, 10, 640, 448, (1, 63, 65, 0, 127, 129, 64, 128, 2, 191)),
+    ("gmm_bf16_narrow_edges", 195, 3, 200, 136, (65, 1, 129)),
+    ("gmm_bf16_few_rows_edges", 102, 14, 520, 200,
+     (1, 0, 3, 16, 17, 0, 5, 2, 8, 15, 1, 0, 30, 4)),
+    ("gmm_bf16_few_rows_split_edges", 100, 24, 2056, 136,
+     (1, 9, 0, 16, 3, 1, 1, 7, 0, 2, 12, 1, 5, 0, 1, 1, 14, 2, 3, 1, 0, 6, 13, 1)),
     ("gmm_int8_main_path", 64, 128, 2048, 768, "uniform"),
     ("gmm_int8_qwen3_decode_wo", 64, 128, 768, 2048, "uniform"),
     ("gmm_int8_qwen3_prefill_wi", 2048 * 8, 128, 2048, 768, "uniform"),
@@ -1588,6 +1625,8 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
     """grouped_matmul (bf16, the ``gmm_bf16_*`` cases) or grouped_matmul_int8
     (``gmm_int8_*``: the int32 sums equal, the rescaled bf16 result within
     :data:`TOL_GMM_BF16`) against its plain version."""
+    from maxtext_indextts2_tpu_torch.ops import _build
+
     int8 = name.startswith("gmm_int8")
     g = torch.Generator(device=device).manual_seed(seed)
     ids = _gmm_groups(rows, groups, routing, g, device)
@@ -1595,6 +1634,8 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
     offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
                          torch.cumsum(counts, 0)]).to(torch.int32)
     touched = int((counts > 0).sum().item())
+    if isinstance(routing, tuple):
+        routing = list(routing)
     kname = "grouped_matmul_int8" if int8 else "grouped_matmul_bf16"
     count = "grouped_matmul_int8" if int8 else "grouped_matmul"
     before = gm.launch_counts[count]
@@ -1632,7 +1673,9 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
                max_abs_out=largest,
                shape=dict(rows=rows, groups=groups, k=k, n=n, routing=routing,
                           groups_touched=touched, largest_group=int(counts.max().item()),
-                          tile_rows=gm.tile_rows(rows, groups)))
+                          **({"tile_rows": gm.tile_rows(rows, groups)} if int8 else
+                             dict(zip(("splits", "stages"), gm.forward_plan(
+                                 rows, groups, k, n, _build.sm_count(x.device)))))))
     if int8:
         res.update(max_abs_err=err, max_err=err, tol=tol, unit="int32 sums",
                    scaled_max_abs_err=out_err, scaled_max_rel_err=rel,
@@ -1643,11 +1686,10 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
         res.update(max_abs_err=out_err, max_err=rel, tol=TOL_GMM_BF16,
                    unit="relative to max(1, max |plain|)",
                    ok=bool(rel <= TOL_GMM_BF16 and finite and launched == want_launched))
-    if name in main_path_case_names():
-        again = (gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16) if int8
-                 else gm.grouped_matmul(x, w, offsets))
-        res["repeat_bitwise_equal"] = bool(torch.equal(again, out))
-        res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
+    again = (gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16) if int8
+             else gm.grouped_matmul(x, w, offsets))
+    res["repeat_bitwise_equal"] = bool(torch.equal(again, out))
+    res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         esize = 1 if int8 else 2
         # the touched groups' weights, the rows in, the result out (bf16), the offsets
@@ -1692,7 +1734,7 @@ def gmm_cases(device, timing, full_size=True):
     K and N cut by 4, rows by 8)."""
     out = []
     for i, (name, rows, groups, k, n, routing) in enumerate(GMM_CASES):
-        if not full_size:
+        if not full_size and not isinstance(routing, tuple):
             rows, k, n = max(8, rows // 8), max(64, k // 4), max(64, n // 4)
         out.append(gmm_case(name, device, timing, rows=rows, groups=groups, k=k, n=n,
                             routing=routing, seed=80 + i))

@@ -20,7 +20,10 @@ with a prompt, and reports for each route, one JSON object per line:
 Run on the machine with the GPU::
 
     python -m maxtext_indextts2_tpu_torch.tools.profile_decode [slots=32] [prompt_len=270] \\
-        [steps=16] [layers=20] [paged=true] [tpp=128]
+        [steps=16] [layers=20] [paged=true] [tpp=128] [int8w=true]
+
+``int8w=true`` serves ``int8w_serve`` weights (quantized from the same
+seeded float weights on the card), so every product is ``int8w_matmul``.
 """
 
 from __future__ import annotations
@@ -47,17 +50,20 @@ def _card() -> str:
     return out.splitlines()[0] if out else "unknown"
 
 
-def main(argv=None):
-    opts = dict(slots=32, prompt_len=270, steps=16, layers=20, paged=0, tpp=128)
-    for a in (sys.argv[1:] if argv is None else argv):
+def parse(argv: list[str]) -> dict:
+    opts = dict(slots=32, prompt_len=270, steps=16, layers=20, paged=0, tpp=128, int8w=0)
+    for a in argv:
         k, _, v = a.partition("=")
         if k not in opts:
             raise SystemExit(f"unknown option {k!r}; known: {sorted(opts)}")
         opts[k] = int({"true": 1, "false": 0}.get(v.lower(), v))
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_decode needs a CUDA device")
-    card = _card()
+    return opts
 
+
+def engine_args(opts: dict) -> list[str]:
+    """The engine's config: ``tts-1b`` at the options' slots and layers;
+    ``paged``: a page pool just large enough for this tool's steps;
+    ``int8w``: ``int8w_serve`` weights (``int8w_matmul`` in every product)."""
     args = [
         os.path.join(_PKG, "configs", "models", "tts-1b.yml"), "decode_attention=ragged",
         "serve_params_dtype=bfloat16", "max_prefill_predict_length=1024", "scan_layers=false",
@@ -68,7 +74,18 @@ def main(argv=None):
         pages = opts["slots"] * -(-rows // opts["tpp"]) + 1
         args += ["paged_attention=true", f"pagedattn_tokens_per_page={opts['tpp']}",
                  f"pagedattn_num_pages={pages}"]
-    cfg = load_config(args)
+    if opts["int8w"]:
+        args.append("quantization=int8w_serve")
+    return args
+
+
+def main(argv=None):
+    opts = parse(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode needs a CUDA device")
+    card = _card()
+
+    cfg = load_config(engine_args(opts))
     engine = Engine(cfg)
     engine.load_params()
     rng = np.random.default_rng(0)
@@ -86,6 +103,7 @@ def main(argv=None):
         admit_ms.append((time.perf_counter() - t0) * 1e3)
 
     route_args = {"card": card, "slots": opts["slots"], "layers": cfg.num_decoder_layers,
+                  "quantization": cfg.quantization or None,
                   "paged": bool(opts["paged"]),
                   "tokens_per_page": opts["tpp"] if opts["paged"] else None,
                   "prompt_len": opts["prompt_len"], "admission_prompts_per_dispatch": group,

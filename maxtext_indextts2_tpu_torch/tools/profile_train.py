@@ -74,9 +74,15 @@ def flash_kernel_name(event_name: str) -> str | None:
     return None
 
 
-# kernel of csrc/grouped_matmul*.cu -> the wrapper that launches it
-# (``gmm_f32::rows_kernel`` runs both the float32 forward and dgrad)
+# kernel of csrc/grouped_matmul*.cu and grouped_wgmma.cuh -> the wrapper that
+# launches it (``gmm_f32::rows_kernel`` runs both the float32 forward and
+# dgrad; ``gmm_wg::rows_kernel<true>`` is the bf16 forward where the groups
+# hold many rows, ``<false>`` dgrad); the older kernels' names (a parent
+# checkout's) map too
 GROUPED_KERNELS = {"grouped_matmul_bf16_kernel": "grouped_matmul_bf16",
+                   "grouped_matmul_bf16_few_rows_kernel": "grouped_matmul_bf16",
+                   "gmm_wg::rows_kernel<true>": "grouped_matmul_bf16",
+                   "gmm_wg::rows_kernel<false>": "grouped_matmul_dgrad",
                    "grouped_matmul_int8_kernel": "grouped_matmul_int8",
                    "gmm_bwd::dgrad_kernel": "grouped_matmul_dgrad",
                    "gmm_bwd::wgrad_kernel": "grouped_matmul_wgrad",

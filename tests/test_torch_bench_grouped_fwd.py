@@ -1,0 +1,42 @@
+"""``tools/bench_grouped_fwd.py`` parses its options, selects its cases by
+substring and refuses to run without a card; it needs none to do so."""
+
+import pytest
+
+from maxtext_indextts2_tpu_torch.tools import bench_grouped_fwd as bench
+
+
+def test_cases_cover_the_forward_targets():
+    names = [c[0] for c in bench.cases([])]
+    for want in ("qwen3_train_wi", "qwen3_train_wo", "qwen3_prefill_wi", "qwen3_prefill_wo",
+                 "mixtral_prefill_wi", "single_rows", "mixtral_decode_wo", "llama4_decode_wo",
+                 "main_path"):
+        assert want in names
+    assert len(set(names)) == len(names)
+    for name, rows, groups, k, n, routing in bench.cases([]):
+        assert rows > 0 and groups > 0 and k % 8 == 0 and n % 8 == 0, name
+        assert isinstance(routing, str) or sum(routing) == rows and len(routing) == groups
+
+
+@pytest.mark.parametrize("wanted,names", [
+    (["mixtral"], ["mixtral_prefill_wi", "mixtral_decode_wi", "mixtral_decode_wo"]),
+    (["train", "single"], ["qwen3_train_wi", "qwen3_train_wo", "single_rows"]),
+    (["no_such_case"], []),
+])
+def test_cases_filter_by_substring(wanted, names):
+    assert [c[0] for c in bench.cases(wanted)] == names
+
+
+def test_options():
+    assert bench.parse([]) == dict(tag="", repeats="2", iters="20", cases="")
+    assert bench.parse(["tag=parent", "repeats=3", "cases=a,b"])["cases"] == "a,b"
+    with pytest.raises(SystemExit, match="unknown option"):
+        bench.parse(["route=fwd"])
+
+
+def test_needs_the_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        bench.main(["cases=main_path", "repeats=1"])

@@ -1,6 +1,6 @@
 """``tools/profile_train.py model=moe`` groups the MoE step's grouped products
-apart: every kernel of ``csrc/grouped_matmul.cu``, ``grouped_matmul_bwd.cu``
-and ``grouped_matmul_f32.cu`` maps to the wrapper that launches it and to a
+apart: every kernel of ``csrc/grouped_matmul.cu``, ``grouped_matmul_bwd.cu``,
+``grouped_wgmma.cuh`` and ``grouped_matmul_f32.cu`` maps to the wrapper that launches it and to a
 group of its own, and nothing else does. The names are the demangled ones
 ``torch.profiler`` reports (the backward kernels' parameters are the tensor
 maps the host builds)."""
@@ -25,6 +25,15 @@ _MAPS = "(CUtensorMap, CUtensorMap, CUtensorMap, int const*, "
     # an older checkout's mma.sync dgrad (a template on its row tile) maps too
     ("void gmm_bwd::dgrad_kernel<64>(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*, "
      "__nv_bfloat16*, int, int, int, int)", "grouped_matmul_dgrad"),
+    # the redesigned forward: the few-rows weight stream and the persistent
+    # wgmma kernel, whose dgrad instantiation is the backward's
+    ("void gmm::grouped_matmul_bf16_few_rows_kernel<4>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, int const*, __nv_bfloat16*, int, int, int, int, int)",
+     "grouped_matmul_bf16"),
+    ("void gmm_wg::rows_kernel<true>" + _MAPS + "__nv_bfloat16*, int, int, int, int)",
+     "grouped_matmul_bf16"),
+    ("void gmm_wg::rows_kernel<false>" + _MAPS + "__nv_bfloat16*, int, int, int, int)",
+     "grouped_matmul_dgrad"),
     ("gmm_f32::rows_kernel(float const*, float const*, int const*, float*, int, int, int, int, "
      "int)", "grouped_matmul_f32 (forward and dgrad)"),
     ("gmm_f32::wgrad_kernel(float const*, float const*, int const*, float*, int, int, int)",
