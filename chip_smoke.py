@@ -122,7 +122,12 @@ forward runs the persistent ``wgmma`` kernel where the groups hold many rows
 are main paths of the forward too) and a weight stream split over a cluster
 where they hold few; ``int8w_matmul`` is one launch with its split-K sum in a
 cluster's shared memory; every grouped and ``int8w_matmul`` case launches
-twice and wants the same bits. The
+twice and wants the same bits. The int8 grouped kernel (``moe_serve_int8w``)
+streams raw int8 weights, each lane transposing its own ``mma.sync`` s8
+fragments: a weight stream split over a cluster at decode, a persistent
+kernel of 64-row tiles at prefill; the float32 grouped kernels are
+register-tiled GEMMs on the CUDA cores; ``moe_serve_int8w`` reports its
+captured step's device-busy time beside ``moe_serve``'s. The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -636,8 +641,9 @@ def phase_build():
     # the float32 one at 8 and 16 rows
     check(len(int8w) == 8 and all(r[2] == 0 and r[3] == 0 for r in int8w),
           f"an int8w_matmul instantiation spills, or one is missing: {int8w}")
-    # the bf16 few-rows kernel's three rings; int8: 2 row tiles x (int32 sums, bf16 rescaled)
-    check(len(gmm) == 7 and all(r[2] == 0 and r[3] == 0 for r in gmm),
+    # the few-rows kernels' rings (bf16: 3, 4, 6 stages; int8: 3, 4) and the
+    # persistent int8 kernel
+    check(len(gmm) == 6 and all(r[2] == 0 and r[3] == 0 for r in gmm),
           f"a grouped_matmul instantiation spills, or one is missing: {gmm}")
     # the persistent wgmma kernels (the consumers' 232 registers after
     # setmaxnreg; ptxas reports the launch's 168): grouped_wgmma.cuh's
@@ -646,8 +652,8 @@ def phase_build():
           f"a grouped wgmma rows_kernel instantiation spills, or one is missing: {gmm_wg}")
     check(len(gmm_bwd) == 1 and all(r[2] == 0 and r[3] == 0 for r in gmm_bwd),
           f"the grouped_matmul wgrad kernel spills, or is missing: {gmm_bwd}")
-    # float32: the forward / dgrad row-tile kernel and wgrad
-    check(len(gmm_f32) == 2 and all(r[2] == 0 and r[3] == 0 for r in gmm_f32),
+    # float32: the forward and dgrad row-tile kernels at 64 and 128 rows, and wgrad
+    check(len(gmm_f32) == 5 and all(r[2] == 0 and r[3] == 0 for r in gmm_f32),
           f"a float32 grouped_matmul instantiation spills, or one is missing: {gmm_f32}")
 
 
@@ -4785,10 +4791,11 @@ def phase_moe_serve_int8w(bf16_engine, card, bf16_fields):
                 param_bytes_bfloat16=bf16_fields["param_bytes"])
     check(load["load_peak_memory_bytes"] < 80e9,
           f"moe_serve_int8w: quantizing peaked at {load['load_peak_memory_bytes']} bytes")
-    bf16_step = bf16_fields["decode_ms_a_step"]
+    # the captured step beside bf16's (moe_serve, the same call and card)
     _, fields, launches = _serve_family(
         "moe_serve_int8w", engine, card, load, grouped="grouped_matmul_int8",
-        extra=dict(decode_ms_a_step_bfloat16=bf16_step))
+        extra=dict(decode_ms_a_step_bfloat16=bf16_fields["decode_ms_a_step"],
+                   device_busy_ms_per_step_bfloat16=bf16_fields["device_busy_ms_per_step"]))
     check(launches.get("int8w_matmul", 0) > 0 and not launches.get("grouped_matmul_bf16"),
           f"moe_serve_int8w: launches {launches}")
     return engine, launches

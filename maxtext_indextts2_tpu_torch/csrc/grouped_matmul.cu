@@ -57,14 +57,30 @@
 // groups (min(R, G) + (R - min(R, G)) / 16), so 8 rows over 128 experts launch
 // 8 row tiles, not 129; a spare tile's blocks find no group and leave at once.
 //
-// int8 (the int8w_serve experts): a block computes BM x 128 of y, 4 warps of
-// 32 columns, `mma.sync` int8 m16n8k32 with int32 sums. The m16n8k32 B
-// fragment wants each column's k bytes together, so the weights are
-// transposed 4 x 4 bytes at a time in registers (`__byte_perm`) on their way
-// to shared memory, and the next stage's weights are loaded into registers
-// while this one is multiplied. BM is 16 (decode: most groups hold a row or
-// two) or 64 (prefill); the grid is launched at its upper bound, ceil(R / BM)
-// + G row tiles by ceil(N / 128) column tiles, spare blocks exit.
+// int8 (the int8w_serve experts; bytes bound at decode, the int8 tensor
+// cores' operations or the weights' bytes at prefill): `mma.sync` m16n8k32 s8
+// with int32 sums. Its B fragment wants each column's 4 k bytes in one word,
+// w[g] is [K, N] with N contiguous, and neither `ldmatrix .trans` nor
+// `wgmma`'s transpose bit takes 8-bit operands, so the weights stream raw
+// (16-byte cp.async, no second, transposed copy of the experts) into a ring
+// of [128 of K][128 columns] stages whose 16-byte chunks are XOR-swizzled by
+// the k quad, and each lane transposes its own fragments in registers: it
+// reads the word of 4 columns in each of 4 k rows (conflict-free through the
+// swizzle) and `__byte_perm`s the 4 x 4 bytes into the B fragments of four
+// n-tiles, whose columns interleave (column 4 p + j of a warp's 32 is column
+// p of n-tile j), so that a lane's sums are 8 consecutive columns of a row
+// and go out in one 16-byte store. Both regimes, as the bf16 forward's, from
+// the host's `int8_plan` (ops/grouped_matmul.py):
+//   few rows (decode): `grouped_matmul_int8_few_rows_kernel`, 16 rows x 128
+//   columns a block, a ring of 3 or 4 stages of 18 KB sized by residency,
+//   the grid sized to the tiles the rows can fill, K split over a cluster
+//   where the blocks are fewer than the SMs, the int32 partials summed in
+//   distributed shared memory in rank order (exact);
+//   many rows (prefill): `grouped_matmul_int8_rows_kernel`, persistent (as
+//   many blocks as the SMs hold), 64-row x 128-column items group by group
+//   with a group's row tiles together, a 3-stage ring of 24 KB.
+// The epilogue: the int32 sums, or (float(sum) * row_scale) * the expert's
+// channel scale, in that order, rounded once to bf16.
 //
 // Every sum runs in a fixed order (the wgmma tiles' in K, the split partials
 // in rank order): two launches give the same bits. Products are exact bf16 x
@@ -145,20 +161,6 @@ __device__ __forceinline__ void find_tile(const int* __restrict__ offsets, int g
 
 __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// ---- shared by both entry points
-
-inline bool bad_shape(int rows, int k, int n, int groups, int tile_rows, int k_align,
-                      int n_align) {
-  return rows <= 0 || k <= 0 || n <= 0 || groups <= 0 || k % k_align != 0 ||
-         n % n_align != 0 || (tile_rows != 16 && tile_rows != 64);
-}
-
-inline dim3 grid_of(int rows, int n, int groups, int tile_rows) {
-  // the row tiles' upper bound: sum_g ceil(rows_g / BM) <= ceil(R / BM) + G
-  return dim3(static_cast<unsigned>((rows + tile_rows - 1) / tile_rows + groups),
-              static_cast<unsigned>((n + kBN - 1) / kBN), 1);
 }
 
 }  // namespace gmm
@@ -381,7 +383,16 @@ extern "C" int grouped_matmul_bf16(const void* x, const void* w, const void* off
 // ---- int8
 
 namespace gmm {
-namespace {
+
+constexpr int kX8Few = kFewRows * kBK8;               // 2 KB: 16 rows of x a stage
+constexpr int kW8Bytes = kBK8 * kBN;                  // 16 KB: w[g]'s raw [128 of K][128 columns]
+constexpr int kFew8Stage = kX8Few + kW8Bytes;         // 18 KB, as the bf16 few-rows stage
+constexpr int kMany8Rows = 64;                        // many rows: rows of y a block
+constexpr int kMany8Stage = kMany8Rows * kBK8 + kW8Bytes;  // 24 KB
+constexpr int kMany8Stages = 3;                       // 72 KB: three blocks an SM
+template <int STAGES>
+constexpr int few8_smem() { return STAGES * kFew8Stage; }
+constexpr int kMany8Smem = kMany8Stages * kMany8Stage;
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
                                        unsigned b1) {
@@ -392,211 +403,377 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// a thread's share of a stage of w[g]: 4 k rows x 16 columns, 2 such groups
-constexpr int kW8Groups = (kBK8 / 4) * (kBN / 16) / kThreads;
-
-__device__ __forceinline__ void load_w8(uint4 (&reg)[kW8Groups][4],
-                                        const int8_t* __restrict__ wg, int n0, int k0, int k,
-                                        int n) {
-#pragma unroll
-  for (int i = 0; i < kW8Groups; ++i) {
-    const int gi = threadIdx.x + i * kThreads;
-    const int kq = gi / (kBN / 16), cc = gi % (kBN / 16);
-    const int col = n0 + 16 * cc;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int krow = k0 + 4 * kq + r;
-      reg[i][r] = (krow < k && col < n)
-                      ? __ldg(reinterpret_cast<const uint4*>(wg + (long long)krow * n + col))
-                      : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+__device__ __forceinline__ unsigned lds32(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
-// the registers of load_w8 transposed into 4 warp tiles [32 columns][128 k
-// bytes] (swizzled as [32][64] bf16 units): column j's 4 k bytes as one word
-__device__ __forceinline__ void store_w8(unsigned char* ws, const uint4 (&reg)[kW8Groups][4]) {
-#pragma unroll
-  for (int i = 0; i < kW8Groups; ++i) {
-    const int gi = threadIdx.x + i * kThreads;
-    const int kq = gi / (kBN / 16), cc = gi % (kBN / 16);
-    const int kb = 4 * kq;  // the k byte of this group's word
-#pragma unroll
-    for (int wi = 0; wi < 4; ++wi) {
-      const unsigned a = reinterpret_cast<const unsigned*>(&reg[i][0])[wi];
-      const unsigned b = reinterpret_cast<const unsigned*>(&reg[i][1])[wi];
-      const unsigned c = reinterpret_cast<const unsigned*>(&reg[i][2])[wi];
-      const unsigned d = reinterpret_cast<const unsigned*>(&reg[i][3])[wi];
-      const unsigned ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
-      const unsigned cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
-      const unsigned col_words[4] = {__byte_perm(ab_lo, cd_lo, 0x5410),
-                                     __byte_perm(ab_lo, cd_lo, 0x7632),
-                                     __byte_perm(ab_hi, cd_hi, 0x5410),
-                                     __byte_perm(ab_hi, cd_hi, 0x7632)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = 16 * cc + 4 * wi + j;  // the block's column
-        unsigned char* tile = ws + (col / 32) * (32 * kBK8);
-        *reinterpret_cast<unsigned*>(tile + hopper::swz<kBK8 / 2>(col % 32, kb / 16) +
-                                     (kb % 16)) = col_words[j];
-      }
-    }
-  }
+// byte offset of 16-byte chunk c (16 columns) of k row r in a raw weight stage
+// [128 of K][128 columns]: the chunks XOR-swizzled by 2 ((r / 4) % 4), so that
+// the four k quads a warp reads at once (rows 4 q + i, q = 0..3) fall on
+// distinct banks
+__device__ __forceinline__ unsigned w8_off(int r, int c) {
+  return static_cast<unsigned>(r * kBN + ((c ^ (2 * ((r >> 2) & 3))) << 4));
 }
 
+// rows [row0, row_end) of x and w[g]'s columns [n0, n0 + 128) over K [k0, k0 +
+// 128) into one ring slot, zeros past row_end, past k_end and past N: x as a
+// swizzled [BM][64] b16 tile (ldmatrix reads its A fragments), w raw (w8_off)
 template <int BM>
-__device__ __forceinline__ void load_x8(unsigned xs, const int8_t* __restrict__ x, int row0,
-                                        int row_end, int k0, int k) {
-  constexpr int kChunks = BM * (kBK8 / 16);
+__device__ __forceinline__ void load_stage8(unsigned xs, unsigned ws,
+                                            const int8_t* __restrict__ x,
+                                            const int8_t* __restrict__ wg, int row0, int row_end,
+                                            int n0, int k0, int k_end, int k, int n) {
+  constexpr int kXChunks = BM * (kBK8 / 16);
 #pragma unroll
-  for (int it = 0; it < (kChunks + kThreads - 1) / kThreads; ++it) {
+  for (int it = 0; it < (kXChunks + kThreads - 1) / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    if (kChunks % kThreads != 0 && i >= kChunks) break;
+    if (kXChunks % kThreads != 0 && i >= kXChunks) break;
     const int r = i / (kBK8 / 16), c = i % (kBK8 / 16);
     const int row = row0 + r, kc = k0 + 16 * c;
-    const bool ok = row < row_end && kc < k;
+    const bool ok = row < row_end && kc < k_end;
     hopper::cp_async16(xs + hopper::swz<kBK8 / 2>(r, c), x + (ok ? (long long)row * k + kc : 0),
                        ok);
   }
+  constexpr int kWChunks = kBK8 * (kBN / 16);
+#pragma unroll
+  for (int it = 0; it < kWChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / (kBN / 16), c = i % (kBN / 16);
+    const int krow = k0 + r, col = n0 + 16 * c;
+    const bool ok = krow < k_end && col < n;
+    hopper::cp_async16(ws + w8_off(r, c), wg + (ok ? (long long)krow * n + col : 0), ok);
+  }
 }
 
-// kSums: out the int32 sums; else bf16 (float(sum) * row scale) * channel scale
-template <int BM, bool kSums>
+// o[j]: the 4 bytes of column j of v[0..3] (v[i]: row i's 4 columns)
+__device__ __forceinline__ void transpose4(const unsigned (&v)[4], unsigned (&o)[4]) {
+  const unsigned ab_lo = __byte_perm(v[0], v[1], 0x5140), ab_hi = __byte_perm(v[0], v[1], 0x7362);
+  const unsigned cd_lo = __byte_perm(v[2], v[3], 0x5140), cd_hi = __byte_perm(v[2], v[3], 0x7362);
+  o[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
+  o[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
+  o[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
+  o[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
+// acc[mt][j] += rows [16 mt, 16 mt + 16) of the x stage times the warp's 32
+// columns of the raw w stage, over the stage's 128 of K (m16n8k32, int32 sums).
+// Column 32 warp + 4 p + j of the block is column p of n-tile j: lane (p =
+// lane / 4, q = lane % 4) reads the word of columns 4 p..4 p + 3 in k rows
+// 4 q..4 q + 3 (and 16 past them) and transposes the 4 x 4 bytes into its B
+// fragments of the four n-tiles; the A fragments come by ldmatrix, once a
+// row tile for the four n-tiles
+template <int MT>
+__device__ __forceinline__ void product_s8(int (&acc)[MT][4][4], unsigned xs, unsigned ws,
+                                           int warp, int lane) {
+  const int p = lane >> 2, q = lane & 3;
+  const int chunk = 2 * warp + (p >> 2);
+  const unsigned word = (p & 3) * 4;
+#pragma unroll
+  for (int kk = 0; kk < kBK8 / 32; ++kk) {
+    unsigned b[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = lds32(ws + w8_off(32 * kk + 16 * h + 4 * q + i, chunk) + word);
+      transpose4(v, b[h]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      unsigned a[4];
+      hopper::ldsm_x4(xs + hopper::swz<kBK8 / 2>(16 * mt + (lane & 15), 2 * kk + (lane >> 4)), a);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b[0][j], b[1][j]);
+    }
+  }
+}
+
+// acc += x rows [row0, row_end) over K [k_begin, k_end) times w[g]'s columns
+// [n0, n0 + 128): a ring of STAGES stages of 128 of K through cp.async, the
+// next stages in flight while one is multiplied
+template <int BM, int STAGES>
+__device__ __forceinline__ void stream_s8(int (&acc)[BM / 16][4][4], unsigned base,
+                                          const int8_t* __restrict__ x,
+                                          const int8_t* __restrict__ wg, int row0, int row_end,
+                                          int n0, int k_begin, int k_end, int k, int n) {
+  constexpr int kXBytes = BM * kBK8, kStage = kXBytes + kW8Bytes;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ktiles = (k_end - k_begin + kBK8 - 1) / kBK8;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles)
+      load_stage8<BM>(base + s * kStage, base + s * kStage + kXBytes, x, wg, row0, row_end, n0,
+                      k_begin + s * kBK8, k_end, k, n);
+    hopper::cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed; every warp is done with stage kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < ktiles) {
+      const unsigned slot = base + (next % STAGES) * kStage;
+      load_stage8<BM>(slot, slot + kXBytes, x, wg, row0, row_end, n0, k_begin + next * kBK8,
+                      k_end, k, n);
+    }
+    hopper::cp_async_commit();
+    const unsigned slot = base + (kt % STAGES) * kStage;
+    product_s8<BM / 16>(acc, slot, slot + kXBytes, warp, lane);
+  }
+  hopper::cp_async_wait<0>();
+}
+
+// a lane's 8 consecutive columns [col, col + 8) of `row`: the int32 sums
+// (row_scale null), else the JAX package's order, (float(sum) * row scale) *
+// the expert's channel scale, rounded once to bf16: one 16-byte store
+__device__ __forceinline__ void store8(void* __restrict__ out, const float* __restrict__ row_scale,
+                                       const float* __restrict__ w_scale, int g, int row, int col,
+                                       int n, const int (&s)[8]) {
+  const long long at = (long long)row * n + col;
+  if (row_scale == nullptr) {
+    int4* o = reinterpret_cast<int4*>(static_cast<int*>(out) + at);
+    o[0] = make_int4(s[0], s[1], s[2], s[3]);
+    o[1] = make_int4(s[4], s[5], s[6], s[7]);
+    return;
+  }
+  const float rs = row_scale[row];
+  const float4* cs = reinterpret_cast<const float4*>(w_scale + (long long)g * n + col);
+  const float4 c0 = cs[0], c1 = cs[1];
+  uint4 v;
+  v.x = hopper::pack_bf16((static_cast<float>(s[0]) * rs) * c0.x,
+                          (static_cast<float>(s[1]) * rs) * c0.y);
+  v.y = hopper::pack_bf16((static_cast<float>(s[2]) * rs) * c0.z,
+                          (static_cast<float>(s[3]) * rs) * c0.w);
+  v.z = hopper::pack_bf16((static_cast<float>(s[4]) * rs) * c1.x,
+                          (static_cast<float>(s[5]) * rs) * c1.y);
+  v.w = hopper::pack_bf16((static_cast<float>(s[6]) * rs) * c1.z,
+                          (static_cast<float>(s[7]) * rs) * c1.w);
+  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at) = v;
+}
+
+// row half h of m-tile mt: the lane's 8 columns, 8 q..8 q + 7 of its warp's 32
+// (element e of n-tile j is column 4 (2 q + e % 2) + j, row p + 8 (e / 2))
+template <int MT>
+__device__ __forceinline__ void lane_sums(const int (&acc)[MT][4][4], int mt, int h, int (&s)[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = acc[mt][j][2 * h];
+    s[4 + j] = acc[mt][j][2 * h + 1];
+  }
+}
+
+// few rows a group (decode): grid (row tiles, column tiles, splits), launched
+// as clusters of `splits` blocks along z when splits > 1; each split covers
+// k_per_split of K (a multiple of 128, every split non-empty)
+template <int STAGES>
 __global__ void __launch_bounds__(kThreads)
-grouped_matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                           const int* __restrict__ offsets, const float* __restrict__ row_scale,
-                           const float* __restrict__ w_scale, void* __restrict__ out, int rows,
-                           int k, int n, int groups) {
-  constexpr int RT = BM / 16;
-  constexpr int kXBytes = BM * kBK8, kWBytes = kBK8 * kBN;
-  // [x buffer 0 | x buffer 1 | w buffer 0 | w buffer 1]
+grouped_matmul_int8_few_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                    const int* __restrict__ offsets,
+                                    const float* __restrict__ row_scale,
+                                    const float* __restrict__ w_scale, void* __restrict__ out,
+                                    int rows, int k, int n, int groups, int k_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_group, s_tile;
 
-  find_tile<BM>(offsets, groups, blockIdx.x, &s_group, &s_tile);
+  find_tile<kFewRows>(offsets, groups, blockIdx.x, &s_group, &s_tile);
   const int g = s_group;
-  if (g < 0) return;
-  const int row0 = offsets[g] + s_tile * BM;
+  if (g < 0) return;  // a spare row tile: every block of its cluster leaves here
+  const int row0 = offsets[g] + s_tile * kFewRows;
   const int row_end = min(offsets[g + 1], rows);
   const int n0 = blockIdx.y * kBN;
+  const int k_begin = blockIdx.z * k_per_split, k_end = min(k, k_begin + k_per_split);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int8_t* wg = w + (long long)g * k * n;
+  int acc[1][4][4] = {};
+  stream_s8<kFewRows, STAGES>(acc, hopper::smem_addr(smem), x, w + (long long)g * k * n, row0,
+                              row_end, n0, k_begin, k_end, k, n);
 
-  int acc[RT][4][4];
+  const int col = 32 * warp + 8 * (lane & 3);  // the lane's 8 columns of the block's 128
+  if (gridDim.z == 1) {  // no split: the block's sums are final
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rt][j][e] = 0;
-
-  const int ktiles = (k + kBK8 - 1) / kBK8;
-  uint4 reg[kW8Groups][4];
-  load_w8(reg, wg, n0, 0, k, n);
-  unsigned char* ws = smem + 2 * kXBytes;
-  const unsigned xs = hopper::smem_addr(smem);
-  load_x8<BM>(xs, x, row0, row_end, 0, k);
-  hopper::cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int buf = kt & 1;
-    store_w8(ws + buf * kWBytes, reg);
-    hopper::cp_async_wait<0>();
-    __syncthreads();  // stage kt is in shared memory; every warp is done with stage kt - 1
-    if (kt + 1 < ktiles) {
-      load_x8<BM>(xs + (buf ^ 1) * kXBytes, x, row0, row_end, (kt + 1) * kBK8, k);
-      hopper::cp_async_commit();
-      load_w8(reg, wg, n0, (kt + 1) * kBK8, k, n);  // in flight while this stage multiplies
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + (lane >> 2) + 8 * h;
+      int s[8];
+      lane_sums<1>(acc, 0, h, s);
+      if (row < row_end && n0 + col < n) store8(out, row_scale, w_scale, g, row, n0 + col, n, s);
     }
-    const unsigned xa = xs + buf * kXBytes;
-    const unsigned wt = hopper::smem_addr(ws + buf * kWBytes) + warp * (32 * kBK8);
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) {
-      unsigned a[kBK8 / 32][4];  // one m16n8k32 A fragment a 32 k bytes
-      hopper::load_a<kBK8 / 2>(a, xa, 16 * rt, lane);
-#pragma unroll
-      for (int kk = 0; kk < kBK8 / 32; ++kk)
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned b[4];
-          hopper::ldsm_x4(wt + hopper::swz<kBK8 / 2>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                                     2 * kk + ((lane >> 3) & 1)),
-                          b);
-          mma_s8(acc[rt][2 * np], a[kk], b[0], b[1]);
-          mma_s8(acc[rt][2 * np + 1], a[kk], b[2], b[3]);
-        }
-    }
+    return;
   }
 
+  // the split's partial [16][128] int32 tile into this block's shared memory
+  __syncthreads();  // every warp is done with the ring
+  int* part = reinterpret_cast<int*>(smem);
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 16 * rt + lane / 4 + 8 * h;
-        const int col = n0 + 32 * warp + 8 * j + 2 * (lane % 4);
-        if (row >= row_end || col >= n) continue;
-        const int s0 = acc[rt][j][2 * h], s1 = acc[rt][j][2 * h + 1];
-        const long long at = (long long)row * n + col;
-        if (kSums) {
-          *reinterpret_cast<int2*>(static_cast<int*>(out) + at) = make_int2(s0, s1);
-        } else {
-          // the JAX package's order: (sum * row scale) * the expert's channel scale
-          const float rs = row_scale[row];
-          const float* cs = w_scale + (long long)g * n + col;
-          store_bf16x2(static_cast<__nv_bfloat16*>(out) + at,
-                       (static_cast<float>(s0) * rs) * cs[0],
-                       (static_cast<float>(s1) * rs) * cs[1]);
-        }
-      }
+  for (int h = 0; h < 2; ++h) {
+    int s[8];
+    lane_sums<1>(acc, 0, h, s);
+    int4* p = reinterpret_cast<int4*>(part + ((lane >> 2) + 8 * h) * kBN + col);
+    p[0] = make_int4(s[0], s[1], s[2], s[3]);
+    p[1] = make_int4(s[4], s[5], s[6], s[7]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();
+  // this block's share of the tile's 8-column units, summed over the splits
+  // in rank order (int32: exact in any order)
+  constexpr int kUnits = kFewRows * kBN / 8;
+  const int per = (kUnits + splits - 1) / splits;
+  const int lo = rank * per, hi = min(kUnits, lo + per);
+  for (int u = lo + static_cast<int>(threadIdx.x); u < hi; u += kThreads) {
+    const int r = u / (kBN / 8), c = 8 * (u % (kBN / 8));
+    int s[8] = {};
+    for (int q = 0; q < splits; ++q) {
+      const int4* v = reinterpret_cast<const int4*>(cluster.map_shared_rank(part, q) + r * kBN + c);
+      const int4 v0 = v[0], v1 = v[1];
+      s[0] += v0.x, s[1] += v0.y, s[2] += v0.z, s[3] += v0.w;
+      s[4] += v1.x, s[5] += v1.y, s[6] += v1.z, s[7] += v1.w;
+    }
+    const int row = row0 + r;
+    if (row < row_end && n0 + c < n) store8(out, row_scale, w_scale, g, row, n0 + c, n, s);
+  }
+  cluster.sync();  // no block leaves (and frees its partial) while a peer reads it
 }
 
-template <int BM, bool kSums>
-int launch_int8(const void* x, const void* w, const void* offsets, const void* row_scale,
-                const void* w_scale, void* out, int rows, int k, int n, int groups,
-                cudaStream_t st) {
-  constexpr int smem = 2 * (BM * kBK8 + kBK8 * kBN);
+// many rows a group (prefill), persistent: each block walks items blockIdx.x,
+// blockIdx.x + gridDim.x, ..., (a 64-row tile of a group, 128 columns) group by
+// group with a group's row tiles together within each column tile (the bf16
+// persistent kernel's order: gmm_wg::find_item)
+__global__ void __launch_bounds__(kThreads)
+grouped_matmul_int8_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                const int* __restrict__ offsets,
+                                const float* __restrict__ row_scale,
+                                const float* __restrict__ w_scale, void* __restrict__ out,
+                                int rows, int k, int n, int groups) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ncol = (n + kBN - 1) / kBN;
+  const int col = 32 * warp + 8 * (lane & 3);
+  int scan_base = 0, scan_carry = 0;
+  for (int item = blockIdx.x;; item += gridDim.x) {
+    int local;
+    const int g = gmm_wg::find_item<kMany8Rows>(offsets, groups, ncol, item, scan_base,
+                                                 scan_carry, local);
+    if (g < 0) break;
+    const int tiles = gmm_wg::row_tiles<kMany8Rows>(offsets, g);
+    const int row0 = offsets[g] + kMany8Rows * (local % tiles);
+    const int row_end = min(offsets[g + 1], rows);
+    const int n0 = (local / tiles) * kBN;
+    __syncthreads();  // every warp is done with the previous item's ring
+    int acc[kMany8Rows / 16][4][4] = {};
+    stream_s8<kMany8Rows, kMany8Stages>(acc, hopper::smem_addr(smem), x,
+                                        w + (long long)g * k * n, row0, row_end, n0, 0, k, k, n);
+    if (n0 + col >= n) continue;
+#pragma unroll
+    for (int mt = 0; mt < kMany8Rows / 16; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * mt + (lane >> 2) + 8 * h;
+        int s[8];
+        lane_sums<kMany8Rows / 16>(acc, mt, h, s);
+        if (row < row_end) store8(out, row_scale, w_scale, g, row, n0 + col, n, s);
+      }
+  }
+}
+
+template <int STAGES>
+int launch_int8_few(const void* x, const void* w, const void* offsets, const void* row_scale,
+                    const void* w_scale, void* out, int rows, int k, int n, int groups,
+                    int splits, cudaStream_t st) {
+  const int ktiles = (k + kBK8 - 1) / kBK8;
+  const int k_per_split = (ktiles + splits - 1) / splits * kBK8;
+  const long long tiles = few_row_tiles(rows, groups);
+  const int ncol = (n + kBN - 1) / kBN;
+  if ((splits - 1) * k_per_split >= k || tiles > 2147483647LL || ncol > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);  // an empty split, or a grid too large
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(grouped_matmul_int8_kernel<BM, kSums>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = cudaFuncSetAttribute(grouped_matmul_int8_few_rows_kernel<STAGES>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           few8_smem<STAGES>());
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  grouped_matmul_int8_kernel<BM, kSums><<<grid_of(rows, n, groups, BM), kThreads, smem, st>>>(
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(ncol),
+                     static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = few8_smem<STAGES>();
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = static_cast<unsigned>(splits);
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, grouped_matmul_int8_few_rows_kernel<STAGES>, static_cast<const int8_t*>(x),
+      static_cast<const int8_t*>(w), static_cast<const int*>(offsets),
+      static_cast<const float*>(row_scale), static_cast<const float*>(w_scale), out, rows, k, n,
+      groups, k_per_split);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the persistent grid: as many blocks as the SMs hold at once, at most one an item
+inline int launch_int8_rows(const void* x, const void* w, const void* offsets,
+                            const void* row_scale, const void* w_scale, void* out, int rows, int k,
+                            int n, int groups, cudaStream_t st) {
+  static bool configured = false;
+  static int per_sm = 0;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(grouped_matmul_int8_rows_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMany8Smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grouped_matmul_int8_rows_kernel,
+                                                          kThreads, kMany8Smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    configured = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // at most ceil(rows / 64) + groups row tiles, each ceil(n / 128) items
+  const long long items =
+      (static_cast<long long>(rows + kMany8Rows - 1) / kMany8Rows + groups) * ((n + kBN - 1) / kBN);
+  const long long slots = static_cast<long long>(per_sm) * sms;
+  grouped_matmul_int8_rows_kernel<<<static_cast<unsigned>(items < slots ? items : slots), kThreads,
+                                    kMany8Smem, st>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const int*>(offsets), static_cast<const float*>(row_scale),
       static_cast<const float*>(w_scale), out, rows, k, n, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSums>
-int launch_int8_rows(const void* x, const void* w, const void* offsets, const void* row_scale,
-                     const void* w_scale, void* out, int rows, int k, int n, int groups,
-                     int tile_rows, cudaStream_t st) {
-  if (tile_rows == 16)
-    return launch_int8<16, kSums>(x, w, offsets, row_scale, w_scale, out, rows, k, n, groups, st);
-  return launch_int8<64, kSums>(x, w, offsets, row_scale, w_scale, out, rows, k, n, groups, st);
-}
-
-}  // namespace
 }  // namespace gmm
 
 // x [rows, k] int8, w [groups, k, n] int8, offsets as above; without scales
 // (both null) out [rows, n] int32 sums; with them out [rows, n] bf16
 // (float(sum) * row_scale[r]) * w_scale[g, n], row_scale [rows] and w_scale
-// [groups, n] float32. k and n multiples of 16; tile_rows 16 or 64.
+// [groups, n] float32. k and n multiples of 16, every pointer 16-byte aligned.
+// splits 0: the many-rows regime (the persistent kernel); 1..8: the few-rows
+// regime with K split over a cluster of `splits` blocks (each split non-empty:
+// (splits - 1) * ceil(ceil(k / 128) / splits) * 128 < k) and a ring of
+// `stages` stages (3 or 4).
 extern "C" int grouped_matmul_int8(const void* x, const void* w, const void* offsets,
                                    const void* row_scale, const void* w_scale, void* out,
-                                   int rows, int k, int n, int groups, int tile_rows,
+                                   int rows, int k, int n, int groups, int splits, int stages,
                                    void* stream) {
-  if (gmm::bad_shape(rows, k, n, groups, tile_rows, 16, 16) ||
-      (row_scale == nullptr) != (w_scale == nullptr))
+  if (rows <= 0 || k <= 0 || n <= 0 || groups <= 0 || k % 16 != 0 || n % 16 != 0 || splits < 0 ||
+      splits > gmm::kMaxSplits || (row_scale == nullptr) != (w_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (row_scale == nullptr)
-    return gmm::launch_int8_rows<true>(x, w, offsets, row_scale, w_scale, out, rows, k, n,
-                                       groups, tile_rows, st);
-  return gmm::launch_int8_rows<false>(x, w, offsets, row_scale, w_scale, out, rows, k, n,
-                                      groups, tile_rows, st);
+  if (splits == 0)
+    return gmm::launch_int8_rows(x, w, offsets, row_scale, w_scale, out, rows, k, n, groups, st);
+  if (stages == 4)
+    return gmm::launch_int8_few<4>(x, w, offsets, row_scale, w_scale, out, rows, k, n, groups,
+                                   splits, st);
+  if (stages == 3)
+    return gmm::launch_int8_few<3>(x, w, offsets, row_scale, w_scale, out, rows, k, n, groups,
+                                   splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -281,23 +281,26 @@ __device__ __forceinline__ Ring init_ring(unsigned char* smem_raw) {
 
 // ---- the tile walk and the epilogue
 
-// 128-row tiles of group g
+// TILE-row tiles of group g (rows_kernel's: 128)
+template <int TILE = 2 * kWM>
 __device__ __forceinline__ int row_tiles(const int* __restrict__ offsets, int g) {
-  return (max(0, offsets[g + 1] - offsets[g]) + 2 * kWM - 1) / (2 * kWM);
+  return (max(0, offsets[g + 1] - offsets[g]) + TILE - 1) / TILE;
 }
 
-// rows_kernel's items: group by group, each group's (row tile, column tile)
-// pairs with the row tiles inner. The group of item `t` and its index within
-// the group, or group -1 past the last; warp-wide (every lane gets the
-// answer). `base` and `carry` (32-group chunk, items before it) resume the
-// scan where the previous, smaller `t` was found.
+// rows_kernel's items (and grouped_matmul.cu's int8 persistent kernel's, of
+// 64-row tiles): group by group, each group's (row tile, column tile) pairs
+// with the row tiles inner. The group of item `t` and its index within the
+// group, or group -1 past the last; warp-wide (every lane gets the answer).
+// `base` and `carry` (32-group chunk, items before it) resume the scan where
+// the previous, smaller `t` was found.
+template <int TILE = 2 * kWM>
 __device__ __forceinline__ int find_item(const int* __restrict__ offsets, int groups, int ncol,
                                          int t, int& base, int& carry, int& local) {
   const int lane = threadIdx.x % 32;
   for (; base < groups; base += 32) {
     const int g = base + lane;
     int cnt = 0;
-    if (g < groups) cnt = row_tiles(offsets, g) * ncol;
+    if (g < groups) cnt = row_tiles<TILE>(offsets, g) * ncol;
     int incl = cnt;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {

@@ -76,16 +76,16 @@ SIGNATURES = {
     "int8w_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # (x, w, offsets, out, rows, K, N, groups, splits (0: many rows), stages, stream)
     "grouped_matmul_bf16": [_P] * 4 + [_I] * 6 + [_P],
-    # (x, w, offsets, row_scale, w_scale, out, rows, K, N, groups, tile_rows,
-    #  stream): null scales give the int32 sums
-    "grouped_matmul_int8": [_P] * 6 + [_I] * 5 + [_P],
+    # (x, w, offsets, row_scale, w_scale, out, rows, K, N, groups, splits (0:
+    #  many rows), stages, stream): null scales give the int32 sums
+    "grouped_matmul_int8": [_P] * 6 + [_I] * 6 + [_P],
     # (dy, w, offsets, dx, rows, K, N, groups, stream)
     "grouped_matmul_dgrad": [_P] * 4 + [_I] * 4 + [_P],
     # (x, dy, offsets, dw, rows, K, N, groups, stream)
     "grouped_matmul_wgrad": [_P] * 4 + [_I] * 4 + [_P],
-    # (a, b, offsets, out, rows, K, N, groups, mode, stream): float32; mode 0
-    # the forward, 1 dgrad, 2 wgrad
-    "grouped_matmul_f32": [_P] * 4 + [_I] * 5 + [_P],
+    # (a, b, offsets, out, rows, K, N, groups, mode, tile_rows, stream):
+    # float32; mode 0 the forward, 1 dgrad, 2 wgrad
+    "grouped_matmul_f32": [_P] * 4 + [_I] * 6 + [_P],
 }
 # flash attention K9-K11, one entry per element type: (tensors, lse / delta,
 # q_pos, kv_pos, q_seg, kv_seg, B, H, Hkv, Sq, Skv, D, (batch, seq, head) strides

@@ -33,10 +33,12 @@ structure.
 On a CUDA tensor the hand-written kernels run: ``csrc/grouped_matmul.cu``
 (bfloat16 operands and result: :func:`forward_plan` picks the persistent
 ``wgmma`` kernel where the groups hold many rows and the split weight stream
-where they hold few; or int8 operands with an int32 or bfloat16 result),
-``csrc/grouped_matmul_f32.cu`` (float32 operands and result, the
-forward and both gradients, on the CUDA cores: exact products summed in
-float32, as ``ragged_dot`` computes float32 operands); anything else raises.
+where they hold few; or int8 operands with an int32 or bfloat16 result,
+:func:`int8_plan` picking the persistent kernel or the split weight stream
+the same way), ``csrc/grouped_matmul_f32.cu`` (float32 operands and result,
+the forward and both gradients, register-tiled on the CUDA cores, tiles of
+:func:`f32_tile_rows`: exact products summed in float32, as ``ragged_dot``
+computes float32 operands); anything else raises.
 ``offsets`` is read on the device: no host sync, so a captured decode step
 holds the launch. The plain
 PyTorch versions below loop over the groups with ``torch.matmul`` on host
@@ -69,6 +71,9 @@ _F32_MODES = {"grouped_matmul_f32": 0, "grouped_matmul_f32_dgrad": 1,
 FEW_ROWS, FEW_COLS, MAX_SPLITS, SPLIT_MIN_DEPTH = 16, 128, 8, 256
 DEEP_RING_MIN_K = 8192
 FEW_RINGS = ((4, 3), (3, 4))
+# grouped_matmul_int8's few-rows kernel: the same blocks on stages of 128 of K
+# (the same 16 KB of weights a stage), rings of 3 or 4 stages (int8_plan)
+INT8_SPLIT_MIN_DEPTH, INT8_RING4_MAX_K = 512, 2048
 
 
 def many_rows(rows: int, groups: int) -> bool:
@@ -79,7 +84,8 @@ def many_rows(rows: int, groups: int) -> bool:
 
 def tile_rows(rows: int, groups: int) -> int:
     """grouped_matmul_int8's rows of y a block: 16 when the groups hold few
-    rows each (decode), 64 when they hold many (prefill)."""
+    rows each (decode, the few-rows kernel), 64 when they hold many (prefill,
+    the persistent kernel's items)."""
     return 64 if many_rows(rows, groups) else 16
 
 
@@ -102,31 +108,58 @@ def working_blocks(rows: int, groups: int, n: int) -> float:
     return min(few_row_tiles(rows, groups), touched) * -(-n // FEW_COLS)
 
 
+def _few_splits(rows: int, groups: int, k: int, n: int, sms: int, stage_k: int,
+                split_min_depth: int) -> int:
+    """The few-rows kernels' split of K over a cluster, stages of ``stage_k``:
+    only where the grid of :func:`few_row_tiles` by ceil(N / 128) column
+    tiles leaves SMs without a block (SMs // blocks), at most 8, each split
+    at least ``split_min_depth`` of K, none empty."""
+    blocks = few_row_tiles(rows, groups) * -(-n // FEW_COLS)
+    stages_k = -(-k // stage_k)
+    splits = max(1, min(MAX_SPLITS, -(-k // split_min_depth), sms // blocks))
+    per_split = -(-stages_k // splits)
+    return -(-stages_k // per_split)
+
+
 def forward_plan(rows: int, groups: int, k: int, n: int, sms: int) -> tuple[int, int]:
     """The bfloat16 forward's launch, (splits, stages): (0, 0) for the
     many-rows regime (the persistent ``wgmma`` kernel); else the few-rows
     kernel over its grid of :func:`few_row_tiles` by ceil(N / 128) column
-    tiles. K is split only where that grid leaves SMs without a block (splits
-    = SMs // blocks, at most 8, each split at least 256 rows of K, none
-    empty). The ring: 6 stages where K >= 8192 and every block the grid
-    can fill fits two an SM, else the deepest of :data:`FEW_RINGS` whose
-    resident blocks hold the :func:`working_blocks`, else 4. Set from the
-    device time of every ring at the decode shapes on an H100: a ring too
-    deep for the blocks at work leaves some waiting for a slot (llama4's wi
-    and, with all its rows on distinct experts, wo), one too shallow for a
-    long K keeps too few bytes in flight (mixtral's wo)."""
+    tiles, K split by :func:`_few_splits` on stages of 64. The ring: 6
+    stages where K >= 8192 and every block the grid can fill fits two an SM,
+    else the deepest of :data:`FEW_RINGS` whose resident blocks hold the
+    :func:`working_blocks`, else 4. Set from the device time of every ring at
+    the decode shapes on an H100: a ring too deep for the blocks at work
+    leaves some waiting for a slot (llama4's wi and, with all its rows on
+    distinct experts, wo), one too shallow for a long K keeps too few bytes
+    in flight (mixtral's wo)."""
     if many_rows(rows, groups):
         return 0, 0
+    splits = _few_splits(rows, groups, k, n, sms, 64, SPLIT_MIN_DEPTH)
     blocks = few_row_tiles(rows, groups) * -(-n // FEW_COLS)
-    stages_k = -(-k // 64)
-    splits = max(1, min(MAX_SPLITS, -(-k // SPLIT_MIN_DEPTH), sms // blocks))
-    per_split = -(-stages_k // splits)
     working = working_blocks(rows, groups, n) * splits
     if k >= DEEP_RING_MIN_K and blocks * splits <= 2 * sms:
-        stages = 6
-    else:
-        stages = next((st for st, per_sm in FEW_RINGS if working <= per_sm * sms), 4)
-    return -(-stages_k // per_split), stages
+        return splits, 6
+    return splits, next((st for st, per_sm in FEW_RINGS if working <= per_sm * sms), 4)
+
+
+def int8_plan(rows: int, groups: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """``grouped_matmul_int8``'s launch, (splits, stages): (0, 0) for the
+    many-rows regime (the persistent kernel of 64-row tiles); else the
+    few-rows kernel on stages of 128 of K (the raw int8 weights: 16 KB a
+    stage, as the bfloat16 stage's 64 of K), K split by :func:`_few_splits`
+    (each split at least :data:`INT8_SPLIT_MIN_DEPTH` of K), a ring of 4
+    stages where K is short (<= :data:`INT8_RING4_MAX_K`) and the
+    :func:`working_blocks` fit three blocks an SM, else 3 (four an SM). Set
+    from the device time of every (splits, ring) at the decode shapes on an
+    H100: the lane transposes make a stage dearer than the bfloat16 one, so
+    the shallower ring, four blocks an SM, wins wherever the stream is long
+    or the blocks many; no shape took the 6-stage ring."""
+    if many_rows(rows, groups):
+        return 0, 0
+    splits = _few_splits(rows, groups, k, n, sms, 128, INT8_SPLIT_MIN_DEPTH)
+    working = working_blocks(rows, groups, n) * splits
+    return splits, 4 if k <= INT8_RING4_MAX_K and working <= 3 * sms else 3
 
 
 def _host_offsets(offsets: torch.Tensor) -> list[int]:
@@ -272,6 +305,15 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     return _forward(x, w, offsets, impl)
 
 
+def f32_tile_rows(rows: int, groups: int) -> int:
+    """The float32 forward's and dgrad's rows of the result a block: 128
+    where the groups hold at least 128 rows on average, else 64 (qwen3's
+    parity step: 8,192 rows over 128 experts, 64 +- 8 a group, which a
+    128-row tile would leave half empty). A group's last tile of 16 rows or
+    fewer runs the kernel's short mapping (every warp on those rows)."""
+    return 128 if rows >= 128 * groups else 64
+
+
 def _launch_f32(name, a, b, offsets, out, r, k, n, g) -> None:
     """The float32 kernel of one of the three products (``_F32_MODES``)."""
     from maxtext_indextts2_tpu_torch.ops import _build
@@ -280,7 +322,7 @@ def _launch_f32(name, a, b, offsets, out, r, k, n, g) -> None:
     a, b, offsets = _kernel_operands(a, b, offsets)
     code = lib.grouped_matmul_f32(
         a.data_ptr(), b.data_ptr(), offsets.data_ptr(), out.data_ptr(), r, k, n, g,
-        _F32_MODES[name], torch.cuda.current_stream(a.device).cuda_stream)
+        _F32_MODES[name], f32_tile_rows(r, g), torch.cuda.current_stream(a.device).cuda_stream)
     _launched(name, code)
 
 
@@ -424,7 +466,7 @@ def grouped_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, offsets: torch.Tenso
     code = lib.grouped_matmul_int8(
         xq.data_ptr(), wq.data_ptr(), offsets.data_ptr(),
         None if rs is None else rs.data_ptr(), None if ws is None else ws.data_ptr(),
-        out.data_ptr(), r, k, n, g, tile_rows(r, g),
+        out.data_ptr(), r, k, n, g, *int8_plan(r, g, k, n, _build.sm_count(xq.device)),
         torch.cuda.current_stream(xq.device).cuda_stream)
     _launched("grouped_matmul_int8", code)
     return out

@@ -1535,7 +1535,8 @@ def int8w_cases(device, timing, full_size=True):
 # (a float32 product a group, exact products of the operands): both sides
 # round a float32 sum, summed in another order, to bfloat16, so they differ by
 # at most one bfloat16 step, at most 2**-7 of max(1, max |y|). The int8
-# variant's int32 sums are exact on both sides: equal.
+# variant's int32 sums are exact on both sides: equal; its rescaled bf16
+# result within 2**-7 too, and both launched twice bitwise equal.
 TOL_GMM_BF16 = 2.0 ** -7
 # (name, rows R, groups G, K, N, routing): decode at 8 slots (R = 8 x top-k;
 # 32 slots of qwen3 is 256 rows), each model's first product (wi_0 / wi_1:
@@ -1583,6 +1584,23 @@ GMM_CASES = [
     ("gmm_int8_mixtral_decode_wi", 16, 8, 4096, 14336, "uniform"),
     ("gmm_int8_one_group_holds_all", 1000, 16, 512, 384, "one"),
     ("gmm_int8_skewed_ragged_rows", 1237, 32, 768, 1408, "skewed"),
+    # the other models' decodes under int8w_serve, then the int8 kernels' edges
+    # (K and N multiples of 16): few rows, groups of 0-17 rows with K 528 and N
+    # 208 (no multiple of the 128-byte stage or the 128-column tile), then K
+    # 2064 (a 16-deep last stage) over a grid small enough that K is split
+    # over a cluster; many rows, groups of 1-191 rows around the 64-row tile,
+    # an empty one, N 448 (a half column tile)
+    ("gmm_int8_mixtral_decode_wo", 16, 8, 14336, 4096, "uniform"),
+    ("gmm_int8_deepseek_decode_wi", 48, 64, 2048, 1408, "uniform"),
+    ("gmm_int8_deepseek_decode_wo", 48, 64, 1408, 2048, "uniform"),
+    ("gmm_int8_llama4_decode_wi", 8, 16, 5120, 8192, "uniform"),
+    ("gmm_int8_llama4_decode_wo", 8, 16, 8192, 5120, "uniform"),
+    ("gmm_int8_few_rows_edges", 102, 14, 528, 208,
+     (1, 0, 3, 16, 17, 0, 5, 2, 8, 15, 1, 0, 30, 4)),
+    ("gmm_int8_few_rows_split_edges", 100, 24, 2064, 144,
+     (1, 9, 0, 16, 3, 1, 1, 7, 0, 2, 12, 1, 5, 0, 1, 1, 14, 2, 3, 1, 0, 6, 13, 1)),
+    ("gmm_int8_many_rows_tile_edges", 770, 10, 640, 448,
+     (1, 63, 65, 0, 127, 129, 64, 128, 2, 191)),
 ]
 
 
@@ -1673,9 +1691,9 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
                max_abs_out=largest,
                shape=dict(rows=rows, groups=groups, k=k, n=n, routing=routing,
                           groups_touched=touched, largest_group=int(counts.max().item()),
-                          **({"tile_rows": gm.tile_rows(rows, groups)} if int8 else
-                             dict(zip(("splits", "stages"), gm.forward_plan(
-                                 rows, groups, k, n, _build.sm_count(x.device)))))))
+                          **dict(zip(("splits", "stages"), (gm.int8_plan if int8 else
+                                                            gm.forward_plan)(
+                              rows, groups, k, n, _build.sm_count(x.device))))))
     if int8:
         res.update(max_abs_err=err, max_err=err, tol=tol, unit="int32 sums",
                    scaled_max_abs_err=out_err, scaled_max_rel_err=rel,
@@ -1686,9 +1704,13 @@ def gmm_case(name, device, timing, *, rows, groups, k, n, routing, seed=0):
         res.update(max_abs_err=out_err, max_err=rel, tol=TOL_GMM_BF16,
                    unit="relative to max(1, max |plain|)",
                    ok=bool(rel <= TOL_GMM_BF16 and finite and launched == want_launched))
-    again = (gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16) if int8
-             else gm.grouped_matmul(x, w, offsets))
-    res["repeat_bitwise_equal"] = bool(torch.equal(again, out))
+    if int8:  # both epilogues: the int32 sums and the rescaled result
+        again = gm.grouped_matmul_int8(x, w, offsets, rs, ws, torch.bfloat16)
+        repeat = (torch.equal(again, out)
+                  and torch.equal(gm.grouped_matmul_int8(x, w, offsets), sums))
+    else:
+        repeat = torch.equal(gm.grouped_matmul(x, w, offsets), out)
+    res["repeat_bitwise_equal"] = bool(repeat)
     res["ok"] = res["ok"] and res["repeat_bitwise_equal"]
     if timing:
         esize = 1 if int8 else 2
@@ -1783,6 +1805,9 @@ GMM_F32_CASES = [
     ("empty_groups", 24, 128, 512, 384, "uniform"),
     ("one_group_holds_all", 1000, 16, 512, 384, "one"),
     ("tile_edges", 770, 10, 200, 77, (1, 63, 65, 0, 127, 129, 64, 128, 2, 191)),
+    # deepseek-v2-lite's training shapes (384 rows a group: 128-row tiles)
+    ("deepseek_train_wi", 4096 * 6, 64, 2048, 1408, "uniform"),
+    ("deepseek_train_wo", 4096 * 6, 64, 1408, 2048, "uniform"),
 ]
 
 

@@ -84,6 +84,8 @@ GROUPED_KERNELS = {"grouped_matmul_bf16_kernel": "grouped_matmul_bf16",
                    "gmm_wg::rows_kernel<true>": "grouped_matmul_bf16",
                    "gmm_wg::rows_kernel<false>": "grouped_matmul_dgrad",
                    "grouped_matmul_int8_kernel": "grouped_matmul_int8",
+                   "grouped_matmul_int8_few_rows_kernel": "grouped_matmul_int8",
+                   "grouped_matmul_int8_rows_kernel": "grouped_matmul_int8",
                    "gmm_bwd::dgrad_kernel": "grouped_matmul_dgrad",
                    "gmm_bwd::wgrad_kernel": "grouped_matmul_wgrad",
                    "gmm_f32::rows_kernel": "grouped_matmul_f32 (forward and dgrad)",

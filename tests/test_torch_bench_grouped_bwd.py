@@ -15,6 +15,15 @@ def test_cases_are_the_kind_routed_backward_cases():
     assert all(isinstance(c[5], str) for c in got)
 
 
+def test_f32_cases_are_the_kind_routed_float32_cases():
+    got = bench.f32_cases([])
+    assert got == [c for c in smoke.GMM_F32_CASES if isinstance(c[5], str)]
+    names = [c[0] for c in got]
+    assert names[0] == "qwen3_parity" and "deepseek_train_wi" in names
+    assert [c[0] for c in bench.f32_cases(["parity"])] == ["qwen3_parity", "qwen3_parity_wo"]
+    assert bench.f32_cases(["tile_edges"]) == []  # its routing gives the groups' rows
+
+
 @pytest.mark.parametrize("wanted,names", [
     (["mixtral"], ["mixtral_train_wi", "mixtral_train_wo"]),
     (["main_path", "skewed"], ["main_path", "skewed_ragged_rows"]),

@@ -18,9 +18,24 @@ def test_cases_cover_the_forward_targets():
         assert isinstance(routing, str) or sum(routing) == rows and len(routing) == groups
 
 
+def test_int8_cases_cover_the_int8_targets():
+    """The ``int8_*`` cases time grouped_matmul_int8: qwen3's decode (the
+    main path) and prefill, mixtral's decode, at K and N the kernel takes."""
+    int8 = [c for c in bench.cases(["int8_"])]
+    names = [c[0] for c in int8]
+    for want in ("int8_main_path", "int8_qwen3_decode_wo", "int8_qwen3_prefill_wi",
+                 "int8_mixtral_decode_wi"):
+        assert want in names
+    assert all(k % 16 == 0 and n % 16 == 0 for _, _, _, k, n, _ in int8)
+    assert [c[0] for c in bench.cases(["int8_qwen3_prefill"])] == [
+        "int8_qwen3_prefill_wi", "int8_qwen3_prefill_wo"]
+
+
 @pytest.mark.parametrize("wanted,names", [
-    (["mixtral"], ["mixtral_prefill_wi", "mixtral_decode_wi", "mixtral_decode_wo"]),
-    (["train", "single"], ["qwen3_train_wi", "qwen3_train_wo", "single_rows"]),
+    (["mixtral"], ["mixtral_prefill_wi", "mixtral_decode_wi", "mixtral_decode_wo",
+                   "int8_mixtral_decode_wi", "int8_mixtral_decode_wo"]),
+    (["train", "single"], ["qwen3_train_wi", "qwen3_train_wo", "single_rows",
+                           "int8_single_rows"]),
     (["no_such_case"], []),
 ])
 def test_cases_filter_by_substring(wanted, names):

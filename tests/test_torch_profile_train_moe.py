@@ -36,6 +36,15 @@ _MAPS = "(CUtensorMap, CUtensorMap, CUtensorMap, int const*, "
      "grouped_matmul_dgrad"),
     ("gmm_f32::rows_kernel(float const*, float const*, int const*, float*, int, int, int, int, "
      "int)", "grouped_matmul_f32 (forward and dgrad)"),
+    # the redesigned int8 kernels (the few-rows weight stream, the persistent
+    # many-rows kernel) and float32 row-tile kernels (a template on the tile)
+    ("void gmm::grouped_matmul_int8_few_rows_kernel<3>(signed char const*, signed char const*, "
+     "int const*, float const*, float const*, void*, int, int, int, int, int)",
+     "grouped_matmul_int8"),
+    ("gmm::grouped_matmul_int8_rows_kernel(signed char const*, signed char const*, int const*, "
+     "float const*, float const*, void*, int, int, int, int)", "grouped_matmul_int8"),
+    ("void gmm_f32::rows_kernel<64, true>(float const*, float const*, int const*, float*, int, "
+     "int, int, int, bool)", "grouped_matmul_f32 (forward and dgrad)"),
     ("gmm_f32::wgrad_kernel(float const*, float const*, int const*, float*, int, int, int)",
      "grouped_matmul_f32_wgrad"),
 ])
