@@ -127,7 +127,16 @@ streams raw int8 weights, each lane transposing its own ``mma.sync`` s8
 fragments: a weight stream split over a cluster at decode, a persistent
 kernel of 64-row tiles at prefill; the float32 grouped kernels are
 register-tiled GEMMs on the CUDA cores; ``moe_serve_int8w`` reports its
-captured step's device-busy time beside ``moe_serve``'s. The
+captured step's device-busy time beside ``moe_serve``'s. Last, parallelism
+on ``torch.distributed`` with ranks spawned after the build that share the
+card over gloo (``tools/parallel_phases.py``), each held to one rank on the
+same data: ``parallel_fsdp_train`` (FSDP, 2 ranks, the ``tts-1b`` recipe),
+``parallel_zero1``, ``ring_attention`` (ring, all-gather and Ulysses context
+parallelism through K9-K11 at 16,384 tokens, the ring at cp 4 too, and a ring
+training step), ``pipeline_train`` and ``elastic_train_resize`` (2 ranks to
+1); then on one rank ``dpo_train``, ``grpo_train`` (completions through the
+captured engine), ``distillation`` (its JSONL read by SFT) and
+``elastic_train`` (a failure recovered from a snapshot). The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -5517,6 +5526,406 @@ def phase_llama4_vision_serve(card):
     return launches
 
 
+# ROADMAP item 6, parallelism on torch.distributed: several ranks share the
+# card (gloo; NCCL refuses a second rank on one device), spawned by
+# tools/parallel_phases.py after the build. Each multi-rank run is held to the
+# one-rank run on the same data. Tolerances (the recipe's bfloat16 weights and
+# activations; the ranks' products run on fewer rows, so cuBLAS may pick other
+# kernels, and gradients are summed in another order): loss 2e-3 relative,
+# global gradient norm 2e-2 relative, parameter norm 1e-4 relative, a probe
+# weight's gradient within 2**-5 of its largest entry, every parameter within
+# 2 learning rates a step plus 2**-7 of its value (a bfloat16 rounding;
+# tools/parallel_phases.UPDATES_PER_STEP, PARAM_ROUNDING).
+# Context-parallel attention against one-rank K9-K11 on the whole tensors:
+# within 2**-5 of max(1, the reference's largest entry), output and q / k / v
+# gradients.
+TOL_PAR_LOSS_REL, TOL_PAR_GRAD_NORM_REL, TOL_PAR_PARAM_NORM_REL = 2e-3, 2e-2, 1e-4
+TOL_PAR_PROBE, TOL_PAR_ATTENTION = 2.0 ** -5, 2.0 ** -5
+# Zero-1 held as FSDP is; and at 4 layers, one step with it against the same
+# step without it: the same loss, the grad norm within 1e-3 (the same
+# bfloat16 gradients, summed over the microbatches before or after their
+# reduction)
+TOL_ZERO1_GRAD_NORM_REL = 1e-3
+# GRPO: 2 iterations of G = 4 completions of 64 tokens for 4 prompts of 32;
+# distillation: 16 prompts; both on one engine shape (16 slots, 128 rows),
+# then SFT on distillation's JSONL at 16 rows of 128
+POSTTRAIN_ARGS = ["max_target_length=128", "max_prefill_predict_length=64",
+                  "per_device_batch_size=16", "decode_attention=ragged",
+                  "serve_params_dtype=bfloat16"]
+GRPO_PROMPTS, GRPO_GROUP, GRPO_NEW_TOKENS, GRPO_ITERATIONS = 4, 4, 64, 2
+DISTILL_PROMPTS, PROMPT_TOKENS = 16, 32
+DPO_STEPS = 3
+ELASTIC_STEPS, ELASTIC_FAIL_AT = 6, 3
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _check_history(phase, got, want, steps):
+    """Each step's loss, grad norm and parameter norm against the one-rank run."""
+    for i in range(steps):
+        g, w = got[i], want[i]
+        check(_rel(g["loss"], w["loss"]) <= TOL_PAR_LOSS_REL,
+              f"{phase}: step {i} loss {g['loss']} against one rank's {w['loss']}")
+        check(_rel(g["grad_norm"], w["grad_norm"]) <= TOL_PAR_GRAD_NORM_REL,
+              f"{phase}: step {i} grad norm {g['grad_norm']} against {w['grad_norm']}")
+        check(_rel(g["param_norm"], w["param_norm"]) <= TOL_PAR_PARAM_NORM_REL,
+              f"{phase}: step {i} param norm {g['param_norm']} against {w['param_norm']}")
+
+
+def _gathers(run) -> tuple:
+    return run["fsdp"]["gathers"], run["fsdp"]["reductions"]
+
+
+def _sum_launches(*runs) -> dict:
+    out = dict(NO_FLASH)
+    for run in runs:
+        for k, n in run["launches"].items():
+            out[k] += n
+    return out
+
+
+def _rank_fields(runs) -> list:
+    keys = ("seconds", "peak_bytes", "fsdp", "collective_calls", "collective_bytes",
+            "host_staged_bytes", "launches")
+    return [{k: r[k] for k in keys if k in r} for r in runs]
+
+
+def phase_parallel(tmp, card) -> dict:
+    """The multi-rank phases: parallel_fsdp_train, parallel_zero1,
+    ring_attention (with all-gather and Ulysses, at cp 2 and the ring at cp 4,
+    and a training step at 1 x 16,384), pipeline_train and the two-rank part
+    of elastic_train. Returns each main path's K9-K11 launches."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+
+    from maxtext_indextts2_tpu_torch.infer.engine import resolve_device
+
+    t0 = time.perf_counter()
+    dev = resolve_device(None)  # the card, or an error
+    pp.attention_reference(tmp, dev)
+    fsdp_ref = pp.train_reference(tmp, dev, [f"per_device_batch_size={pp.ONE_RANK_ROWS}"],
+                                  pp.FSDP_STEPS, "fsdp", True)
+    ctx_ref = pp.train_reference(tmp, dev, ["per_device_batch_size=1",
+                                            f"max_target_length={pp.CONTEXT_TOKENS}"], 1,
+                                 "context", False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    two = pp.run_ranks(2, "two_ranks", tmp)
+    t_two = time.perf_counter() - t0 - t_ref
+    four = pp.run_ranks(4, "four_ranks", tmp)
+    t_four = time.perf_counter() - t0 - t_ref - t_two
+    elastic_ref = pp.elastic_reference(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(pp.TRAIN_ARGS + [f"per_device_batch_size={pp.ONE_RANK_ROWS}"])
+    n_params = sum(p.numel() for p in Transformer(cfg, device="meta").parameters())
+    one_rank_state = n_params * 2 * 3  # bfloat16 parameters and two moments
+    lr = fsdp_ref["lr_max"]
+    common = dict(card=card, ranks_share_one_card=True, backend="gloo",
+                  spawn_seconds={"references": t_ref, "two_ranks": t_two, "four_ranks": t_four})
+
+    # parallel_fsdp_train
+    runs = [r["fsdp"] for r in two]
+    for r in runs:
+        _check_history("parallel_fsdp_train", r["history"], fsdp_ref["history"], pp.FSDP_STEPS)
+        check(r["param_diff_in_tolerance_units"] <= 1.0,
+              f"parallel_fsdp_train: a parameter is {r['param_max_abs_diff']} from one rank's "
+              f"({r['param_diff_in_tolerance_units']} of its tolerance)")
+        for n, (_, rel) in r["probe_errors"].items():
+            check(rel <= TOL_PAR_PROBE, f"parallel_fsdp_train: gradient of {n} off by {rel}")
+        check(_gathers(r) == (pp.FSDP_STEPS, pp.FSDP_STEPS),
+              f"parallel_fsdp_train: gathers {r['fsdp']}")
+        check(0.49 * one_rank_state <= r["state_bytes"] <= 0.52 * one_rank_state,
+              f"parallel_fsdp_train: a rank holds {r['state_bytes']} of {one_rank_state} bytes")
+    emit("parallel_fsdp_train", t0, **common, rows=runs[0]["rows"], steps=pp.FSDP_STEPS,
+         losses=[[h["loss"] for h in r["history"]] for r in runs],
+         one_rank_losses=[h["loss"] for h in fsdp_ref["history"]],
+         grad_norms=[h["grad_norm"] for h in runs[0]["history"]],
+         one_rank_grad_norms=[h["grad_norm"] for h in fsdp_ref["history"]],
+         param_max_abs_diff=[r["param_max_abs_diff"] for r in runs], learning_rate=lr,
+         param_diff_in_tolerance_units=[r["param_diff_in_tolerance_units"] for r in runs],
+         probe_errors=[r["probe_errors"] for r in runs], state_bytes_per_rank=[
+             r["state_bytes"] for r in runs], one_rank_state_bytes=one_rank_state,
+         ranks=_rank_fields(runs),
+         tolerances=dict(loss_rel=TOL_PAR_LOSS_REL, grad_norm_rel=TOL_PAR_GRAD_NORM_REL,
+                         param_norm_rel=TOL_PAR_PARAM_NORM_REL, probe=TOL_PAR_PROBE,
+                         updates_per_step=pp.UPDATES_PER_STEP, param_rounding=pp.PARAM_ROUNDING))
+    paths = {"parallel_fsdp_train": _sum_launches(*runs)}
+
+    # parallel_zero1: one gather a step against one a microbatch
+    zero1, without = [r["zero1"] for r in two], [r["zero1_without"] for r in two]
+    small = [r["zero1_small"] for r in two]
+    for z, zs, w in zip(zero1, small, without):
+        _check_history("parallel_zero1", z["history"], fsdp_ref["history"], pp.FSDP_STEPS)
+        check(z["param_diff_in_tolerance_units"] <= 1.0,
+              f"parallel_zero1: a parameter is {z['param_max_abs_diff']} from one rank's "
+              f"({z['param_diff_in_tolerance_units']} of its tolerance)")
+        for n, (_, rel) in z["probe_errors"].items():
+            check(rel <= TOL_PAR_PROBE, f"parallel_zero1: gradient of {n} off by {rel}")
+        check(_gathers(z) == (pp.FSDP_STEPS, pp.FSDP_STEPS) and _gathers(zs) == (1, 1)
+              and _gathers(w) == (2, 2),
+              f"parallel_zero1: gathers {z['fsdp']} and {zs['fsdp']} with Zero-1, "
+              f"{w['fsdp']} without")
+        # the same step: the same loss, the gradients summed in another order
+        check(zs["history"][0]["loss"] == w["history"][0]["loss"]
+              and _rel(zs["history"][0]["grad_norm"], w["history"][0]["grad_norm"])
+              <= TOL_ZERO1_GRAD_NORM_REL,
+              f"parallel_zero1: step {zs['history'][0]} against {w['history'][0]} without")
+    emit("parallel_zero1", t0, **common, rows=zero1[0]["rows"], microbatches=2,
+         steps=pp.FSDP_STEPS, losses=[h["loss"] for h in zero1[0]["history"]],
+         one_rank_losses=[h["loss"] for h in fsdp_ref["history"]],
+         grad_norms=[h["grad_norm"] for h in zero1[0]["history"]],
+         param_max_abs_diff=[z["param_max_abs_diff"] for z in zero1],
+         param_diff_in_tolerance_units=[z["param_diff_in_tolerance_units"] for z in zero1],
+         probe_errors=[z["probe_errors"] for z in zero1],
+         four_layers_one_step=dict(zero1=small[0]["history"][0], without=without[0]["history"][0],
+                                   gathers_zero1=small[0]["fsdp"], gathers_without=without[0]["fsdp"]),
+         gathers_zero1=zero1[0]["fsdp"],
+         ranks=_rank_fields(zero1), ranks_without=_rank_fields(without),
+         tolerances=dict(loss_rel=TOL_PAR_LOSS_REL, grad_norm_rel=TOL_PAR_GRAD_NORM_REL,
+                         param_norm_rel=TOL_PAR_PARAM_NORM_REL, probe=TOL_PAR_PROBE,
+                         updates_per_step=pp.UPDATES_PER_STEP, param_rounding=pp.PARAM_ROUNDING,
+                         without_grad_norm_rel=TOL_ZERO1_GRAD_NORM_REL))
+    paths["parallel_zero1"] = _sum_launches(*zero1, *small, *without)
+
+    # ring_attention: the op at cp 2 (three algorithms) and 4, then a step
+    att = {alg: [r["attention_cp2"][alg] for r in two] for alg in ("ring", "allgather", "ulysses")}
+    att["ring_cp4"] = [r["attention_cp4"]["ring"] for r in four]
+    for name, runs_ in att.items():
+        for r in runs_:
+            for t, (_, rel) in r["errors"].items():
+                check(rel <= TOL_PAR_ATTENTION, f"ring_attention: {name} {t} off by {rel}")
+    ctx = [r["context_train"] for r in two]
+    for r in ctx:
+        _check_history("ring_attention (training step)", r["history"], ctx_ref["history"], 1)
+        for n, (_, rel) in r["probe_errors"].items():
+            check(rel <= TOL_PAR_PROBE, f"ring_attention: step gradient of {n} off by {rel}")
+    ring_mem = max(r["attention_peak_bytes"] for r in att["ring"])
+    gather_mem = max(r["attention_peak_bytes"] for r in att["allgather"])
+    # the K/V a rank holds at once (from the shapes): the ring's block in hand
+    # and the one arriving, all-gather's whole sequence
+    kv_token = 2 * pp.ATTENTION["hkv"] * pp.ATTENTION["d"] * 2  # k and v, bfloat16
+    kv_bytes = {"ring_cp2": 2 * kv_token * pp.CONTEXT_TOKENS // 2,
+                "ring_cp4": 2 * kv_token * pp.CONTEXT_TOKENS // 4,
+                "allgather_cp2": kv_token * pp.CONTEXT_TOKENS}
+    emit("ring_attention", t0, **common, tokens=pp.CONTEXT_TOKENS, shape=pp.ATTENTION,
+         errors={k: [r["errors"] for r in v] for k, v in att.items()},
+         attention_peak_bytes={k: [r["attention_peak_bytes"] for r in v]
+                               for k, v in att.items()},
+         ring_over_allgather_peak=ring_mem / max(gather_mem, 1), kv_bytes_held=kv_bytes,
+         collectives={k: [{"calls": r["collective_calls"], "bytes": r["collective_bytes"],
+                           "host_staged_bytes": r["host_staged_bytes"]} for r in v]
+                      for k, v in att.items()},
+         seconds={k: [r["seconds"] for r in v] for k, v in att.items()},
+         train_step=dict(loss=[r["history"][0]["loss"] for r in ctx],
+                         one_rank_loss=ctx_ref["history"][0]["loss"],
+                         grad_norm=[r["history"][0]["grad_norm"] for r in ctx],
+                         one_rank_grad_norm=ctx_ref["history"][0]["grad_norm"],
+                         probe_errors=[r["probe_errors"] for r in ctx],
+                         ranks=_rank_fields(ctx)),
+         tolerance=TOL_PAR_ATTENTION)
+    paths["ring_attention"] = _sum_launches(*att["ring"], *ctx)
+    paths["allgather_attention"] = _sum_launches(*att["allgather"])
+    paths["ulysses_attention"] = _sum_launches(*att["ulysses"])
+    paths["ring_attention_cp4"] = _sum_launches(*att["ring_cp4"])
+
+    # pipeline_train: both schedules against the unpipelined one-rank steps
+    pipe = {name: [r[name] for r in two] for name in ("pipeline", "pipeline_delayed")}
+    for name, runs_ in pipe.items():
+        for stage, r in enumerate(runs_):
+            _check_history(f"pipeline_train ({name})", r["history"], fsdp_ref["history"],
+                           pp.PIPELINE_STEPS)
+            check(all(int(u.rsplit("_", 1)[1]) % 2 == stage for u in r["units"])
+                  and len(r["units"]) == cfg.num_decoder_layers // 2,
+                  f"pipeline_train: stage {stage} holds {r['units']}")
+            for n, (_, rel) in r["probe_errors"].items():
+                check(rel <= TOL_PAR_PROBE, f"pipeline_train: gradient of {n} off by {rel}")
+    probes = {n for r in pipe["pipeline"] for n in r["probe_errors"]}
+    check(probes == set(pp.PROBES), f"pipeline_train: probes held {sorted(probes)}")
+    emit("pipeline_train", t0, **common, stages=2, repeats=cfg.num_decoder_layers // 2,
+         microbatches=2, steps=pp.PIPELINE_STEPS,
+         losses={k: [h["loss"] for h in v[0]["history"]] for k, v in pipe.items()},
+         one_rank_losses=[h["loss"] for h in fsdp_ref["history"][:pp.PIPELINE_STEPS]],
+         grad_norms={k: [h["grad_norm"] for h in v[0]["history"]] for k, v in pipe.items()},
+         probe_errors={k: [r["probe_errors"] for r in v] for k, v in pipe.items()},
+         ranks={k: _rank_fields(v) for k, v in pipe.items()})
+    paths["pipeline_train"] = _sum_launches(*pipe["pipeline"], *pipe["pipeline_delayed"])
+
+    # elastic_train, two ranks -> one
+    left, kept = two[1]["elastic"]["result"], two[0]["elastic"]["result"]
+    check(left == {"left_at": pp.ELASTIC_FAIL_AT, "recoveries": 1},
+          f"elastic_train: rank 1 returned {left}")
+    check(kept["recoveries"] == 1 and (kept["final_step"], kept["final_num_devices"],
+           kept["final_global_batch"]) == (5, 1, 2), f"elastic_train: rank 0 {kept}")
+    check(_rel(kept["loss"], elastic_ref["loss"]) <= TOL_PAR_LOSS_REL,
+          f"elastic_train: loss {kept['loss']} against {elastic_ref['loss']}")
+    emit("elastic_train_resize", t0, **common, result=kept, one_process=elastic_ref,
+         ranks=_rank_fields([r["elastic"] for r in two]), tolerance_loss_rel=TOL_PAR_LOSS_REL)
+    paths["elastic_train"] = _sum_launches(*[r["elastic"] for r in two])
+    return paths
+
+
+def _posttrain_cfg(extra=()):
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+
+    return load_config(pp.TRAIN_ARGS + POSTTRAIN_ARGS + list(extra))
+
+
+def _prompts(seed, n, vocab):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, vocab, size=PROMPT_TOKENS).astype(np.int32) for _ in range(n)]
+
+
+def phase_dpo_train(card) -> dict:
+    """train_dpo at tts-1b's full width: 3 steps against the frozen initial
+    policy (the first step's loss is log 2 exactly: policy = reference)."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+    from maxtext_indextts2_tpu_torch.train import dpo
+
+    t0 = time.perf_counter()
+    cfg = load_config(pp.TRAIN_ARGS + ["per_device_batch_size=4", f"steps={DPO_STEPS}"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    out = dpo.train_dpo(cfg, quiet=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_counts().items() if v}
+    hist = out["history"]
+    check(len(hist) == DPO_STEPS and all(np.isfinite(h["loss"]) for h in hist),
+          f"dpo_train: {hist}")
+    check(abs(hist[0]["loss"] - math.log(2)) < 1e-6 and hist[0]["chosen_reward"] == 0.0,
+          f"dpo_train: the first step is not at the reference: {hist[0]}")
+    check(set(launches) == set(NO_FLASH), f"dpo_train: launches {launches}")
+    emit("dpo_train", t0, card=card, steps=DPO_STEPS, rows=cfg.global_batch_size_to_train_on,
+         max_target_length=cfg.max_target_length, history=hist, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def phase_grpo_train(card) -> dict:
+    """grpo_train_loop at tts-1b's full width: 2 iterations of G = 4 sampled
+    completions of 64 tokens for 4 prompts through the captured engine (K1,
+    K2), the trained weights moved into the engine each iteration, and the
+    update through K9-K11."""
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.train import grpo
+
+    t0 = time.perf_counter()
+    cfg = _posttrain_cfg(["decode_sampling_strategy=weighted", "steps=2"])
+    engine = Engine(cfg)
+    prompts = _prompts(1, GRPO_PROMPTS, cfg.vocab_size)
+    seen = []
+
+    def reward(completion):
+        seen.append(len(completion))
+        return len(set(completion)) / len(completion)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    state, metrics = grpo.grpo_train_loop(cfg, reward, num_iterations=GRPO_ITERATIONS,
+                                          group_size=GRPO_GROUP, prompts=prompts,
+                                          max_new_tokens=GRPO_NEW_TOKENS, engine=engine)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_counts().items() if v}
+    check(state.step == GRPO_ITERATIONS and all(np.isfinite(v) for v in metrics.values()),
+          f"grpo_train: step {state.step}, {metrics}")
+    check(seen == [GRPO_NEW_TOKENS] * (GRPO_ITERATIONS * GRPO_PROMPTS * GRPO_GROUP),
+          f"grpo_train: completions of {sorted(set(seen))} tokens")
+    check(engine.graphs.replays > 0, "grpo_train: no decode step replayed a captured graph")
+    for k in ("ragged_decode_attention", "inplace_row_update", *NO_FLASH):
+        check(launches.get(k, 0) > 0, f"grpo_train: {k} never launched: {launches}")
+    emit("grpo_train", t0, card=card, iterations=GRPO_ITERATIONS, prompts=GRPO_PROMPTS,
+         group=GRPO_GROUP, new_tokens=GRPO_NEW_TOKENS, metrics=metrics,
+         graph_replays=engine.graphs.replays, graph_captures=engine.graphs.captures,
+         launches=launches, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return launches
+
+
+def phase_distillation(tmp, card) -> dict:
+    """generate_distillation_data at tts-1b's full width: 16 greedy
+    completions of 64 tokens through the offline engine into JSONL (the LM's
+    output columns past the byte tokenizer's 259 ids zeroed, so that the
+    completions decode as text), then one SFT step reading that file."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models import Transformer
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+    from maxtext_indextts2_tpu_torch.train import distillation, sft
+
+    t0 = time.perf_counter()
+    cfg = _posttrain_cfg()
+    engine = Engine(cfg)
+    model = Transformer(cfg, device=engine.device).init_params(cfg.init_weights_seed)
+    weights = {n: t.detach() for n, t in model.state_dict().items()}
+    del model
+    weights["logits_dense.kernel"][:, 259:] = 0.0
+    engine.set_params(weights)
+    del weights
+    prompts = _prompts(2, DISTILL_PROMPTS, 259)
+    path = os.path.join(tmp, "distillation.jsonl")
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    n = distillation.generate_distillation_data(cfg, prompts, path, GRPO_NEW_TOKENS,
+                                                engine=engine)
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(path) as fh:
+        lines = [json.loads(x) for x in fh]
+    check(n == DISTILL_PROMPTS == len(lines)
+          and all(len(x["completion_ids"]) == GRPO_NEW_TOKENS for x in lines),
+          f"distillation: {n} lines")
+    sft_cfg = load_config(pp.TRAIN_ARGS + POSTTRAIN_ARGS + ["steps=1", f"dataset_path={path}"])
+    out = sft.train_sft(sft_cfg, quiet=True)
+    torch.cuda.synchronize()
+    after = _all_counts()
+    launches = {k: after[k] for k in after if after[k]}
+    check(np.isfinite(out["loss"]), f"distillation: the SFT step's loss {out['loss']}")
+    for k in ("ragged_decode_attention", "inplace_row_update", *NO_FLASH):
+        check(launches.get(k, 0) > 0, f"distillation: {k} never launched: {launches}")
+    emit("distillation", t0, card=card, prompts=n, new_tokens=GRPO_NEW_TOKENS,
+         first_completion=lines[0]["completion"][:40], sft_loss=out["loss"], launches=launches)
+    return launches
+
+
+def phase_elastic_train(card) -> dict:
+    """elastic_train_loop on one rank at tts-1b's full width: snapshots every
+    2 steps, a failure injected at step 3, recovered from the step-2 snapshot
+    and continued to step 6."""
+    from maxtext_indextts2_tpu_torch.config import load_config
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+    from maxtext_indextts2_tpu_torch.train import elastic
+
+    t0 = time.perf_counter()
+    cfg = load_config(pp.TRAIN_ARGS + ["per_device_batch_size=2", f"steps={ELASTIC_STEPS}"])
+    fired = []
+
+    def inject(step):
+        if step == ELASTIC_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected failure at step {step}")
+
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    out = elastic.elastic_train_loop(cfg, snapshot_period=2, failure_injector=inject)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_counts().items() if v}
+    check((out["recoveries"], out["final_step"]) == (1, ELASTIC_STEPS)
+          and np.isfinite(out["loss"]), f"elastic_train: {out}")
+    emit("elastic_train", t0, card=card, result=out, launches=launches)
+    return launches
+
+
+
 def kernels_line(cases, paths):
     """The summary of every kernel on a main path: error, tolerance and times
     of the case at the shapes the first main path's run gives the kernel (the
@@ -5747,6 +6156,19 @@ def _phases(tmp, card) -> dict:
     record("llama4_vision_serve", phase_llama4_vision_serve(card))
     release()
     record("sft_train", phase_sft_train(card))
+    release()
+    # ROADMAP item 6, parallelism and post-training: ranks sharing the card,
+    # then DPO, GRPO, distillation and elastic training on one rank
+    for phase, counts in phase_parallel(tmp, card).items():
+        record(phase, counts)
+    release()
+    record("dpo_train", phase_dpo_train(card))
+    release()
+    record("grpo_train", phase_grpo_train(card))
+    release()
+    record("distillation", phase_distillation(tmp, card))
+    release()
+    record("elastic_train", phase_elastic_train(card))
     release()
     return paths
 

@@ -7,7 +7,9 @@ The field set equals the JAX package's so that any of its yaml presets
 loads here; a model that needs a feature this package has not ported raises
 ``NotImplementedError`` when it is built, not when its config is read.
 
-This package runs on ONE device: ``num_devices`` is 1 and there is no mesh.
+``num_devices`` is the world of ``torch.distributed`` (one rank a device;
+1 without a process group), and the ICI degrees fill it as in the JAX package
+(``parallel/mesh.py`` lays the ranks out).
 The yaml files are flat ``key: value`` scalars plus ``base_config:`` and are
 read by a few lines of this module's own (no PyYAML dependency).
 
@@ -494,9 +496,15 @@ def load_config(argv: list[str] | None = None, **kwargs: Any) -> Config:
     return finalize(Config(**clean))
 
 
-def finalize(cfg: Config) -> Config:
-    """Validate and compute derived quantities for one device."""
-    cfg.num_devices = 1
+def finalize(cfg: Config, num_devices: int | None = None) -> Config:
+    """Validate and compute derived quantities for ``num_devices`` ranks
+    (default: the world of ``torch.distributed``, or ``WORLD_SIZE`` before it
+    is joined, else 1)."""
+    if num_devices is None:
+        from maxtext_indextts2_tpu_torch.parallel.mesh import world_size
+
+        num_devices = world_size()
+    cfg.num_devices = num_devices
 
     s = cfg.global_parameter_scale
     if s != 1 and (s & (s - 1)) != 0:
@@ -515,15 +523,33 @@ def finalize(cfg: Config) -> Config:
         cfg.mlp_dim = _round128(cfg.base_mlp_dim * lin)
         cfg.num_decoder_layers = _round_even(cfg.base_num_decoder_layers * lin)
 
-    # one device: the single fill axis (-1) becomes 1, every product must be 1
-    _fill_parallelism(cfg, "ici", 1)
-    _fill_parallelism(cfg, "dcn", 1)
+    # the single fill axis (-1) takes what the others leave of the ranks
+    _fill_parallelism(cfg, "ici", num_devices // cfg.num_slices)
+    _fill_parallelism(cfg, "dcn", cfg.num_slices)
 
     if cfg.num_query_heads % cfg.num_kv_heads != 0:
         raise ValueError("num_query_heads must be divisible by num_kv_heads")
 
+    cfg.using_pipeline_parallelism = cfg.ici_stage_parallelism > 1 or cfg.dcn_stage_parallelism > 1
+    cfg.using_tensor_parallelism = (cfg.ici_tensor_parallelism > 1
+                                    or cfg.ici_tensor_transpose_parallelism > 1
+                                    or cfg.ici_tensor_sequence_parallelism > 1)
+    cfg.using_sequence_parallelism = cfg.ici_sequence_parallelism > 1
+    cfg.using_context_parallelism = cfg.ici_context_parallelism > 1
+    if cfg.context_parallel_algorithm not in ("allgather", "ring", "ulysses"):
+        raise ValueError("context_parallel_algorithm must be 'allgather', 'ring' or "
+                         f"'ulysses', got {cfg.context_parallel_algorithm!r}")
+    cfg.using_expert_parallelism = cfg.ici_expert_parallelism > 1 or cfg.dcn_expert_parallelism > 1
+    if cfg.using_pipeline_parallelism:
+        stages = cfg.ici_stage_parallelism * cfg.dcn_stage_parallelism
+        if cfg.num_pipeline_repeats == -1:
+            layers = cfg.num_decoder_layers - cfg.first_num_dense_layers
+            cfg.num_pipeline_repeats = max(1, layers // stages)
+        if cfg.num_pipeline_microbatches == -1:
+            cfg.num_pipeline_microbatches = stages
+
     cfg.global_batch_size_to_train_on, cfg.global_batch_size_to_load = (
-        _global_batch_sizes(cfg.per_device_batch_size, 1)
+        _global_batch_sizes(cfg.per_device_batch_size, num_devices)
     )
     if cfg.gradient_accumulation_steps > 1:
         cfg.micro_batch_size_to_train_on = cfg.global_batch_size_to_train_on
@@ -532,7 +558,7 @@ def finalize(cfg: Config) -> Config:
     else:
         cfg.micro_batch_size_to_train_on = cfg.global_batch_size_to_train_on
     eval_pdb = cfg.eval_per_device_batch_size or cfg.per_device_batch_size
-    cfg.global_batch_size_to_eval_on, _ = _global_batch_sizes(eval_pdb, 1)
+    cfg.global_batch_size_to_eval_on, _ = _global_batch_sizes(eval_pdb, num_devices)
 
     if cfg.learning_rate_schedule_steps == -1:
         cfg.learning_rate_schedule_steps = cfg.steps
@@ -593,6 +619,5 @@ def _fill_parallelism(cfg: Config, prefix: str, total: int) -> None:
         known = total
     if known != total:
         raise ValueError(
-            f"product of {prefix} parallelism degrees {known} != {total} device(s): "
-            "this package runs on one device"
+            f"product of {prefix} parallelism degrees {known} != {total} device(s)"
         )

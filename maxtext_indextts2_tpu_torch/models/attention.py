@@ -50,6 +50,8 @@ from maxtext_indextts2_tpu_torch.infer.paged_attention import (
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
 from maxtext_indextts2_tpu_torch.models.layers import DenseGeneral, RMSNorm
 from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
+from maxtext_indextts2_tpu_torch.parallel import comm
+from maxtext_indextts2_tpu_torch.parallel.mesh import current_mesh
 from maxtext_indextts2_tpu_torch.ops.inplace_update import inplace_row_update
 from maxtext_indextts2_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from maxtext_indextts2_tpu_torch.ops.ragged_decode_attention import (
@@ -329,9 +331,13 @@ class Attention(nn.Module):
         quantization: str = "",
         quantize_kvcache: bool = False,
         lora_rank: int = 0,
+        context_parallelism: bool = False,  # training: the current mesh's "context" axis
+        context_parallel_algorithm: str = "allgather",  # allgather | ring | ulysses
         device=None,
     ):
         super().__init__()
+        self.context_parallelism = context_parallelism
+        self.context_parallel_algorithm = context_parallel_algorithm
         if attention_kernel not in ("autoselected", "dot_product", "flash"):
             raise ValueError(f"unknown attention kernel {attention_kernel!r}")
         if decode_attention not in ("dot_product", "bucketed", "ragged"):
@@ -556,17 +562,29 @@ class Attention(nn.Module):
         if kernel == "autoselected":
             kernel = "flash" if (q.device.type == "cuda" and q.shape[1] >= 1024) \
                 else "dot_product"
+        mesh = current_mesh() if self.context_parallelism else None
         if kernel == "flash":
             return flash_attention_sharded(
-                q, k, v, segment_ids, positions=positions, causal=True,
+                q, k, v, segment_ids, mesh=mesh, positions=positions, causal=True,
                 sliding_window=self.sliding_window_size,
                 chunk_size=self.chunk_attn_window_size,
-                logits_soft_cap=self.attn_logits_soft_cap, impl=impl)
+                logits_soft_cap=self.attn_logits_soft_cap,
+                algorithm=self.context_parallel_algorithm, impl=impl)
+        if mesh is not None and mesh.shape["context"] > 1:
+            # this rank's queries against the whole sequence's keys
+            group = mesh.group("context")
+            k, v = (comm.AllGather.apply(t, group, 1) for t in (k, v))
+            kv_pos, kv_seg = (None if t is None else comm.all_gather(t, group, 1)
+                              for t in (positions, segment_ids))
+            return self._masked_attention(q, k, v, positions, segment_ids, kv_pos, kv_seg)
         return self._masked_attention(q, k, v, positions, segment_ids)
 
-    def _masked_attention(self, q, k, v, positions, segment_ids):
+    def _masked_attention(self, q, k, v, positions, segment_ids, kv_positions=None,
+                          kv_segment_ids=None):
+        kv_positions = positions if kv_positions is None else kv_positions
+        kv_segment_ids = segment_ids if kv_segment_ids is None else kv_segment_ids
         mask = make_attention_mask(
-            positions, positions, segment_ids, segment_ids, causal=True,
+            positions, kv_positions, segment_ids, kv_segment_ids, causal=True,
             sliding_window=self.sliding_window_size, chunk_size=self.chunk_attn_window_size,
         )
         return dot_product_attention(

@@ -89,6 +89,8 @@ def _attention_kwargs(cfg: Config, block, attention_type: str) -> dict[str, Any]
         attn_temperature_scale=cfg.attn_temperature_scale,
         attn_temperature_floor_scale=cfg.attn_temperature_floor_scale,
         decode_attention=cfg.decode_attention,
+        context_parallelism=cfg.using_context_parallelism,
+        context_parallel_algorithm=cfg.context_parallel_algorithm,
         query_pre_attn_scalar=(
             cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar > 0
             else block.query_pre_attn_scalar
@@ -312,11 +314,10 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: Config, block, device=None):
         super().__init__()
-        if cfg.using_pipeline_parallelism:
-            _unsupported("pipeline parallelism", "6, parallelism on torch.distributed")
         group = len(block.attention_pattern)
         self.unit_names = []
-        for region, units, use_moe in layer_regions(cfg, group):
+        self.regions = layer_regions(cfg, group)
+        for region, units, use_moe in self.regions:
             for i in range(units):
                 name = f"{region}_{i}"
                 setattr(self, name, DecoderLayer(cfg, block, device=device, use_moe=use_moe))
@@ -324,6 +325,29 @@ class Decoder(nn.Module):
         self.num_units = len(self.unit_names)
         self.remat_policy = cfg.remat_policy
         self.group, self.mlp_dim = group, cfg.mlp_dim
+        self.cfg = cfg
+        self.stage_group = None  # set by keep_stage_units: the decoder is pipelined
+
+    def keep_stage_units(self, mesh) -> frozenset[str]:
+        """Keep the units of this rank's pipeline stage and drop the others
+        (``models/pipeline.py``: layer i of a region runs on stage i mod S);
+        returns the kept units' parameter names (under ``decoder.``)."""
+        stages = mesh.shape["stage"]
+        for region, units, _ in self.regions:
+            want = stages * self.cfg.num_pipeline_repeats
+            if units != want:
+                raise ValueError(f"pipeline needs num_units ({units}) == stages ({stages}) * "
+                                 f"repeats ({self.cfg.num_pipeline_repeats}) in {region}")
+        kept = []
+        for name in list(self.unit_names):
+            if int(name.rsplit("_", 1)[1]) % stages != mesh.coords["stage"]:
+                delattr(self, name)
+            else:
+                kept.append(name)
+        self.unit_names = kept
+        self.stage_group = mesh.group("stage")
+        return frozenset(f"decoder.{u}.{n}" for u in kept
+                         for n, _ in getattr(self, u).named_parameters())
 
     def units(self) -> list[DecoderLayer]:
         return [getattr(self, name) for name in self.unit_names]
@@ -345,6 +369,8 @@ class Decoder(nn.Module):
         masks are taken before the unit runs. ``lb_losses``: where given, the
         load-balance loss of every MoE sub-layer of a ``MODE_TRAIN`` forward
         is appended (what the JAX package sows)."""
+        if self.stage_group is not None:
+            return self._pipelined(y, positions, segment_ids, mode, impl, dropout)
         remat = _remat_policy(self.remat_policy) if mode == MODE_TRAIN else None
         shape = (*y.shape[:-1], self.mlp_dim)
         for i, unit in enumerate(self.units()):
@@ -356,4 +382,19 @@ class Decoder(nn.Module):
                 y, positions, segment_ids, mode,
                 None if cache is None else cache[i], impl, remat, paged_step, masks,
                 cache_offset, decode_width, lb_losses)
+        return y
+
+    def _pipelined(self, y, positions, segment_ids, mode, impl, dropout):
+        from maxtext_indextts2_tpu_torch.models.pipeline import pipeline_forward
+
+        if mode != MODE_TRAIN:
+            raise ValueError("a pipelined decoder holds one stage's units and runs in "
+                             "training only, as in the JAX package")
+        if dropout is not None:
+            _unsupported("MLP dropout inside the pipelined region",
+                         "6, parallelism on torch.distributed")
+        for region, _, _ in self.regions:
+            units = [getattr(self, n) for n in self.unit_names if n.rsplit("_", 1)[0] == region]
+            y = pipeline_forward(units, self.stage_group, self.cfg, y, positions, segment_ids,
+                                 impl)
         return y

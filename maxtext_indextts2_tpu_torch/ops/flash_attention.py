@@ -40,7 +40,8 @@ on the CPU, or when a test or an on-device comparison asks with
 Layouts follow the JAX package: ``flash_attention`` takes q ``[B, H, Sq, D]``,
 k and v ``[B, Hkv, Skv, D]`` (any strides with the last axis contiguous) and
 positions / segment ids ``[B, S]`` int32; ``flash_attention_sharded`` is the
-model's ``[B, S, N, D]`` entry on one device.
+model's ``[B, S, N, D]`` entry, on one device or context-parallel over a
+mesh (all-gather, ring or Ulysses).
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ import numpy as np
 import torch
 
 from maxtext_indextts2_tpu_torch.ops.ada_rmsnorm import FLOAT_DTYPES, route, rows_of_16_bytes
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (64, 128, 256)  # head widths the kernels are built for
@@ -363,18 +363,57 @@ def load_balanced_inverse(x: torch.Tensor, cp: int, axis: int = 1) -> torch.Tens
 def flash_attention_sharded(q, k, v, segment_ids, mesh=None, positions=None, causal=True,
                             sliding_window=0, chunk_size=0, logits_soft_cap=0.0,
                             algorithm="allgather", impl: str | None = None):
-    """The model's ``[B,S,N,D]`` entry, on one device: q [B,S,H,D], k/v
-    [B,S,Hkv,D] -> [B,S,H,D] (contiguous on the CUDA route: no copy).
-    Context parallelism (a mesh, ring / ulysses) is not ported."""
-    if mesh is not None or algorithm != "allgather":
-        _unsupported("context-parallel flash attention (mesh, ring, ulysses)",
-                     "6, parallelism on torch.distributed")
+    """The model's ``[B,S,N,D]`` entry: q [B,S,H,D], k/v [B,S,Hkv,D] ->
+    [B,S,H,D] (contiguous on the CUDA route: no copy).
+
+    On a ``mesh`` whose ``context`` degree cp is above 1 the tensors are this
+    rank's sequence shard (in the load-balanced order the train step gives
+    the batch; ``positions`` are global, so masks stay right) and K/V come
+    by ``algorithm``:
+
+    - ``"allgather"``: K/V, positions and segment ids all-gathered over
+      ``context`` (the gradient of K/V reduce-scattered back), then K9-K11
+      on the local q;
+    - ``"ring"``: K/V stay sharded and rotate (``ops/ring_attention.py``);
+    - ``"ulysses"``: an all-to-all turns sequence shards into head shards
+      (every rank the whole sequence for H/cp heads), K9-K11 run there, and
+      a second all-to-all turns the output back; heads must divide by cp.
+
+    cp == 1 takes the plain path, as the JAX package does."""
     b, s = q.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=q.device)[None].expand(b, s)
     if segment_ids is None:
         segment_ids = torch.ones((b, s), dtype=torch.int32, device=q.device)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), positions,
-                        positions, segment_ids, segment_ids, causal, sliding_window, chunk_size,
-                        logits_soft_cap, None, impl)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (causal, sliding_window, chunk_size, logits_soft_cap, None, impl)
+    cp = 1 if mesh is None else mesh.shape.get("context", 1)
+    if cp == 1:
+        o = flash_attention(qh, kh, vh, positions, positions, segment_ids, segment_ids, *mask)
+        return o.transpose(1, 2)
+    from maxtext_indextts2_tpu_torch.parallel import comm
+
+    group = mesh.group("context")
+    if algorithm == "ring":
+        from maxtext_indextts2_tpu_torch.ops.ring_attention import ring_flash_attention
+
+        o = ring_flash_attention(qh, kh, vh, positions, positions, segment_ids, segment_ids,
+                                 group, *mask)
+    elif algorithm == "ulysses":
+        if q.shape[2] % cp or k.shape[2] % cp:
+            raise ValueError(f"ulysses needs query heads ({q.shape[2]}) and kv heads "
+                             f"({k.shape[2]}) divisible by context parallelism ({cp}); use "
+                             "context_parallel_algorithm=ring instead")
+        q_a, k_a, v_a = (comm.AllToAll.apply(t, group, 1, 2) for t in (qh, kh, vh))
+        pos_f = comm.all_gather(positions, group, 1)
+        seg_f = comm.all_gather(segment_ids, group, 1)
+        o = flash_attention(q_a, k_a, v_a, pos_f, pos_f, seg_f, seg_f, *mask)
+        o = comm.AllToAll.apply(o, group, 2, 1)
+    elif algorithm == "allgather":
+        k_f, v_f = (comm.AllGather.apply(t, group, 2) for t in (kh, vh))
+        pos_f = comm.all_gather(positions, group, 1)
+        seg_f = comm.all_gather(segment_ids, group, 1)
+        o = flash_attention(qh, k_f, v_f, positions, pos_f, segment_ids, seg_f, *mask)
+    else:
+        raise ValueError(f"unknown context-parallel algorithm: {algorithm!r}")
     return o.transpose(1, 2)

@@ -903,6 +903,19 @@ FLASH_FLAGSHIP = dict(b=1, s=4096, h=16, hkv=8, d=256)
 # qwen3-30b-a3b's training step (moe_train): 4 x 1024 tokens, 32 query / 4 kv
 # heads of 128 (GQA group 8).
 FLASH_QWEN3_MOE = dict(b=4, s=1024, h=32, hkv=4, d=128)
+# the parallel phases' shapes (chip_smoke.py): a rank's 2 rows of the tts-1b
+# recipe (FSDP, the pipeline's microbatch, elastic) and Zero-1's 1 row, the
+# context-parallel calls on 16,384 tokens (a ring hop's block at cp 2 and 4,
+# all-gathered keys at cp 2, Ulysses' head shard at cp 2), and the
+# post-training rows (GRPO's 16 completions and SFT on distillation's
+# JSONL, 128 tokens). The long-context cases take the bfloat16 unit of each
+# element's own row, as the flagship's 4,096-token case does: a causal row of
+# thousands of keys averages its values down, and the mean over all rows
+# would measure the rows that see the most keys against the ones that see few
+FLASH_RANK_ROWS = dict(b=2, s=2048, h=16, hkv=8, d=128)
+CONTEXT_TOKENS = 16384
+FLASH_POSTTRAIN = dict(b=16, s=128, h=16, hkv=8, d=128)
+POSTTRAIN_DECODE = dict(b=16, s=128, nq=16, nkv=8, d=128)
 # The S2A training step on its sequence-flash route: 8 x 512 frames, 16 heads
 # of 64 (no grouping).
 S2A_TRAIN_FLASH = dict(b=8, s=512, h=16, hkv=16, d=64)
@@ -1025,9 +1038,33 @@ def pad_tail_lengths(b: int, s: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(lengths)
 
 
-def _flash_pairs(pos, seg, causal, window, chunk) -> int:
+def _flash_pairs(pos, seg, causal, window, chunk, kv_pos=None, kv_seg=None) -> int:
     """Visible (query, key) pairs over the batch: the work the data needs."""
-    return int(fa._mask(pos, pos, seg, seg, causal, window, chunk).sum().item())
+    kv_pos = pos if kv_pos is None else kv_pos
+    kv_seg = seg if kv_seg is None else kv_seg
+    return int(fa._mask(pos, kv_pos, seg, kv_seg, causal, window, chunk).sum().item())
+
+
+def context_positions(cp: int, s_local: int, rank: int, device) -> torch.Tensor:
+    """[1, s_local] global positions of context rank ``rank``'s shard in the
+    load-balanced order (chunks ``rank`` and ``2 cp - 1 - rank`` of 2 cp)."""
+    n = s_local // 2
+    chunks = [torch.arange(c * n, (c + 1) * n, dtype=torch.int32, device=device)
+              for c in (rank, 2 * cp - 1 - rank)]
+    return torch.cat(chunks)[None]
+
+
+def _context_kv(context, b, s, device):
+    """(q positions, kv positions, kv length) of a context-parallel call on
+    context rank 0: ``("ring", cp, hop)``, the block the ring brings at hop
+    ``hop`` (rank -hop's); ``("allgather", cp)``, every rank's shard."""
+    kind, cp = context[0], context[1]
+    q_pos = context_positions(cp, s, 0, device).repeat(b, 1)
+    if kind == "ring":
+        kv_pos = context_positions(cp, s, (-context[2]) % cp, device)
+    else:
+        kv_pos = torch.cat([context_positions(cp, s, r, device) for r in range(cp)], dim=1)
+    return q_pos, kv_pos.repeat(b, 1), kv_pos.shape[1]
 
 
 def _flash_library(q, k, v, do, on_device=False, causal=True, mask=None):
@@ -1050,18 +1087,26 @@ def _flash_library(q, k, v, do, on_device=False, causal=True, mask=None):
 
 def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, causal=True,
                window=0, chunk=0, cap=0.0, segments="one", positions="arange", peak=1.0,
-               seed=0, unit_mean="all"):
+               seed=0, unit_mean="all", context=None):
     """K9, K10 and K11 against their plain versions on the same inputs: three
     results, ``{name}_fwd``, ``{name}_dq`` and ``{name}_dkv``. The backward
     kernels and their plain versions get the same lse and delta (the kernel's).
     ``unit_mean``: the rows whose mean enters the bfloat16 unit, see
-    ``TOL_FLASH``."""
+    ``TOL_FLASH``. ``context``: a context-parallel call on rank 0's shard of
+    ``s`` queries (:func:`_context_kv`): keys of their own length and global
+    positions."""
     if unit_mean not in TOL_FLASH_MEAN_OVER:
         raise ValueError(f"flash_case: unit_mean {unit_mean!r}")
     q, k, v, do, pos, seg = _flash_inputs(b, s, h, hkv, d, dtype, seed, device, segments,
                                           positions, peak)
+    kv_pos, kv_seg = pos, seg
+    if context is not None:
+        pos, kv_pos, kv_s = _context_kv(context, b, s, device)
+        k, v = _flash_inputs(b, kv_s, hkv, hkv, d, dtype, seed + 1, device, "one", "arange",
+                             peak)[1:3]
+        kv_seg = torch.ones_like(kv_pos)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # [B,N,S,D] views
-    ids = (pos, pos, seg, seg)
+    ids = (pos, kv_pos, seg, kv_seg)
     mask = (causal, window, chunk, cap, None)
     o, lse = fa.flash_fwd(qh, kh, vh, *ids, *mask)
     torch.cuda.synchronize()
@@ -1086,6 +1131,7 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
                                                         *mask, impl="plain"))}
         del q32, k32, v32, do32
     rows = (seg != 0)[:, None, :, None]  # [B,1,S,1]: rows that attend to something
+    kv_rows = (kv_seg != 0)[:, None, :, None]
 
     def rel_err(got, want, mean_over="all"):
         """(max |err|, the largest error in the dtype's unit, see ``TOL_FLASH``,
@@ -1099,7 +1145,8 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
             scale = torch.clamp(torch.maximum(mag, mag.mean(-1, keepdim=True)),
                                 min=TOL_FLASH_FLOOR)
         else:
-            live = mag[rows.expand_as(mag)] if mean_over == "attending" else mag
+            own = rows if rows.shape[2] == mag.shape[2] else kv_rows  # dk, dv: the keys' rows
+            live = mag[own.expand_as(mag)] if mean_over == "attending" else mag
             mean = float((live if live.numel() else mag).mean().item())
             scale = torch.clamp(mag, min=max(mean, TOL_FLASH_FLOOR))
         return float(diff.max().item()), float((diff / scale).max().item())
@@ -1113,6 +1160,8 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
 
     shape = dict(b=b, s=s, h=h, hkv=hkv, d=d, dtype=str(dtype), causal=causal, window=window,
                  chunk=chunk, soft_cap=cap, segments=segments, positions=positions, peak=peak)
+    if context is not None:
+        shape.update(context=list(context), kv_s=int(kv_pos.shape[1]))
     tol = TOL_FLASH[dtype]
     lse_ok = bool(torch.equal(torch.isneginf(lse), torch.isneginf(lse_ref)))
     fin = torch.isfinite(lse_ref)
@@ -1140,7 +1189,7 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
         res["ok"] = bool(ok)
         results.append(res)
     if timing:
-        pairs = _flash_pairs(pos, seg, causal, window, chunk)
+        pairs = _flash_pairs(pos, seg, causal, window, chunk, kv_pos, kv_seg)
         esz = q.element_size()
         n_q, n_kv = q.numel(), k.numel()
         stats = b * h * s * 4  # one float32 per query row and head (lse, delta)
@@ -1161,12 +1210,13 @@ def flash_case(name, device, timing, *, b, s, h, hkv, d, dtype=torch.bfloat16, c
         }
         library, library_call = (None, None), None
         on_device = f"{name}_fwd" in main_path_case_names() or name in FLASH_LIBRARY_ON_DEVICE
-        if not (window or chunk or cap) and segments == "one" and positions == "arange":
+        if not (window or chunk or cap) and segments == "one" and positions == "arange" \
+                and context is None:
             library = _flash_library(q, k, v, do, on_device=on_device, causal=causal)
             library_call = f"scaled_dot_product_attention({'is_causal, ' * causal}enable_gqa)"
         elif on_device and not (chunk or cap):
             # the same visibility as a boolean mask (made once, not timed)
-            visible = fa._mask(pos, pos, seg, seg, causal, window, chunk)[:, 0]
+            visible = fa._mask(pos, kv_pos, seg, kv_seg, causal, window, chunk)[:, 0]
             library = _flash_library(q, k, v, do, on_device=True, mask=visible)
             library_call = (f"scaled_dot_product_attention(attn_mask of the "
                             f"{'window' if window else 'segments'}, enable_gqa)")
@@ -1219,6 +1269,12 @@ def flash_cases(device, timing, full_size=True):
     serving = dict(S2A_SERVING_FLASH) if full_size else dict(S2A_SERVING_FLASH, b=2)
     small = dict(b=2, s=1024 if full_size else 256, h=16, hkv=8, d=128)
     qwen3 = dict(FLASH_QWEN3_MOE) if full_size else dict(FLASH_QWEN3_MOE, b=1, s=256)
+    rank_rows = dict(FLASH_RANK_ROWS) if full_size else dict(FLASH_RANK_ROWS, s=512)
+    tokens = CONTEXT_TOKENS if full_size else 2048
+
+    def cp_shard(cp):  # one context rank's queries of the whole sequence
+        return dict(b=1, s=tokens // cp, h=16, hkv=8, d=128)
+
     f32 = torch.float32
     groups = [
         flash_case("flash_bf16_main_path", device, timing, **main, seed=300),
@@ -1281,6 +1337,19 @@ def flash_cases(device, timing, full_size=True):
         # GQA group 8: qwen3-30b-a3b's training step (moe_train), then packed
         # documents with a segment-0 tail in both dtypes at its heads
         flash_case("flash_bf16_qwen3_moe_train", device, timing, **qwen3, seed=340),
+        # the parallel and post-training phases
+        flash_case("flash_bf16_rank_rows", device, timing, **rank_rows, seed=350),
+        flash_case("flash_bf16_one_row", device, timing, **dict(rank_rows, b=1), seed=356),
+        flash_case("flash_bf16_ring_cp2", device, timing, **cp_shard(2), context=("ring", 2, 1),
+                   seed=351, unit_mean="row"),
+        flash_case("flash_bf16_ring_cp4", device, timing, **cp_shard(4), context=("ring", 4, 1),
+                   seed=352, unit_mean="row"),
+        flash_case("flash_bf16_allgather_cp2", device, timing, **cp_shard(2),
+                   context=("allgather", 2), seed=353, unit_mean="row"),
+        flash_case("flash_bf16_ulysses_cp2", device, timing,
+                   **dict(cp_shard(1), h=8, hkv=4), positions="reordered", seed=354,
+                   unit_mean="row"),
+        flash_case("flash_bf16_posttrain", device, timing, **FLASH_POSTTRAIN, seed=355),
         flash_case("flash_bf16_group8_packed_padding", device, timing,
                    **dict(qwen3, b=2, s=qwen3["s"] - 24), segments="packed", seed=341),
         flash_case("flash_f32_group8_packed_padding", device, timing,
@@ -1317,17 +1386,37 @@ def flash_cases(device, timing, full_size=True):
 # microbenchmark, the UniServer
 SERVE_DECODE_PATHS = ("serve_scanned", "serve_disaggregated", "offline_engine",
                       "loadgen_offline", "loadgen_server", "microbenchmark", "uniserver")
+def parallel_paths(suffix: str) -> dict:
+    """The K9-K11 main paths of the parallel and post-training phases."""
+    return {"parallel_fsdp_train": f"flash_bf16_rank_rows_{suffix}",
+            "parallel_zero1": f"flash_bf16_one_row_{suffix}",
+            "pipeline_train": f"flash_bf16_rank_rows_{suffix}",
+            "elastic_train": f"flash_bf16_rank_rows_{suffix}",
+            "ring_attention": f"flash_bf16_ring_cp2_{suffix}",
+            "ring_attention_cp4": f"flash_bf16_ring_cp4_{suffix}",
+            "allgather_attention": f"flash_bf16_allgather_cp2_{suffix}",
+            "ulysses_attention": f"flash_bf16_ulysses_cp2_{suffix}",
+            "dpo_train": f"flash_bf16_main_path_{suffix}",
+            "grpo_train": f"flash_bf16_posttrain_{suffix}",
+            "distillation": f"flash_bf16_posttrain_{suffix}"}
+
+
+# GRPO's and distillation's engine: 16 slots of a 128-token cache
+POSTTRAIN_DECODE_PATHS = ("grpo_train", "distillation")
+
 MAIN_PATH_CASES = {
     "s2a_attention": {"tts_synthesize": "s2a_attention_bf16_main_path"},
     "ragged_decode_attention": {"serve": "ragged_bf16_main_path",
                                 "flagship_serve": "ragged_bf16_flagship",
                                 "spec_decode": "ragged_f32_spec_draft",
-                                **{p: "ragged_bf16_main_path" for p in SERVE_DECODE_PATHS}},
+                                **{p: "ragged_bf16_main_path" for p in SERVE_DECODE_PATHS},
+                                **{p: "ragged_bf16_posttrain" for p in POSTTRAIN_DECODE_PATHS}},
     "paged_decode_attention": {"serve_paged": "paged_bf16_main_path"},
     "inplace_row_update": {"serve": "inplace_kv_bf16_k1_main_path",
                            "flagship_serve": "inplace_kv_bf16_k1_flagship",
                            "spec_decode": "inplace_kv_f32_k5_verify",
-                           **{p: "inplace_kv_bf16_k1_main_path" for p in SERVE_DECODE_PATHS}},
+                           **{p: "inplace_kv_bf16_k1_main_path" for p in SERVE_DECODE_PATHS},
+                           **{p: "inplace_kv_bf16_k1_posttrain" for p in POSTTRAIN_DECODE_PATHS}},
     "ada_rmsnorm": {"tts_backend": "ada_rmsnorm_bf16_main_path",
                     "s2a_train": "ada_rmsnorm_grad_f32_s2a_train",
                     "uniserver": "ada_rmsnorm_bf16_main_path"},
@@ -1347,7 +1436,8 @@ MAIN_PATH_CASES = {
                   "train_flagship": "flash_bf16_flagship_fwd",
                   "train_int8": "flash_bf16_main_path_fwd",
                   "train_lora": "flash_bf16_main_path_fwd",
-                  "moe_train": "flash_bf16_qwen3_moe_train_fwd"},
+                  "moe_train": "flash_bf16_qwen3_moe_train_fwd",
+                  **parallel_paths("fwd")},
     "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
                      "train_dropout": "flash_bf16_main_path_dq",
                      "train_packed": "flash_bf16_emilia_packed_dq",
@@ -1357,7 +1447,8 @@ MAIN_PATH_CASES = {
                      "train_flagship": "flash_bf16_flagship_dq",
                      "train_int8": "flash_bf16_main_path_dq",
                      "train_lora": "flash_bf16_main_path_dq",
-                     "moe_train": "flash_bf16_qwen3_moe_train_dq"},
+                     "moe_train": "flash_bf16_qwen3_moe_train_dq",
+                  **parallel_paths("dq")},
     "int8w_matmul": {"serve_int8w": "int8w_bf16_main_path",
                      "flagship_serve_int8w": "int8w_bf16_flagship",
                      "moe_serve_int8w": "int8w_bf16_qwen3_moe_decode"},
@@ -1385,7 +1476,8 @@ MAIN_PATH_CASES = {
                       "train_flagship": "flash_bf16_flagship_dkv",
                       "train_int8": "flash_bf16_main_path_dkv",
                       "train_lora": "flash_bf16_main_path_dkv",
-                      "moe_train": "flash_bf16_qwen3_moe_train_dkv"},
+                      "moe_train": "flash_bf16_qwen3_moe_train_dkv",
+                  **parallel_paths("dkv")},
 }
 
 
@@ -2009,6 +2101,13 @@ def ragged_cases(device, timing, full_size=True, serve_slots=32):
         split("ragged_f32_split_edges_cluster1", s=31, nq=4, nkv=4, d=64, dtype=f32, seed=57),
         inplace_case("inplace_kv_bf16_k1_main_path", device, timing,
                      cache_shape=(serve_slots,) + kv4[1:], span=1, cache_dtype=bf16, seed=21),
+        # GRPO's and distillation's engine (16 slots, 128 rows)
+        ragged_case("ragged_bf16_posttrain", device, timing, **POSTTRAIN_DECODE,
+                    serving_max=POSTTRAIN_DECODE["s"], seed=24),
+        inplace_case("inplace_kv_bf16_k1_posttrain", device, timing,
+                     cache_shape=(POSTTRAIN_DECODE["b"], POSTTRAIN_DECODE["s"],
+                                  POSTTRAIN_DECODE["nkv"], POSTTRAIN_DECODE["d"]),
+                     span=1, cache_dtype=bf16, seed=25),
         inplace_case("inplace_kv_bf16_k1_flagship", device, timing,
                      cache_shape=(flagship["b"], flagship["s"], flagship["nkv"], flagship["d"]),
                      span=1, cache_dtype=bf16, seed=23),

@@ -7,7 +7,9 @@ positions, so the cross-entropy ignores them.
 
 Run: ``python -m maxtext_indextts2_tpu_torch.train.sft <config.yml> key=value ...``
 (``dataset_path`` names a HuggingFace dataset of prompt / completion or chat
-rows; without it, synthetic prompt / completion pairs). The trainer runs on
+rows, or a ``.jsonl`` file of ``prompt_ids`` / ``completion_ids`` such as
+``train/distillation.py`` writes; without it, synthetic prompt / completion
+pairs). The trainer runs on
 the GPU; ``device=cpu`` asks for the CPU.
 """
 
@@ -76,12 +78,29 @@ def hf_sft_source(cfg: Config):
         yield tok.encode(prompt), tok.encode(completion)
 
 
+def jsonl_sft_source(path: str):
+    """(prompt ids, completion ids) of each line of a JSONL file with
+    ``prompt_ids`` and ``completion_ids`` (what ``train/distillation.py``
+    writes), cycled."""
+    import json
+
+    with open(path) as fh:
+        pairs = [(ex["prompt_ids"], ex["completion_ids"]) for ex in map(json.loads, fh)]
+    while True:
+        yield from pairs
+
+
 def train_sft(cfg: Config, device=None, quiet: bool = False):
-    """``train/train.train_loop`` on :class:`SFTDataIterator`'s batches: the
+    """``train/train.train_loop`` on :class:`SFTDataIterator`'s batches: a
+    ``.jsonl`` ``dataset_path`` of token ids (distillation's output), else the
     HF dataset of ``dataset_path``, else synthetic pairs."""
     from maxtext_indextts2_tpu_torch.train import train as train_lib
 
-    source = hf_sft_source(cfg) if cfg.dataset_path else None
+    source = None
+    if cfg.dataset_path.endswith(".jsonl"):
+        source = jsonl_sft_source(cfg.dataset_path)
+    elif cfg.dataset_path:
+        source = hf_sft_source(cfg)
     it = SFTDataIterator(cfg, source)
     orig = train_lib.create_data_iterator
     train_lib.create_data_iterator = lambda c, dev: train_lib.DeviceBatches(it, dev)

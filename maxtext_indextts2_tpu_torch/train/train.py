@@ -30,8 +30,21 @@ route on the CPU), with the mean of the MoE sub-layers' load-balance losses
 times ``load_balance_loss_weight`` added to the loss (``moe_lb_loss``), and
 ``mtp_num_layers > 0`` adds the multi-token-prediction loss times
 ``mtp_loss_scaling_factor`` (``mtp_loss``), as the JAX package's ``loss_fn``.
-Colocated-python data input and the Zero-1 all-gather raise, naming their
-ROADMAP queue item.
+On several ranks (``torchrun``, or ``parallel/mesh.maybe_initialize_distributed``)
+the step runs on the mesh of ``parallel/mesh.py``: the batch is split over
+the ``activation_batch`` axes (and its sequence over ``context``, in the
+load-balanced order, with ``ops/flash_attention.flash_attention_sharded``
+running the attention), the parameters and the AdamW moments are split over
+the axes that their logical names resolve to (``parallel/fsdp.py``: FSDP,
+one unit the whole model), each rank's loss is its share of the global mean,
+the gradients are summed over the batch ranks, and clipping takes the global
+norm; the step equals the one-rank step on the same global batch.
+``zero1_fsdp_ag_once`` gathers the weights once for all microbatches and
+reduce-scatters their summed gradients once. With ``ici_stage_parallelism``
+the decoder runs as a pipeline (``models/pipeline.py``). Metrics are logged
+and checkpoints written by rank 0, from gathered state (the one-rank names).
+``colocated_python_data_input`` runs the input pipeline in a spawned CPU
+process (``train/data/colocated.py``).
 ``enable_checkpointing=true`` restores the newest checkpoint of
 ``checkpoint_dir`` before the loop and saves every ``checkpoint_period``
 steps and at the end (``train/checkpointing.py``; the emergency two-tier
@@ -54,9 +67,15 @@ from maxtext_indextts2_tpu_torch.models import Transformer
 from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN
 from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
 from maxtext_indextts2_tpu_torch.models.layers import MlpDropout, to_dtype
-from maxtext_indextts2_tpu_torch.unported import _unsupported
 from maxtext_indextts2_tpu_torch.ops import losses
 from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, AqtNoise
+from maxtext_indextts2_tpu_torch.parallel.fsdp import ShardedParams
+from maxtext_indextts2_tpu_torch.parallel.mesh import (
+    check_executed_axes,
+    create_device_mesh,
+    maybe_initialize_distributed,
+    world_size,
+)
 from maxtext_indextts2_tpu_torch.train import checkpointing
 from maxtext_indextts2_tpu_torch.train.data.synthetic import SyntheticDataIterator
 from maxtext_indextts2_tpu_torch.train.optimizers import (
@@ -79,10 +98,21 @@ class TrainState:
     params: dict[str, torch.Tensor]
     opt_state: dict
     tx: GradientTransformation
+    # on a mesh of several ranks: the sharding plan and this rank's pieces of
+    # the parameters (the optimizer's state is over the pieces; ``params``
+    # hold the full weights only between a gather and its release)
+    mesh: Any = None
+    plan: ShardedParams | None = None
+    shards: dict[str, torch.Tensor] | None = None
 
     @property
     def device(self) -> torch.device:
         return next(iter(self.params.values())).device
+
+    @property
+    def trained(self) -> dict[str, torch.Tensor]:
+        """What the optimizer updates: the pieces on a mesh, else the parameters."""
+        return self.params if self.plan is None else self.shards
 
 
 def check_training_config(cfg: Config) -> None:
@@ -91,16 +121,18 @@ def check_training_config(cfg: Config) -> None:
     if cfg.quantization == "int8w_serve":
         raise ValueError("quantization=int8w_serve is a serving structure: its int8 kernels "
                          "take no gradient (train with int8, int8w or fp8)")
-    if cfg.zero1_fsdp_ag_once:
-        _unsupported("zero1_fsdp_ag_once (a sharded all-gather)",
-                     "6, parallelism on torch.distributed")
+    check_executed_axes(cfg)
     _remat_policy(cfg.remat_policy)
 
 
-def setup_train_state(cfg: Config, device=None, params: dict | None = None) -> TrainState:
+def setup_train_state(cfg: Config, device=None, params: dict | None = None,
+                      mesh=None) -> TrainState:
     """The model with seeded weights (``init_weights_seed``) or ``params``
     (a state dict, e.g. from ``utils/param_bridge.params_from_jax``), made
-    trainable, and a fresh optimizer state."""
+    trainable, and a fresh optimizer state. On a ``mesh`` of several ranks
+    every rank makes the whole model from the same seed (or ``params``),
+    keeps its stage's pipeline units and its pieces of each weight, and
+    makes the optimizer's state over those pieces."""
     check_training_config(cfg)
     device = resolve_device(device)
     model = Transformer(cfg, device=device)
@@ -108,13 +140,22 @@ def setup_train_state(cfg: Config, device=None, params: dict | None = None) -> T
         model.init_params(cfg.init_weights_seed)
     else:
         model.load_state_dict(params, strict=True)
+    sharded = mesh is not None and mesh.size > 1
+    units = frozenset()
+    if sharded and mesh.shape["stage"] > 1:
+        units = model.decoder.keep_stage_units(mesh)
     for p in model.parameters():
         p.requires_grad_(True)
     named = dict(model.named_parameters())
     tx = get_optimizer(cfg, create_learning_rate_schedule(cfg))
+    plan = shards = None
+    if sharded:
+        plan = ShardedParams(named, mesh, cfg.emb_dim, units)
+        shards = plan.shard_(named)
     with torch.no_grad():
-        opt_state = tx.init(named)
-    return TrainState(step=0, model=model, params=named, opt_state=opt_state, tx=tx)
+        opt_state = tx.init(named if plan is None else shards)
+    return TrainState(step=0, model=model, params=named, opt_state=opt_state, tx=tx,
+                      mesh=mesh if sharded else None, plan=plan, shards=shards)
 
 
 def fused_ce(model: Transformer, cfg: Config, y: torch.Tensor, targets: torch.Tensor,
@@ -237,6 +278,15 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
         dropout = step_dropout(cfg, state.step, state.device)
     if not isinstance(dropout, (list, tuple)):
         dropout = [dropout] * micro
+    if state.plan is not None:
+        def loss_of(i, mb):
+            loss, aux = loss_fn(state.model, cfg, mb, impl=impl, dropout=dropout[i],
+                                aqt_noise=aqt_noise)
+            return loss, aux["total_weights"]
+
+        loss, grads = sharded_grads(cfg, state, _microbatches(batch, micro), loss_of,
+                                    lambda mb: _token_weight(mb))
+        return apply_gradients(cfg, state, grads, {"loss": loss, "ce_loss": loss})
     if micro > 1:
         grads = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=state.device)
@@ -260,24 +310,156 @@ def train_step(cfg: Config, state: TrainState, batch: dict, impl: str | None = N
         loss = loss.detach()
         aux = {k: v.detach() for k, v in aux.items() if k != "total_weights"}
 
+    return apply_gradients(cfg, state, grads, {"loss": loss, **aux})
+
+
+def apply_gradients(cfg: Config, state: TrainState, grads: dict, metrics: dict,
+                    clip: bool = True) -> dict:
+    """Clip by the global norm (where ``clip``), update in optax's order,
+    count the step; returns ``metrics`` with ``grad_norm`` and
+    ``param_norm``. On a mesh the gradients are of this rank's pieces and
+    the norms are global."""
+    plan = state.plan
+
+    def norm(tensors: dict):
+        return _global_norm(tensors.values()) if plan is None else plan.global_norm(tensors)
+
     with torch.no_grad():
-        if cfg.gradient_clipping_threshold > 0:
-            grads, grad_norm = _clip_by_global_norm(grads, cfg.gradient_clipping_threshold)
-        else:
-            grad_norm = _global_norm(grads.values())
-        updates, state.opt_state = state.tx.update(grads, state.opt_state, state.params)
-        del grads
-        apply_updates(state.params, updates)
+        grad_norm = norm(grads)
+        # ``grads`` is changed in place and emptied: the caller's dict holds
+        # no second copy of the gradients through the update
+        if clip and cfg.gradient_clipping_threshold > 0:
+            scale = torch.clamp(cfg.gradient_clipping_threshold / torch.clamp(grad_norm, min=1e-12),
+                                max=1.0)
+            for n in list(grads):
+                grads[n] = grads[n] * scale.to(grads[n].dtype)
+        updates, state.opt_state = state.tx.update(grads, state.opt_state, state.trained)
+        grads.clear()
+        apply_updates(state.trained, updates)
         del updates
         state.step += 1
-        return {"loss": loss, "grad_norm": grad_norm,
-                "param_norm": _global_norm(state.params.values()), **aux}
+        return {"loss": metrics.pop("loss"), "grad_norm": grad_norm,
+                "param_norm": norm(state.trained), **metrics}
+
+
+def _microbatches(batch: dict, micro: int) -> list[dict]:
+    if micro == 1:
+        return [batch]
+    return [{k: v.reshape(micro, v.shape[0] // micro, *v.shape[1:])[i] for k, v in batch.items()}
+            for i in range(micro)]
+
+
+def _token_weight(mb: dict) -> torch.Tensor:
+    return (mb["targets_segmentation"] != 0).sum().to(torch.float32)
+
+
+def sharded_grads(cfg: Config, state: TrainState, microbatches: list[dict], loss_of, weight_of):
+    """(the global mean loss, the mean gradients of this rank's pieces) over
+    ``microbatches`` on the mesh. ``loss_of(i, mb)``: this rank's (mean loss,
+    its weight) of microbatch i; ``weight_of(mb)``: its weight before the
+    forward. Each rank's loss counts with its share of the microbatch's
+    global weight, so the gradients summed over the batch ranks are those of
+    the global mean. Without ``zero1_fsdp_ag_once`` each microbatch gathers
+    the weights and reduce-scatters its gradients; with it, once a step."""
+    plan, micro = state.plan, len(microbatches)
+    names = list(state.params)
+    once = cfg.zero1_fsdp_ag_once
+    totals = [plan.batch_sum(weight_of(mb)) for mb in microbatches]
+    pieces, full = None, None
+    loss_sum = torch.zeros((), dtype=torch.float32, device=state.device)
+    if once:
+        plan.gather(state.shards, state.params)
+    for i, mb in enumerate(microbatches):
+        if not once:
+            plan.gather(state.shards, state.params)
+        loss, weight = loss_of(i, mb)
+        share = loss * (weight / torch.clamp(totals[i], min=1e-6))
+        g = _grads(share, [state.params[n] for n in names])
+        with torch.no_grad():
+            loss_sum = loss_sum + plan.batch_sum(share.detach())
+            if once:
+                full = g if full is None else [a + b for a, b in zip(full, g)]
+            else:
+                plan.release(state.params)
+                r = plan.reduce(dict(zip(names, g)))
+                pieces = r if pieces is None else {n: pieces[n] + r[n] for n in names}
+        del g
+    with torch.no_grad():
+        if once:
+            plan.release(state.params)
+            pieces = plan.reduce(dict(zip(names, full)))
+        if micro > 1:
+            pieces = {n: g / torch.tensor(micro, dtype=g.dtype) for n, g in pieces.items()}
+        return loss_sum / micro, pieces
 
 
 def eval_step(cfg: Config, state: TrainState, batch: dict) -> dict:
+    """The eval loss of ``batch`` (on a mesh: of the global batch whose piece
+    it is, with the weights gathered around it)."""
     with torch.no_grad():
+        if state.plan is not None:
+            state.plan.gather(state.shards, state.params)
         loss, aux = loss_fn(state.model, cfg, batch, is_train=False)
-    return {"eval_loss": loss, "eval_total_weights": aux["total_weights"]}
+        weight = aux["total_weights"]
+        if state.plan is not None:
+            state.plan.release(state.params)
+            total = state.plan.batch_sum(weight)
+            loss, weight = state.plan.batch_sum(loss * weight) / total, total
+    return {"eval_loss": loss, "eval_total_weights": weight}
+
+
+def local_batch(cfg: Config, batch: dict, mesh, micro: int | None = None) -> dict:
+    """This rank's piece of a global batch: rows split over the
+    ``activation_batch`` axes within each microbatch (so that a rank's
+    microbatch i is its piece of the global microbatch i), the sequence over
+    ``activation_length`` after the load-balanced reorder of context
+    parallelism (as the JAX train loop reorders)."""
+    if mesh is None or mesh.size == 1:
+        return batch
+    from maxtext_indextts2_tpu_torch.ops.flash_attention import load_balanced_reorder
+    from maxtext_indextts2_tpu_torch.parallel.sharding import shard
+
+    cp = mesh.shape["context"]
+    reorder = cp > 1 and cfg.context_parallel_load_balance and cfg.attention != "dot_product"
+    micro = cfg.gradient_accumulation_steps if micro is None else micro
+    out = {}
+    for k, v in batch.items():
+        if reorder:
+            v = load_balanced_reorder(v, cp, axis=1)
+        v = v.reshape(micro, v.shape[0] // micro, *v.shape[1:])
+        v = shard(v, None, "activation_batch", "activation_length", mesh=mesh)
+        out[k] = v.reshape(-1, *v.shape[2:])
+    return out
+
+
+def gathered_state(state: TrainState):
+    """A one-rank view of a sharded state (full parameters and moments under
+    their one-rank names, on the CPU), gathered on every rank: what a
+    checkpoint holds."""
+    import types
+
+    plan = state.plan
+    opt = dict(state.opt_state)
+    for key in ("mu", "nu"):
+        if key in opt:
+            opt[key] = plan.full_state_dict(opt[key])
+    return types.SimpleNamespace(params=plan.full_state_dict(state.shards), opt_state=opt,
+                                 step=state.step)
+
+
+@torch.no_grad()
+def load_gathered_state(state: TrainState, view) -> None:
+    """Take this rank's pieces of a one-rank view into ``state`` in place."""
+    plan = state.plan
+    for name, t in state.shards.items():
+        t.copy_(plan.local(name, view.params[name]))
+    for key in ("mu", "nu"):
+        if key in state.opt_state:
+            for name, t in state.opt_state[key].items():
+                t.copy_(plan.local(name, view.opt_state[key][name]))
+    if "count" in state.opt_state:
+        state.opt_state["count"] = view.opt_state["count"]
+    state.step = view.step
 
 
 class DeviceBatches:
@@ -334,7 +516,9 @@ def make_host_iterator(cfg: Config):
 
 def create_data_iterator(cfg: Config, device):
     if cfg.colocated_python_data_input:
-        _unsupported("colocated-python data input", "6, parallelism on torch.distributed")
+        from maxtext_indextts2_tpu_torch.train.data.colocated import ColocatedDataIterator
+
+        return DeviceBatches(ColocatedDataIterator(cfg), device)
     if cfg.dataset_type == "synthetic":
         return SyntheticDataIterator(cfg, device=device)
     return DeviceBatches(make_host_iterator(cfg), device)
@@ -361,7 +545,8 @@ def run_eval(cfg: Config, state: TrainState, num_batches: int | None = None) -> 
                                           device=state.device)
     total, weight = 0.0, 0.0
     for _ in range(n):
-        m = eval_step(cfg, state, _take(next(eval_iter), cfg.global_batch_size_to_eval_on))
+        batch = _take(next(eval_iter), cfg.global_batch_size_to_eval_on)
+        m = eval_step(cfg, state, local_batch(cfg, batch, state.mesh, micro=1))
         total += float(m["eval_loss"]) * float(m["eval_total_weights"])
         weight += float(m["eval_total_weights"])
     return {"eval_loss": total / max(weight, 1e-9), "eval_weight": weight}
@@ -383,16 +568,45 @@ def make_checkpointer(cfg: Config):
     return checkpointing.CheckpointManager(cfg), cfg.checkpoint_period
 
 
+def world_mesh(cfg: Config, device=None):
+    """(the mesh, this rank's device) of a run launched on several ranks
+    (``torchrun``: the process group is joined here); (None, ``device``) on one."""
+    if world_size() == 1:
+        return None, device
+    device = maybe_initialize_distributed(cfg, device)
+    return create_device_mesh(cfg, device), device
+
+
+def _save(checkpointer, step: int, state: TrainState, final: bool, rank0: bool) -> None:
+    """Save ``state`` (gathered on every rank of a mesh; rank 0 writes)."""
+    view = state if state.plan is None else gathered_state(state)
+    if rank0:
+        checkpointer.save(step, view, force=final)
+
+
+def _restore(checkpointer, state: TrainState) -> None:
+    if state.plan is None:
+        checkpointer.maybe_restore(state)
+        return
+    view = gathered_state(state)  # every rank reads the one-rank checkpoint
+    if checkpointer.maybe_restore(view) is not None:
+        load_gathered_state(state, view)
+
+
 def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
     """Runs from the restored step (or 0) to ``cfg.steps``; returns the last
     step's metrics (floats) and, under ``history``, every step's logged
     scalars."""
-    state = setup_train_state(cfg, device)
+    mesh, device = world_mesh(cfg, device)
+    state = setup_train_state(cfg, device, mesh=mesh)
+    rank0 = state.mesh is None or state.mesh.rank == 0
     data_iter = create_data_iterator(cfg, state.device)
     checkpointer, save_period = make_checkpointer(cfg)
     if checkpointer is not None:
-        checkpointer.maybe_restore(state)
-    logger = MetricLogger(cfg, quiet=quiet)
+        _restore(checkpointer, state)
+    if not rank0:  # rank 0 logs
+        cfg_log, quiet = dataclasses.replace(cfg, metrics_file="", enable_tensorboard=False), True
+    logger = MetricLogger(cfg if rank0 else cfg_log, quiet=quiet)
     step_tflops = flops_lib.training_tflops_per_step(cfg)
     tokens = cfg.global_batch_size_to_train_on * cfg.max_target_length
     history, metrics = [], {}
@@ -401,7 +615,7 @@ def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
         last = time.perf_counter()
         for step in range(state.step, cfg.steps):
             batch = _take(next(data_iter), cfg.global_batch_size_to_train_on)
-            metrics = train_step(cfg, state, batch)
+            metrics = train_step(cfg, state, local_batch(cfg, batch, state.mesh))
             _sync(state.device)
             now = time.perf_counter()
             history.append(logger.write_step(step, metrics, step_time=now - last,
@@ -412,7 +626,7 @@ def train_loop(cfg: Config, device=None, quiet: bool = False) -> dict[str, Any]:
             if checkpointer is not None and ((step + 1) % save_period == 0 or final):
                 # forced on the final step: the emergency manager then writes
                 # the durable tier even off its cadence
-                checkpointer.save(step, state, force=final)
+                _save(checkpointer, step, state, final, rank0)
             if cfg.eval_interval > 0 and (step + 1) % cfg.eval_interval == 0:
                 eval_metrics = run_eval(cfg, state)
                 logger.write_step(step, eval_metrics, step_time=0.0)
@@ -440,7 +654,10 @@ def main(argv=None):
     argv, device = split_device_arg(argv)
     cfg = load_config(argv)
     metrics = train_loop(cfg, device=device)
-    print({k: v for k, v in metrics.items() if k != "history"})
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print({k: v for k, v in metrics.items() if k != "history"})
     return metrics
 
 

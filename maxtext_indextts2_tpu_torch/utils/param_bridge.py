@@ -109,7 +109,10 @@ def params_from_jax(tree, cfg=None) -> dict[str, torch.Tensor]:
     level may be present or not) -> state dict for ``Transformer`` /
     ``Engine.set_params``. Handles both layer layouts. ``cfg``, when given,
     checks the number of layers."""
-    flat = _flat_from_jax(tree)
+    stages = None
+    if cfg is not None and cfg.using_pipeline_parallelism:
+        stages = cfg.ici_stage_parallelism * cfg.dcn_stage_parallelism
+    flat = _flat_from_jax(tree, stages)
     if cfg is not None:
         units = {p.split(".")[1] for p in flat
                  if p.startswith("decoder.") and is_unrolled_key(p.split(".")[1])}
@@ -124,9 +127,11 @@ def params_from_jax(tree, cfg=None) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
 
 
-def _flat_from_jax(tree) -> dict[str, np.ndarray]:
+def _flat_from_jax(tree, stages: int | None = None) -> dict[str, np.ndarray]:
     """A parameter-shaped JAX tree -> flat ``a.b.c`` names, scan-stacked
-    layers split into ``layers_{i}``."""
+    layers split into ``layers_{i}``. The JAX pipeline's tree
+    (``decoder/layers/layers/...``, its unit axis stage-major: u = s*R + r of
+    ``stages`` S) becomes the unpipelined layers: unit u is layer r*S + s."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     flat: dict[str, np.ndarray] = {}
@@ -136,14 +141,25 @@ def _flat_from_jax(tree) -> dict[str, np.ndarray]:
             dec = {}
             for name, sub in val.items():
                 if name in LAYER_REGIONS and isinstance(sub, Mapping):
+                    pipelined = set(sub) == {"layers"} and isinstance(sub["layers"], Mapping)
+                    if pipelined:
+                        if not stages:
+                            raise ValueError("a pipeline's parameter tree needs the config "
+                                             "that gives its stages")
+                        sub = sub["layers"]
                     stacked: dict[str, np.ndarray] = {}
                     _flatten(sub, "", stacked)
                     n_layers = {a.shape[0] for a in stacked.values()}
                     if len(n_layers) != 1:
                         raise ValueError(f"scan-stacked leaves disagree on the layer axis: {n_layers}")
-                    for i in range(n_layers.pop()):
+                    units = n_layers.pop()
+                    for u in range(units):
+                        i = u
+                        if pipelined:
+                            repeats = units // stages
+                            i = (u % repeats) * stages + u // repeats
                         for path, arr in stacked.items():
-                            flat[f"decoder.{name}_{i}.{path}"] = arr[i]
+                            flat[f"decoder.{name}_{i}.{path}"] = arr[u]
                 else:
                     dec[name] = sub
             top[key] = dec

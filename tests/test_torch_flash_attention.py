@@ -131,7 +131,8 @@ def test_forward_lse_matches_the_jax_kernel_and_is_minus_inf_on_padding():
 
 def test_sharded_entry_takes_the_model_layout():
     """``flash_attention_sharded`` on one device: [B,S,N,D] in and out, no
-    segment ids means one segment, as the JAX package's single-device branch."""
+    segment ids means one segment, as the JAX package's single-device branch
+    (context parallelism on several ranks: tests/test_torch_ring_attention.py)."""
     rng = np.random.default_rng(3)
     q = rng.normal(size=(2, 96, 4, 64)).astype(np.float32)
     k = rng.normal(size=(2, 96, 2, 64)).astype(np.float32)
@@ -141,9 +142,12 @@ def test_sharded_entry_takes_the_model_layout():
     got = tfa.flash_attention_sharded(torch.tensor(q), torch.tensor(k), torch.tensor(v), None)
     assert tuple(got.shape) == (2, 96, 4, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL_F32, rtol=0)
-    with pytest.raises(NotImplementedError, match="port queue: 6"):
-        tfa.flash_attention_sharded(torch.tensor(q), torch.tensor(k), torch.tensor(v), None,
-                                    algorithm="ring")
+    # without a mesh (or with one context rank) every algorithm is the
+    # one-device attention, as in the JAX package
+    for algorithm in ("ring", "ulysses"):
+        same = tfa.flash_attention_sharded(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                           None, algorithm=algorithm)
+        assert torch.equal(same, got), algorithm
 
 
 @pytest.mark.parametrize("cp", [1, 2, 4])

@@ -70,6 +70,23 @@ def test_source_imports_nothing_of_jax(path):
     assert "yaml" not in roots, "the config files are read without PyYAML"
 
 
+def test_rank_helpers_import_nothing_of_jax():
+    """The bodies of the multi-rank tests run in spawned ranks, which must
+    not load JAX: their module imports torch, numpy and the port only."""
+    path = os.path.join(REPO, "tests", "torch_dist_helpers.py")
+    bad = [(name, line) for name, line in _imported_roots(path) if name in FORBIDDEN]
+    assert not bad, bad
+    assert {name for name, _ in _imported_roots(path)} <= {
+        "__future__", "os", "numpy", "torch", "maxtext_indextts2_tpu_torch"}
+
+
+def test_logical_axis_rules_equal_the_jax_copy():
+    from maxtext_indextts2_tpu.parallel.sharding import LOGICAL_AXIS_RULES as jax_rules
+    from maxtext_indextts2_tpu_torch.parallel.sharding import LOGICAL_AXIS_RULES
+
+    assert LOGICAL_AXIS_RULES == jax_rules
+
+
 GATED = ("transformers", "tiktoken", "sentencepiece", "safetensors", "scipy", "grain",
          "pyarrow", "array_record", "datasets", "tensorflow", "tensorflow_datasets",
          "grpc", "tensorstore")

@@ -241,10 +241,13 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["colocated_python_data_input=true"], "6"), (["zero1_fsdp_ag_once=true"], "6"),
-], ids=["colocated_data", "zero1"])
+    ({"ici_tensor_parallelism": 2}, "6b"), ({"ici_expert_parallelism": 2}, "6b"),
+], ids=["tensor", "expert"])
 def test_unported_training_features_name_their_queue_item(extra, item):
-    cfg = _tiny(extra + ["steps=1"])
+    """Colocated data input and Zero-1 train now (tests/test_torch_parallel.py,
+    tests/test_torch_fsdp_train.py); a mesh axis that needs collectives
+    inside the layers still refuses, before any weight is made."""
+    cfg = dataclasses.replace(_tiny(["steps=1"]), **extra)
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
         ttrain.train_loop(cfg, device="cpu", quiet=True)
 
@@ -261,22 +264,18 @@ def test_moe_and_mtp_models_train_through_the_loop(extra, key):
     assert all(np.isfinite(h[key]) and np.isfinite(h["loss"]) for h in out["history"])
 
 
-def _refuse_pipeline(kind):
-    from maxtext_indextts2_tpu_torch.models import Transformer
+def _refuse_mesh_axis(axis):
+    from maxtext_indextts2_tpu_torch.parallel import create_device_mesh
 
-    Transformer(dataclasses.replace(load_config(TINY_TTS), **{kind: True}), device="meta")
-
-
-def _refuse_context_parallel_flash(kind):
-    from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
-
-    q = torch.zeros((1, 8, 2, 32))
-    flash_attention_sharded(q, q, q, None, algorithm=kind)
+    create_device_mesh(dataclasses.replace(load_config(TINY_TTS), **{axis: 2}))
 
 
+# what refused until the parallelism slice: the pipeline and context-parallel
+# attention (now tests/test_torch_pipeline.py, tests/test_torch_ring_attention.py);
+# the mesh axes with collectives inside the layers still refuse
 @pytest.mark.parametrize("refuse,arg,item", [
-    (_refuse_pipeline, "using_pipeline_parallelism", "6"),
-    (_refuse_context_parallel_flash, "ring", "6"),
+    (_refuse_mesh_axis, "ici_sequence_parallelism", "6b"),
+    (_refuse_mesh_axis, "ici_autoregressive_parallelism", "6b"),
 ])
 def test_unported_data_and_weight_paths_say_not_ported_and_claim_no_missing_file(refuse, arg,
                                                                                  item):
