@@ -136,7 +136,17 @@ parallelism through K9-K11 at 16,384 tokens, the ring at cp 4 too, and a ring
 training step), ``pipeline_train`` and ``elastic_train_resize`` (2 ranks to
 1); then on one rank ``dpo_train``, ``grpo_train`` (completions through the
 captured engine), ``distillation`` (its JSONL read by SFT) and
-``elastic_train`` (a failure recovered from a snapshot). The
+``elastic_train`` (a failure recovered from a snapshot). ROADMAP item 6b,
+the splits inside the layers (``parallel/tensor.py``), ranks sharing the card
+as above, each held to one rank: ``tp_serve`` and ``tp_serve_paged`` serve
+``tts-1b`` whole over ``tensor`` 2 (K1 / K2 or K4 at a rank's 8 query / 4 kv
+heads), ``tp_serve_int8w`` with ``int8w_serve`` weights (``int8w_matmul`` at
+a rank's columns and rows), ``ar_context_serve`` over ``context_autoregressive`` 2 (each rank
+half the cache's rows, K2 on the owner), ``ep_serve`` and ``ep_train``
+``qwen3-30b-a3b`` at full width and 2 layers over ``expert`` 2 (the grouped
+kernels at a rank's 64 experts, forward and backward), ``tp_train`` the
+``tts-1b`` recipe at 4 layers over ``fsdp`` 2 x ``tensor`` 2 on four ranks
+(K9-K11 at a rank's heads). The
 kernels line lists, for each kernel, the case of every main path that ran it.
 Every phase prints
 one JSON object on a line; the last line is
@@ -5587,16 +5597,19 @@ def _sum_launches(*runs) -> dict:
 
 
 def _rank_fields(runs) -> list:
-    keys = ("seconds", "peak_bytes", "fsdp", "collective_calls", "collective_bytes",
-            "host_staged_bytes", "launches")
+    keys = ("seconds", "peak_bytes", "start_bytes", "fsdp", "collective_calls",
+            "collective_bytes", "host_staged_bytes", "launches", "kernel_launches")
     return [{k: r[k] for k in keys if k in r} for r in runs]
 
 
-def phase_parallel(tmp, card) -> dict:
+def phase_parallel(tmp, card) -> tuple[dict, tuple]:
     """The multi-rank phases: parallel_fsdp_train, parallel_zero1,
     ring_attention (with all-gather and Ulysses, at cp 2 and the ring at cp 4,
     and a training step at 1 x 16,384), pipeline_train and the two-rank part
-    of elastic_train. Returns each main path's K9-K11 launches."""
+    of elastic_train. The same two spawns run the splits' runs, after their
+    one-rank references (:func:`phase_parallel_splits` reports them).
+    Returns each main path's K9-K11 launches, and the splits' references,
+    runs and common fields."""
     from maxtext_indextts2_tpu_torch.config import load_config
     from maxtext_indextts2_tpu_torch.models import Transformer
     from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
@@ -5611,6 +5624,7 @@ def phase_parallel(tmp, card) -> dict:
     ctx_ref = pp.train_reference(tmp, dev, ["per_device_batch_size=1",
                                             f"max_target_length={pp.CONTEXT_TOKENS}"], 1,
                                  "context", False)
+    split_refs = pp.split_references(tmp, dev)
     gc.collect()
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
@@ -5745,7 +5759,7 @@ def phase_parallel(tmp, card) -> dict:
             for n, (_, rel) in r["probe_errors"].items():
                 check(rel <= TOL_PAR_PROBE, f"pipeline_train: gradient of {n} off by {rel}")
     probes = {n for r in pipe["pipeline"] for n in r["probe_errors"]}
-    check(probes == set(pp.PROBES), f"pipeline_train: probes held {sorted(probes)}")
+    check(probes == set(pp.probe_names(cfg)), f"pipeline_train: probes held {sorted(probes)}")
     emit("pipeline_train", t0, **common, stages=2, repeats=cfg.num_decoder_layers // 2,
          microbatches=2, steps=pp.PIPELINE_STEPS,
          losses={k: [h["loss"] for h in v[0]["history"]] for k, v in pipe.items()},
@@ -5766,6 +5780,118 @@ def phase_parallel(tmp, card) -> dict:
     emit("elastic_train_resize", t0, **common, result=kept, one_process=elastic_ref,
          ranks=_rank_fields([r["elastic"] for r in two]), tolerance_loss_rel=TOL_PAR_LOSS_REL)
     paths["elastic_train"] = _sum_launches(*[r["elastic"] for r in two])
+    return paths, (split_refs, two, four, common)
+
+
+# ROADMAP item 6b, the splits inside the layers: each multi-rank run against
+# the one-rank run of the same config and seed. Serving: the logits behind
+# the tokens a rank's streams share with one rank's (the prefill's last row
+# and each decode step's, up to and with a stream's first parting) and the
+# teacher-forced logits of one rank's first two streams lie within
+# TOL_SPLIT_LOGITS of the largest |logit| (bfloat16 weights and activations:
+# the partial products are summed over the ranks in float32 and rounded once,
+# where one rank rounds each product once, so every layer may differ by a
+# bfloat16 step, which the layers carry to the logits; int8w_serve's row split
+# sums int8w_matmul's partials, each rounded to bfloat16 by the kernel;
+# context_autoregressive merges the ranks' partial softmaxes in float32 where
+# one rank rounds the probabilities to bfloat16 before the PV product).
+# TOL_SPLIT_LOGITS is 2.1x the largest reading before it was set (tp_serve's
+# teacher-forced 0.0703 of logits up to 4.72: 1.49 %; tp_serve_int8w's 1.33 %;
+# 0 over context_autoregressive and expert). The streams are equal on every rank, and
+# equal to one rank's or parting only where one rank's two best logits lie
+# within twice the largest logit difference the run measured (two logits that
+# each move by at most that much can swap only there; the gap is printed).
+# A rank that holds a split of the weights (tp_serve, ep_serve) peaks below
+# the one-rank engine. Training: the FSDP runs' tolerances (TOL_PAR_*,
+# tools/parallel_phases.UPDATES_PER_STEP, PARAM_ROUNDING).
+TOL_SPLIT_LOGITS = 2.0 ** -5
+SPLIT_WEIGHT_PHASES = ("tp_serve", "ep_serve")
+
+
+def phase_parallel_splits(refs, two, four, common) -> dict:
+    """The splits' runs that :func:`phase_parallel`'s spawns made: tp_serve,
+    tp_serve_paged, tp_serve_int8w, ar_context_serve, ep_serve, ep_train (two
+    ranks) and tp_train (four), each against its one-rank reference. Returns
+    each main path's kernel launches."""
+    from maxtext_indextts2_tpu_torch.tools import parallel_phases as pp
+
+    t0 = time.perf_counter()
+    paths = {}
+
+    def launches(runs):
+        out = {}
+        for r in runs:
+            for k, n in r["kernel_launches"].items():
+                out[k] = out.get(k, 0) + n
+        return {k: n for k, n in out.items() if n}
+
+    checks = []  # every serving line first, so that a failed check leaves all readings
+    for phase in ("tp_serve", "tp_serve_paged", "tp_serve_int8w", "ar_context_serve",
+                  "ep_serve"):
+        ref, runs = refs[phase], [r[phase] for r in two]
+        tie = 2.0 * min(r["logit_max_abs_err"] for r in runs)
+        leading = _leading_agreement(runs[0]["streams"], ref["streams"])
+        partings = [dict(stream=i, step=j, one_rank_gap=ref["gaps"][i][j], near_tie=tie)
+                    for i, j in enumerate(leading) if j < len(ref["streams"][i])]
+        peak = [r["peak_bytes"] - r["start_bytes"] for r in runs]
+        counts = launches(runs)
+        emit(phase, t0, **common, slots=pp.SPLIT_SLOTS, steps=pp.SPLIT_STEPS,
+             equal_streams=sum(j == pp.SPLIT_STEPS for j in leading),
+             partings=partings, logit_max_abs_err=[r["logit_max_abs_err"] for r in runs],
+             decode_logit_max_abs_err=[r["decode_logit_max_abs_err"] for r in runs],
+             forced_logit_max_abs_err=[r["forced_logit_max_abs_err"] for r in runs],
+             logit_max_abs=runs[0]["logit_max_abs"],
+             tolerance_logits_of_largest=TOL_SPLIT_LOGITS,
+             decode_seconds=[r["decode_seconds"] for r in runs],
+             one_rank_decode_seconds=ref["decode_seconds"],
+             param_bytes_per_rank=[r["param_bytes"] for r in runs],
+             one_rank_param_bytes=ref["param_bytes"], peak_bytes_per_rank=peak,
+             one_rank_peak_bytes=ref["peak_bytes"], launches=counts, ranks=_rank_fields(runs))
+        for rank, r in enumerate(runs):
+            checks += [(r["streams"] == runs[0]["streams"],
+                        f"{phase}: rank {rank} sampled other tokens than rank 0"),
+                       (r["captures"] == 0, f"{phase}: {r['captures']} captures on a gloo mesh"),
+                       (r["logit_max_abs_err"] <= TOL_SPLIT_LOGITS * r["logit_max_abs"],
+                        f"{phase}: logits {r['logit_max_abs_err']} from one rank's "
+                        f"(largest {r['logit_max_abs']})")]
+        checks += [(p["one_rank_gap"] <= tie,
+                    f"{phase}: stream {p['stream']} parts at step {p['step']}, where one "
+                    f"rank's two best logits are {p['one_rank_gap']} apart (a near tie is {tie})")
+                   for p in partings]
+        if phase in SPLIT_WEIGHT_PHASES:
+            checks.append((max(peak) < ref["peak_bytes"],
+                           f"{phase}: a rank peaks at {max(peak)} bytes, one rank at "
+                           f"{ref['peak_bytes']}"))
+        paths[phase] = counts
+    for ok, what in checks:
+        check(ok, what)
+
+    for phase, ranks, steps in (("ep_train", two, pp.EP_TRAIN_STEPS),
+                                ("tp_train", four, pp.FSDP_STEPS)):
+        ref, runs = refs[phase], [r[phase] for r in ranks]
+        for r in runs:
+            _check_history(phase, r["history"], ref["history"], steps)
+            check(r["param_diff_in_tolerance_units"] <= 1.0,
+                  f"{phase}: a parameter is {r['param_max_abs_diff']} from one rank's "
+                  f"({r['param_diff_in_tolerance_units']} of its tolerance)")
+            for n, (_, rel) in r["probe_errors"].items():
+                check(rel <= TOL_PAR_PROBE, f"{phase}: gradient of {n} off by {rel}")
+        counts = launches(runs)
+        emit(phase, t0, **common, ranks_n=len(runs), rows=runs[0]["rows"], steps=steps,
+             losses=[[h["loss"] for h in r["history"]] for r in runs],
+             one_rank_losses=[h["loss"] for h in ref["history"]],
+             grad_norms=[h["grad_norm"] for h in runs[0]["history"]],
+             one_rank_grad_norms=[h["grad_norm"] for h in ref["history"]],
+             step_seconds=[h["seconds"] for h in runs[0]["history"]],
+             param_max_abs_diff=[r["param_max_abs_diff"] for r in runs],
+             param_diff_in_tolerance_units=[r["param_diff_in_tolerance_units"] for r in runs],
+             probe_errors=[r["probe_errors"] for r in runs], launches=counts,
+             ranks=_rank_fields(runs),
+             tolerances=dict(loss_rel=TOL_PAR_LOSS_REL, grad_norm_rel=TOL_PAR_GRAD_NORM_REL,
+                             param_norm_rel=TOL_PAR_PARAM_NORM_REL, probe=TOL_PAR_PROBE,
+                             updates_per_step=pp.UPDATES_PER_STEP,
+                             param_rounding=pp.PARAM_ROUNDING))
+        paths[phase] = counts
     return paths
 
 
@@ -6159,7 +6285,11 @@ def _phases(tmp, card) -> dict:
     release()
     # ROADMAP item 6, parallelism and post-training: ranks sharing the card,
     # then DPO, GRPO, distillation and elastic training on one rank
-    for phase, counts in phase_parallel(tmp, card).items():
+    paths_parallel, splits = phase_parallel(tmp, card)
+    for phase, counts in paths_parallel.items():
+        record(phase, counts)
+    # ROADMAP item 6b: the splits inside the layers, run by the same spawns
+    for phase, counts in phase_parallel_splits(*splits).items():
         record(phase, counts)
     release()
     record("dpo_train", phase_dpo_train(card))

@@ -43,6 +43,21 @@ dispatched) and gives each dispatch the smallest bucket that covers it; the
 JAX engine picks the bucket per step from the device's lengths, which a
 captured step cannot read.
 
+On several ranks (``mesh``, ``parallel/mesh.py``) every rank builds an
+engine on the same mesh and calls the same methods in the same order; the
+slots are whole on every rank. A tensor split (``tensor`` x
+``autoregressive``) gives each rank its heads, ``mlp`` columns and
+vocabulary rows (``set_params`` cuts each whole weight to the rank's piece
+of ``parallel/tensor.compute_spec``), the logits are all-gathered before
+sampling, and every rank draws the same noise from the same seeded generator,
+so every rank samples the same tokens. An expert split gives each rank its
+experts (each dispatches its chunk of the slots' rows); a
+``context_autoregressive`` split gives each rank its rows of every slot's
+decode cache (``decode_attention=dot_product`` only, dense only, as in the
+JAX package). On a mesh with such an axis the decode dispatch runs eagerly
+(``graphs.captures`` stays 0): gloo's collectives go through host memory,
+which a CUDA graph cannot capture.
+
 IN-PLACE: where the JAX engine returns a new decode state from a donated
 one, this engine MUTATES the decode state it is given and returns the same
 object, and every tensor of it keeps its storage from ``init_decode_state``
@@ -129,8 +144,19 @@ def _set_page_state(decode_state, new: page_manager.PageState):
 
 class Engine:
     def __init__(self, cfg: Config, device=None, model: Transformer | None = None,
-                 params=None):
+                 params=None, mesh=None):
         self.device = resolve_device(device)
+        if cfg.ici_context_autoregressive_parallelism > 1 \
+                or cfg.dcn_context_autoregressive_parallelism > 1:
+            # the JAX engine's guards: a sequence-split cache is read by the
+            # dot_product decode only (the port merges the ranks' partial
+            # softmaxes there), and the page pool is not split
+            if cfg.decode_attention != "dot_product":
+                raise ValueError("ici/dcn_context_autoregressive_parallelism > 1 requires "
+                                 f"decode_attention=dot_product, got {cfg.decode_attention!r}")
+            if cfg.paged_attention:
+                raise ValueError("context_autoregressive parallelism is incompatible with "
+                                 "paged_attention (page pool is not sequence-sharded)")
         if cfg.paged_attention:
             # the prompt's dense prefill KV is written into per-layer page
             # pools: no layer-stacked cache and no int8 codes with scales
@@ -160,8 +186,34 @@ class Engine:
         if cfg.scan_layers:
             cfg = dataclasses.replace(cfg, scan_layers=False)
         self.cfg = cfg
-        self.model = model if model is not None else Transformer(cfg, device=self.device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            from maxtext_indextts2_tpu_torch.parallel import tensor
+
+            tensor.check_model(cfg, self.mesh)
+            for ax in ("sequence", "tensor_sequence"):
+                if self.mesh.shape.get(ax, 1) > 1:
+                    tensor.refuse(f"serving with the {ax} axis (it splits training sequences)")
+        built = model is None
+        if built:
+            # on a mesh the model is built on the host, where its whole
+            # weights are allocated but never written, and each parameter
+            # then becomes a placeholder of its piece (_piece_placeholders)
+            # until its weight arrives: a rank never holds the whole model
+            model = Transformer(cfg, device="cpu" if self.mesh is not None else self.device)
+        self.model = model
         self.model.eval()
+        # the whole shape of every parameter (a split model's hold pieces)
+        self._shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self._seq_split = None
+        if self.mesh is not None:
+            if built:
+                self._piece_placeholders()
+            tensor.split_model(self.model, self.mesh)
+            for m in self.model.modules():
+                if hasattr(m, "rows_replicated"):
+                    m.rows_replicated = True
+            self._seq_split = tensor.cache_split(self.mesh)
         self.params = None  # set by load_params / set_params: the model's state dict
         self.num_slots = int(cfg.per_device_batch_size * cfg.num_devices)
         self.generator = torch.Generator(device=self.device).manual_seed(int(cfg.seed))
@@ -201,10 +253,11 @@ class Engine:
         ``checkpoint_is_quantized`` the checkpoint already holds them
         (``tools/quantize_checkpoint.py``) and is read as it is."""
         path = path or self.cfg.load_parameters_path
-        if not path and self._serve_int8:
-            twin = Transformer(dataclasses.replace(self.cfg, quantization=""),
-                               device=self.device).init_params(self.cfg.init_weights_seed)
-            return self.set_params(twin.state_dict(), cast_dtype)
+        if not path and (self._serve_int8 or self.mesh is not None):
+            # the float weights of the unquantized model, drawn one module
+            # at a time: each is quantized and cut to this rank's piece
+            # before the next is drawn
+            return self._take(self._seeded_weights(), self._serve_int8, cast_dtype)
         if not path:
             self.model.init_params(self.cfg.init_weights_seed)
             self._cast_for_serving(cast_dtype)
@@ -238,25 +291,110 @@ class Engine:
         """Take weights from a state dict (e.g. ``utils.param_bridge
         .params_from_jax``), then the serving cast. An ``int8w_serve`` engine
         given float weights (no ``kernel_scale``) quantizes them first
-        (``ops/quantization.quantize_params_for_serving``)."""
-        want = self.model.state_dict()
-        if self._serve_int8 and not any(k.endswith("kernel_scale") for k in state_dict):
-            state_dict = quantize_params_for_serving(
-                {k: torch.as_tensor(v, device=self.device) for k, v in state_dict.items()}, want)
-        missing = sorted(set(want) - set(state_dict))
-        extra = sorted(set(state_dict) - set(want))
+        (``ops/quantization.quantize_params_for_serving``). On a mesh the
+        weights are whole and each parameter takes this rank's piece."""
+        quantize = self._serve_int8 and not any(k.endswith("kernel_scale") for k in state_dict)
+        want = set(self.model.state_dict())
+        # the names after quantization, checked before any weight is taken
+        self._check_names(set(state_dict) | {f"{k}_scale" for k in state_dict
+                                             if quantize and f"{k}_scale" in want})
+        return self._take(state_dict.items(), quantize, cast_dtype)
+
+    def _check_names(self, given: set):
+        want = set(self.model.state_dict())
+        missing, extra = sorted(want - given), sorted(given - want)
         if missing or extra:
             raise KeyError(f"state dict mismatch: missing {missing}, unexpected {extra}")
+
+    def _take(self, weights, quantize: bool, cast_dtype=None):
+        """:meth:`set_params` of ``(name, whole weight)`` pairs, one at a
+        time: each float weight quantized where ``quantize``, then cut to
+        this rank's piece on a mesh, before the next is read. (No reference
+        to an old weight is kept: each is freed as its successor arrives.)"""
+        dtypes = {k: v.dtype for k, v in self.model.state_dict().items()}
+        params = dict(self.model.named_parameters())
+        seen = set()
         with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                src = torch.as_tensor(state_dict[name])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
-                p.data = src.to(device=self.device, dtype=p.dtype).clone()
+            for name, src in weights:
+                if name not in dtypes:
+                    seen.add(name)
+                    continue
+                one = {name: torch.as_tensor(src)}
+                if quantize:  # over the whole weight's axes (a rank's piece may have 1 head)
+                    one = quantize_params_for_serving(
+                        {name: one[name].to(self.device)},
+                        {k: torch.empty(self._shapes[k], dtype=dtypes[k], device="meta")
+                         for k in (name, f"{name}_scale") if k in dtypes})
+                for k, v in one.items():
+                    if tuple(v.shape) != self._shapes[k]:
+                        raise ValueError(f"{k}: shape {tuple(v.shape)} != {self._shapes[k]}")
+                    if self.mesh is not None:
+                        v = self._piece(k, v)
+                    v = v.to(device=self.device, dtype=dtypes[k]).clone()
+                    if params[k].is_meta:
+                        self._fill_placeholder(params[k], v)
+                    else:
+                        params[k].data = v
+                    seen.add(k)
+        self._check_names(seen)
         self._cast_for_serving(cast_dtype)
         self.params = self.model.state_dict()
         self.graphs.clear()  # the graphs read the old weights' addresses
         return self.params
+
+    def _seeded_weights(self):
+        """``(name, whole weight)`` of the unquantized model's seeded weights:
+        ``Transformer.init_params``'s draws, in its order from one generator
+        on the device, one module's weights at a time (freed when the next
+        module's are drawn; a weight no module draws is missing for
+        :meth:`_take`)."""
+        twin = Transformer(dataclasses.replace(self.cfg, quantization=""), device="meta")
+        gen = torch.Generator(device=self.device).manual_seed(int(self.cfg.init_weights_seed))
+        for prefix, module in twin.named_modules():
+            if module is twin or not hasattr(module, "reset_parameters"):
+                continue
+            module.to_empty(device=self.device, recurse=False)
+            with torch.no_grad():
+                module.reset_parameters(gen)
+            for n, p in module.named_parameters(recurse=False):
+                if n not in ("lora_a", "lora_b"):  # drawn after every base weight
+                    yield f"{prefix}.{n}", p.data
+            module.to_empty(device="meta", recurse=False)
+
+    def _piece_placeholders(self):
+        """Each parameter of the host-built model becomes a placeholder
+        (on the meta device) of this rank's piece, filled by :meth:`_take`
+        (a weight shared by modules stays shared); the buffers move to the
+        device whole."""
+        pieces = {}
+        for prefix, module in self.model.named_modules():
+            for n, p in list(module._parameters.items()):
+                if p is None:
+                    continue
+                if id(p) not in pieces:
+                    shape = self._piece(f"{prefix}.{n}" if prefix else n, p).shape
+                    pieces[id(p)] = torch.nn.Parameter(
+                        torch.empty(shape, dtype=p.dtype, device="meta"),
+                        requires_grad=p.requires_grad)
+                module._parameters[n] = pieces[id(p)]
+            for n, b in module._buffers.items():
+                if b is not None:
+                    module._buffers[n] = b.to(self.device)
+
+    def _fill_placeholder(self, placeholder, value: torch.Tensor):
+        """Every module's reference to ``placeholder`` becomes ``value``."""
+        param = torch.nn.Parameter(value, requires_grad=placeholder.requires_grad)
+        for module in self.model.modules():
+            for n, p in module._parameters.items():
+                if p is placeholder:
+                    module._parameters[n] = param
+
+    def _piece(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        from maxtext_indextts2_tpu_torch.parallel.sharding import local_piece
+        from maxtext_indextts2_tpu_torch.parallel.tensor import compute_spec
+
+        spec = compute_spec(name, tuple(whole.shape), self.cfg.emb_dim, self.mesh)
+        return local_piece(whole, spec, self.mesh)
 
     @torch.no_grad()
     def load_lora_adapter(self, lora_params: dict, alpha: float = 16.0):
@@ -503,7 +641,8 @@ class Engine:
             "active": torch.zeros((slots,), dtype=torch.bool, device=self.device),
         }
         if not cfg.paged_attention:
-            state["cache"] = self.model.init_cache(slots, cfg.max_target_length, self.device)
+            state["cache"] = self.model.init_cache(slots, cfg.max_target_length, self.device,
+                                                   self._seq_split)
         else:
             if cfg.pagedattn_num_pages <= slots:
                 raise ValueError(f"page pool must exceed the slot count "
@@ -697,7 +836,7 @@ class Engine:
         n = int(n)
         uniform = self._draw_uniform(n, self.num_slots)
         width = self._decode_width(decode_state, n)
-        if impl is not None or _eager or self.device.type != "cuda":
+        if impl is not None or _eager or self.device.type != "cuda" or self.mesh is not None:
             toks = self._steps(decode_state, n, impl, uniform, width)
         else:
             toks = self.graphs.run(

@@ -31,6 +31,16 @@ projection: its result is the ``attn_out`` remat anchor of
 The KV cache is explicit state: a :class:`KVCache` per layer, handed to the
 module and UPDATED IN PLACE (the JAX package threads it through as a flax
 variable collection and returns new arrays).
+
+Under a tensor split (``tp``, ``parallel/tensor.py``) q / k / v are
+column-split over the heads and ``out`` row-split: a rank projects, caches
+(dense or paged) and attends over its own heads with the same kernels, and
+``out`` sums the ranks' partial products. A decode cache split over
+``context_autoregressive`` (``KVCache(seq_split=...)``) holds this rank's
+rows of every slot: a row is written only by its owner, and ``dot_product``
+decode merges the ranks' partial softmaxes by log-sum-exp
+(:func:`merge_partial_attention`), where the JAX package lets GSPMD partition
+the contraction.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from maxtext_indextts2_tpu_torch.infer.paged_attention import (
 )
 from maxtext_indextts2_tpu_torch.models import rope as rope_lib
 from maxtext_indextts2_tpu_torch.models.layers import DenseGeneral, RMSNorm
-from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded
+from maxtext_indextts2_tpu_torch.ops.flash_attention import flash_attention_sharded, sequence_axis
 from maxtext_indextts2_tpu_torch.parallel import comm
 from maxtext_indextts2_tpu_torch.parallel.mesh import current_mesh
 from maxtext_indextts2_tpu_torch.ops.inplace_update import inplace_row_update
@@ -98,6 +108,26 @@ def make_attention_mask(
     return mask[:, None, :, :]
 
 
+def _gqa_logits(q, k, mask, logits_soft_cap: float, float32_qk: bool) -> torch.Tensor:
+    """Grouped-query logits [B, Nkv, G, Sq, Skv] in float32: q [B, Sq, Nq, D]
+    against k [B, Skv, Nkv, D], accumulated in float32 (or q's dtype without
+    ``float32_qk``), scaled by 1/sqrt(D), soft-capped, and masked with
+    ``DEFAULT_MASK_VALUE`` where ``mask`` [B, 1, Sq, Skv] is False."""
+    b, sq, nq, d = q.shape
+    nkv = k.shape[2]
+    q = q.reshape(b, sq, nkv, nq // nkv, d)
+    qk_dtype = torch.float32 if float32_qk else q.dtype
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(qk_dtype), k.to(qk_dtype)).float()
+    logits = logits / math.sqrt(d)
+    if logits_soft_cap > 0.0:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    if mask is not None:
+        logits = torch.where(
+            mask[:, :, None, :, :], logits, torch.full_like(logits, DEFAULT_MASK_VALUE)
+        )
+    return logits
+
+
 def dot_product_attention(
     q: torch.Tensor,  # [B, Sq, Nq, D]
     k: torch.Tensor,  # [B, Skv, Nkv, D]
@@ -109,23 +139,31 @@ def dot_product_attention(
     """Grouped-query einsum attention: logits accumulated in float32, masked
     with ``DEFAULT_MASK_VALUE``, softmax in float32, probabilities cast to
     v's dtype before the PV product (the JAX package's op order)."""
-    b, sq, nq, d = q.shape
-    nkv = k.shape[2]
-    group = nq // nkv
-    q = q.reshape(b, sq, nkv, group, d)
-
-    qk_dtype = torch.float32 if float32_qk else q.dtype
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(qk_dtype), k.to(qk_dtype)).float()
-    logits = logits / math.sqrt(d)
-    if logits_soft_cap > 0.0:
-        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
-    if mask is not None:
-        logits = torch.where(
-            mask[:, :, None, :, :], logits, torch.full_like(logits, DEFAULT_MASK_VALUE)
-        )
+    b, sq, nq, _ = q.shape
+    logits = _gqa_logits(q, k, mask, logits_soft_cap, float32_qk)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, nq, v.shape[-1]).to(v.dtype)
+
+
+def merge_partial_attention(q, k, v, mask, logits_soft_cap: float, float32_qk: bool,
+                            group) -> torch.Tensor:
+    """:func:`dot_product_attention` over keys split across ``group``: this
+    rank's rows give a partial max, sum of exponentials and unnormalised
+    output (float32), the maxima are gathered, and the rescaled sums and
+    outputs summed over the group (log-sum-exp). A rank whose rows are all
+    masked holds the mask value as its max, which the others' real maxima
+    scale to nothing."""
+    b, sq, nq, _ = q.shape
+    logits = _gqa_logits(q, k, mask, logits_soft_cap, float32_qk)
+    m = torch.amax(logits, dim=-1, keepdim=True)  # [b, h, g, q, 1]
+    m_all = torch.amax(comm.all_gather(m[None], group, 0), dim=0)
+    p = torch.exp(logits - m_all)
+    part = torch.cat([torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()),
+                      p.sum(-1, keepdim=True)], dim=-1)
+    total = comm.all_reduce(part, group, "cache_all_reduce")
+    out = total[..., :-1] / total[..., -1:]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, nq, v.shape[-1]).to(v.dtype)
 
 
 def _row_update(cache, rows, idx, impl=None):
@@ -142,16 +180,33 @@ class KVCache:
     ``quantize`` the values are int8 and ``key_scale``/``value_scale`` hold
     per-(position, head) float32 scales ``[B, S, nkv]``. All updates are in
     place; :meth:`update` returns the buffers themselves.
+
+    ``seq_split`` (a ``parallel/tensor.Split`` over ``context_autoregressive``):
+    this rank holds rows ``[row0, row0 + rows)`` of the ``max_length`` rows
+    (``cache_index`` stays global), plus one spare row at the end that takes
+    the decode writes of the rows other ranks own, so that the row kernel K2
+    writes every slot without a branch; the attention reads the first
+    ``rows`` only.
     """
 
     LEAVES = ("cached_key", "cached_value", "cache_index", "cached_segment_ids",
               "key_scale", "value_scale")
 
     def __init__(self, batch: int, max_length: int, num_kv_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.bfloat16, quantize: bool = False, device=None):
+                 dtype: torch.dtype = torch.bfloat16, quantize: bool = False, device=None,
+                 seq_split=None):
         self.max_length = max_length
         self.quantize = quantize
         self.dtype = dtype
+        self.seq_split = seq_split
+        self.row0, self.rows = 0, max_length
+        if seq_split is not None:
+            if max_length % seq_split.size:
+                raise ValueError(f"a {max_length}-row cache does not split over "
+                                 f"{seq_split.size} ranks")
+            self.row0, _ = seq_split.bounds(max_length)
+            self.rows = max_length // seq_split.size
+            max_length = self.rows + 1  # the spare row
         shape = (batch, max_length, num_kv_heads, head_dim)
         store = torch.int8 if quantize else dtype
         self.cached_key = torch.zeros(shape, dtype=store, device=device)
@@ -168,9 +223,14 @@ class KVCache:
     def leaves(self) -> dict[str, torch.Tensor]:
         return {n: getattr(self, n) for n in self.LEAVES if getattr(self, n) is not None}
 
+    def _whole(self, what: str) -> None:
+        if self.seq_split is not None:
+            raise ValueError(f"{what} takes a cache whose rows are not split over ranks")
+
     def copy_rows(self, start: int, n: int) -> "KVCache":
         """A new batch-1 cache of ``n`` rows holding rows [start, start+n) of
         batch row 0, all valid: a prefix of its own (no storage shared)."""
+        self._whole("copy_rows")
         _, _, nkv, d = self.cached_key.shape
         out = KVCache(1, n, nkv, d, self.dtype, self.quantize, self.cached_key.device)
         for name in ("cached_key", "cached_value", "key_scale", "value_scale"):
@@ -184,6 +244,7 @@ class KVCache:
     def load_rows(self, src: "KVCache", n: int) -> None:
         """Take rows [0, n) of ``src`` (a cache of as many rows, or more) as
         this cache's first ``n`` valid rows; the write index goes to ``n``."""
+        self._whole("load_rows")
         for name in ("cached_key", "cached_value", "key_scale", "value_scale"):
             dst = getattr(self, name)
             if dst is not None:
@@ -195,19 +256,22 @@ class KVCache:
     def insert_rows(self, src: "KVCache", slot: int, start: int, length: int) -> None:
         """Rows [start, start+length) of ``src``'s batch row 0 into rows [0,
         length) of ``slot``; the slot's segment ids and write index reset.
-        Touches only this slot, in place."""
-        self.cached_key[slot, :length] = src.cached_key[0, start:start + length]
-        self.cached_value[slot, :length] = src.cached_value[0, start:start + length]
+        Touches only this slot, in place (a split cache: the rows it owns)."""
+        lo = min(max(length - self.row0, 0), self.rows)  # rows of [0, length) held here
+        a, b = start + self.row0, start + self.row0 + lo
+        self.cached_key[slot, :lo] = src.cached_key[0, a:b]
+        self.cached_value[slot, :lo] = src.cached_value[0, a:b]
         if self.quantize:
-            self.key_scale[slot, :length] = src.key_scale[0, start:start + length]
-            self.value_scale[slot, :length] = src.value_scale[0, start:start + length]
-        self.cached_segment_ids[slot, :length] = 1
-        self.cached_segment_ids[slot, length:] = 0
+            self.key_scale[slot, :lo] = src.key_scale[0, a:b]
+            self.value_scale[slot, :lo] = src.value_scale[0, a:b]
+        self.cached_segment_ids[slot, :lo] = 1
+        self.cached_segment_ids[slot, lo:] = 0
         self.cache_index[slot] = length
 
     def clone(self) -> "KVCache":
         out = object.__new__(KVCache)
         out.max_length, out.quantize, out.dtype = self.max_length, self.quantize, self.dtype
+        out.seq_split, out.row0, out.rows = self.seq_split, self.row0, self.rows
         for n in self.LEAVES:
             t = getattr(self, n)
             setattr(out, n, None if t is None else t.clone())
@@ -227,6 +291,9 @@ class KVCache:
             v, v_scale = quantize_kv(v)
         store = self.cached_key.dtype
 
+        if self.seq_split is not None and mode != MODE_AUTOREGRESSIVE:
+            raise ValueError(f"a cache split over context_autoregressive takes decode steps "
+                             f"only, not mode {mode!r} (prefill fills a whole prefix cache)")
         if mode == MODE_PREFILL:
             n = k.shape[1]
             off = int(cache_offset or 0)
@@ -263,6 +330,12 @@ class KVCache:
         elif mode == MODE_AUTOREGRESSIVE:
             # k, v are [B, 1, nkv, d]; one row per slot at its own position
             pos = self.cache_index
+            if self.seq_split is not None:
+                # this rank's row of the position, or the spare row where
+                # another rank owns it
+                local = pos - self.row0
+                pos = torch.where((local >= 0) & (local < self.rows), local,
+                                  torch.full_like(local, self.rows))
             _row_update(self.cached_key, k, pos, impl)
             _row_update(self.cached_value, v, pos, impl)
             if self.quantize:
@@ -272,12 +345,18 @@ class KVCache:
             # index past the cache is an illegal address on CUDA)
             rows = torch.arange(b, device=k.device)
             self.cached_segment_ids.index_put_(
-                (rows, torch.clamp(pos.long(), max=self.max_length - 1)), torch.ones_like(pos))
+                (rows, torch.clamp(pos.long(), max=self.cached_segment_ids.shape[1] - 1)),
+                torch.ones_like(pos))
             self.cache_index += 1
         else:
             raise ValueError(f"unknown KVCache mode {mode!r}")
 
         scales = (self.key_scale, self.value_scale) if self.quantize else None
+        if self.seq_split is not None:  # the rows held, without the spare one
+            n = self.rows
+            return (self.cached_key[:, :n], self.cached_value[:, :n],
+                    self.cached_segment_ids[:, :n], self.cache_index,
+                    None if scales is None else tuple(t[:, :n] for t in scales))
         return (self.cached_key, self.cached_value, self.cached_segment_ids,
                 self.cache_index, scales)
 
@@ -331,11 +410,12 @@ class Attention(nn.Module):
         quantization: str = "",
         quantize_kvcache: bool = False,
         lora_rank: int = 0,
-        context_parallelism: bool = False,  # training: the current mesh's "context" axis
+        context_parallelism: bool = False,  # training: the mesh's "context" or "sequence" axis
         context_parallel_algorithm: str = "allgather",  # allgather | ring | ulysses
         device=None,
     ):
         super().__init__()
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         self.context_parallelism = context_parallelism
         self.context_parallel_algorithm = context_parallel_algorithm
         if attention_kernel not in ("autoselected", "dot_product", "flash"):
@@ -376,12 +456,14 @@ class Attention(nn.Module):
 
         dense = dict(dtype=dtype, weight_dtype=weight_dtype, use_bias=use_bias,
                      quantization=quantization, device=device)
+        col = dict(parallel="column", **dense)
         self.query = DenseGeneral(emb_dim, (num_query_heads, head_dim),
-                                  lora_rank=lora_rank, **dense)
-        self.key = DenseGeneral(emb_dim, (num_kv_heads, head_dim), **dense)
+                                  lora_rank=lora_rank, **col)
+        self.key = DenseGeneral(emb_dim, (num_kv_heads, head_dim), **col)
         self.value = DenseGeneral(emb_dim, (num_kv_heads, head_dim),
-                                  lora_rank=lora_rank, **dense)
-        self.out = DenseGeneral((num_query_heads, head_dim), emb_dim, axis=(-2, -1), **dense)
+                                  lora_rank=lora_rank, **col)
+        self.out = DenseGeneral((num_query_heads, head_dim), emb_dim, axis=(-2, -1),
+                                parallel="row", **dense)
         self.query_norm = self.key_norm = None
         if use_qk_norm and qk_norm_type == "rms":
             norm = dict(epsilon=normalization_layer_epsilon, dtype=dtype,
@@ -390,15 +472,24 @@ class Attention(nn.Module):
             self.query_norm = RMSNorm(head_dim, **norm)
             self.key_norm = RMSNorm(head_dim, **norm)
 
-    def init_cache(self, batch: int, max_length: int | None = None, device=None) -> KVCache:
-        return KVCache(batch, max_length or self.max_target_length, self.num_kv_heads,
+    @property
+    def local_kv_heads(self) -> int:
+        """The kv heads this rank holds (all of them without a tensor split)."""
+        return self.num_kv_heads if self.tp is None else self.tp.chunk(self.num_kv_heads)
+
+    def init_cache(self, batch: int, max_length: int | None = None, device=None,
+                   seq_split=None) -> KVCache:
+        """``seq_split``: the decode cache's rows split over
+        ``context_autoregressive`` (:class:`KVCache`)."""
+        return KVCache(batch, max_length or self.max_target_length, self.local_kv_heads,
                        self.head_dim, self.dtype, self.quantize_kvcache,
-                       device if device is not None else self.query.kernel.device)
+                       device if device is not None else self.query.kernel.device,
+                       seq_split=seq_split)
 
     def init_paged_cache(self, num_pages: int, tokens_per_page: int,
                          device=None) -> PagedKVCache:
         """This layer's page pools ``[num_pages, tokens_per_page, nkv, d]``."""
-        return init_paged_cache(num_pages, tokens_per_page, self.num_kv_heads, self.head_dim,
+        return init_paged_cache(num_pages, tokens_per_page, self.local_kv_heads, self.head_dim,
                                 self.dtype,
                                 device if device is not None else self.query.kernel.device)
 
@@ -469,7 +560,8 @@ class Attention(nn.Module):
                 width = min(int(decode_width), width)
             out = self._masked_decode(q, ck[:, :width], cv[:, :width], cseg[:, :width], cidx,
                                       None if kv_scales is None
-                                      else tuple(t[:, :width] for t in kv_scales))
+                                      else tuple(t[:, :width] for t in kv_scales),
+                                      cache.row0, cache.seq_split)
         return self.out(out)
 
     def _dequantized(self, ck, cv, kv_scales):
@@ -478,10 +570,13 @@ class Attention(nn.Module):
         return (dequantize_kv(ck, kv_scales[0], self.dtype),
                 dequantize_kv(cv, kv_scales[1], self.dtype))
 
-    def _masked_decode(self, q, ck, cv, cseg, cidx, kv_scales):
+    def _masked_decode(self, q, ck, cv, cseg, cidx, kv_scales, row0: int = 0, seq_split=None):
         """One query a slot against the cache rows it holds (``< cidx``), the
-        window and the chunk: a masked product over ``ck``'s rows."""
-        kv_positions = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)[None, :]
+        window and the chunk: a masked product over ``ck``'s rows (whose
+        first is position ``row0``; with ``seq_split`` the ranks' partial
+        softmaxes are merged)."""
+        kv_positions = row0 + torch.arange(ck.shape[1], dtype=torch.int32,
+                                           device=q.device)[None, :]
         nxt = cidx[:, None]  # next write position; the query sits at nxt-1
         valid = kv_positions < nxt
         if self.sliding_window_size > 0:
@@ -492,6 +587,10 @@ class Attention(nn.Module):
             )
         valid &= cseg > 0
         dk, dv = self._dequantized(ck, cv, kv_scales)
+        if seq_split is not None:
+            return merge_partial_attention(q, dk, dv, valid[:, None, None, :],
+                                           self.attn_logits_soft_cap, self.float32_qk_product,
+                                           seq_split.group)
         return dot_product_attention(
             q, dk, dv, valid[:, None, None, :], self.attn_logits_soft_cap,
             self.float32_qk_product,
@@ -516,7 +615,12 @@ class Attention(nn.Module):
         return paged_decode_attention(q, cache, state, self.attn_logits_soft_cap)
 
     def _project(self, inputs_q, inputs_kv, positions):
-        """q, k, v [B, S, N, D]: projections, qk-norm, RoPE, gemma's q scale."""
+        """q, k, v [B, S, N, D]: projections, qk-norm, RoPE, gemma's q scale
+        (this rank's heads under a tensor split)."""
+        if self.tp is not None:
+            same = inputs_kv is inputs_q
+            inputs_q = self.tp.enter(inputs_q)
+            inputs_kv = inputs_q if same else self.tp.enter(inputs_kv)
         q = self.query(inputs_q)
         k = self.key(inputs_kv)
         v = self.value(inputs_kv)
@@ -570,9 +674,10 @@ class Attention(nn.Module):
                 chunk_size=self.chunk_attn_window_size,
                 logits_soft_cap=self.attn_logits_soft_cap,
                 algorithm=self.context_parallel_algorithm, impl=impl)
-        if mesh is not None and mesh.shape["context"] > 1:
+        axis = None if mesh is None else sequence_axis(mesh)
+        if axis is not None:
             # this rank's queries against the whole sequence's keys
-            group = mesh.group("context")
+            group = mesh.group(axis)
             k, v = (comm.AllGather.apply(t, group, 1) for t in (k, v))
             kv_pos, kv_seg = (None if t is None else comm.all_gather(t, group, 1)
                               for t in (positions, segment_ids))

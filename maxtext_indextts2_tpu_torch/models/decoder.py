@@ -89,7 +89,10 @@ def _attention_kwargs(cfg: Config, block, attention_type: str) -> dict[str, Any]
         attn_temperature_scale=cfg.attn_temperature_scale,
         attn_temperature_floor_scale=cfg.attn_temperature_floor_scale,
         decode_attention=cfg.decode_attention,
-        context_parallelism=cfg.using_context_parallelism,
+        # the sequence's split between the layers: context parallelism, or
+        # the sequence axis (K/V all-gathered over it)
+        context_parallelism=cfg.using_context_parallelism
+        or cfg.ici_sequence_parallelism * cfg.dcn_sequence_parallelism > 1,
         context_parallel_algorithm=cfg.context_parallel_algorithm,
         query_pre_attn_scalar=(
             cfg.query_pre_attn_scalar if cfg.query_pre_attn_scalar > 0
@@ -175,8 +178,10 @@ class DecoderLayer(nn.Module):
             if block.use_post_ffw_norm:
                 setattr(self, f"post_ffw_norm_{i}", norm())
 
-    def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
-        return [getattr(self, f"self_attention_{i}").init_cache(batch, max_length, device)
+    def init_cache(self, batch: int, max_length: int | None = None, device=None,
+                   seq_split=None) -> list:
+        kw = {} if seq_split is None else dict(seq_split=seq_split)
+        return [getattr(self, f"self_attention_{i}").init_cache(batch, max_length, device, **kw)
                 for i in range(len(self.block.attention_pattern))]
 
     def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
@@ -352,9 +357,11 @@ class Decoder(nn.Module):
     def units(self) -> list[DecoderLayer]:
         return [getattr(self, name) for name in self.unit_names]
 
-    def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
-        """Per-unit list of per-sub-layer KVCaches (LatentCaches for MLA)."""
-        return [unit.init_cache(batch, max_length, device) for unit in self.units()]
+    def init_cache(self, batch: int, max_length: int | None = None, device=None,
+                   seq_split=None) -> list:
+        """Per-unit list of per-sub-layer KVCaches (LatentCaches for MLA);
+        ``seq_split``: the rows split over ``context_autoregressive``."""
+        return [unit.init_cache(batch, max_length, device, seq_split) for unit in self.units()]
 
     def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
         """Per-unit list of per-sub-layer page pools (PagedKVCaches)."""

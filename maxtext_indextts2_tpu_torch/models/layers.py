@@ -78,6 +78,19 @@ class DenseGeneral(nn.Module):
     base one): ``(x @ a) @ b * lora_alpha / r`` is added after the base
     product, before the bias. Under ``int8w_serve`` there is no adapter, as
     in the JAX package (a merged one: ``Engine.load_lora_adapter``).
+
+    ``parallel`` is the layer's part in a tensor split (``parallel/tensor.py``;
+    ``tp``, set by ``tensor.split_model``, is the split): ``"column"`` (the
+    first output dimension split: the kernel holds this rank's heads or
+    ``mlp`` columns; the caller puts the input through ``comm.CopyToGroup``)
+    or ``"row"`` (the first input dimension split: the product's float32
+    partial sums are summed over the group by ``comm.ReduceFromGroup`` and
+    rounded once to ``dtype``, then the bias is added once). The shapes the
+    product takes are the kernel's own, so a kernel that holds a rank's piece
+    computes that piece. Under ``int8w_serve`` a column split's kernel and
+    channel scales are the rank's columns; a row split sums the ranks'
+    ``int8w_matmul`` partials (each rounded to ``dtype``) in float32 and adds
+    the bias once.
     """
 
     def __init__(
@@ -91,9 +104,14 @@ class DenseGeneral(nn.Module):
         quantization: str = "",
         lora_rank: int = 0,
         lora_alpha: float = 16.0,
+        parallel: str | None = None,
         device=None,
     ):
         super().__init__()
+        if parallel not in (None, "column", "row"):
+            raise ValueError(f"unknown parallel role {parallel!r}")
+        self.parallel = parallel
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         if quantization not in ("", "int8w_serve", *AQT_MODES):
             raise ValueError(f"unknown quantization {quantization!r}; known: "
                              f"{('int8w_serve', *AQT_MODES)}")
@@ -162,20 +180,33 @@ class DenseGeneral(nn.Module):
         axis = tuple(ax % inputs.ndim for ax in self.axis)
         if axis != tuple(range(inputs.ndim - n_in, inputs.ndim)):
             raise ValueError(f"contraction axes {self.axis} must be trailing")
-        if tuple(inputs.shape[-n_in:]) != self.in_shape:
-            raise ValueError((tuple(inputs.shape), self.in_shape))
+        in_shape, features = tuple(self.kernel.shape[:n_in]), tuple(self.kernel.shape[n_in:])
+        if tuple(inputs.shape[-n_in:]) != in_shape:
+            raise ValueError((tuple(inputs.shape), in_shape))
         batch_shape = inputs.shape[:-n_in]
-        k_in = math.prod(self.in_shape)
+        k_in = math.prod(in_shape)
         x = inputs.to(self.dtype).reshape(-1, k_in)
+        row_split = self.parallel == "row" and self.tp is not None
         if self.kernel_scale is not None:
-            out = int8w_matmul(x, self.kernel.reshape(k_in, -1), self.kernel_scale, self.bias)
-            return out.reshape(*batch_shape, *self.features)
+            if not row_split:
+                out = int8w_matmul(x, self.kernel.reshape(k_in, -1), self.kernel_scale, self.bias)
+                return out.reshape(*batch_shape, *features)
+            # this rank's K-partials, summed over the group, then the bias once
+            out = int8w_matmul(x, self.kernel.reshape(k_in, -1), self.kernel_scale, None)
+            out = self.tp.leave(out.reshape(*batch_shape, *features), self.dtype)
+            return out if self.bias is None else out + self.bias.to(self.dtype)
         w = self.kernel.to(self.dtype).reshape(k_in, -1)
+        if row_split:  # the partial sums summed over the group, then the bias once
+            from maxtext_indextts2_tpu_torch.ops.losses import matmul
+
+            out = self.tp.leave(matmul(x, w, torch.float32).reshape(*batch_shape, *features),
+                                self.dtype)
+            return out if self.bias is None else out + self.bias.to(self.dtype)
         out = aqt_dot(x, w, self.quantization, self.aqt_noise) if self.quantization else x @ w
         if self.lora_a is not None:
             delta = (x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
             out = out + self.lora_scale * delta
-        out = out.reshape(*batch_shape, *self.features)
+        out = out.reshape(*batch_shape, *features)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)
         return out
@@ -233,7 +264,11 @@ class RMSNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """Token embedding with optional logit tying (``attend``)."""
+    """Token embedding with optional logit tying (``attend``). With
+    ``split_vocab`` and a tensor split ``tp`` the table holds this rank's
+    rows of the vocabulary: a lookup zeroes the ids outside them and sums the
+    ranks' rows (``comm.ReduceFromGroup``: one rank holds each id, so the sum
+    is exact), and ``attend`` gives the logits of this rank's rows."""
 
     def __init__(
         self,
@@ -241,9 +276,12 @@ class Embed(nn.Module):
         features: int,
         dtype: torch.dtype = torch.bfloat16,
         weight_dtype: torch.dtype = torch.float32,
+        split_vocab: bool = False,
         device=None,
     ):
         super().__init__()
+        self.split_vocab = split_vocab
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         self.num_embeddings = num_embeddings
         self.features = features
         self.dtype = dtype
@@ -258,7 +296,15 @@ class Embed(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         # gather first, cast the gathered rows: the whole table is never
         # copied when it is stored wider than the activation dtype
-        return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        if not (self.split_vocab and self.tp is not None):
+            return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        rows = self.embedding.shape[0]
+        local = ids.long() - self.tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(inside, local, 0), self.embedding)
+        out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                                 device=out.device))
+        return self.tp.leave(out.to(self.dtype), self.dtype)
 
     def attend(self, query: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         """Project hidden states onto the embedding table (tied logits).
@@ -321,7 +367,11 @@ class MlpBlock(nn.Module):
     """Gated MLP: one projection per activation, their product, ``wo``.
     For ("silu", "linear") this is the llama SwiGLU block. In training the
     product may be dropped out (:func:`dropout`, rate ``dropout_rate``)
-    after the ``mlp_pre_wo`` anchor, as in the JAX package."""
+    after the ``mlp_pre_wo`` anchor, as in the JAX package. Under a tensor
+    split (``tp``) the ``wi_*`` kernels hold this rank's ``mlp`` columns and
+    ``wo`` its rows: the input passes ``comm.CopyToGroup`` once and ``wo``
+    sums the partial products over the group; a dropout mask of the whole
+    width is cut to this rank's columns."""
 
     def __init__(
         self,
@@ -338,6 +388,7 @@ class MlpBlock(nn.Module):
         super().__init__()
         self.activations = tuple(activations)
         self.intermediate_dim, self.dropout_rate = intermediate_dim, dropout_rate
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         kw = dict(dtype=dtype, weight_dtype=weight_dtype, use_bias=use_bias,
                   quantization=quantization, device=device)
         self.wi_names = [
@@ -345,12 +396,15 @@ class MlpBlock(nn.Module):
             for i in range(len(self.activations))
         ]
         for name in self.wi_names:
-            setattr(self, name, DenseGeneral(in_features, intermediate_dim, **kw))
-        self.wo = DenseGeneral(intermediate_dim, in_features, **kw)
+            setattr(self, name, DenseGeneral(in_features, intermediate_dim, parallel="column",
+                                             **kw))
+        self.wo = DenseGeneral(intermediate_dim, in_features, parallel="row", **kw)
 
     def pre_wo(self, inputs: torch.Tensor) -> torch.Tensor:
         """The product of the activations, the input of ``wo``: the
         ``mlp_pre_wo`` remat anchor (``models/decoder.py``)."""
+        if self.tp is not None:
+            inputs = self.tp.enter(inputs)
         x = None
         for name, act_name in zip(self.wi_names, self.activations):
             a = ACTIVATIONS[act_name](getattr(self, name)(inputs))
@@ -361,6 +415,9 @@ class MlpBlock(nn.Module):
         """``wo`` of the activation product, dropped out first where a keep
         mask is given."""
         if keep_mask is not None and self.dropout_rate > 0.0:
+            if keep_mask.shape[-1] != pre_wo.shape[-1]:  # this rank's columns
+                lo, hi = self.tp.bounds(keep_mask.shape[-1])
+                keep_mask = keep_mask[..., lo:hi]
             pre_wo = dropout(pre_wo, keep_mask, self.dropout_rate)
         return self.wo(pre_wo)
 

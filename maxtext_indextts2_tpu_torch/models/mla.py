@@ -135,10 +135,10 @@ class MLAttention(nn.Module):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         dtype, wdt = to_dtype(cfg.dtype), to_dtype(cfg.weight_dtype)
         self.dtype = dtype
         e, n = cfg.emb_dim, cfg.num_query_heads
-        self.n = n
         self.d_nope, self.d_rope, self.d_v = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                                               cfg.v_head_dim)
         self.kv_lora_rank = cfg.kv_lora_rank
@@ -150,16 +150,17 @@ class MLAttention(nn.Module):
                            weight_dtype=wdt, device=device)
 
         self.wq = self.wq_a = self.q_norm = self.wq_b = None
+        col = dict(parallel="column", **dense)
         if cfg.q_lora_rank > 0:
             self.wq_a = DenseGeneral(e, cfg.q_lora_rank, **dense)
             self.q_norm = norm(cfg.q_lora_rank)
-            self.wq_b = DenseGeneral(cfg.q_lora_rank, (n, d_qk), **dense)
+            self.wq_b = DenseGeneral(cfg.q_lora_rank, (n, d_qk), **col)
         else:
-            self.wq = DenseGeneral(e, (n, d_qk), **dense)
+            self.wq = DenseGeneral(e, (n, d_qk), **col)
         self.wkv_a = DenseGeneral(e, cfg.kv_lora_rank + self.d_rope, **dense)
         self.kv_norm = norm(cfg.kv_lora_rank)
-        self.wkv_b = DenseGeneral(cfg.kv_lora_rank, (n, self.d_nope + self.d_v), **dense)
-        self.out = DenseGeneral((n, self.d_v), e, axis=(-2, -1), **dense)
+        self.wkv_b = DenseGeneral(cfg.kv_lora_rank, (n, self.d_nope + self.d_v), **col)
+        self.out = DenseGeneral((n, self.d_v), e, axis=(-2, -1), parallel="row", **dense)
         self.register_buffer("inv_freq", torch.as_tensor(rope_frequencies_cached(
             self.d_rope, cfg.rope_type if cfg.rope_type != "none" else "default",
             cfg.rope_max_timescale, cfg.rope_factor, cfg.rope_low_freq_factor,
@@ -182,13 +183,24 @@ class MLAttention(nn.Module):
                          "its decode cache is the compressed latent (LatentCache), which has no "
                          "paged layout; serve it with paged_attention=false")
 
+    def _split_input(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-split product's input passes ``comm.CopyToGroup``: the
+        latents and the shared rope key are whole on every rank and feed its
+        heads only."""
+        if self.tp is None:
+            return x
+        from maxtext_indextts2_tpu_torch.parallel import comm
+
+        return comm.copy_to_group(x, self.tp.group)
+
     def _project(self, x: torch.Tensor, positions: torch.Tensor):
         """(q [B, S, n, d_qk] with rope and scale, c_kv [B, S, r] normed,
-        k_pe [B, S, d_rope] with rope)."""
+        k_pe [B, S, d_rope] with rope; under a tensor split, this rank's
+        heads of q, and c_kv / k_pe through ``CopyToGroup``)."""
         if self.wq is not None:
-            q = self.wq(x)
+            q = self.wq(self._split_input(x))
         else:
-            q = self.wq_b(self.q_norm(self.wq_a(x)))
+            q = self.wq_b(self._split_input(self.q_norm(self.wq_a(x))))
         kv_a = self.wkv_a(x)
         c_kv = self.kv_norm(kv_a[..., :self.kv_lora_rank])
         k_pe = kv_a[..., self.kv_lora_rank:]
@@ -196,7 +208,7 @@ class MLAttention(nn.Module):
         q_pe = rope_lib.apply_rope(q[..., self.d_nope:], None, None, True, sin_cos=sin_cos)
         k_pe = rope_lib.apply_rope(k_pe, None, None, True, sin_cos=sin_cos)
         q = torch.cat([q[..., :self.d_nope], q_pe], dim=-1) * self.q_mult
-        return q, c_kv, k_pe
+        return q, self._split_input(c_kv), self._split_input(k_pe)
 
     def _expand(self, c_kv: torch.Tensor, k_pe: torch.Tensor):
         """The latent rows -> per-head keys [B, L, n, d_qk] and values [B, L, n, d_v]."""

@@ -33,6 +33,25 @@ package's ``q_rows``) with the activation between them, applies the routing
 weight and adds each token's k rows back in float32 in the order of their
 sorted positions (the order of the JAX package's scatter-add), by a gather
 rather than an atomic scatter, so that two runs give the same bits.
+
+On a mesh (``parallel/tensor.py``): under a tensor split (``tp``) each
+expert's ``mlp`` width is split like ``MlpBlock``'s (``wi_*`` columns, ``wo``
+rows: golden ``moe_ep4_tp2.json``), the experts' input and the routing
+weights pass ``comm.CopyToGroup`` and the combined float32 partial output is summed over
+the group once (``comm.ReduceFromGroup``); the shared experts are a split
+``MlpBlock``. Under an expert split (``ep``) a rank holds ``num_experts / n``
+experts and the sparse route runs on every device, the CPU included: the
+sorted rows go to their experts' ranks by a variable-split all-to-all
+(``comm.AllToAllV``, after an exchange of the per-rank counts), each rank runs
+its experts through the grouped products (the hand-written kernels on the
+card, forward and backward) over the rows it received sorted by local
+expert, and a second all-to-all brings the rows home, in this rank's sorted
+order, before the float32 combine. A training forward's rows are this rank's
+piece of the batch; a serving engine's rows are the same on every rank
+(``rows_replicated``), so each rank dispatches its chunk of them and the
+outputs are all-gathered. On a mesh that splits the batch (``batch_group``)
+the load-balance loss is that of the global batch: the token counts and the
+score sums are summed over the batch ranks (``comm.AllReduce``).
 """
 
 from __future__ import annotations
@@ -98,6 +117,11 @@ class RoutedMoE(nn.Module):
             MlpBlock(e, m * cfg.shared_experts, cfg.mlp_activations, dtype=self.dtype,
                      weight_dtype=wdt, device=device)
             if cfg.shared_experts > 0 else None)
+        # parallel/tensor.split_model: the tensor and expert splits, the
+        # group over which a training batch is split, and whether the rows
+        # are the same on every rank (a serving engine)
+        self.tp = self.ep = self.batch_group = None
+        self.rows_replicated = False
 
     def reset_parameters(self, generator=None):
         """Variance-scaling truncated normal over each expert's fan-in (the
@@ -156,8 +180,19 @@ class RoutedMoE(nn.Module):
         """Switch / GShard style: E * sum(tokens share x mean score) / k."""
         n_exp, k = self.cfg.num_experts, self.cfg.num_experts_per_tok
         one_hot = _one_hot(top_idx, n_exp, torch.float32)  # [B, S, k, E]
-        tokens_per_expert = one_hot.sum(2).mean((0, 1))
-        prob_per_expert = scores.mean((0, 1))
+        if self.batch_group is None:
+            tokens_per_expert = one_hot.sum(2).mean((0, 1))
+            prob_per_expert = scores.mean((0, 1))
+        else:  # over the global batch
+            from maxtext_indextts2_tpu_torch.parallel import comm
+
+            count = torch.full((1,), float(one_hot.shape[0] * one_hot.shape[1]),
+                               device=scores.device)
+            sums = comm.AllReduce.apply(torch.cat([one_hot.sum(2).sum((0, 1)),
+                                                   scores.sum((0, 1)), count]),
+                                        self.batch_group)
+            tokens_per_expert, prob_per_expert = sums[:n_exp] / sums[-1], \
+                sums[n_exp:2 * n_exp] / sums[-1]
         return n_exp * torch.sum(tokens_per_expert * prob_per_expert) / k
 
     # ------------------------------------------------------------- experts
@@ -194,9 +229,11 @@ class RoutedMoE(nn.Module):
         return torch.einsum("bsxe,bsx->bse", o, combine)
 
     def sparse_experts(self, x, top_idx, top_w, wi_0, wi_1, wo, scales=None,
-                       impl: str | None = None):
+                       impl: str | None = None, out_dtype=None):
         """Dropless dispatch through the grouped products (``scales``: the
-        int8 experts' ``(wi_0_scale, wi_1_scale, wo_scale)``)."""
+        int8 experts' ``(wi_0_scale, wi_1_scale, wo_scale)``); the float32
+        combine is cast to ``out_dtype`` (default ``dtype``). Under an expert
+        split the experts are this rank's (:meth:`_expert_parallel`)."""
         cfg = self.cfg
         dt = self.dtype
         b, s, e = x.shape
@@ -214,10 +251,11 @@ class RoutedMoE(nn.Module):
             x_sorted = x_sorted * w_sorted[:, None]
         counts = torch.zeros((n_exp,), dtype=torch.int32, device=x.device).scatter_add_(
             0, expert_flat, torch.ones_like(expert_flat, dtype=torch.int32))
-        offsets = torch.cat([torch.zeros((1,), dtype=torch.int32, device=x.device),
-                             torch.cumsum(counts, 0, dtype=torch.int32)])
+        offsets = _offsets(counts)
 
-        if scales is not None:
+        if self.ep is not None:
+            o_sorted = self._expert_parallel(x_sorted, counts, wi_0, wi_1, wo, impl)
+        elif scales is not None:
             wi_0_s, wi_1_s, wo_s = scales
 
             def rdot(v, w_q, w_s):
@@ -241,7 +279,33 @@ class RoutedMoE(nn.Module):
         out = torch.zeros((t, e), dtype=torch.float32, device=x.device)
         for j in range(k):
             out = out + gathered[:, j]
-        return out.to(dt).reshape(b, s, e)
+        return out.to(out_dtype or dt).reshape(b, s, e)
+
+    def _expert_parallel(self, x_sorted, counts, wi_0, wi_1, wo, impl):
+        """The grouped products of rows sorted by global expert id, run on
+        the ranks that hold the experts: the rows for rank j's experts go to
+        rank j, which sorts what it received by local expert (stable: by
+        source rank within an expert), runs its experts and sends each row
+        back; returns the rows in ``x_sorted``'s order."""
+        from maxtext_indextts2_tpu_torch.parallel import comm
+
+        ep, dt = self.ep, self.dtype
+        n, local = ep.size, wi_0.shape[0]
+        send = counts.reshape(n, local)  # rows for each rank's experts
+        recv = comm.all_to_all(send, ep.group, 0, 0, op="expert_counts")  # [source, expert]
+        send_rows, recv_host = send.sum(1).tolist(), recv.tolist()
+        recv_rows = [sum(r) for r in recv_host]
+        got = comm.AllToAllV.apply(x_sorted, ep.group, send_rows, recv_rows)
+        key = torch.repeat_interleave(
+            torch.arange(local, device=x_sorted.device).repeat(n), recv.reshape(-1).long())
+        perm = torch.sort(key, stable=True).indices
+        xs = got[perm]
+        offsets = _offsets(recv.sum(0, dtype=torch.int32))
+        h0 = grouped_matmul(xs, wi_0.to(dt), offsets, impl=impl)
+        h1 = grouped_matmul(xs, wi_1.to(dt), offsets, impl=impl)
+        y = grouped_matmul(self._act(h0, h1), wo.to(dt), offsets, impl=impl)
+        y = y[torch.argsort(perm)]  # back in the order received
+        return comm.AllToAllV.apply(y, ep.group, recv_rows, send_rows)
 
     def forward(self, inputs: torch.Tensor, impl: str | None = None, aux_loss: bool = True):
         """(output, the load-balance loss, or None without ``aux_loss``: a
@@ -249,14 +313,58 @@ class RoutedMoE(nn.Module):
         cfg = self.cfg
         top_idx, top_w, scores = self.route(inputs)
         lb_loss = self.load_balance_loss(top_idx, scores) if aux_loss else None
-        if cfg.sparse_matmul and inputs.device.type == "cuda":
+        x = inputs
+        out_dtype = None
+        if self.tp is not None:
+            from maxtext_indextts2_tpu_torch.parallel import comm
+
+            # the routing weights scale each rank's partial products: their
+            # gradient is summed over the group too
+            x, top_w = (comm.copy_to_group(t, self.tp.group) for t in (inputs, top_w))
+            out_dtype = torch.float32  # partial sums, reduced below
+        if self.ep is not None:
+            out = self._sparse_on_ranks(x, top_idx, top_w, impl, out_dtype)
+        elif cfg.sparse_matmul and inputs.device.type == "cuda":
             scales = None
             if self.int8_experts:
                 scales = (self.wi_0_scale, self.wi_1_scale, self.wo_scale)
-            out = self.sparse_experts(inputs, top_idx, top_w, self.wi_0, self.wi_1, self.wo,
-                                      scales, impl)
+            out = self.sparse_experts(x, top_idx, top_w, self.wi_0, self.wi_1, self.wo,
+                                      scales, impl, out_dtype)
         else:
-            out = self.dense_experts(inputs, top_idx, top_w, *self._float_experts())
+            out = self.dense_experts(x, top_idx, top_w, *self._float_experts())
+        if self.tp is not None:
+            out = comm.reduce_from_group(out, self.tp.group, self.dtype)
         if self.shared_experts is not None:
             out = out + self.shared_experts(inputs)
         return out, lb_loss
+
+    def _sparse_on_ranks(self, x, top_idx, top_w, impl, out_dtype):
+        """The sparse route under an expert split. Rows the same on every
+        rank (serving) are cut into the expert group's chunks, each rank
+        dispatches its own, and the chunks' outputs are all-gathered."""
+        experts = (self.wi_0, self.wi_1, self.wo)
+        if not self.rows_replicated:
+            return self.sparse_experts(x, top_idx, top_w, *experts, None, impl, out_dtype)
+        from maxtext_indextts2_tpu_torch.parallel import comm
+
+        b, s, e = x.shape
+        t, n = b * s, self.ep.size
+        c = -(-t // n)
+        pad = c * n - t
+
+        def piece(v):
+            v = v.reshape(t, *v.shape[2:])
+            if pad:
+                v = torch.cat([v, torch.zeros((pad, *v.shape[1:]), dtype=v.dtype,
+                                              device=v.device)])
+            return v[self.ep.rank * c:(self.ep.rank + 1) * c][None]
+
+        out = self.sparse_experts(piece(x), piece(top_idx), piece(top_w), *experts, None, impl,
+                                  out_dtype)
+        return comm.all_gather(out[0], self.ep.group, 0)[:t].reshape(b, s, e)
+
+
+def _offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Group bounds ``[G + 1]`` int32 of per-group row counts, on the device."""
+    return torch.cat([torch.zeros((1,), dtype=torch.int32, device=counts.device),
+                      torch.cumsum(counts, 0, dtype=torch.int32)])

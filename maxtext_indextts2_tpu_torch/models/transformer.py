@@ -45,8 +45,9 @@ class Transformer(nn.Module):
         # forward would be a host-to-device copy, which a captured decode step
         # cannot hold
         self.emb_scale = float(torch.tensor(cfg.emb_dim ** 0.5, dtype=dtype, device="cpu"))
+        self.tp = None  # parallel/tensor.Split of a tensor-split model
         self.token_embedder = Embed(cfg.vocab_size, cfg.emb_dim, dtype=dtype,
-                                    weight_dtype=wdtype, device=device)
+                                    weight_dtype=wdtype, split_vocab=True, device=device)
         self.decoder = Decoder(cfg, self.block, device=device)
         self.decoder_norm = RMSNorm(
             cfg.emb_dim, epsilon=cfg.normalization_layer_epsilon, dtype=dtype,
@@ -64,7 +65,7 @@ class Transformer(nn.Module):
             self.logits_dense = DenseGeneral(
                 cfg.emb_dim, cfg.vocab_size,
                 dtype=dtype if not cfg.logits_dot_in_fp32 else torch.float32,
-                weight_dtype=wdtype, device=device)
+                weight_dtype=wdtype, parallel="column", device=device)
 
     def init_params(self, seed: int = 0):
         """Seeded random weights, drawn on the parameters' own device. LoRA
@@ -89,8 +90,9 @@ class Transformer(nn.Module):
             if isinstance(module, DenseGeneral) and module.quantization in AQT_MODES:
                 module.aqt_noise = None if noise is None else noise.for_layer(name)
 
-    def init_cache(self, batch: int, max_length: int | None = None, device=None) -> list:
-        return self.decoder.init_cache(batch, max_length, device)
+    def init_cache(self, batch: int, max_length: int | None = None, device=None,
+                   seq_split=None) -> list:
+        return self.decoder.init_cache(batch, max_length, device, seq_split)
 
     def init_paged_cache(self, num_pages: int, tokens_per_page: int, device=None) -> list:
         """Page pools for paged decode, nested as :meth:`init_cache`."""
@@ -111,9 +113,15 @@ class Transformer(nn.Module):
             return self.token_embedder.embedding.t(), scale
         return self.logits_dense.kernel, 1.0
 
-    def _unembed(self, y: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, y: torch.Tensor, gather: bool = True) -> torch.Tensor:
+        """The logits of the final-normed ``y``. Under a tensor split the
+        product gives this rank's vocabulary slice, which ``gather``
+        all-gathers (serving samples from the whole row; training's
+        cross-entropy takes the slices, ``ops/losses.py``)."""
         cfg = self.cfg
         y = self.prelogits(y)
+        if self.tp is not None:
+            y = self.tp.enter(y)
         if cfg.logits_via_embedding:
             logits = self.token_embedder.attend(y, normalize=cfg.normalize_embedding_logits)
         else:
@@ -122,6 +130,10 @@ class Transformer(nn.Module):
             logits = cfg.final_logits_soft_cap * torch.tanh(logits / cfg.final_logits_soft_cap)
         if cfg.cast_logits_to_fp32:
             logits = logits.float()
+        if self.tp is not None and gather:
+            from maxtext_indextts2_tpu_torch.parallel import comm
+
+            logits = comm.all_gather(logits, self.tp.group, logits.ndim - 1)
         return logits
 
     def forward(
@@ -165,7 +177,7 @@ class Transformer(nn.Module):
                 aux["mtp_loss"] = mtp_loss
         if return_prelogits:
             return self.prelogits(y)
-        return self._unembed(y)
+        return self._unembed(y, gather=mode != MODE_TRAIN)
 
     def _mtp_loss(self, hidden, tokens, targets, target_weights, positions, segment_ids,
                   impl=None, dropout=None) -> torch.Tensor:

@@ -360,6 +360,17 @@ def load_balanced_inverse(x: torch.Tensor, cp: int, axis: int = 1) -> torch.Tens
     return torch.cat(out, dim=axis)
 
 
+def sequence_axis(mesh) -> str | None:
+    """The mesh axis that splits the sequence between the layers: ``context``
+    (context parallelism), else ``sequence`` (its keys and values all-gathered
+    in attention, with global positions); None where neither is above 1. The
+    two together are refused (``parallel/tensor.check_model``)."""
+    for axis in ("context", "sequence"):
+        if mesh.shape.get(axis, 1) > 1:
+            return axis
+    return None
+
+
 def flash_attention_sharded(q, k, v, segment_ids, mesh=None, positions=None, causal=True,
                             sliding_window=0, chunk_size=0, logits_soft_cap=0.0,
                             algorithm="allgather", impl: str | None = None):
@@ -379,6 +390,15 @@ def flash_attention_sharded(q, k, v, segment_ids, mesh=None, positions=None, cau
       (every rank the whole sequence for H/cp heads), K9-K11 run there, and
       a second all-to-all turns the output back; heads must divide by cp.
 
+    On a mesh whose ``sequence`` degree is above 1 (and ``context`` 1) the
+    tensors are this rank's length shard (in order) and K/V come by
+    all-gather over ``sequence``, as the JAX package's GSPMD gathers them.
+
+    Under a tensor split (``parallel/tensor.py``) q / k / v hold this rank's
+    heads already, so the head split beside ``context`` is the tensors'
+    own: Ulysses checks divisibility on the per-rank heads, as the JAX
+    package does after its tensor sharding.
+
     cp == 1 takes the plain path, as the JAX package does."""
     b, s = q.shape[:2]
     if positions is None:
@@ -387,13 +407,16 @@ def flash_attention_sharded(q, k, v, segment_ids, mesh=None, positions=None, cau
         segment_ids = torch.ones((b, s), dtype=torch.int32, device=q.device)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = (causal, sliding_window, chunk_size, logits_soft_cap, None, impl)
-    cp = 1 if mesh is None else mesh.shape.get("context", 1)
-    if cp == 1:
+    axis = None if mesh is None else sequence_axis(mesh)
+    if axis is None:
         o = flash_attention(qh, kh, vh, positions, positions, segment_ids, segment_ids, *mask)
         return o.transpose(1, 2)
     from maxtext_indextts2_tpu_torch.parallel import comm
 
-    group = mesh.group("context")
+    cp = mesh.shape[axis]
+    if axis == "sequence":  # K/V gathered between the layers' length shards
+        algorithm = "allgather"
+    group = mesh.group(axis)
     if algorithm == "ring":
         from maxtext_indextts2_tpu_torch.ops.ring_attention import ring_flash_attention
 
@@ -401,9 +424,9 @@ def flash_attention_sharded(q, k, v, segment_ids, mesh=None, positions=None, cau
                                  group, *mask)
     elif algorithm == "ulysses":
         if q.shape[2] % cp or k.shape[2] % cp:
-            raise ValueError(f"ulysses needs query heads ({q.shape[2]}) and kv heads "
-                             f"({k.shape[2]}) divisible by context parallelism ({cp}); use "
-                             "context_parallel_algorithm=ring instead")
+            raise ValueError(f"ulysses needs per-rank query heads ({q.shape[2]}) and kv heads "
+                             f"({k.shape[2]}), after the tensor split, divisible by context "
+                             f"parallelism ({cp}); use context_parallel_algorithm=ring instead")
         q_a, k_a, v_a = (comm.AllToAll.apply(t, group, 1, 2) for t in (qh, kh, vh))
         pos_f = comm.all_gather(positions, group, 1)
         seg_f = comm.all_gather(segment_ids, group, 1)

@@ -10,6 +10,11 @@ shifted logits and subtracts the one-hot term at the targets:
 
 Everything is float32; the gradient is handed back in the logits' dtype
 (PyTorch casts it). z-loss (ST-MoE, arXiv:2202.08906) pulls log Z toward 0.
+Under a tensor split (``tp``, ``parallel/tensor.py``) the logits are this
+rank's vocabulary slice and :class:`_VocabParallelCrossEntropy` takes them as
+they are: the max, the sum of exponentials and the target's logit are
+reduced over the group (Megatron's vocab-parallel cross-entropy), and the
+backward is the same formula on the rank's slice.
 
 The vocabulary-fused variants project the final-normed hidden states ``y``
 [B, S, E] onto an ``[E, V]`` unembedding ``kernel`` inside the loss, so the
@@ -85,17 +90,61 @@ class _CrossEntropy(torch.autograd.Function):
         return _ce_backward(shifted, sum_exp, log_z, targets, g_total, g_ce, ctx.z_loss), None, None
 
 
-def cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor, z_loss: float):
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """:class:`_CrossEntropy` of logits split over the vocabulary: ``logits``
+    [..., V / n] are the columns ``[start, start + V / n)`` of this rank of
+    ``group``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, z_loss, group, start):
+        from maxtext_indextts2_tpu_torch.parallel import comm
+
+        x = logits.float()
+        m = torch.amax(x, dim=-1)
+        m = torch.amax(comm.all_gather(m[None], group, 0), dim=0)  # the global max
+        shifted = x - m[..., None]
+        local = targets.long() - start
+        inside = (local >= 0) & (local < x.shape[-1])
+        local = torch.where(inside, local, 0)
+        picked = torch.gather(x, -1, local[..., None]).squeeze(-1)
+        parts = torch.stack([torch.sum(torch.exp(shifted), dim=-1),
+                             torch.where(inside, picked, torch.zeros_like(picked))])
+        sum_exp, target_logit = comm.all_reduce(parts, group, "ce_all_reduce").unbind(0)
+        log_z = torch.log(sum_exp) + m
+        ce = log_z - target_logit
+        total = ce + z_loss * torch.square(log_z)
+        ctx.save_for_backward(shifted, sum_exp, log_z, local, inside)
+        ctx.z_loss = z_loss
+        return total, ce
+
+    @staticmethod
+    def backward(ctx, g_total, g_ce):
+        shifted, sum_exp, log_z, local, inside = ctx.saved_tensors
+        softmax = torch.exp(shifted) / sum_exp[..., None]
+        coeff = (g_total + g_ce)[..., None]
+        dlogits = coeff * softmax
+        dlogits += (g_total * 2.0 * ctx.z_loss * log_z)[..., None] * softmax
+        dlogits.scatter_add_(-1, local[..., None], -coeff * inside[..., None])
+        return dlogits, None, None, None, None
+
+
+def cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor, z_loss: float,
+                              tp=None):
     """Per-token CE + z-loss. logits [..., V] float, targets [...] int.
-    Returns (total_loss, ce_loss), each [...] float32."""
+    Returns (total_loss, ce_loss), each [...] float32. ``tp``: the logits are
+    this rank's vocabulary slice of a tensor split (``parallel/tensor.Split``)."""
+    if tp is not None:
+        return _VocabParallelCrossEntropy.apply(logits, targets, float(z_loss), tp.group,
+                                                tp.rank * logits.shape[-1])
     return _CrossEntropy.apply(logits, targets, float(z_loss))
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
-                         z_loss: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                         z_loss: float = 0.0, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted mean CE over valid tokens: (mean_loss, total_weight).
-    ``weights`` is the segment mask (1 for real tokens, 0 for padding)."""
-    total, _ = cross_entropy_with_logits(logits, targets, z_loss)
+    ``weights`` is the segment mask (1 for real tokens, 0 for padding);
+    ``tp``: vocabulary-split logits (:func:`cross_entropy_with_logits`)."""
+    total, _ = cross_entropy_with_logits(logits, targets, z_loss, tp)
     total = total * weights
     denom = torch.clamp(torch.sum(weights), min=1e-6)
     return torch.sum(total) / denom, denom

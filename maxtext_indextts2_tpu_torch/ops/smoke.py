@@ -916,6 +916,32 @@ FLASH_RANK_ROWS = dict(b=2, s=2048, h=16, hkv=8, d=128)
 CONTEXT_TOKENS = 16384
 FLASH_POSTTRAIN = dict(b=16, s=128, h=16, hkv=8, d=128)
 POSTTRAIN_DECODE = dict(b=16, s=128, nq=16, nkv=8, d=128)
+# The splits inside the layers (chip_smoke.py's tp_serve, tp_train, ep_serve,
+# ep_train and ar_context_serve; tools/parallel_phases.py): a rank's shapes.
+# tp_serve: tts-1b over tensor 2, 8 slots of a 1024-row cache, 8 query / 4 kv
+# heads a rank, prompts of up to 256 tokens and 32 generated; ar_context_serve:
+# 513 rows a rank (512 and the spare row); tp_train: fsdp 2 x tensor 2, a
+# rank's 2 rows of 2048 at 8 / 4 heads; ep_train: qwen3-30b-a3b over expert
+# 2, a rank's row of 1024 tokens (32 / 4 heads), top 8 of 128 experts: about
+# 8,192 rows reach a rank's 64 experts; ep_serve: a rank dispatches its 4 of
+# the 8 slots' tokens at decode, 32 rows over 64 experts.
+SPLIT_DECODE = dict(b=8, s=1024, nq=8, nkv=4, d=128)
+SPLIT_SERVING_MAX = 288
+AR_CONTEXT_CACHE = (8, 513, 8, 128)
+FLASH_TP2_RANK = dict(b=2, s=2048, h=8, hkv=4, d=128)
+FLASH_QWEN3_EP2_RANK = dict(b=1, s=1024, h=32, hkv=4, d=128)
+GMM_EP2_TRAIN = dict(rows=1024 * 8, groups=64, k=2048, n=768)
+GMM_EP2_DECODE = dict(rows=32, groups=64, k=2048, n=768)
+# tp_serve_int8w: tts-1b's int8w_serve decode over tensor 2, a rank's wo (the
+# row split: its 4,096 of the 8,192 mlp rows) at the 8 slots
+INT8W_TP2_WO = dict(m=8, k=4096, n=2048)
+# qwen3-30b-a3b's decode attention, 32 query / 4 kv heads of 128 (a group of
+# 8): ep_serve's 8 slots of a 1024-row cache (prompts of up to 256 tokens and
+# 32 generated; attention is whole on each expert rank), and moe_serve's 8
+# slots of a 2048-row cache (prompts of up to 1024 tokens and 64 generated)
+QWEN3_EP2_DECODE = dict(b=8, s=1024, nq=32, nkv=4, d=128)
+QWEN3_MOE_DECODE = dict(b=8, s=2048, nq=32, nkv=4, d=128)
+QWEN3_MOE_SERVING_MAX = 1024 + 64
 # The S2A training step on its sequence-flash route: 8 x 512 frames, 16 heads
 # of 64 (no grouping).
 S2A_TRAIN_FLASH = dict(b=8, s=512, h=16, hkv=16, d=64)
@@ -1401,6 +1427,12 @@ def parallel_paths(suffix: str) -> dict:
             "distillation": f"flash_bf16_posttrain_{suffix}"}
 
 
+def split_paths(suffix: str) -> dict:
+    """The K9-K11 main paths of the splits inside the layers."""
+    return {"tp_train": f"flash_bf16_tp2_rank_{suffix}",
+            "ep_train": f"flash_bf16_qwen3_ep2_rank_{suffix}"}
+
+
 # GRPO's and distillation's engine: 16 slots of a 128-token cache
 POSTTRAIN_DECODE_PATHS = ("grpo_train", "distillation")
 
@@ -1410,13 +1442,22 @@ MAIN_PATH_CASES = {
                                 "flagship_serve": "ragged_bf16_flagship",
                                 "spec_decode": "ragged_f32_spec_draft",
                                 **{p: "ragged_bf16_main_path" for p in SERVE_DECODE_PATHS},
-                                **{p: "ragged_bf16_posttrain" for p in POSTTRAIN_DECODE_PATHS}},
-    "paged_decode_attention": {"serve_paged": "paged_bf16_main_path"},
+                                **{p: "ragged_bf16_posttrain" for p in POSTTRAIN_DECODE_PATHS},
+                                "tp_serve": "ragged_bf16_tp2_rank",
+                                "ep_serve": "ragged_bf16_qwen3_ep2_rank",
+                                "moe_serve": "ragged_bf16_qwen3_moe_serve"},
+    "paged_decode_attention": {"serve_paged": "paged_bf16_main_path",
+                               "tp_serve_paged": "paged_bf16_tp2_rank"},
     "inplace_row_update": {"serve": "inplace_kv_bf16_k1_main_path",
                            "flagship_serve": "inplace_kv_bf16_k1_flagship",
                            "spec_decode": "inplace_kv_f32_k5_verify",
                            **{p: "inplace_kv_bf16_k1_main_path" for p in SERVE_DECODE_PATHS},
-                           **{p: "inplace_kv_bf16_k1_posttrain" for p in POSTTRAIN_DECODE_PATHS}},
+                           **{p: "inplace_kv_bf16_k1_posttrain" for p in POSTTRAIN_DECODE_PATHS},
+                           "tp_serve": "inplace_kv_bf16_k1_tp2_rank",
+                           "ar_context_serve": "inplace_kv_bf16_k1_ar_context_rank",
+                           # a qwen3-30b-a3b rank's cache: tp_serve's shape
+                           "ep_serve": "inplace_kv_bf16_k1_tp2_rank",
+                           "moe_serve": "inplace_kv_bf16_k1_qwen3_moe_serve"},
     "ada_rmsnorm": {"tts_backend": "ada_rmsnorm_bf16_main_path",
                     "s2a_train": "ada_rmsnorm_grad_f32_s2a_train",
                     "uniserver": "ada_rmsnorm_bf16_main_path"},
@@ -1437,7 +1478,7 @@ MAIN_PATH_CASES = {
                   "train_int8": "flash_bf16_main_path_fwd",
                   "train_lora": "flash_bf16_main_path_fwd",
                   "moe_train": "flash_bf16_qwen3_moe_train_fwd",
-                  **parallel_paths("fwd")},
+                  **parallel_paths("fwd"), **split_paths("fwd")},
     "flash_bwd_dq": {"train": "flash_bf16_main_path_dq",
                      "train_dropout": "flash_bf16_main_path_dq",
                      "train_packed": "flash_bf16_emilia_packed_dq",
@@ -1448,8 +1489,9 @@ MAIN_PATH_CASES = {
                      "train_int8": "flash_bf16_main_path_dq",
                      "train_lora": "flash_bf16_main_path_dq",
                      "moe_train": "flash_bf16_qwen3_moe_train_dq",
-                  **parallel_paths("dq")},
+                  **parallel_paths("dq"), **split_paths("dq")},
     "int8w_matmul": {"serve_int8w": "int8w_bf16_main_path",
+                     "tp_serve_int8w": "int8w_bf16_tp2_rank_wo",
                      "flagship_serve_int8w": "int8w_bf16_flagship",
                      "moe_serve_int8w": "int8w_bf16_qwen3_moe_decode"},
     "grouped_matmul_bf16": {"moe_serve": "gmm_bf16_main_path",
@@ -1457,12 +1499,16 @@ MAIN_PATH_CASES = {
                             "mla_serve": "gmm_bf16_deepseek_decode_wi",
                             "llama4_serve": "gmm_bf16_llama4_decode_wi",
                             "moe_train": "gmm_bf16_qwen3_train_wi",
-                            "deepseek_train": "gmm_bf16_deepseek_train_wi"},
+                            "deepseek_train": "gmm_bf16_deepseek_train_wi",
+                            "ep_serve": "gmm_bf16_qwen3_ep2_decode_wi",
+                            "ep_train": "gmm_bf16_qwen3_ep2_train_wi"},
     "grouped_matmul_int8": {"moe_serve_int8w": "gmm_int8_main_path"},
     "grouped_matmul_dgrad": {"moe_train": "gmm_dgrad_main_path",
-                             "deepseek_train": "gmm_dgrad_deepseek_train_wi"},
+                             "deepseek_train": "gmm_dgrad_deepseek_train_wi",
+                             "ep_train": "gmm_dgrad_qwen3_ep2_train_wi"},
     "grouped_matmul_wgrad": {"moe_train": "gmm_wgrad_main_path",
-                             "deepseek_train": "gmm_wgrad_deepseek_train_wi"},
+                             "deepseek_train": "gmm_wgrad_deepseek_train_wi",
+                             "ep_train": "gmm_wgrad_qwen3_ep2_train_wi"},
     # the float32 grouped products: moe_train_parity's float32 sparse step
     "grouped_matmul_f32": {"moe_train_parity": "gmm_f32_fwd_qwen3_parity"},
     "grouped_matmul_f32_dgrad": {"moe_train_parity": "gmm_f32_dgrad_qwen3_parity"},
@@ -1477,7 +1523,7 @@ MAIN_PATH_CASES = {
                       "train_int8": "flash_bf16_main_path_dkv",
                       "train_lora": "flash_bf16_main_path_dkv",
                       "moe_train": "flash_bf16_qwen3_moe_train_dkv",
-                  **parallel_paths("dkv")},
+                  **parallel_paths("dkv"), **split_paths("dkv")},
 }
 
 
@@ -2139,6 +2185,54 @@ def ragged_cases(device, timing, full_size=True, serve_slots=32):
     ]
 
 
+def split_cases(device, timing, full_size=True):
+    """Every kernel of the splits inside the layers at a rank's shapes
+    (:data:`SPLIT_DECODE` and the rest): K1, K2 and K4 at tp_serve's local
+    heads, K2 at ar_context_serve's rows, K9-K11 at tp_train's and
+    ep_train's, the grouped forward, dgrad and wgrad at a rank's experts,
+    ``int8w_matmul`` at tp_serve_int8w's row-split ``wo``, K1 at qwen3-30b-a3b's
+    32 / 4 heads (ep_serve's and moe_serve's caches) and K2 at moe_serve's.
+    Seeds of their own, after every other case's."""
+    bf16 = torch.bfloat16
+    dec = dict(SPLIT_DECODE) if full_size else dict(SPLIT_DECODE, s=256)
+    tp2 = dict(FLASH_TP2_RANK) if full_size else dict(FLASH_TP2_RANK, s=512)
+    qwen3 = dict(FLASH_QWEN3_EP2_RANK) if full_size else dict(FLASH_QWEN3_EP2_RANK, s=256)
+    train = dict(GMM_EP2_TRAIN) if full_size else dict(GMM_EP2_TRAIN, rows=1024, k=512, n=192)
+    ep2 = dict(QWEN3_EP2_DECODE) if full_size else dict(QWEN3_EP2_DECODE, s=256)
+    moe = dict(QWEN3_MOE_DECODE) if full_size else dict(QWEN3_MOE_DECODE, s=512)
+    serve_max = min(SPLIT_SERVING_MAX, dec["s"])
+    cases = [
+        [ragged_case("ragged_bf16_tp2_rank", device, timing, **dec, serving_max=serve_max,
+                     seed=60)],
+        [inplace_case("inplace_kv_bf16_k1_tp2_rank", device, timing,
+                      cache_shape=(dec["b"], dec["s"], dec["nkv"], dec["d"]), span=1,
+                      cache_dtype=bf16, seed=61)],
+        [paged_case("paged_bf16_tp2_rank", device, timing, b=dec["b"], tpp=64,
+                    max_pages=dec["s"] // 64, nq=dec["nq"], nkv=dec["nkv"], d=dec["d"],
+                    serving_max=serve_max, seed=62)],
+        [inplace_case("inplace_kv_bf16_k1_ar_context_rank", device, timing,
+                      cache_shape=AR_CONTEXT_CACHE if full_size else (8, 129, 8, 128), span=1,
+                      cache_dtype=bf16, seed=63)],
+        flash_case("flash_bf16_tp2_rank", device, timing, **tp2, seed=360),
+        flash_case("flash_bf16_qwen3_ep2_rank", device, timing, **qwen3, seed=361),
+        [gmm_case("gmm_bf16_qwen3_ep2_train_wi", device, timing, **train, routing="uniform",
+                  seed=64)],
+        [gmm_case("gmm_bf16_qwen3_ep2_decode_wi", device, timing, **GMM_EP2_DECODE,
+                  routing="uniform", seed=66)],
+        [gmm_bwd_case("qwen3_ep2_train_wi", device, timing, kind=kind, **train,
+                      routing="uniform", seed=65) for kind in ("dgrad", "wgrad")],
+        [int8w_case("int8w_bf16_tp2_rank_wo", device, timing, **INT8W_TP2_WO, seed=67)],
+        [ragged_case("ragged_bf16_qwen3_ep2_rank", device, timing, **ep2,
+                     serving_max=serve_max, seed=68)],
+        [ragged_case("ragged_bf16_qwen3_moe_serve", device, timing, **moe,
+                     serving_max=min(QWEN3_MOE_SERVING_MAX, moe["s"]), seed=69)],
+        [inplace_case("inplace_kv_bf16_k1_qwen3_moe_serve", device, timing,
+                      cache_shape=(moe["b"], moe["s"], moe["nkv"], moe["d"]), span=1,
+                      cache_dtype=bf16, seed=70)],
+    ]
+    return [r for g in cases for r in g]
+
+
 def run_all(device="cuda", timing: bool = True, full_size: bool = True,
             serve_slots: int = 32) -> list[dict]:
     """Every kernel case. ``full_size=False`` shrinks the serving shapes (a
@@ -2148,16 +2242,18 @@ def run_all(device="cuda", timing: bool = True, full_size: bool = True,
         + paged_cases(device, timing, full_size, serve_slots) \
         + row_cases(device, timing, full_size) + attention_cases(device, timing, full_size) \
         + flash_cases(device, timing, full_size) + int8w_cases(device, timing, full_size) \
-        + gmm_cases(device, timing, full_size) + gmm_bwd_cases(device, timing, full_size)
+        + gmm_cases(device, timing, full_size) + gmm_bwd_cases(device, timing, full_size) \
+        + split_cases(device, timing, full_size)
 
 
 def main(argv=None):
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows", "int8w", "gmm"}:
+    if not set(argv) <= {"small", "ragged", "flash", "paged", "s2a", "rows", "int8w", "gmm",
+                         "split"}:
         raise SystemExit("usage: python -m maxtext_indextts2_tpu_torch.ops.smoke [small] "
-                         "[ragged | flash | paged | s2a | rows | int8w | gmm]")
+                         "[ragged | flash | paged | s2a | rows | int8w | gmm | split]")
     if not torch.cuda.is_available():
         raise SystemExit("ops.smoke needs a CUDA device")
     full = "small" not in argv
@@ -2173,6 +2269,8 @@ def main(argv=None):
         results = row_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "int8w" in argv:  # int8w_matmul only
         results = int8w_cases(torch.device("cuda"), timing=True, full_size=full)
+    elif "split" in argv:  # the splits' per-rank shapes only
+        results = split_cases(torch.device("cuda"), timing=True, full_size=full)
     elif "gmm" in argv:  # grouped_matmul and its backward only
         results = (gmm_cases(torch.device("cuda"), timing=True, full_size=full)
                    + gmm_bwd_cases(torch.device("cuda"), timing=True, full_size=full))
@@ -2184,7 +2282,7 @@ def main(argv=None):
 
     selected = set(argv) - {"small"}
     reports = []  # registers and spills of the instantiations these cases ran
-    if not selected & {"flash", "s2a", "rows", "int8w", "gmm"}:
+    if not selected & {"flash", "s2a", "rows", "int8w", "gmm", "split"}:
         reports.append("ragged_decode_kernel")  # K1 / K3 / K4
     if not selected or "int8w" in selected:
         reports.append("int8w_matmul")

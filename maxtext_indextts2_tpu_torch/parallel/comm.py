@@ -17,9 +17,15 @@ reduce-scatter is an all-to-all of the chunks and a sum on the card.
 (``calls``), the bytes each one carried (``bytes``: what a rank put in) and
 the bytes this module staged through the host, both ways (``staged_bytes``).
 
-The autograd Functions below are the differentiable collectives of the
-context-parallel attention: :class:`AllGather` (its backward reduce-scatters)
-and :class:`AllToAll` (its backward is the inverse all-to-all).
+The autograd Functions below are the differentiable collectives: of the
+context-parallel attention, :class:`AllGather` (its backward reduce-scatters)
+and :class:`AllToAll` (its backward is the inverse all-to-all); of the
+expert dispatch, :class:`AllToAllV` (split sizes; the backward is the reverse
+exchange); of the tensor split inside the layers, Megatron's pair
+:class:`CopyToGroup` ("f": identity forward, all-reduce backward) and
+:class:`ReduceFromGroup` ("g": float32 all-reduce forward, identity
+backward), and under sequence parallelism :class:`AllGather` and
+:class:`ReduceScatter` along the length in their place.
 """
 
 from __future__ import annotations
@@ -142,8 +148,9 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return _run("reduce_scatter", x, group, fn).movedim(0, dim)
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the group (a new tensor; ``t`` is left as it was)."""
+def all_reduce(t: torch.Tensor, group, op: str = "all_reduce") -> torch.Tensor:
+    """The sum over the group (a new tensor; ``t`` is left as it was);
+    ``op``: the name it is counted under."""
     if group_size(group) == 1:
         return t
 
@@ -155,7 +162,7 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
             w.wait()
         return x
 
-    return _run("all_reduce", t, group, fn)
+    return _run(op, t, group, fn)
 
 
 def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
@@ -184,17 +191,33 @@ def all_to_all(t: torch.Tensor, group, split_dim: int, concat_dim: int,
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} does not split "
                          f"into {n}")
     x = t.movedim(split_dim, 0)
-    x = x.reshape(n, x.shape[0] // n, *x.shape[1:])
+    chunk = x.shape[0] // n
+    y = all_to_all_v(x, group, [chunk] * n, [chunk] * n, op)
+    y = y.reshape(n, chunk, *x.shape[1:])  # chunk j came from rank j
+    y = y.movedim(1, split_dim + 1)  # [n, ... split_dim/n at split_dim ...]
+    return torch.cat(list(y.unbind(0)), dim=concat_dim)
+
+
+def all_to_all_v(x: torch.Tensor, group, in_splits, out_splits,
+                 op: str = "all_to_all") -> torch.Tensor:
+    """Send rows ``[sum(in_splits[:j]), sum(in_splits[:j+1]))`` of ``x``
+    (along dim 0) to group rank j and receive ``out_splits[j]`` rows from
+    each rank j, concatenated in group-rank order: the all-to-all with split
+    sizes (the expert dispatch's), which :func:`all_to_all` takes with equal
+    splits."""
+    if group_size(group) == 1:
+        return x
+    in_splits, out_splits = [int(v) for v in in_splits], [int(v) for v in out_splits]
+    if sum(in_splits) != x.shape[0]:
+        raise ValueError(f"all_to_all: splits {in_splits} of {x.shape[0]} rows")
 
     def fn(y):
-        out = torch.empty_like(y)
-        dist.all_to_all_single(out, y, group=group)
+        out = torch.empty((sum(out_splits), *y.shape[1:]), dtype=y.dtype, device=y.device)
+        dist.all_to_all_single(out, y, output_split_sizes=out_splits,
+                               input_split_sizes=in_splits, group=group)
         return out
 
-    y = _run(op, x, group, fn)  # [n, chunk, ...]: chunk j came from rank j
-    y = y.movedim(1, split_dim + 1)  # [n, ... split_dim/n at split_dim ...]
-    parts = list(y.unbind(0))
-    return torch.cat(parts, dim=concat_dim)
+    return _run(op, x, group, fn)
 
 
 class Exchange:
@@ -285,3 +308,91 @@ class AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
         return all_to_all(g, ctx.group, concat_dim, split_dim), None, None, None
+
+
+class AllToAllV(torch.autograd.Function):
+    """:func:`all_to_all_v` forward; the backward sends the gradient rows
+    back by the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, in_splits, out_splits):
+        ctx.group, ctx.splits = group, (in_splits, out_splits)
+        return all_to_all_v(x, group, in_splits, out_splits, "all_to_all_v")
+
+    @staticmethod
+    def backward(ctx, g):
+        in_splits, out_splits = ctx.splits
+        return all_to_all_v(g.contiguous(), ctx.group, out_splits, in_splits,
+                            "all_to_all_v"), None, None, None
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum over the group forward and backward: each rank's loss is a
+    function of the sum, so a rank's part of it takes the gradients of every
+    rank's loss (the global load-balance loss of a split batch)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Megatron's "f", before a column-parallel product: the identity
+    forward; the backward sums the input's gradient over the group (each
+    rank's columns contribute a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "tp_grad_all_reduce"), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """Megatron's "g", after a row-parallel product: the partial sums summed
+    over the group in float32 and rounded once to ``dtype`` (where the JAX
+    dot rounds its float32 ``preferred_element_type``); the backward is the
+    identity (every rank holds the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype_in = x.dtype
+        return all_reduce(x.float(), group, "tp_all_reduce").to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype_in), None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """The partial sums summed over the group in float32, this rank's chunk
+    of ``dim`` kept and rounded once to ``dtype`` (Megatron's "g" under
+    sequence parallelism); the backward all-gathers the chunks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.dtype_in = group, dim, x.dtype
+        return reduce_scatter(x.float(), group, dim).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim).to(ctx.dtype_in), None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`CopyToGroup` where the group holds several ranks."""
+    return x if group_size(group) == 1 else CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group, dtype: torch.dtype) -> torch.Tensor:
+    """:class:`ReduceFromGroup` where the group holds several ranks, else
+    ``x`` in ``dtype``."""
+    return x.to(dtype) if group_size(group) == 1 else ReduceFromGroup.apply(x, group, dtype)

@@ -13,9 +13,15 @@ group for every set of those axes (:meth:`Mesh.group`): a dimension that
 ``parallel/sharding.resolve`` shards over two axes collects over both.
 
 The axes that the port executes are ``data``, ``fsdp``, ``fsdp_transpose``,
-``context`` and ``stage``. The others need collectives inside the layers
-(tensor and sequence parallelism, the MoE all-to-all, the autoregressive
-cache axes): a degree above 1 on one of them is refused at mesh creation.
+``context`` and ``stage`` (the weights gathered, the batch or the sequence
+split), and ``tensor``, ``autoregressive``, ``expert`` and
+``context_autoregressive``, whose collectives run inside the layers
+(``parallel/tensor.py``: heads, MLP width and vocabulary split over
+``tensor`` x ``autoregressive``, the experts over ``expert``, the decode
+cache's rows over ``context_autoregressive``), and in training ``sequence``
+(the sequence split between the layers, attention's K/V all-gathered over
+it) and ``tensor_sequence`` (Megatron's sequence parallelism).
+``tensor_transpose`` is refused at mesh creation.
 
 :func:`maybe_initialize_distributed` joins the process group that a launcher
 describes (``torchrun``'s ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -41,7 +47,8 @@ from maxtext_indextts2_tpu_torch.unported import _unsupported
 
 logger = logging.getLogger(__name__)
 
-EXECUTED_AXES = ("data", "stage", "fsdp", "fsdp_transpose", "context")
+EXECUTED_AXES = ("data", "stage", "fsdp", "fsdp_transpose", "context", "sequence", "tensor",
+                 "tensor_sequence", "autoregressive", "expert", "context_autoregressive")
 REFUSED_AXES_ITEM = "6b, the mesh axes with collectives inside the layers"
 
 _CURRENT: "Mesh | None" = None

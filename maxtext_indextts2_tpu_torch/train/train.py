@@ -40,7 +40,11 @@ one unit the whole model), each rank's loss is its share of the global mean,
 the gradients are summed over the batch ranks, and clipping takes the global
 norm; the step equals the one-rank step on the same global batch.
 ``zero1_fsdp_ag_once`` gathers the weights once for all microbatches and
-reduce-scatters their summed gradients once. With ``ici_stage_parallelism``
+reduce-scatters their summed gradients once. Under ``tensor`` /
+``autoregressive`` / ``tensor_sequence`` / ``expert`` the layers compute on their split
+(``parallel/tensor.py``: heads, ``mlp`` and vocabulary, or experts) and the
+loss is the vocabulary-parallel cross-entropy of the rank's logit slice; a
+tensor-split weight's gradient is summed over the batch ranks only. With ``ici_stage_parallelism``
 the decoder runs as a pipeline (``models/pipeline.py``). Metrics are logged
 and checkpoints written by rank 0, from gathered state (the one-rank names).
 ``colocated_python_data_input`` runs the input pipeline in a spawned CPU
@@ -69,6 +73,7 @@ from maxtext_indextts2_tpu_torch.models.decoder import _remat_policy
 from maxtext_indextts2_tpu_torch.models.layers import MlpDropout, to_dtype
 from maxtext_indextts2_tpu_torch.ops import losses
 from maxtext_indextts2_tpu_torch.ops.quantization import AQT_MODES, AqtNoise
+from maxtext_indextts2_tpu_torch.parallel import tensor
 from maxtext_indextts2_tpu_torch.parallel.fsdp import ShardedParams
 from maxtext_indextts2_tpu_torch.parallel.mesh import (
     check_executed_axes,
@@ -122,7 +127,11 @@ def check_training_config(cfg: Config) -> None:
         raise ValueError("quantization=int8w_serve is a serving structure: its int8 kernels "
                          "take no gradient (train with int8, int8w or fp8)")
     check_executed_axes(cfg)
+    tensor.check_model(cfg)
     _remat_policy(cfg.remat_policy)
+    if tensor.tensor_degree(cfg) > 1 and (cfg.fused_vocab_ce_chunk > 0
+                                          or cfg.fused_vocab_ce_tile > 0):
+        tensor.refuse("the vocabulary-fused cross-entropy under a tensor split")
 
 
 def setup_train_state(cfg: Config, device=None, params: dict | None = None,
@@ -135,12 +144,12 @@ def setup_train_state(cfg: Config, device=None, params: dict | None = None,
     makes the optimizer's state over those pieces."""
     check_training_config(cfg)
     device = resolve_device(device)
+    sharded = mesh is not None and mesh.size > 1
     model = Transformer(cfg, device=device)
     if params is None:
         model.init_params(cfg.init_weights_seed)
     else:
         model.load_state_dict(params, strict=True)
-    sharded = mesh is not None and mesh.size > 1
     units = frozenset()
     if sharded and mesh.shape["stage"] > 1:
         units = model.decoder.keep_stage_units(mesh)
@@ -152,6 +161,10 @@ def setup_train_state(cfg: Config, device=None, params: dict | None = None,
     if sharded:
         plan = ShardedParams(named, mesh, cfg.emb_dim, units)
         shards = plan.shard_(named)
+        tensor.split_model(model, mesh)
+        for m in model.modules():
+            if hasattr(m, "batch_group"):  # the MoE's load-balance loss: the global batch's
+                m.batch_group = plan.batch_group
     with torch.no_grad():
         opt_state = tx.init(named if plan is None else shards)
     return TrainState(step=0, model=model, params=named, opt_state=opt_state, tx=tx,
@@ -226,7 +239,7 @@ def loss_fn(model: Transformer, cfg: Config, batch: dict, is_train: bool = True,
         loss, total_weights = fused_ce(model, cfg, out, batch["targets"], weights)
     else:
         loss, total_weights = losses.masked_cross_entropy(out, batch["targets"], weights,
-                                                          cfg.z_loss_weight)
+                                                          cfg.z_loss_weight, tp=model.tp)
     aux = {"ce_loss": loss, "total_weights": total_weights}
     # the auxiliary losses the JAX package sows: the mean of each MoE
     # sub-layer's load-balance loss, and the MTP loss, each times its weight

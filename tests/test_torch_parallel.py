@@ -8,8 +8,9 @@ JAX package's (``parallel/``, ``train/data/multihost.py``,
   names the JAX model attaches to the same weight (dense, MoE and MLA models);
 - the config fills the degrees of a world of 8 ranks as the JAX package
   fills its 8 devices;
-- a degree above 1 on an axis that needs collectives inside the layers is
-  refused at mesh creation, naming its queue item;
+- a degree above 1 on an axis whose collectives inside the layers are not
+  ported (``tensor_transpose``) is refused
+  at mesh creation, naming its queue item; the others pass the check;
 - on two gloo ranks: the mesh's layout (DTensor placements, a rank's piece
   of a batch, a multi-host batch), and the training entry point on the mesh
   with checkpoints (written by rank 0 under the one-rank names) and a resume,
@@ -38,6 +39,7 @@ from maxtext_indextts2_tpu.parallel import create_device_mesh as jax_mesh
 from maxtext_indextts2_tpu.parallel import resolve as jax_resolve
 from maxtext_indextts2_tpu_torch.config import load_config
 from maxtext_indextts2_tpu_torch.parallel import create_device_mesh
+from maxtext_indextts2_tpu_torch.parallel.mesh import check_executed_axes
 from maxtext_indextts2_tpu_torch.parallel.sharding import (
     LOGICAL_AXIS_RULES,
     assert_params_sufficiently_sharded,
@@ -121,8 +123,19 @@ def test_config_fills_a_world_of_ranks_as_the_jax_package(extra, monkeypatch):
 @pytest.mark.parametrize("axis", ["tensor", "tensor_transpose", "tensor_sequence", "sequence",
                                   "expert", "autoregressive", "context_autoregressive"])
 def test_mesh_refuses_axes_with_collectives_inside_the_layers(axis):
+    """``tensor_transpose`` is still refused at mesh creation, naming item
+    6b. ``tensor``, ``tensor_sequence``, ``expert``, ``autoregressive``,
+    ``context_autoregressive`` and ``sequence`` execute (their layers'
+    collectives: ``tests/test_torch_{tensor,expert}_parallel.py``,
+    ``tests/test_torch_context_autoregressive.py``): the axis check passes
+    and the mesh asks for its ranks."""
     cfg = dataclasses.replace(load_config(TINY_TTS), **{f"ici_{axis}_parallelism": 2})
-    with pytest.raises(NotImplementedError, match=f"'{axis}' mesh axis.*port queue: 6b"):
+    if axis == "tensor_transpose":
+        with pytest.raises(NotImplementedError, match=f"'{axis}' mesh axis.*port queue: 6b"):
+            create_device_mesh(cfg)
+        return
+    check_executed_axes(cfg)
+    with pytest.raises(ValueError, match="has 2 devices, the world 1 ranks"):
         create_device_mesh(cfg)
 
 

@@ -241,12 +241,16 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"ici_tensor_parallelism": 2}, "6b"), ({"ici_expert_parallelism": 2}, "6b"),
+    ({"ici_tensor_parallelism": 2, "fused_vocab_ce_chunk": 64}, "6b"),
+    ({"ici_expert_parallelism": 2, "num_experts": 3, "num_experts_per_tok": 1}, "6b"),
 ], ids=["tensor", "expert"])
 def test_unported_training_features_name_their_queue_item(extra, item):
     """Colocated data input and Zero-1 train now (tests/test_torch_parallel.py,
-    tests/test_torch_fsdp_train.py); a mesh axis that needs collectives
-    inside the layers still refuses, before any weight is made."""
+    tests/test_torch_fsdp_train.py), and so do the tensor and expert splits
+    (tests/test_torch_tensor_parallel.py, tests/test_torch_expert_parallel.py);
+    what they do not run yet still refuses, before any weight is made: the
+    vocabulary-fused cross-entropy under a tensor split, and experts that do
+    not divide over the expert axis."""
     cfg = dataclasses.replace(_tiny(["steps=1"]), **extra)
     with pytest.raises(NotImplementedError, match=f"port queue: {item}"):
         ttrain.train_loop(cfg, device="cpu", quiet=True)
@@ -265,14 +269,22 @@ def test_moe_and_mtp_models_train_through_the_loop(extra, key):
 
 
 def _refuse_mesh_axis(axis):
+    """A mesh with ``axis`` and ``context`` of degree 2 for a model with LoRA
+    adapters: what an executed split axis does not run yet, the adapters
+    under the autoregressive split and the sequence axis beside context
+    parallelism."""
     from maxtext_indextts2_tpu_torch.parallel import create_device_mesh
+    from maxtext_indextts2_tpu_torch.parallel.tensor import check_model
 
-    create_device_mesh(dataclasses.replace(load_config(TINY_TTS), **{axis: 2}))
+    cfg = dataclasses.replace(load_config(TINY_TTS), lora_rank=4, ici_context_parallelism=2,
+                              **{axis: 2})
+    check_model(cfg)
+    create_device_mesh(cfg)
 
 
 # what refused until the parallelism slice: the pipeline and context-parallel
 # attention (now tests/test_torch_pipeline.py, tests/test_torch_ring_attention.py);
-# the mesh axes with collectives inside the layers still refuse
+# what the executed split axes do not run yet still refuses
 @pytest.mark.parametrize("refuse,arg,item", [
     (_refuse_mesh_axis, "ici_sequence_parallelism", "6b"),
     (_refuse_mesh_axis, "ici_autoregressive_parallelism", "6b"),

@@ -196,3 +196,170 @@ def mesh_and_loop(cfg_args, ckpt_dir):
                                 device="cpu", quiet=True)
     out["losses"] = [h["loss"] for h in first["history"] + resumed["history"]]
     return out
+
+
+# ------------------------------------------------ splits inside the layers
+
+
+def serve(cases):
+    """Each case (config args, weights, prompts, steps): an engine on the
+    mesh of the config with the whole weights. Returns, a case, the greedy
+    stream of each prompt, the first tokens and ``steps`` tokens of the first
+    two prompts decoding together in slots 0 and 1, the teacher-forced
+    (gathered) logits of the first prompt's stream, the decode captures,
+    the collectives of the streams, and the shapes of a decode cache."""
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models.attention import MODE_PREFILL
+    from maxtext_indextts2_tpu_torch.parallel import comm, create_device_mesh
+
+    out = []
+    for cfg_args, weights, prompts, steps in cases:
+        cfg = _cfg(cfg_args)
+        mesh = create_device_mesh(cfg, device="cpu")
+        eng = Engine(cfg, device="cpu", mesh=mesh)
+        eng.set_params({k: torch.from_numpy(np.array(v)) for k, v in weights.items()})
+        comm.reset_stats()
+        streams = [eng.generate_stream(p, steps) for p in prompts]
+        calls = dict(comm.stats["calls"])
+        k = min(2, len(prompts))
+        state, first = eng.prefill_insert_many(eng.init_decode_state(), list(prompts[:k]),
+                                               list(range(k)))
+        state, toks = eng.generate_n(state, steps)
+        full = np.concatenate([prompts[0], np.array(streams[0][:-1], np.int32)])
+        t = torch.as_tensor(full)[None]
+        pos = torch.arange(t.shape[1], dtype=torch.int32)[None]
+        with torch.no_grad():
+            logits = eng.model(t, pos, torch.ones_like(t), mode=MODE_PREFILL,
+                               cache=eng.model.init_cache(1, t.shape[1], "cpu"))
+        cache = state["cache"][0][0]
+        shapes = {name: tuple(getattr(cache, name).shape)
+                  for name in ("key_pages", "cached_key", "cached_ckv") if hasattr(cache, name)}
+        out.append({"streams": streams, "first": first.numpy(), "multi": toks[:, :k].numpy(),
+                    "logits": logits[0].numpy(), "captures": eng.graphs.captures,
+                    "calls": calls, "shapes": shapes})
+    return out
+
+
+def seeded(cases):
+    """Each case (config args with a mesh): the engine on that mesh with its
+    seeded weights (``load_params`` without a path) against the one-rank
+    engine's seeded weights, each cut to this rank's piece. Returns, a case,
+    the names whose pieces differ and the bytes of the rank's parameters and
+    of the one-rank engine's."""
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.parallel import create_device_mesh
+
+    out = []
+    for cfg_args in cases:
+        cfg = _cfg(cfg_args)
+        eng = Engine(cfg, device="cpu", mesh=create_device_mesh(cfg, device="cpu"))
+        got = eng.load_params()
+        one = Engine(cfg, device="cpu")
+        whole = one.load_params()
+        out.append({"differ": sorted(n for n, w in whole.items()
+                                     if not torch.equal(got[n], eng._piece(n, w))),
+                    "bytes": sum(t.numel() * t.element_size() for t in got.values()),
+                    "one_rank_bytes": sum(t.numel() * t.element_size()
+                                          for t in whole.values())})
+    return out
+
+
+def collectives(cases):
+    """Each case (input [n, ...] numpy, gradient [n, ...] numpy): on group
+    rank r, row r goes through each autograd collective of the tensor and
+    expert splits. Returns, a case, their outputs and input gradients."""
+    from maxtext_indextts2_tpu_torch.parallel import comm
+
+    group = dist.group.WORLD
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for x, g in cases:
+        res = {}
+        for name in ("f", "g"):
+            xr = torch.from_numpy(np.array(x[rank])).requires_grad_(True)
+            y = comm.copy_to_group(xr, group) if name == "f" else \
+                comm.reduce_from_group(xr, group, xr.dtype)
+            y.backward(torch.from_numpy(np.array(g[rank])))
+            res[name] = (y.detach(), xr.grad)
+        # rank r sends r + 1 rows to rank 0 and one row to every other rank
+        sends = [rank + 1 if j == 0 else 1 for j in range(world)]
+        recvs = [j + 1 if rank == 0 else 1 for j in range(world)]
+        rows = torch.from_numpy(np.array(x[rank]))[:sum(sends)].clone().requires_grad_(True)
+        y = comm.AllToAllV.apply(rows, group, sends, recvs)
+        y.backward(torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape))
+        res["all_to_all_v"] = (y.detach(), rows.grad, sends, recvs)
+        res["all_to_all"] = comm.all_to_all(torch.from_numpy(np.array(x[rank])), group, 0, 0)
+        out.append(res)
+    return out
+
+
+def moe(cases):
+    """Each case (config args, weights, global tokens, steps): the MoE
+    model's serving forward on the mesh (every rank the whole batch) and
+    ``steps`` train steps of its sharded state on the global batch. Returns,
+    a case, the forward's logits and the step history with the gathered
+    parameters."""
+    from maxtext_indextts2_tpu_torch.infer.engine import Engine
+    from maxtext_indextts2_tpu_torch.models.attention import MODE_PREFILL
+    from maxtext_indextts2_tpu_torch.parallel import comm, create_device_mesh
+    from maxtext_indextts2_tpu_torch.train import train as ttrain
+
+    out = []
+    for cfg_args, weights, batch, steps in cases:
+        cfg = _cfg(cfg_args)
+        mesh = create_device_mesh(cfg, device="cpu")
+        eng = Engine(cfg, device="cpu", mesh=mesh)
+        whole = {k: torch.from_numpy(np.array(v)) for k, v in weights.items()}
+        eng.set_params(whole)
+        t = torch.from_numpy(np.array(batch["inputs"]))
+        comm.reset_stats()
+        with torch.no_grad():
+            logits = eng.model(t, torch.from_numpy(np.array(batch["inputs_position"])),
+                               torch.ones_like(t), mode=MODE_PREFILL,
+                               cache=eng.model.init_cache(t.shape[0], t.shape[1], "cpu"))
+        calls = dict(comm.stats["calls"])
+        state = ttrain.setup_train_state(cfg, "cpu", whole, mesh=mesh)
+        tb = ttrain.local_batch(cfg, {k: torch.from_numpy(np.array(v))
+                                      for k, v in batch.items()}, mesh)
+        history = [{k: float(v) for k, v in ttrain.train_step(cfg, state, tb).items()}
+                   for _ in range(steps)]
+        out.append({"logits": logits.numpy(), "calls": calls, "history": history,
+                    "params": ttrain.gathered_state(state).params})
+    return out
+
+
+def several(calls):
+    """Each (body name, args) of ``calls`` in turn, in one spawn of the
+    ranks: the results in order."""
+    return [globals()[body](*args) for body, args in calls]
+
+
+def pipeline_split(cases):
+    """Each case (config args, weights, tokens): the pipelined model under a
+    tensor split, its logits gathered over the vocabulary and the gradient
+    of mean(logits**2) (each rank's share of the sum over its vocabulary
+    slice), gathered to the one-rank names."""
+    from maxtext_indextts2_tpu_torch.models.attention import MODE_TRAIN
+    from maxtext_indextts2_tpu_torch.parallel import comm, create_device_mesh
+    from maxtext_indextts2_tpu_torch.train import train as ttrain
+
+    out = []
+    for cfg_args, weights, tokens in cases:
+        cfg = _cfg(cfg_args)
+        mesh = create_device_mesh(cfg, device="cpu")
+        state = ttrain.setup_train_state(cfg, "cpu", {k: torch.from_numpy(np.array(v))
+                                                      for k, v in weights.items()}, mesh=mesh)
+        tok = torch.from_numpy(np.array(tokens))
+        b, s = tok.shape
+        pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+        seg = torch.ones((b, s), dtype=torch.int32)
+        state.plan.gather(state.shards, state.params)
+        logits = state.model(tok, pos, seg, mode=MODE_TRAIN)  # this rank's vocabulary slice
+        loss = torch.sum(torch.square(logits.float())) / (logits.numel() * state.model.tp.size)
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        pieces = state.plan.reduce(dict(zip(names, grads)))
+        whole = comm.all_gather(logits.detach(), state.model.tp.group, logits.ndim - 1)
+        out.append({"logits": whole, "grads": state.plan.full_state_dict(pieces),
+                    "units": list(state.model.decoder.unit_names)})
+    return out
